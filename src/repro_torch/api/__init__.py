@@ -1,0 +1,31 @@
+"""Declarative run API of the port (twin of `repro.api`)."""
+from repro_torch.api.session import Callback, ProgressCallback, Session, SessionResult
+from repro_torch.api.spec import (
+    SPEC_VERSION,
+    AdaptSpec,
+    EngineSpec,
+    ExchangeSpec,
+    LadderSpec,
+    PhaseSpec,
+    RunSpec,
+    ScheduleSpec,
+    SystemSpec,
+    simple_schedule,
+)
+
+__all__ = [
+    "SPEC_VERSION",
+    "AdaptSpec",
+    "Callback",
+    "EngineSpec",
+    "ExchangeSpec",
+    "LadderSpec",
+    "PhaseSpec",
+    "ProgressCallback",
+    "RunSpec",
+    "ScheduleSpec",
+    "Session",
+    "SessionResult",
+    "SystemSpec",
+    "simple_schedule",
+]

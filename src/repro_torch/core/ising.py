@@ -1,0 +1,111 @@
+"""2-D Ising model (twin of `repro.core.ising`), paper Eq. (3) with PBC.
+
+``E(σ) = B Σ_i σ_i − J Σ_<ij> σ_i σ_j``; spins are int8 in {−1, +1} and a
+replica batch is ``(R, L, L)``.  The port runs the checkerboard update
+through the fused kernels only: ``use_fused`` (S sweeps per launch, torch
+exchange) or ``use_fused_round`` (whole PT rounds, in-kernel exchange).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import keys
+
+__all__ = ["IsingSystem", "lattice_energy", "magnetization"]
+
+
+def lattice_energy(spins: torch.Tensor, j: float, b: float) -> torch.Tensor:
+    """Per-replica energy, each bond once (right and down neighbours); f32."""
+    s = spins.to(torch.float32)
+    bonds = s * (torch.roll(s, -1, -1) + torch.roll(s, -1, -2))
+    return b * s.sum(dim=(-2, -1)) - j * bonds.sum(dim=(-2, -1))
+
+
+def magnetization(spins: torch.Tensor) -> torch.Tensor:
+    """Mean spin per replica in [-1, 1]."""
+    return spins.to(torch.float32).mean(dim=(-2, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class IsingSystem:
+    """Replica-batched 2-D Ising model on the fused CUDA path.
+
+    Attributes follow `repro.core.ising.IsingSystem`.  ``use_pallas`` and
+    ``r_blk`` are TPU knobs: they are accepted and ignored, and on CUDA the
+    hand-written kernel always runs.  ``pack_bits``, ``update="single_flip"``
+    and the unfused checkerboard path (``use_fused=False``) are not ported
+    yet and raise `NotImplementedError` when they would run.
+    """
+
+    length: int
+    j: float = 1.0
+    b: float = 0.0
+    update: str = "checkerboard"
+    flips_per_step: int = 1
+    use_pallas: bool = False
+    use_fused: bool = False
+    use_fused_round: bool = False
+    pack_bits: bool = False
+    accept_rule: str = "metropolis"
+    init_balance: float = 0.5
+    r_blk: int = 8
+
+    def __post_init__(self):
+        if self.update == "single_flip":
+            raise NotImplementedError("not yet ported: update='single_flip'")
+        if self.update != "checkerboard":
+            raise ValueError(f"unknown update mode {self.update!r}")
+        if self.length % 2 != 0:
+            raise ValueError(
+                f"checkerboard update needs even L under PBC, got L={self.length}"
+            )
+        if self.pack_bits:
+            raise NotImplementedError(
+                "not yet ported: pack_bits multispin coding (TPU kernel #2p)"
+            )
+        if self.use_fused_round and not self.use_fused:
+            raise ValueError("use_fused_round=True needs use_fused=True")
+        if self.accept_rule not in ("metropolis", "glauber"):
+            raise ValueError(f"unknown acceptance rule {self.accept_rule!r}")
+
+    def init_state(self, key: torch.Tensor) -> torch.Tensor:
+        """One (L, L) int8 lattice from a (2,) key (`init_state_batched`)."""
+        return self.init_state_batched(key[None])[0]
+
+    def init_state_batched(self, keys_: torch.Tensor) -> torch.Tensor:
+        """(R, L, L) int8 lattices, replica r from key ``keys_[r]``.
+
+        Bit-equal to the JAX twin's ``vmap(init_state)`` over the same keys:
+        ``uniform(key, (L, L)) < init_balance`` gives +1.
+        """
+        u = keys.uniform(keys_, (self.length, self.length))
+        one = torch.ones((), dtype=torch.int8, device=u.device)
+        return torch.where(u < self.init_balance, one, -one)
+
+    def batched_energy(self, spins: torch.Tensor) -> torch.Tensor:
+        return lattice_energy(spins, self.j, self.b)
+
+    def batched_mcmc_interval(self, key, t, spins, betas, *, n_sweeps,
+                              replica_offset=0):
+        """``n_sweeps`` sweeps of every replica at its per-slot beta (kernel A)."""
+        from repro_torch.kernels import ops
+
+        return ops.ising_sweep_fused(
+            spins, key, t, betas, n_sweeps=n_sweeps,
+            replica_offset=replica_offset, j=self.j, b=self.b,
+            rule=self.accept_rule,
+        )
+
+    def batched_mcmc_round(self, key, t, phase, spins, rung, energy, betas,
+                           *, n_sweeps, n_rounds=1, criterion="logistic",
+                           pairing="deo"):
+        """``n_rounds`` whole PT rounds (kernel A + kernel B per round)."""
+        from repro_torch.kernels import ops
+
+        return ops.ising_round_fused(
+            spins, key, t, phase, rung, energy, betas,
+            n_sweeps=n_sweeps, n_rounds=n_rounds, j=self.j, b=self.b,
+            rule=self.accept_rule, criterion=criterion, pairing=pairing,
+        )

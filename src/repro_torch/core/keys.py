@@ -1,0 +1,77 @@
+"""The subset of partitionable ``jax.random`` that the ported path needs.
+
+JAX (``jax_threefry_partitionable=True``) derives everything from plain
+Threefry-2x32-20 on iota counters; these functions reproduce it word for
+word on torch tensors:
+
+* ``key(seed)``: key data ``[0, seed & 0xFFFFFFFF]`` (JAX with 64-bit mode
+  off, as the JAX package runs, keeps the seed's low 32 bits);
+* ``split(key, n)``: key ``i`` is ``threefry(key, (0, i))`` (both words);
+* ``fold_in(key, d)``: ``threefry(key, (0, d))`` (both words);
+* ``random_bits(key, shape)``: ``b0 ^ b1`` of ``threefry(key, (0, flat index))``;
+* ``uniform(key, shape)``: the mantissa trick on those bits,
+  ``bitcast((bits >> 9) | 0x3F800000) - 1``.
+
+A key is a (2,) int64 tensor holding the two uint32 words (JAX's
+``jax.random.key_data``); a batch of keys is (..., 2).  Counters above
+2^32 (a flat index's high word) are not needed on this path and refused.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.prng import MASK, threefry2x32
+
+__all__ = ["key", "split", "fold_in", "random_bits", "uniform"]
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """Key data for integer ``seed`` (``jax.random.key_data(jax.random.key(seed))``)."""
+    seed = int(seed)
+    if seed < 0:
+        raise ValueError(f"seed must be non-negative, got {seed}")
+    return torch.tensor([0, seed & MASK], dtype=torch.int64, device=device)
+
+
+def _pair(k: torch.Tensor):
+    return k[..., 0], k[..., 1]
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """(num, 2) keys — ``jax.random.split(key, num)``."""
+    k0, k1 = _pair(k)
+    lo = torch.arange(num, dtype=torch.int64, device=k.device)
+    b0, b1 = threefry2x32(k0, k1, 0, lo)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``; ``data`` is a uint32 scalar (int or tensor)."""
+    k0, k1 = _pair(k)
+    b0, b1 = threefry2x32(k0, k1, 0, data)
+    return torch.stack([b0, b1], dim=-1)
+
+
+def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
+    """32-bit ``jax.random.bits(key, shape)`` as int64 uint32 words.
+
+    ``k`` may carry leading batch dimensions: a (B, 2) key batch gives
+    (B, *shape) bits, each row from its own key (``vmap`` of the single form).
+    """
+    shape = tuple(shape)
+    size = math.prod(shape)
+    if size > 1 << 32:
+        raise NotImplementedError("random_bits beyond 2^32 counters")
+    k0, k1 = _pair(k)
+    lo = torch.arange(size, dtype=torch.int64, device=k.device)
+    b0, b1 = threefry2x32(k0[..., None], k1[..., None], 0, lo)
+    return (b0 ^ b1).reshape(*k.shape[:-1], *shape)
+
+
+def uniform(k: torch.Tensor, shape) -> torch.Tensor:
+    """f32 ``jax.random.uniform(key, shape)`` in [0, 1) (batched like `random_bits`)."""
+    bits = random_bits(k, shape)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f, 0.0)

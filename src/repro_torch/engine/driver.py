@@ -1,0 +1,456 @@
+"""Chunked PT driver, single device, one chain (twin of `repro.engine.driver`).
+
+Ports the ``fused_round`` and ``fused`` branches of
+`repro.engine.driver.make_interval_step` and the chunked host loop of
+`repro.engine.Engine`:
+
+* **fused_round** — each interval is one call of
+  `IsingSystem.batched_mcmc_round`: kernel A (S sweeps) then kernel B (the
+  temp-mode exchange drawn from the counter swap stream at ``phase``);
+* **fused** — kernel A for the sweeps, then the DEO strategy's swap phase in
+  torch on ``uniform(fold_in(key, 2t+1), (R,))``, the JAX engine's draw.
+
+PyTorch runs eagerly, so a "chunk" is ``chunk_intervals`` intervals issued
+back to back; ``t`` and ``phase`` are device scalars advanced on the device,
+so the interval loop never waits for the card.  The host reads the O(R)
+counters once per chunk, for the ladder feedback.
+
+Not ported yet, and refused with `NotImplementedError`: the unfused
+per-sweep path, ``n_chains > 1``, ``mesh``, ``swap_mode="state"``, and the
+SEO / windowed / VMPT strategies on the strategy path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import keys
+from repro_torch.core.pt import PTState, init_replicas
+from repro_torch.device import resolve_device
+from repro_torch.engine import stats as stats_lib
+from repro_torch.engine.adapt import AdaptConfig, AdaptState, maybe_adapt
+from repro_torch.exchange import DEO, ExchangeStrategy, make_strategy
+from repro_torch.kernels import exchange as kernel_exchange
+
+__all__ = [
+    "StepSpec",
+    "EngineConfig",
+    "EngineState",
+    "RunResult",
+    "ChunkInfo",
+    "AdaptInfo",
+    "Engine",
+    "make_interval_step",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepSpec:
+    """Static shape of one PT interval: sweeps, then one swap phase."""
+
+    n_replicas: int
+    sweeps_per_interval: int
+    do_swap: bool = True
+    criterion: str = "logistic"
+    swap_mode: str = "temp"
+    exchange: ExchangeStrategy = DEO()
+
+    def __post_init__(self):
+        if self.sweeps_per_interval < 1:
+            raise ValueError("sweeps_per_interval must be >= 1")
+        if self.criterion not in kernel_exchange.CRITERIA:
+            raise ValueError(
+                f"unknown criterion {self.criterion!r}; "
+                f"allowed: {list(kernel_exchange.CRITERIA)}"
+            )
+
+
+def _inverse(rung: torch.Tensor) -> torch.Tensor:
+    """Slot holding each rung (``argsort`` of a permutation)."""
+    inv = torch.empty_like(rung, dtype=torch.int64)
+    inv[rung.long()] = torch.arange(rung.shape[0], device=rung.device)
+    return inv
+
+
+def _observe(observables, st: PTState) -> dict[str, torch.Tensor]:
+    """Per-rung series in rung order (cold→hot)."""
+    inv = _inverse(st.rung)
+    out = {"energy": st.energy[inv]}
+    for name, fn in observables.items():
+        out[name] = fn(st.states)[inv]
+    return out
+
+
+def _swap_phase(spec: StepSpec, betas, st: PTState):
+    """One strategy-path swap iteration (temp mode); returns (state, diag)."""
+    r = spec.n_replicas
+    k_swap = keys.fold_in(st.key, 2 * st.t + 1)
+    e_rung = st.energy[_inverse(st.rung)]
+    partner = spec.exchange.propose_pairs(st.phase, r)
+    perm, accept, prob, attempt = spec.exchange.accept(
+        partner, betas, e_rung, spec.criterion,
+        uniforms=keys.uniform(k_swap, (r,)),
+    )
+    st = dataclasses.replace(
+        st, rung=perm[st.rung.long()].to(torch.int32), phase=st.phase + 1
+    )
+    return st, {"swap_accept": accept, "swap_prob": prob, "swap_attempt": attempt}
+
+
+def _round_interval(system, spec: StepSpec):
+    """The whole-round path when the system selects it (else None)."""
+    if not getattr(system, "use_fused_round", False):
+        return None
+    pairing = spec.exchange.name
+    if not (spec.do_swap and spec.swap_mode == "temp"
+            and pairing in kernel_exchange.PAIRINGS):
+        raise ValueError(
+            "use_fused_round=True folds the exchange into the kernel and "
+            "supports only temp-mode DEO/SEO with swaps on; got "
+            f"do_swap={spec.do_swap}, swap_mode={spec.swap_mode!r}, "
+            f"exchange={pairing!r}"
+        )
+    return system.batched_mcmc_round
+
+
+def make_interval_step(system, spec: StepSpec, observables=None):
+    """Build ``(PTState, betas) -> (PTState, record)`` for one interval.
+
+    ``record`` holds per-rung ``energy``, each observable, and
+    ``swap_accept``/``swap_prob``/``swap_attempt`` at the lower rung of
+    each attempted pair.
+    """
+    observables = dict(observables or {})
+    fused_round = _round_interval(system, spec)
+    if fused_round is None and not getattr(system, "use_fused", False):
+        raise NotImplementedError(
+            "not yet ported: the unfused per-sweep path (use_fused=False: "
+            "TPU kernel #1 with the jax.random per-sweep stream)"
+        )
+    if fused_round is None and spec.do_swap and spec.exchange.name != "deo":
+        raise NotImplementedError(
+            f"not yet ported: exchange strategy {spec.exchange.name!r} on the "
+            "strategy path (use_fused without use_fused_round)"
+        )
+    spi = spec.sweeps_per_interval
+
+    def interval_step(st: PTState, betas: torch.Tensor):
+        if fused_round is not None:
+            states, rung, energy, _, acc, prob, att = fused_round(
+                st.key, st.t, st.phase, st.states, st.rung, st.energy, betas,
+                n_sweeps=spi, criterion=spec.criterion,
+                pairing=spec.exchange.name,
+            )
+            st = dataclasses.replace(
+                st, states=states, rung=rung, energy=energy,
+                t=st.t + spi, phase=st.phase + 1,
+            )
+            rec = _observe(observables, st)
+            rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
+            return st, rec
+        states, de, _ = system.batched_mcmc_interval(
+            st.key, st.t, st.states, betas[st.rung.long()], n_sweeps=spi
+        )
+        st = dataclasses.replace(
+            st, states=states, energy=st.energy + de, t=st.t + spi
+        )
+        if spec.do_swap:
+            st, diag = _swap_phase(spec, betas, st)
+        else:
+            z = torch.zeros(spec.n_replicas, device=st.energy.device)
+            diag = {"swap_accept": z.bool(), "swap_prob": z, "swap_attempt": z.bool()}
+        rec = _observe(observables, st)
+        rec.update(diag)
+        return st, rec
+
+    return interval_step
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine configuration (see `repro.engine.EngineConfig`).
+
+    ``donate`` is accepted for spec compatibility; PyTorch has no buffer
+    donation and the engine simply rebinds its state tensors.
+    """
+
+    n_replicas: int
+    swap_interval: int = 100
+    criterion: str = "logistic"
+    swap_mode: str = "temp"
+    chunk_intervals: int = 8
+    n_chains: int = 1
+    record_trace: bool = False
+    track_stats: bool = True
+    measure_interval: int = 100
+    donate: bool = True
+    exchange: Any = None
+    mesh: Any = None
+
+    def __post_init__(self):
+        if self.chunk_intervals < 1:
+            raise ValueError("chunk_intervals must be >= 1")
+        if self.n_chains != 1:
+            raise NotImplementedError(
+                f"not yet ported: n_chains={self.n_chains} (the ensemble axis)"
+            )
+        if self.mesh is not None:
+            raise NotImplementedError("not yet ported: mesh (multi-device engine)")
+        if self.swap_mode == "state":
+            raise NotImplementedError("not yet ported: swap_mode='state'")
+        if self.swap_mode != "temp":
+            raise ValueError(f"bad swap_mode {self.swap_mode!r}")
+        object.__setattr__(self, "exchange", make_strategy(self.exchange))
+
+    @property
+    def spec(self) -> StepSpec:
+        interval = self.swap_interval if self.swap_interval > 0 else self.measure_interval
+        return StepSpec(
+            n_replicas=self.n_replicas,
+            sweeps_per_interval=interval,
+            do_swap=self.swap_interval > 0,
+            criterion=self.criterion,
+            swap_mode=self.swap_mode,
+            exchange=self.exchange,
+        )
+
+
+@dataclasses.dataclass
+class EngineState:
+    """Device-resident engine state: chain, accumulators, (R,) f32 betas."""
+
+    pt: PTState
+    stats: stats_lib.OnlineStats
+    betas: torch.Tensor
+
+
+@dataclasses.dataclass
+class RunResult:
+    """Host-side outcome of `Engine.run` (see `repro.engine.RunResult`)."""
+
+    summary: dict[str, np.ndarray]
+    trace: dict[str, np.ndarray] | None
+    ladder_history: np.ndarray
+    n_sweeps: int
+    stopped_early: bool = False
+
+
+@dataclasses.dataclass
+class ChunkInfo:
+    index: int
+    sweeps_done: int
+    n_sweeps: int
+    state: EngineState
+    trace: dict[str, np.ndarray] | None
+
+
+@dataclasses.dataclass
+class AdaptInfo:
+    round: int
+    temps: np.ndarray
+    acceptance: np.ndarray
+    sweeps_done: int
+
+
+def _counters(state: EngineState) -> dict[str, np.ndarray]:
+    """Cumulative swap counters on the host (one sync per chunk)."""
+    return {
+        "attempts": state.stats.swap_attempts.cpu().numpy().astype(np.float64),
+        "accepts": state.stats.swap_accepts.cpu().numpy().astype(np.float64),
+    }
+
+
+def _state_tensors(state: EngineState):
+    """(name, tensor) for every tensor of an engine state."""
+    for f in dataclasses.fields(state.pt):
+        yield f"pt.{f.name}", getattr(state.pt, f.name)
+    for f in dataclasses.fields(state.stats):
+        v = getattr(state.stats, f.name)
+        items = v.items() if isinstance(v, dict) else [("", v)]
+        for k, x in items:
+            yield f"stats.{f.name}" + (f".{k}" if k else ""), x
+    yield "betas", state.betas
+
+
+def _betas(temps: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy((1.0 / np.asarray(temps, np.float64)).astype(np.float32)).to(device)
+
+
+class Engine:
+    """Chunked PT driver over a `System` on one device.
+
+    ``device`` defaults to ``cuda``; pass ``"cpu"`` to run the plain
+    PyTorch versions of the kernels.
+    """
+
+    def __init__(
+        self,
+        system,
+        config: EngineConfig,
+        observables: Mapping[str, Callable] | None = None,
+        adapt: AdaptConfig | None = None,
+        device="cuda",
+    ):
+        if adapt is not None and not config.track_stats:
+            raise ValueError(
+                "adaptive ladders need the online swap counters: "
+                "EngineConfig(track_stats=True) is required with adapt"
+            )
+        self.system = system
+        self.config = config
+        self.observables = dict(observables or {})
+        self.adapt = adapt
+        self.device = resolve_device(device)
+        self._step = make_interval_step(system, config.spec, self.observables)
+        self._names = ["energy"] + sorted(self.observables)
+        self._adapt_rounds = 0
+        self._adapt_state: AdaptState | None = None
+        # the authoritative f64 ladder behind the f32 betas
+        self._temps: np.ndarray | None = None
+
+    def init(self, key: torch.Tensor, temps) -> EngineState:
+        """Fresh state on the given ladder from a (2,) key."""
+        temps = np.asarray(temps, np.float64)
+        if temps.shape != (self.config.n_replicas,):
+            raise ValueError(
+                f"ladder shape {temps.shape} != (n_replicas={self.config.n_replicas},)"
+            )
+        self._temps = temps.copy()
+        self._adapt_state = None
+        pt = init_replicas(self.system, self.config.n_replicas, key.to(self.device))
+        stats = stats_lib.init_stats(self.config.n_replicas, self._names, self.device)
+        return EngineState(pt=pt, stats=stats, betas=_betas(temps, self.device))
+
+    def _require_on_device(self, state: EngineState) -> None:
+        """Raise unless every tensor of ``state`` is on the engine's device.
+
+        The kernels dispatch on the tensors' device, so a CPU state given to
+        a CUDA engine would otherwise run the plain path on the CPU.
+        """
+        want = self.device
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device())
+        for name, x in _state_tensors(state):
+            if x.device != want:
+                raise ValueError(
+                    f"state tensor {name} is on {x.device} but the engine runs "
+                    f"on {want}; build the state on the engine's device"
+                )
+
+    def reset_stats(self, state: EngineState) -> EngineState:
+        """Zero the accumulators; flow labels are chain state and survive."""
+        self._require_on_device(state)
+        stats = stats_lib.init_stats(self.config.n_replicas, self._names, self.device)
+        stats.direction = state.stats.direction
+        if self._adapt_state is not None:
+            self._adapt_state.zero()
+        return dataclasses.replace(state, stats=stats)
+
+    def run(
+        self,
+        state: EngineState,
+        n_sweeps: int,
+        *,
+        on_chunk: Callable[[ChunkInfo], Any] | None = None,
+        on_adapt: Callable[[AdaptInfo], Any] | None = None,
+        keep_trace: bool = True,
+    ) -> tuple[EngineState, RunResult]:
+        """Advance ``n_sweeps`` sweeps in chunks of ``chunk_intervals`` intervals.
+
+        Between chunks the host feeds measured swap acceptance to the ladder
+        feedback when ``adapt`` is set, and calls ``on_chunk`` (truthy return
+        stops the run).  ``n_sweeps`` must be a multiple of the interval.
+        """
+        self._require_on_device(state)
+        cfg = self.config
+        spi = cfg.spec.sweeps_per_interval
+        if n_sweeps % spi != 0:
+            raise ValueError(
+                f"n_sweeps={n_sweeps} not a multiple of the interval ({spi} sweeps)"
+            )
+        n_intervals = n_sweeps // spi
+        temps = self._temps
+        if temps is None or not np.array_equal(
+            state.betas.cpu().numpy(), (1.0 / temps).astype(np.float32)
+        ):
+            temps = 1.0 / state.betas.cpu().numpy().astype(np.float64)
+        ladder_history = [temps.astype(np.float32)]
+        adapt_st = self._adapt_state
+        if adapt_st is None:
+            adapt_st = AdaptState.fresh(cfg.n_replicas)
+            if self.adapt is not None:
+                adapt_st.rebase(_counters(state))
+        adapt_st.rounds = self._adapt_rounds
+        if self.adapt is not None:
+            self._adapt_state = adapt_st
+        chunks: list[dict[str, np.ndarray]] = []
+        done = chunk_idx = 0
+        stopped = False
+        while done < n_intervals:
+            this = min(cfg.chunk_intervals, n_intervals - done)
+            pt_st, stats, betas = state.pt, state.stats, state.betas
+            recs = []
+            for _ in range(this):
+                pt_st, rec = self._step(pt_st, betas)
+                if cfg.track_stats:
+                    stats = stats_lib.update_stats(stats, rec, pt_st.rung)
+                if cfg.record_trace:
+                    recs.append(rec)
+            state = EngineState(pt=pt_st, stats=stats, betas=betas)
+            done += this
+            chunk_idx += 1
+            chunk_np = None
+            if cfg.record_trace:
+                chunk_np = {
+                    k: torch.stack([r[k] for r in recs]).cpu().numpy() for k in recs[0]
+                }
+                if keep_trace:
+                    chunks.append(chunk_np)
+            if self.adapt is not None and done < n_intervals:
+                new_temps, acceptance = maybe_adapt(
+                    temps, _counters(state), self.adapt, adapt_st
+                )
+                if new_temps is not None:
+                    temps = np.asarray(new_temps, np.float64)
+                    self._temps = temps
+                    ladder_history.append(temps.astype(np.float32))
+                    self._adapt_rounds = adapt_st.rounds
+                    # moments restart at a retune: never pool two ladders
+                    st = state.stats
+                    stats = dataclasses.replace(
+                        st,
+                        n_records=torch.zeros_like(st.n_records),
+                        weight_sum=torch.zeros_like(st.weight_sum),
+                        mean={k: torch.zeros_like(v) for k, v in st.mean.items()},
+                        m2={k: torch.zeros_like(v) for k, v in st.m2.items()},
+                    )
+                    state = EngineState(
+                        pt=state.pt, stats=stats, betas=_betas(temps, self.device)
+                    )
+                    if on_adapt is not None:
+                        on_adapt(AdaptInfo(
+                            round=adapt_st.rounds,
+                            temps=temps.astype(np.float32).copy(),
+                            acceptance=np.asarray(acceptance, np.float64),
+                            sweeps_done=done * spi,
+                        ))
+            if on_chunk is not None and on_chunk(ChunkInfo(
+                index=chunk_idx, sweeps_done=done * spi, n_sweeps=n_sweeps,
+                state=state, trace=chunk_np,
+            )):
+                stopped = True
+                break
+        trace_out = None
+        if chunks:
+            trace_out = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        result = RunResult(
+            summary=stats_lib.summarize(state.stats),
+            trace=trace_out,
+            ladder_history=np.stack(ladder_history),
+            n_sweeps=done * spi,
+            stopped_early=stopped,
+        )
+        return state, result

@@ -1,0 +1,119 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` becomes its own shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds).  All sources compile in
+parallel, one ``nvcc`` each, into ``<checkout>/build/repro_torch/<hash>/``,
+keyed by a hash of every source and flag, at the first launch in a process.
+The package must be run from its source checkout (``PYTHONPATH=src`` or an
+editable install), or ``$REPRO_TORCH_BUILD_DIR`` must name the build
+directory: an installed copy never builds beside ``site-packages``.
+Nothing here runs at import time.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+-Xcompiler -fPIC``, never fast math.  ``ising_fused.cu`` adds
+``-fmad=false`` so no float product is contracted into an FMA;
+``exchange.cu`` keeps nvcc's default contraction, as PyTorch builds its own
+exp/sigmoid kernels, because its probabilities must match those torch ops.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["CSRC", "SOURCES", "build_root", "nvcc_path", "build_all", "library"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+_PKG = Path(__file__).resolve().parents[1]  # .../src/repro_torch
+_COMMON = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+# library name -> extra nvcc flags
+SOURCES = {
+    "ising_fused": ["-fmad=false"],
+    "exchange": [],
+}
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``/usr/local/cuda``, or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def build_root() -> Path:
+    """Where kernel libraries are built: ``$REPRO_TORCH_BUILD_DIR``, else the
+    source checkout's ``build/repro_torch``; raises for an installed copy."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    checkout = _PKG.parents[1]
+    if _PKG.parent.name == "src" and (checkout / "pyproject.toml").is_file():
+        return checkout / "build" / "repro_torch"
+    raise RuntimeError(
+        f"repro_torch at {_PKG} is not in a source checkout; set "
+        "REPRO_TORCH_BUILD_DIR to a directory for the CUDA kernel builds"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(repr((_COMMON, SOURCES)).encode())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source that is not built yet; returns name -> .so path.
+
+    All ``nvcc`` processes start together and are all waited for; a failed
+    compile raises with the compiler's output.
+    """
+    out_dir = build_root() / _digest()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    todo = {n: p for n, p in paths.items() if not p.is_file()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_COMMON, *SOURCES[name], "-I", str(CSRC),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, paths[name])  # atomic: concurrent builders agree
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built on first use)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        paths = build_all()
+        for lib_name, path in paths.items():
+            _LOADED[lib_name] = ctypes.CDLL(str(path))
+        lib = _LOADED[name]
+    return lib

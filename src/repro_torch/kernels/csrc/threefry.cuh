@@ -1,0 +1,48 @@
+// Threefry-2x32-20 and the counter streams of the fused kernels, as device
+// functions.  Twin of repro_torch/kernels/prng.py (and of the JAX package's
+// repro/kernels/prng.py): same cipher, same counters, same top-24-bit
+// uniforms, so a kernel draws word for word what the plain version draws.
+#pragma once
+#include <cstdint>
+
+namespace threefry {
+
+constexpr uint32_t DOMAIN = 0x46555345u;       // ascii "FUSE", fixed forever
+constexpr uint32_t SWAP_DOMAIN = 0x53574150u;  // ascii "SWAP", fixed forever
+constexpr uint32_t KS_PARITY = 0x1BD11BDAu;
+
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
+  return __funnelshift_l(x, x, d);
+}
+
+struct Pair {
+  uint32_t x0, x1;
+};
+
+// Threefry-2x32 with 20 rounds: key (k0, k1), counter (x0, x1).
+__device__ __forceinline__ Pair hash(uint32_t k0, uint32_t k1, uint32_t x0,
+                                     uint32_t x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ KS_PARITY};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int group = 0; group < 5; ++group) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x0 += x1;
+      x1 = rotl(x1, rot[group % 2][r]) ^ x0;
+    }
+    const int inject = group + 1;
+    x0 += ks[inject % 3];
+    x1 += ks[(inject + 1) % 3] + static_cast<uint32_t>(inject);
+  }
+  return {x0, x1};
+}
+
+// Top 24 bits as an f32 in [0, 1): exact, never 1.0.
+__device__ __forceinline__ float to_uniform(uint32_t bits) {
+  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+}
+
+}  // namespace threefry

@@ -1,0 +1,65 @@
+"""Plain PyTorch versions of the sweep (twins of `repro.kernels.ref`).
+
+These are the numerical contracts the CUDA kernels are held against and the
+port's CPU path.  The op sequence is the JAX oracle's, so at ``j=1, b=0``
+(every ΔE an integer) spins, ΔE and acceptance counts are bit-equal to it;
+an acceptance ``u < p`` can still differ where the two frameworks' exp /
+sigmoid differ by an ulp and ``u`` falls between them.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["accept_prob", "ising_sweep", "parity"]
+
+
+def accept_prob(de: torch.Tensor, beta, rule: str) -> torch.Tensor:
+    """Per-site acceptance probability: ``metropolis`` exp(-βΔE) (u in [0,1)
+    makes ΔE <= 0 accept) or ``glauber`` heat-bath sigmoid(-βΔE)."""
+    if rule == "metropolis":
+        return torch.exp(-beta * de)
+    if rule == "glauber":
+        return torch.sigmoid(-beta * de)
+    raise ValueError(f"unknown acceptance rule {rule!r}")
+
+
+def parity(length: int, device) -> torch.Tensor:
+    """(L, L) checkerboard colour map, ``(i + j) % 2``."""
+    ii = torch.arange(length, device=device)
+    return (ii[:, None] + ii[None, :]) % 2
+
+
+def ising_sweep(
+    spins: torch.Tensor,
+    u: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    j: float,
+    b: float,
+    rule: str = "metropolis",
+):
+    """One checkerboard sweep (colour 0, then 1), batched over replicas.
+
+    Args:
+      spins: (R, L, L) int8 in {-1, +1}.
+      u: (R, 2, L, L) f32 uniforms in [0, 1), one lattice per colour.
+      betas: (R,) f32 inverse temperatures.
+
+    Returns ``(spins' int8, delta_e (R,) f32, n_accepted (R,) int32)``.
+    """
+    par = parity(spins.shape[-1], spins.device)
+    beta = betas.to(torch.float32)[:, None, None]
+    s = spins.to(torch.float32)
+    de_total = torch.zeros(spins.shape[0], dtype=torch.float32, device=spins.device)
+    n_acc = torch.zeros(spins.shape[0], dtype=torch.int32, device=spins.device)
+    for color in (0, 1):
+        nbr = (
+            torch.roll(s, 1, -2) + torch.roll(s, -1, -2)
+            + torch.roll(s, 1, -1) + torch.roll(s, -1, -1)
+        )
+        de = 2.0 * s * (j * nbr - b)
+        accept = (u[:, color] < accept_prob(de, beta, rule)) & (par == color)
+        s = torch.where(accept, -s, s)
+        de_total = de_total + torch.where(accept, de, 0.0).sum(dim=(-2, -1))
+        n_acc = n_acc + accept.sum(dim=(-2, -1), dtype=torch.int32)
+    return s.to(torch.int8), de_total, n_acc

@@ -1,0 +1,184 @@
+"""CUDA twins of the port's parity tests: each kernel against its plain version.
+
+These need a card and import no JAX, so they run wherever only PyTorch is
+installed; without a card they skip with a reason.  Run them on the card with
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+
+Tolerances are those of the CPU parity tests: spins, acceptance counts,
+rungs and accept/attempt rows exact; ΔE exact at j=1, b=0 and within 4
+ulps of the largest partial-sum magnitude otherwise (summation order); a
+swap decision may differ only where its ``u`` lies between the two ``p``.
+"""
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.api import RunSpec, Session  # noqa: E402
+from repro_torch.core import keys  # noqa: E402
+from repro_torch.core.ising import IsingSystem  # noqa: E402
+from repro_torch.engine import Engine, EngineConfig  # noqa: E402
+from repro_torch.engine.driver import make_interval_step  # noqa: E402
+from repro_torch.engine.stats import update_stats  # noqa: E402
+from repro_torch.kernels import ising_sweep as isk  # noqa: E402
+from repro_torch.kernels import ops, prng  # noqa: E402
+
+F32_EPS = 2.0 ** -23
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: pytest -m cuda)")
+    return torch.device("cuda")
+
+
+def _lattice(seed, r, length, dev):
+    rng = np.random.default_rng(seed)
+    spins = rng.choice(np.array([-1, 1], np.int8), size=(r, length, length))
+    betas = (1.0 / np.linspace(1.0, 4.0, r)).astype(np.float32)
+    rung = rng.permutation(r).astype(np.int32)
+    return (torch.from_numpy(spins).to(dev), torch.from_numpy(betas).to(dev),
+            torch.from_numpy(rung).to(dev))
+
+
+def test_streams_on_cuda_equal_cpu(dev):
+    w = prng.key_words(keys.key(9))
+    want = prng.ising_sweep_uniforms(w, 123, torch.arange(8), 10)
+    got = prng.ising_sweep_uniforms(w.to(dev), 123, torch.arange(8, device=dev), 10)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(keys.uniform(keys.key(4, device=dev), (5, 5)).cpu(),
+                       keys.uniform(keys.key(4), (5, 5)))
+
+
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+@pytest.mark.parametrize("j,b", [(1.0, 0.0), (0.7, 0.3)])
+def test_kernel_a_matches_plain(dev, rule, j, b):
+    spins, betas, rung = _lattice(5, 12, 30, dev)
+    args = (spins, keys.key(6, device=dev), torch.tensor(9, device=dev), betas, rung)
+    kw = dict(n_sweeps=4, j=j, b=b, rule=rule, replica_offset=2)
+    got = isk.ising_sweep_fused_kernel(*args, **kw)
+    want = isk.ising_sweep_fused_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    err = (got[1] - want[1]).abs().double()
+    if j == 1.0 and b == 0.0:
+        assert torch.equal(got[1], want[1])
+    else:
+        assert bool((err <= 4 * F32_EPS * want[2].double() * 2 * (4 * j + b)).all())
+
+
+def test_kernel_a_in_place_and_refusals(dev):
+    spins, betas, rung = _lattice(6, 4, 16, dev)
+    args = (keys.key(1, device=dev), torch.tensor(0, device=dev), betas, rung)
+    want = isk.ising_sweep_fused_kernel(spins, *args, n_sweeps=2)
+    work = spins.clone()
+    got = isk.ising_sweep_fused_kernel(work, *args, n_sweeps=2, out=work)
+    assert got[0].data_ptr() == work.data_ptr() and torch.equal(got[0], want[0])
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.ones((1, 482, 482), dtype=torch.int8, device=dev)
+        isk.ising_sweep_fused_kernel(big, *args[:2], betas[:1], rung[:1] * 0, n_sweeps=1)
+    with pytest.raises(TypeError):
+        isk.ising_sweep_fused_kernel(spins.float(), *args, n_sweeps=1)
+
+
+@pytest.mark.parametrize("pairing", ["deo", "seo"])
+@pytest.mark.parametrize("criterion", ["logistic", "metropolis"])
+def test_kernel_b_matches_plain(dev, pairing, criterion):
+    r = 40
+    rng = np.random.default_rng(7)
+    rung = rng.permutation(r).astype(np.int32)
+    energy = (-2000.0 + 20 * np.arange(r))[rung].astype(np.float32)
+    args = (
+        torch.from_numpy(rung).to(dev), torch.from_numpy(energy).to(dev),
+        torch.full((r,), 4.0, device=dev),
+        torch.from_numpy((1.0 / np.linspace(1, 4, r)).astype(np.float32)).to(dev),
+        keys.key(1, device=dev), torch.tensor(3, device=dev),
+    )
+    kw = dict(pairing=pairing, criterion=criterion, phase_add=2)
+    got = [x.cpu().numpy() for x in isk.exchange_kernel(*args, **kw)]
+    want = [x.cpu().numpy() for x in isk.exchange_plain(*args, **kw)]
+    np.testing.assert_array_equal(got[4], want[4])
+    np.testing.assert_array_equal(got[1], want[1])
+    diff = (got[2] != want[2]) | (got[3] != want[3])
+    if diff.any():
+        u = prng.swap_uniforms(args[4], 5, r).cpu().numpy()
+        lo, hi = np.minimum(got[3], want[3]), np.maximum(got[3], want[3])
+        assert np.all(((u >= lo) & (u < hi))[diff])
+        return
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("pairing", ["deo", "seo"])
+def test_round_fused_on_cuda_equals_cpu(dev, pairing):
+    spins, betas, rung = _lattice(8, 6, 8, dev)
+    energy = torch.linspace(-100, -20, 6, device=dev)[rung.long()]
+    args = (spins, keys.key(2), 4, 1, rung, energy, betas)
+    kw = dict(n_sweeps=3, n_rounds=3, rule="glauber", pairing=pairing)
+    isk.reset_launches()
+    got = ops.ising_round_fused(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                                  for a in args), **kw)
+    assert isk.launches == {"ising_fused": 3, "exchange": 3}
+    want = ops.ising_round_fused(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                                   for a in args), **kw)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 5:  # prob: CUDA expf vs the CPU's vectorized exp, a few ulps
+            torch.testing.assert_close(g.cpu(), w, rtol=4 * F32_EPS, atol=0)
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("fused_round", [False, True], ids=["fused", "round"])
+def test_session_on_cuda_equals_cpu(dev, fused_round):
+    d = json.loads((Path(__file__).resolve().parents[1] / "examples" / "specs"
+                    / "ising_small_fused.json").read_text())
+    d["system"]["params"]["use_fused_round"] = fused_round
+    spec = RunSpec.from_json(d)
+    on_card = Session(spec, device="cuda").run().manifest()
+    on_cpu = Session(spec, device="cpu").run().manifest()
+    assert on_card["final"] == on_cpu["final"]
+    for name in on_cpu["phases"]:
+        for k in ("swap_attempts", "swap_acceptance", "round_trips", "mean_energy"):
+            assert on_card["phases"][name]["summary"][k] == on_cpu["phases"][name]["summary"][k]
+
+
+def _small_spec(fused_round):
+    d = json.loads((Path(__file__).resolve().parents[1] / "examples" / "specs"
+                    / "ising_small_fused.json").read_text())
+    d["system"]["params"]["use_fused_round"] = fused_round
+    return RunSpec.from_json(d)
+
+
+def test_cuda_engine_refuses_a_cpu_state(dev):
+    system = IsingSystem(length=4, use_fused=True)
+    cfg = EngineConfig(n_replicas=4, swap_interval=2)
+    cpu_state = Engine(system, cfg, device="cpu").init(keys.key(1), np.linspace(1, 3, 4))
+    eng = Engine(system, cfg, device="cuda")
+    isk.reset_launches()
+    with pytest.raises(ValueError, match="is on cpu but the engine runs on cuda"):
+        eng.run(cpu_state, 2)
+    with pytest.raises(ValueError, match="is on cpu but the engine runs on cuda"):
+        eng.reset_stats(cpu_state)
+    assert isk.launches == {"ising_fused": 0, "exchange": 0}
+
+
+@pytest.mark.parametrize("fused_round", [False, True], ids=["fused", "round"])
+def test_interval_loop_never_syncs_the_host(dev, fused_round):
+    session = Session(_small_spec(fused_round), device="cuda")
+    eng = session.engine
+    step = make_interval_step(eng.system, eng.config.spec, eng.observables)
+    state = session.init_state()
+    pt, stats = step(state.pt, state.betas)[0], state.stats
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            pt, rec = step(pt, state.betas)
+            stats = update_stats(stats, rec, pt.rung)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(stats.n_records.item()) == 3
