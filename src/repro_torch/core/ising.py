@@ -1,9 +1,10 @@
 """2-D Ising model (twin of `repro.core.ising`), paper Eq. (3) with PBC.
 
 ``E(σ) = B Σ_i σ_i − J Σ_<ij> σ_i σ_j``; spins are int8 in {−1, +1} and a
-replica batch is ``(R, L, L)``.  The port runs the checkerboard update
-through the fused kernels only: ``use_fused`` (S sweeps per launch, torch
-exchange) or ``use_fused_round`` (whole PT rounds, in-kernel exchange).
+replica batch is ``(R, L, L)``.  The checkerboard update runs on three
+paths: per sweep (the default: ``jax.random`` uniforms, kernel #1), per
+interval (``use_fused``: S sweeps per launch of kernel A, torch exchange)
+or per round (``use_fused_round``: kernel A + the exchange kernel B).
 """
 from __future__ import annotations
 
@@ -34,9 +35,9 @@ class IsingSystem:
 
     Attributes follow `repro.core.ising.IsingSystem`.  ``use_pallas`` and
     ``r_blk`` are TPU knobs: they are accepted and ignored, and on CUDA the
-    hand-written kernel always runs.  ``pack_bits``, ``update="single_flip"``
-    and the unfused checkerboard path (``use_fused=False``) are not ported
-    yet and raise `NotImplementedError` when they would run.
+    hand-written kernel always runs.  ``pack_bits`` and
+    ``update="single_flip"`` are not ported yet and raise
+    `NotImplementedError`.
     """
 
     length: int
@@ -86,6 +87,21 @@ class IsingSystem:
 
     def batched_energy(self, spins: torch.Tensor) -> torch.Tensor:
         return lattice_energy(spins, self.j, self.b)
+
+    def batched_mcmc_step(self, key, t, spins, betas):
+        """One sweep of every replica at its per-slot beta (the default path).
+
+        Replica r's uniforms are ``uniform(fold_in(fold_in(key, 2t), r),
+        (2, L, L))``: the JAX engine derives these per-replica keys before
+        calling its ``batched_mcmc_step(keys, ...)``; here they are derived
+        with the draw (`ops.jax_uniform`, one launch on CUDA), from the run
+        key and the () sweep counter ``t``.  Then kernel #1 sweeps.
+        """
+        from repro_torch.kernels import ops
+
+        u = ops.jax_uniform(key, t, spins.shape[0], (2, self.length, self.length))
+        return ops.ising_sweep(spins, u, betas, j=self.j, b=self.b,
+                               rule=self.accept_rule)
 
     def batched_mcmc_interval(self, key, t, spins, betas, *, n_sweeps,
                               replica_offset=0):

@@ -10,7 +10,10 @@ word on torch tensors:
 * ``fold_in(key, d)``: ``threefry(key, (0, d))`` (both words);
 * ``random_bits(key, shape)``: ``b0 ^ b1`` of ``threefry(key, (0, flat index))``;
 * ``uniform(key, shape)``: the mantissa trick on those bits,
-  ``bitcast((bits >> 9) | 0x3F800000) - 1``.
+  ``bitcast((bits >> 9) | 0x3F800000) - 1``;
+* ``randint(key, shape, lo, hi)``: int32 ``randint``: two bit draws from
+  ``split(key)`` reduced modulo the span with JAX's ``2^32 mod span``
+  multiplier.
 
 A key is a (2,) int64 tensor holding the two uint32 words (JAX's
 ``jax.random.key_data``); a batch of keys is (..., 2).  Counters above
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.kernels.prng import MASK, threefry2x32
 
-__all__ = ["key", "split", "fold_in", "random_bits", "uniform"]
+__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint"]
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -40,10 +43,10 @@ def _pair(k: torch.Tensor):
 
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """(num, 2) keys — ``jax.random.split(key, num)``."""
+    """(..., num, 2) keys — ``jax.random.split(key, num)`` (batched like `random_bits`)."""
     k0, k1 = _pair(k)
     lo = torch.arange(num, dtype=torch.int64, device=k.device)
-    b0, b1 = threefry2x32(k0, k1, 0, lo)
+    b0, b1 = threefry2x32(k0[..., None], k1[..., None], 0, lo)
     return torch.stack([b0, b1], dim=-1)
 
 
@@ -75,3 +78,19 @@ def uniform(k: torch.Tensor, shape) -> torch.Tensor:
     bits = random_bits(k, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(f, 0.0)
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """int32 ``jax.random.randint(key, shape, minval, maxval)`` (batched like
+    `random_bits`; bounds are Python ints with ``minval < maxval``)."""
+    span = int(maxval) - int(minval)
+    if span < 1 or span > MASK:
+        raise ValueError(f"randint needs 0 < maxval - minval < 2^32, got {minval}, {maxval}")
+    ks = split(k)
+    hi = random_bits(ks[..., 0, :], shape)
+    lo = random_bits(ks[..., 1, :], shape)
+    # (a * b) % n == ((a % n) * (b % n)) % n in uint32, as JAX computes it
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    offset = ((((hi % span) * mult) & MASK) + lo % span) & MASK
+    return (int(minval) + offset % span).to(torch.int32)

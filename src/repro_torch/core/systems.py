@@ -1,6 +1,6 @@
 """System constructor + named-observable registry (twin of `repro.core.systems`).
 
-The port registers the Ising model only.  Observables are batched: each
+The port registers the Ising and q-state Potts models.  Observables are batched: each
 factory takes the system and returns a function ``(R, ...) -> (R,)``.
 """
 from __future__ import annotations
@@ -9,11 +9,12 @@ import dataclasses
 from typing import Any, Callable, Mapping, Sequence
 
 from repro_torch.core.ising import IsingSystem, lattice_energy, magnetization
+from repro_torch.core.potts import PottsSystem, potts_magnetization
 
 __all__ = ["SystemEntry", "CONSTRUCTORS", "make_system", "named_observables"]
 
 # systems of the JAX package that this port does not run yet
-NOT_PORTED = ("gaussian", "potts", "ea_spin_glass", "hp_protein")
+NOT_PORTED = ("gaussian", "ea_spin_glass", "hp_protein")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,13 @@ CONSTRUCTORS: dict[str, SystemEntry] = {
             "energy_per_site": lambda s: (
                 lambda x: lattice_energy(x, s.j, s.b) / (s.length * s.length)
             ),
+        },
+    ),
+    "potts": SystemEntry(
+        name="potts",
+        build=PottsSystem,
+        observables={
+            "pmag": lambda s: (lambda x: potts_magnetization(x, s.q)),
         },
     ),
 }

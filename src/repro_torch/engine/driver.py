@@ -1,23 +1,28 @@
 """Chunked PT driver, single device, one chain (twin of `repro.engine.driver`).
 
-Ports the ``fused_round`` and ``fused`` branches of
-`repro.engine.driver.make_interval_step` and the chunked host loop of
-`repro.engine.Engine`:
+Ports the three branches of `repro.engine.driver.make_interval_step` and
+the chunked host loop of `repro.engine.Engine`:
 
-* **fused_round** — each interval is one call of
-  `IsingSystem.batched_mcmc_round`: kernel A (S sweeps) then kernel B (the
-  temp-mode exchange drawn from the counter swap stream at ``phase``);
-* **fused** — kernel A for the sweeps, then the DEO strategy's swap phase in
-  torch on ``uniform(fold_in(key, 2t+1), (R,))``, the JAX engine's draw.
+* **fused_round** — each interval is one call of the system's
+  ``batched_mcmc_round``: S sweeps in one launch (kernel A or #5) then
+  kernel B (the temp-mode exchange drawn from the counter swap stream at
+  ``phase``);
+* **fused** — ``batched_mcmc_interval`` for the sweeps (kernel A or #5),
+  then the DEO strategy's swap phase in torch on ``uniform(fold_in(key,
+  2t+1), (R,))``, the JAX engine's draw;
+* **per sweep** (the default) — S calls of ``batched_mcmc_step``, each one
+  ``jax.random`` draw and one sweep (kernel #1 or #4), with the energy
+  advanced after every sweep as JAX's scan advances it, then the same swap
+  phase as the fused branch.
 
 PyTorch runs eagerly, so a "chunk" is ``chunk_intervals`` intervals issued
 back to back; ``t`` and ``phase`` are device scalars advanced on the device,
 so the interval loop never waits for the card.  The host reads the O(R)
 counters once per chunk, for the ladder feedback.
 
-Not ported yet, and refused with `NotImplementedError`: the unfused
-per-sweep path, ``n_chains > 1``, ``mesh``, ``swap_mode="state"``, and the
-SEO / windowed / VMPT strategies on the strategy path.
+Not ported yet, and refused with `NotImplementedError`: ``n_chains > 1``,
+``mesh``, ``swap_mode="state"``, and the SEO / windowed / VMPT strategies
+on the strategy path (the fused and per-sweep branches).
 """
 from __future__ import annotations
 
@@ -125,17 +130,31 @@ def make_interval_step(system, spec: StepSpec, observables=None):
     """
     observables = dict(observables or {})
     fused_round = _round_interval(system, spec)
-    if fused_round is None and not getattr(system, "use_fused", False):
-        raise NotImplementedError(
-            "not yet ported: the unfused per-sweep path (use_fused=False: "
-            "TPU kernel #1 with the jax.random per-sweep stream)"
-        )
+    fused = getattr(system, "use_fused", False)
     if fused_round is None and spec.do_swap and spec.exchange.name != "deo":
         raise NotImplementedError(
             f"not yet ported: exchange strategy {spec.exchange.name!r} on the "
-            "strategy path (use_fused without use_fused_round)"
+            "strategy path (the fused and per-sweep paths)"
         )
     spi = spec.sweeps_per_interval
+
+    def sweeps(st: PTState, betas: torch.Tensor) -> PTState:
+        """The interval's S sweeps, without the exchange."""
+        betas_slot = betas[st.rung.long()]
+        if fused:
+            states, de, _ = system.batched_mcmc_interval(
+                st.key, st.t, st.states, betas_slot, n_sweeps=spi
+            )
+            return dataclasses.replace(
+                st, states=states, energy=st.energy + de, t=st.t + spi
+            )
+        for _ in range(spi):
+            # JAX's _sweep_once: energy and t advance after every sweep
+            states, de, _ = system.batched_mcmc_step(st.key, st.t, st.states, betas_slot)
+            st = dataclasses.replace(
+                st, states=states, energy=st.energy + de, t=st.t + 1
+            )
+        return st
 
     def interval_step(st: PTState, betas: torch.Tensor):
         if fused_round is not None:
@@ -151,12 +170,7 @@ def make_interval_step(system, spec: StepSpec, observables=None):
             rec = _observe(observables, st)
             rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
             return st, rec
-        states, de, _ = system.batched_mcmc_interval(
-            st.key, st.t, st.states, betas[st.rung.long()], n_sweeps=spi
-        )
-        st = dataclasses.replace(
-            st, states=states, energy=st.energy + de, t=st.t + spi
-        )
+        st = sweeps(st, betas)
         if spec.do_swap:
             st, diag = _swap_phase(spec, betas, st)
         else:

@@ -10,21 +10,34 @@ directory: an installed copy never builds beside ``site-packages``.
 Nothing here runs at import time.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC``, never fast math.  ``ising_fused.cu`` adds
-``-fmad=false`` so no float product is contracted into an FMA;
-``exchange.cu`` keeps nvcc's default contraction, as PyTorch builds its own
-exp/sigmoid kernels, because its probabilities must match those torch ops.
+-Xcompiler -fPIC``, never fast math.  The sweep kernels (``ising_fused.cu``,
+``sweep.cu``, ``potts_fused.cu``) and ``jax_uniform.cu`` add ``-fmad=false``
+so no float product is contracted into an FMA; ``exchange.cu`` keeps nvcc's
+default contraction, as PyTorch builds its own exp/sigmoid kernels, because
+its probabilities must match those torch ops.
+
+`launches` counts the launches of every kernel by name; each wrapper adds
+one where it launches its kernel, and nowhere else.  The wrappers share the
+argument checks (`check`, `check_smem`), `stream_of` and `raise_if` below,
+and `sweep_lib`, the library of kernels #1 and #4.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "SOURCES", "build_root", "nvcc_path", "build_all", "library"]
+import torch
+
+__all__ = [
+    "CSRC", "SOURCES", "build_root", "nvcc_path", "build_all", "library",
+    "launches", "reset_launches", "MAX_SMEM_BYTES", "check", "check_smem",
+    "stream_of", "raise_if", "sweep_lib",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _PKG = Path(__file__).resolve().parents[1]  # .../src/repro_torch
@@ -36,8 +49,26 @@ _COMMON = [
 SOURCES = {
     "ising_fused": ["-fmad=false"],
     "exchange": [],
+    "sweep": ["-fmad=false"],
+    "potts_fused": ["-fmad=false"],
+    "jax_uniform": ["-fmad=false"],
 }
 _LOADED: dict[str, ctypes.CDLL] = {}
+# Hopper: 227 KB of shared memory per block (opt-in above 48 KB)
+MAX_SMEM_BYTES = 232448
+_P = ctypes.c_void_p
+
+# kernel name -> launches since the last reset (kernel A and B of the round
+# path, kernels #1 and #4 of sweep.cu, kernel #5, the jax.random helper)
+launches = dict.fromkeys(
+    ("ising_fused", "exchange", "ising_sweep", "potts_sweep", "potts_fused",
+     "jax_uniform"), 0,
+)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def nvcc_path() -> str:
@@ -117,3 +148,46 @@ def library(name: str) -> ctypes.CDLL:
             _LOADED[lib_name] = ctypes.CDLL(str(path))
         lib = _LOADED[name]
     return lib
+
+
+@functools.cache
+def sweep_lib() -> ctypes.CDLL:
+    """``sweep.cu`` (kernels #1 and #4), built on first use."""
+    lib = library("sweep")
+    lib.ising_sweep_launch.restype = ctypes.c_int
+    lib.ising_sweep_launch.argtypes = [_P] * 7 + [ctypes.c_int] * 2 + [_P]
+    lib.potts_sweep_launch.restype = ctypes.c_int
+    lib.potts_sweep_launch.argtypes = [_P] * 7 + [ctypes.c_int] * 4 + [_P]
+    for fn, n in ((lib.ising_sweep_smem_bytes, 1), (lib.potts_sweep_smem_bytes, 2)):
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * n
+    return lib
+
+
+def check_smem(smem: int, what: str) -> None:
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{what} needs {smem} B of shared memory per block, over the "
+            f"{MAX_SMEM_BYTES} B a Hopper block can hold; a tiled kernel for "
+            "large lattices is not written yet"
+        )
+
+
+def stream_of(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def raise_if(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with cudaError {err}")

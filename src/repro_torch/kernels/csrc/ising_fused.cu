@@ -30,12 +30,12 @@
 // inside one colour's sum differs from the plain version.
 //
 // Bound.  At L=300, R=1500, S=100 a launch moves 2 B/cell (270 MB, about
-// 80 us at 3.35 TB/s) but evaluates 1.35e10 Threefry-20 blocks of 77
-// 32-bit integer operations each (2 key adds, 20 rounds of add,
-// funnel-shift rotate and xor, 5 key injections of 3 adds): 1.04e12
-// operations, 62 ms at Hopper's 16.7e12/s INT32 issue rate (64 lanes per
-// SM x 132 SMs x 1.98 GHz).  It is integer-ALU bound, by nearly three
-// orders of magnitude.  The design therefore spends nothing on memory (one
+// 80 us at 3.35 TB/s) but evaluates 1.35e10 Threefry-20 blocks of 72
+// 32-bit integer instructions each (2 counter adds, 20 rounds of add,
+// funnel-shift rotate and xor, 5 key injections of 2 adds): 9.7e11
+// instructions, 29 ms at Hopper's issue rate of 33.5e12/s (128 lanes per
+// SM x 132 SMs x 1.98 GHz; integer adds also issue on the FMA pipe).  It is
+// integer-ALU bound, by more than two orders of magnitude.  The design therefore spends nothing on memory (one
 // read and one write of the lattice per launch, tables in shared memory)
 // and hashes exactly one block per site update, the minimum the stream
 // allows.
@@ -45,6 +45,8 @@
 
 #include <cstdint>
 
+#include "block_reduce.cuh"
+#include "lattice.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -53,30 +55,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // shared-memory header: float/int reduction scratch + the two 10-entry tables
 constexpr int kHeaderBytes = kWarps * 4 * 2 + 10 * 4 * 2;
-
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.0f;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w) total += scratch[w];
-  }
-  __syncthreads();
-  return total;  // meaningful in thread 0 only
-}
-
-__device__ __forceinline__ int block_sum_int(int v, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w) total += scratch[w];
-  }
-  __syncthreads();
-  return total;
-}
 
 // spins_in may alias spins_out: a block reads its whole lattice into shared
 // memory before it writes anything back.
@@ -110,7 +88,6 @@ ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
       threefry::DOMAIN, threefry::DOMAIN);
   const uint32_t t_base = static_cast<uint32_t>(t0[0] + t_add);
   const uint32_t rep = static_cast<uint32_t>(slot) + replica_offset;
-  const int half = L / 2;
   const int n_colour = LL / 2;
   float de_total = 0.0f;
   int nacc = 0;
@@ -123,32 +100,26 @@ ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
     for (int c = 0; c < 2; ++c) {
       float part = 0.0f;
       for (int idx = threadIdx.x; idx < n_colour; idx += blockDim.x) {
-        const int i = idx / half;
-        const int j = 2 * (idx - i * half) + ((i + c) & 1);
-        const int site = i * L + j;
-        const int up = (i == 0 ? L - 1 : i - 1) * L + j;
-        const int dn = (i == L - 1 ? 0 : i + 1) * L + j;
-        const int lf = i * L + (j == 0 ? L - 1 : j - 1);
-        const int rt = i * L + (j == L - 1 ? 0 : j + 1);
-        const int nbr = lat[up] + lat[dn] + lat[lf] + lat[rt];
-        const int sv = lat[site];
+        const lattice::Site st = lattice::colour_site(idx, c, L, L);
+        const int nbr = lat[st.up] + lat[st.dn] + lat[st.lf] + lat[st.rt];
+        const int sv = lat[st.site];
         const int k = (sv > 0 ? 5 : 0) + ((nbr + 4) >> 1);
         const float u = threefry::to_uniform(
             threefry::hash(wk.x0, wk.x1, static_cast<uint32_t>(c),
-                           static_cast<uint32_t>(site)).x0);
+                           static_cast<uint32_t>(st.site)).x0);
         if (u < p_s[k]) {
-          lat[site] = static_cast<int8_t>(-sv);
+          lat[st.site] = static_cast<int8_t>(-sv);
           part += de_s[k];
           ++nacc;
         }
       }
-      // block_sum's barriers also end this colour before the next reads it
-      const float colour_sum = block_sum(part, fred);
+      // the reduction's barriers also end this colour before the next reads it
+      const float colour_sum = block_reduce::sum<kWarps>(part, fred);
       ds = ds + colour_sum;
     }
     de_total = de_total + ds;
   }
-  const int nacc_total = block_sum_int(nacc, ired);
+  const int nacc_total = block_reduce::sum<kWarps>(nacc, ired);
 
   int8_t* dst = spins_out + static_cast<size_t>(slot) * LL;
   for (int i = threadIdx.x; i < LL; i += blockDim.x) dst[i] = lat[i];

@@ -1,17 +1,21 @@
-"""ctypes wrappers of the two CUDA kernels, each beside its plain version.
+"""ctypes wrappers of the Ising CUDA kernels, each beside its plain version.
 
+* kernel #1, ``csrc/sweep.cu`` — one checkerboard sweep with the uniforms
+  passed in (replaces `repro.kernels.ising_sweep.ising_sweep_pallas`);
 * kernel A, ``csrc/ising_fused.cu`` — S checkerboard sweeps per launch
   (replaces `repro.kernels.ising_sweep.ising_sweep_fused_pallas` and the
   sweep half of ``ising_round_fused_pallas``);
 * kernel B, ``csrc/exchange.cu`` — one temp-mode exchange on the O(R) rows
-  (the exchange half of ``ising_round_fused_pallas``).
+  (the exchange half of ``ising_round_fused_pallas``; Potts rounds reuse it).
 
 Each ``*_kernel`` wrapper checks device, dtype, shape and contiguity,
 allocates its outputs with ``torch.empty``, launches on the current stream
 without synchronising, raises if the launch was refused, and adds one to
-``launches[name]``.  Each ``*_plain`` function computes the same thing with
-plain torch ops on any device; it is what `repro_torch.kernels.ops` runs for
-CPU tensors and what the kernels are compared with on the card.
+``build.launches[name]``, all through the helpers of `build`.  Each plain
+version (``*_plain``, or `ref.ising_sweep` for kernel #1) computes the same
+thing with plain torch ops on any device; it is what
+`repro_torch.kernels.ops` runs for CPU tensors and what the kernels are
+compared with on the card.
 """
 from __future__ import annotations
 
@@ -21,28 +25,18 @@ import functools
 import torch
 
 from repro_torch.kernels import build, exchange, prng, ref
+from repro_torch.kernels.build import check, check_smem, raise_if, stream_of
 
 __all__ = [
-    "launches",
-    "reset_launches",
     "accept_tables",
+    "ising_sweep_kernel",
     "ising_sweep_fused_kernel",
     "ising_sweep_fused_plain",
     "exchange_kernel",
     "exchange_plain",
-    "MAX_SMEM_BYTES",
 ]
 
-# launches of each kernel, counted where the wrapper launches it
-launches = {"ising_fused": 0, "exchange": 0}
-# Hopper: 227 KB of shared memory per block (opt-in above 48 KB)
-MAX_SMEM_BYTES = 232448
 _P = ctypes.c_void_p
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
 
 
 @functools.cache
@@ -67,29 +61,13 @@ def _libs() -> tuple[ctypes.CDLL, ctypes.CDLL]:
     return lib_a, lib_b
 
 
-def _check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _raise_if(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed with cudaError {err}")
-
-
 def accept_tables(betas: torch.Tensor, *, j: float, b: float, rule: str):
     """Per-rung acceptance rows with the plain version's own ops.
 
     Returns ``(p_tab (R, 2, 5) f32, de_tab (2, 5) f32)``: entry ``[s, n]`` is
-    for spin ``s`` in (-1, +1) and neighbour sum ``-4 + 2n``.  Kernel A selects
-    from these instead of evaluating exp/sigmoid per site, so it is bit-equal
-    to `ref.ising_sweep` by construction.
+    for spin ``s`` in (-1, +1) and neighbour sum ``-4 + 2n``.  Kernels A and
+    #1 select from these instead of evaluating exp/sigmoid per site, so they
+    are bit-equal to `ref.ising_sweep` by construction.
     """
     dev = betas.device
     # built on the device (arange, not a host list) so no copy waits for the stream
@@ -100,6 +78,43 @@ def accept_tables(betas: torch.Tensor, *, j: float, b: float, rule: str):
         de_tab[None], betas.to(torch.float32)[:, None, None], rule
     )
     return p_tab.contiguous(), de_tab.contiguous()
+
+
+def ising_sweep_kernel(spins, u, betas, *, j: float = 1.0, b: float = 0.0,
+                       rule: str = "metropolis"):
+    """Kernel #1: one checkerboard sweep of every replica, uniforms passed in.
+
+    Args:
+      spins: (R, L, L) int8 on CUDA, L even; u: (R, 2, L, L) f32, one plane
+        per colour; betas: (R,) f32 per replica.
+
+    Returns ``(spins', delta_e (R,) f32, n_accepted (R,) int32)``, equal to
+    `ref.ising_sweep` on the same inputs.
+    """
+    dev = spins.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel #1 needs CUDA tensors, got {dev}")
+    r, length = spins.shape[0], spins.shape[-1]
+    check(spins, "spins", torch.int8, (r, length, length), dev)
+    check(u, "u", torch.float32, (r, 2, length, length), dev)
+    check(betas, "betas", torch.float32, (r,), dev)
+    if length % 2:
+        raise ValueError(f"checkerboard sweeps need even L, got {length}")
+    lib = build.sweep_lib()
+    check_smem(lib.ising_sweep_smem_bytes(length), f"kernel #1 at L={length}")
+    p_tab, de_tab = accept_tables(betas, j=j, b=b, rule=rule)
+    out = torch.empty_like(spins)
+    de = torch.empty(r, dtype=torch.float32, device=dev)
+    nacc = torch.empty(r, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ising_sweep_launch(
+            spins.data_ptr(), out.data_ptr(), u.data_ptr(), de.data_ptr(),
+            nacc.data_ptr(), p_tab.data_ptr(), de_tab.data_ptr(), r, length,
+            stream_of(dev),
+        )
+    raise_if(err, "ising_sweep")
+    build.launches["ising_sweep"] += 1
+    return out, de, nacc
 
 
 def ising_sweep_fused_kernel(
@@ -123,37 +138,30 @@ def ising_sweep_fused_kernel(
     if dev.type != "cuda":
         raise ValueError(f"kernel A needs CUDA tensors, got {dev}")
     r, length = spins.shape[0], spins.shape[-1]
-    _check(spins, "spins", torch.int8, (r, length, length), dev)
-    _check(words, "key words", torch.int64, (2,), dev)
-    _check(t0, "t0", torch.int64, (), dev)
-    _check(betas, "betas", torch.float32, (r,), dev)
-    _check(rung, "rung", torch.int32, (r,), dev)
+    check(spins, "spins", torch.int8, (r, length, length), dev)
+    check(words, "key words", torch.int64, (2,), dev)
+    check(t0, "t0", torch.int64, (), dev)
+    check(betas, "betas", torch.float32, (r,), dev)
+    check(rung, "rung", torch.int32, (r,), dev)
     if length % 2:
         raise ValueError(f"checkerboard sweeps need even L, got {length}")
     lib_a, _ = _libs()
-    smem = lib_a.ising_fused_smem_bytes(length)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"L={length} needs {smem} B of shared memory per block, over the "
-            f"{MAX_SMEM_BYTES} B a Hopper block can hold; a tiled kernel A "
-            "for large lattices is not written yet"
-        )
+    check_smem(lib_a.ising_fused_smem_bytes(length), f"kernel A at L={length}")
     p_tab, de_tab = accept_tables(betas, j=j, b=b, rule=rule)
     if out is None:
         out = torch.empty_like(spins)
-    _check(out, "out", torch.int8, (r, length, length), dev)
+    check(out, "out", torch.int8, (r, length, length), dev)
     de = torch.empty(r, dtype=torch.float32, device=dev)
     nacc = torch.empty(r, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib_a.ising_fused_launch(
             spins.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(),
             rung.data_ptr(), p_tab.data_ptr(), de_tab.data_ptr(),
             words.data_ptr(), t0.data_ptr(), int(t_add),
-            int(replica_offset) & prng.MASK, r, length, int(n_sweeps), stream,
+            int(replica_offset) & prng.MASK, r, length, int(n_sweeps), stream_of(dev),
         )
-    _raise_if(err, "ising_fused")
-    launches["ising_fused"] += 1
+    raise_if(err, "ising_fused")
+    build.launches["ising_fused"] += 1
     return out, de, nacc
 
 
@@ -197,15 +205,13 @@ def exchange_kernel(
     if pairing not in exchange.PAIRINGS or criterion not in exchange.CRITERIA:
         raise ValueError(f"unsupported exchange {pairing!r}/{criterion!r}")
     n = rung.shape[0]
-    _check(rung, "rung", torch.int32, (n,), dev)
+    check(rung, "rung", torch.int32, (n,), dev)
     for x, name in ((energy, "energy"), (de, "de"), (betas, "betas")):
-        _check(x, name, torch.float32, (n,), dev)
-    _check(words, "key words", torch.int64, (2,), dev)
-    _check(phase0, "phase0", torch.int64, (), dev)
+        check(x, name, torch.float32, (n,), dev)
+    check(words, "key words", torch.int64, (2,), dev)
+    check(phase0, "phase0", torch.int64, (), dev)
     _, lib_b = _libs()
-    smem = lib_b.exchange_smem_bytes(n)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"R={n} needs {smem} B of shared memory, over {MAX_SMEM_BYTES}")
+    check_smem(lib_b.exchange_smem_bytes(n), f"kernel B at R={n}")
     if out is None:
         out = (
             torch.empty_like(rung), torch.empty_like(energy),
@@ -214,22 +220,21 @@ def exchange_kernel(
             torch.empty(n, dtype=torch.bool, device=dev),
         )
     rung_out, energy_out, acc, prob, att = out
-    _check(rung_out, "rung out", torch.int32, (n,), dev)
-    _check(energy_out, "energy out", torch.float32, (n,), dev)
-    _check(acc, "accept row", torch.bool, (n,), dev)
-    _check(prob, "prob row", torch.float32, (n,), dev)
-    _check(att, "attempt row", torch.bool, (n,), dev)
+    check(rung_out, "rung out", torch.int32, (n,), dev)
+    check(energy_out, "energy out", torch.float32, (n,), dev)
+    check(acc, "accept row", torch.bool, (n,), dev)
+    check(prob, "prob row", torch.float32, (n,), dev)
+    check(att, "attempt row", torch.bool, (n,), dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib_b.exchange_launch(
             rung.data_ptr(), rung_out.data_ptr(), energy.data_ptr(),
             energy_out.data_ptr(), de.data_ptr(), betas.data_ptr(),
             words.data_ptr(), phase0.data_ptr(), int(phase_add), n,
             int(pairing == "seo"), int(criterion == "metropolis"),
-            acc.data_ptr(), prob.data_ptr(), att.data_ptr(), stream,
+            acc.data_ptr(), prob.data_ptr(), att.data_ptr(), stream_of(dev),
         )
-    _raise_if(err, "exchange")
-    launches["exchange"] += 1
+    raise_if(err, "exchange")
+    build.launches["exchange"] += 1
     return out
 
 

@@ -1,24 +1,39 @@
-"""Public entry points of the fused Ising kernels (twins of `repro.kernels.ops`).
+"""Public entry points of the sweep kernels (twins of `repro.kernels.ops`).
 
 The signatures are the JAX package's.  Dispatch is by the tensors' device
 alone: a CPU tensor runs the plain PyTorch version, a CUDA tensor launches
 the hand-written kernel (and raises if it cannot), anything else raises.
 ``use_pallas`` and ``r_blk`` are TPU knobs, accepted and ignored.
+
+Besides the JAX package's ops, `jax_uniform` draws the per-sweep
+``jax.random`` uniforms that `ising_sweep` and `potts_sweep` consume on the
+engine's default path.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ising_sweep as _isk
+from repro_torch.kernels import jax_uniform as _ju
+from repro_torch.kernels import potts_sweep as _pk
 from repro_torch.kernels import prng as _prng
+from repro_torch.kernels import ref as _ref
 
-__all__ = ["ising_sweep_fused", "ising_round_fused"]
+__all__ = [
+    "jax_uniform",
+    "ising_sweep",
+    "potts_sweep",
+    "ising_sweep_fused",
+    "potts_sweep_fused",
+    "ising_round_fused",
+    "potts_round_fused",
+]
 
 
 def _device_kind(x: torch.Tensor) -> str:
     kind = x.device.type
     if kind not in ("cpu", "cuda"):
-        raise ValueError(f"no Ising kernel for tensors on {x.device}")
+        raise ValueError(f"no sweep kernel for tensors on {x.device}")
     return kind
 
 
@@ -32,6 +47,72 @@ def _refuse_pack_bits(pack_bits: bool) -> None:
         raise NotImplementedError(
             "not yet ported: pack_bits multispin coding (TPU kernel #2p)"
         )
+
+
+def _check_potts_pack_bits(pack_bits: bool, q: int) -> None:
+    """Potts ``pack_bits`` keeps int8 lanes, which kernel #5 always does."""
+    if pack_bits and q > 64:
+        raise ValueError(f"pack_bits needs q <= 64 (int8 lanes), got q={q}")
+
+
+def jax_uniform(key: torch.Tensor, t, n_replicas: int, shape) -> torch.Tensor:
+    """(n_replicas, *shape) f32: replica r's ``uniform(fold_in(fold_in(key,
+    2t), r), shape)``, the JAX engine's per-sweep draw."""
+    kind = _device_kind(key)
+    t = _counter(t, key.device)
+    if kind == "cpu":
+        ids = torch.arange(n_replicas, dtype=torch.int64)
+        return _ju.jax_uniform_plain(key, t, ids, shape)
+    return _ju.jax_uniform_kernel(key, t, n_replicas, shape)
+
+
+def ising_sweep(
+    spins: torch.Tensor,
+    u: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    j: float = 1.0,
+    b: float = 0.0,
+    rule: str = "metropolis",
+    r_blk: int = 8,
+    use_pallas: bool = True,
+):
+    """One checkerboard sweep; see `ref.ising_sweep` for the contract."""
+    betas = betas.to(torch.float32)
+    if _device_kind(spins) == "cpu":
+        return _ref.ising_sweep(spins, u, betas, j=j, b=b, rule=rule)
+    return _isk.ising_sweep_kernel(spins, u, betas, j=j, b=b, rule=rule)
+
+
+def potts_sweep(
+    states: torch.Tensor,
+    u: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    q: int,
+    j: float = 1.0,
+    rule: str = "metropolis",
+    r_blk: int = 4,
+    use_pallas: bool = True,
+):
+    """One checkerboard Potts sweep; see `ref.potts_sweep` for the contract."""
+    betas = betas.to(torch.float32)
+    if _device_kind(states) == "cpu":
+        return _ref.potts_sweep(states, u, betas, q=q, j=j, rule=rule)
+    return _pk.potts_sweep_kernel(states, u, betas, q=q, j=j, rule=rule)
+
+
+def _fused(plain, kernel, states, key, t, betas, *, n_sweeps, replica_offset, **kw):
+    """Shared body of the interval-fused ops (identity rung, per-slot betas)."""
+    kind = _device_kind(states)
+    dev = states.device
+    words = _prng.key_words(key).to(dev)
+    identity = torch.arange(states.shape[0], dtype=torch.int32, device=dev)
+    fn = plain if kind == "cpu" else kernel
+    return fn(
+        states, words, _counter(t, dev), betas.to(torch.float32), identity,
+        n_sweeps=n_sweeps, replica_offset=int(replica_offset), **kw,
+    )
 
 
 def ising_sweep_fused(
@@ -56,17 +137,88 @@ def ising_sweep_fused(
     delta_e, n_accepted)`` summed over the interval.
     """
     _refuse_pack_bits(pack_bits)
-    kind = _device_kind(spins)
-    dev = spins.device
+    return _fused(
+        _isk.ising_sweep_fused_plain, _isk.ising_sweep_fused_kernel, spins, key,
+        t, betas, n_sweeps=n_sweeps, replica_offset=replica_offset, j=j, b=b,
+        rule=rule,
+    )
+
+
+def potts_sweep_fused(
+    states: torch.Tensor,
+    key: torch.Tensor,
+    t,
+    betas: torch.Tensor,
+    *,
+    n_sweeps: int,
+    q: int,
+    replica_offset: int = 0,
+    j: float = 1.0,
+    rule: str = "metropolis",
+    r_blk: int = 4,
+    pack_bits: bool = False,
+    use_pallas: bool = True,
+):
+    """``n_sweeps`` Potts sweeps with counter-PRNG uniforms; see
+    `ising_sweep_fused`.  ``pack_bits`` (int8 lanes, q <= 64) runs the same
+    kernel: its trajectory is bitwise the unpacked one."""
+    _check_potts_pack_bits(pack_bits, q)
+    return _fused(
+        _pk.potts_sweep_fused_plain, _pk.potts_sweep_fused_kernel, states, key,
+        t, betas, n_sweeps=n_sweeps, replica_offset=replica_offset, q=q, j=j,
+        rule=rule,
+    )
+
+
+def _round_fused(plain, kernel, states, key, t, phase, rung, energy, betas, *,
+                 n_sweeps, n_rounds, criterion, pairing, **kw):
+    """Shared body of the whole-round ops: per round, S sweeps at
+    ``betas[rung]`` (``plain`` or ``kernel``), then one exchange (kernel B
+    or its plain version).  On CUDA nothing waits for the card."""
+    kind = _device_kind(states)
+    dev = states.device
     words = _prng.key_words(key).to(dev)
     t0 = _counter(t, dev)
+    ph0 = _counter(phase, dev)
+    rung = rung.to(torch.int32)
+    energy = energy.to(torch.float32)
     betas = betas.to(torch.float32)
-    identity = torch.arange(spins.shape[0], dtype=torch.int32, device=dev)
-    fn = _isk.ising_sweep_fused_plain if kind == "cpu" else _isk.ising_sweep_fused_kernel
-    return fn(
-        spins, words, t0, betas, identity, n_sweeps=n_sweeps, j=j, b=b,
-        rule=rule, replica_offset=int(replica_offset),
-    )
+    r = states.shape[0]
+    na_total = torch.zeros(r, dtype=torch.int32, device=dev)
+    xw = dict(pairing=pairing, criterion=criterion)
+    if kind == "cpu":
+        rows = []
+        for k in range(n_rounds):
+            states, de, na = plain(
+                states, words, t0, betas, rung, n_sweeps=n_sweeps,
+                t_add=k * n_sweeps, **kw,
+            )
+            na_total = na_total + na
+            rung, energy, acc, prob, att = _isk.exchange_plain(
+                rung, energy, de, betas, words, ph0, phase_add=k, **xw
+            )
+            rows.append((acc, prob, att))
+        acc, prob, att = (torch.stack(x) for x in zip(*rows))
+        return states, rung, energy, na_total, acc, prob, att
+
+    acc = torch.empty((n_rounds, r), dtype=torch.bool, device=dev)
+    prob = torch.empty((n_rounds, r), dtype=torch.float32, device=dev)
+    att = torch.empty((n_rounds, r), dtype=torch.bool, device=dev)
+    out = torch.empty_like(states)
+    rung_out, energy_out = torch.empty_like(rung), torch.empty_like(energy)
+    for k in range(n_rounds):
+        out, de, na = kernel(
+            states, words, t0, betas, rung, n_sweeps=n_sweeps,
+            t_add=k * n_sweeps, out=out, **kw,
+        )
+        na_total += na
+        _isk.exchange_kernel(
+            rung, energy, de, betas, words, ph0, phase_add=k,
+            out=(rung_out, energy_out, acc[k], prob[k], att[k]), **xw,
+        )
+        # later rounds update the output buffers in place
+        states, rung, energy = out, rung_out, energy_out
+    return out, rung_out, energy_out, na_total, acc, prob, att
 
 
 def ising_round_fused(
@@ -96,48 +248,37 @@ def ising_round_fused(
     diagnostics in `repro.core.swap.accept_pairs` conventions.
     """
     _refuse_pack_bits(pack_bits)
-    kind = _device_kind(spins)
-    dev = spins.device
-    words = _prng.key_words(key).to(dev)
-    t0 = _counter(t, dev)
-    ph0 = _counter(phase, dev)
-    rung = rung.to(torch.int32)
-    energy = energy.to(torch.float32)
-    betas = betas.to(torch.float32)
-    r = spins.shape[0]
-    na_total = torch.zeros(r, dtype=torch.int32, device=dev)
-    kw = dict(j=j, b=b, rule=rule)
-    xw = dict(pairing=pairing, criterion=criterion)
-    if kind == "cpu":
-        rows = []
-        for k in range(n_rounds):
-            spins, de, na = _isk.ising_sweep_fused_plain(
-                spins, words, t0, betas, rung, n_sweeps=n_sweeps,
-                t_add=k * n_sweeps, **kw,
-            )
-            na_total = na_total + na
-            rung, energy, acc, prob, att = _isk.exchange_plain(
-                rung, energy, de, betas, words, ph0, phase_add=k, **xw
-            )
-            rows.append((acc, prob, att))
-        acc, prob, att = (torch.stack(x) for x in zip(*rows))
-        return spins, rung, energy, na_total, acc, prob, att
+    return _round_fused(
+        _isk.ising_sweep_fused_plain, _isk.ising_sweep_fused_kernel, spins, key,
+        t, phase, rung, energy, betas, n_sweeps=n_sweeps, n_rounds=n_rounds,
+        criterion=criterion, pairing=pairing, j=j, b=b, rule=rule,
+    )
 
-    acc = torch.empty((n_rounds, r), dtype=torch.bool, device=dev)
-    prob = torch.empty((n_rounds, r), dtype=torch.float32, device=dev)
-    att = torch.empty((n_rounds, r), dtype=torch.bool, device=dev)
-    out = torch.empty_like(spins)
-    rung_out, energy_out = torch.empty_like(rung), torch.empty_like(energy)
-    for k in range(n_rounds):
-        out, de, na = _isk.ising_sweep_fused_kernel(
-            spins, words, t0, betas, rung, n_sweeps=n_sweeps,
-            t_add=k * n_sweeps, out=out, **kw,
-        )
-        na_total += na
-        _isk.exchange_kernel(
-            rung, energy, de, betas, words, ph0, phase_add=k,
-            out=(rung_out, energy_out, acc[k], prob[k], att[k]), **xw,
-        )
-        # later rounds update the output buffers in place
-        spins, rung, energy = out, rung_out, energy_out
-    return out, rung_out, energy_out, na_total, acc, prob, att
+
+def potts_round_fused(
+    states: torch.Tensor,
+    key: torch.Tensor,
+    t,
+    phase,
+    rung: torch.Tensor,
+    energy: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    n_sweeps: int,
+    q: int,
+    n_rounds: int = 1,
+    j: float = 1.0,
+    rule: str = "metropolis",
+    criterion: str = "logistic",
+    pairing: str = "deo",
+    pack_bits: bool = False,
+    use_pallas: bool = True,
+):
+    """Whole-round Potts op; see `ising_round_fused`.  On CUDA each round is
+    kernel #5 then kernel B."""
+    _check_potts_pack_bits(pack_bits, q)
+    return _round_fused(
+        _pk.potts_sweep_fused_plain, _pk.potts_sweep_fused_kernel, states, key,
+        t, phase, rung, energy, betas, n_sweeps=n_sweeps, n_rounds=n_rounds,
+        criterion=criterion, pairing=pairing, q=q, j=j, rule=rule,
+    )

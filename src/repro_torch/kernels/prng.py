@@ -6,6 +6,7 @@ streams of the JAX package::
     stream key   = threefry(key_words, (DOMAIN, DOMAIN))          # once per run
     sweep key    = threefry(stream key, (t, replica))             # sweep x replica
     lattice bits = threefry(sweep key, (plane, i*W + j))          # per site
+                   (Ising: plane = colour; Potts: 2*colour + (0 proposal | 1 accept))
     swap key     = threefry(threefry(key_words, (SWAP_DOMAIN,)*2), (phase, 0))
     rung uniform = threefry(swap key, (0, rung));  SEO coin = threefry(swap key, (1, 0)) & 1
 
@@ -30,6 +31,7 @@ __all__ = [
     "sweep_key",
     "plane_uniforms",
     "ising_sweep_uniforms",
+    "potts_sweep_uniforms",
     "swap_stream_key",
     "swap_key",
     "swap_uniforms",
@@ -129,6 +131,17 @@ def ising_sweep_uniforms(words, t, replica_ids, length: int) -> torch.Tensor:
     return torch.stack(
         [plane_uniforms(w0, w1, c, length, length) for c in (0, 1)], dim=1
     )
+
+
+def potts_sweep_uniforms(words, t, replica_ids, h: int, w: int) -> torch.Tensor:
+    """(R, 2, 2, H, W) f32 — the Potts sweep-``t`` uniforms of the fused
+    stream: colour x (proposal, accept), on plane ``2*colour + which``."""
+    s0, s1 = stream_key(words)
+    w0, w1 = sweep_key(s0, s1, t, replica_ids)
+    return torch.stack([
+        torch.stack([plane_uniforms(w0, w1, 2 * c + p, h, w) for p in (0, 1)], dim=1)
+        for c in (0, 1)
+    ], dim=1)
 
 
 def swap_stream_key(words: torch.Tensor):

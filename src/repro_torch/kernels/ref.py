@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the sweep (twins of `repro.kernels.ref`).
+"""Plain PyTorch versions of the sweeps (twins of `repro.kernels.ref`).
 
 These are the numerical contracts the CUDA kernels are held against and the
 port's CPU path.  The op sequence is the JAX oracle's, so at ``j=1, b=0``
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["accept_prob", "ising_sweep", "parity"]
+__all__ = ["accept_prob", "ising_sweep", "potts_sweep", "parity", "POTTS_DIRECTIONS"]
 
 
 def accept_prob(de: torch.Tensor, beta, rule: str) -> torch.Tensor:
@@ -23,10 +23,11 @@ def accept_prob(de: torch.Tensor, beta, rule: str) -> torch.Tensor:
     raise ValueError(f"unknown acceptance rule {rule!r}")
 
 
-def parity(length: int, device) -> torch.Tensor:
-    """(L, L) checkerboard colour map, ``(i + j) % 2``."""
-    ii = torch.arange(length, device=device)
-    return (ii[:, None] + ii[None, :]) % 2
+def parity(height: int, width: int, device) -> torch.Tensor:
+    """(H, W) checkerboard colour map, ``(i + j) % 2``."""
+    ii = torch.arange(height, device=device)
+    jj = torch.arange(width, device=device)
+    return (ii[:, None] + jj[None, :]) % 2
 
 
 def ising_sweep(
@@ -47,7 +48,7 @@ def ising_sweep(
 
     Returns ``(spins' int8, delta_e (R,) f32, n_accepted (R,) int32)``.
     """
-    par = parity(spins.shape[-1], spins.device)
+    par = parity(spins.shape[-2], spins.shape[-1], spins.device)
     beta = betas.to(torch.float32)[:, None, None]
     s = spins.to(torch.float32)
     de_total = torch.zeros(spins.shape[0], dtype=torch.float32, device=spins.device)
@@ -60,6 +61,54 @@ def ising_sweep(
         de = 2.0 * s * (j * nbr - b)
         accept = (u[:, color] < accept_prob(de, beta, rule)) & (par == color)
         s = torch.where(accept, -s, s)
+        de_total = de_total + torch.where(accept, de, 0.0).sum(dim=(-2, -1))
+        n_acc = n_acc + accept.sum(dim=(-2, -1), dtype=torch.int32)
+    return s.to(torch.int8), de_total, n_acc
+
+
+# (dim, shift) of the four neighbours in the order ΔE accumulates them:
+# up, down, left, right (``roll(s, 1, -2)`` holds the site above)
+POTTS_DIRECTIONS = ((-2, 1), (-2, -1), (-1, 1), (-1, -1))
+
+
+def potts_sweep(
+    states: torch.Tensor,
+    u: torch.Tensor,
+    betas: torch.Tensor,
+    *,
+    q: int,
+    j: float,
+    rule: str = "metropolis",
+):
+    """One checkerboard sweep of the q-state Potts model, batched over replicas.
+
+    The proposal is ``trial = (s + d) % q`` with ``d = 1 + floor(u_prop *
+    (q-1))``, a uniformly random different colour; ΔE adds ``j * ([s ==
+    nbr] - [trial == nbr])`` over the four neighbours in `POTTS_DIRECTIONS`
+    order, as the JAX oracle does.
+
+    Args:
+      states: (R, H, W) int8 colours in {0..q-1}.
+      u: (R, 2, 2, H, W) f32 uniforms: colour x (proposal, acceptance).
+      betas: (R,) f32 inverse temperatures.
+
+    Returns ``(states' int8, delta_e (R,) f32, n_accepted (R,) int32)``.
+    """
+    h, w = states.shape[-2], states.shape[-1]
+    par = parity(h, w, states.device)
+    beta = betas.to(torch.float32)[:, None, None]
+    s = states.to(torch.int32)
+    de_total = torch.zeros(states.shape[0], dtype=torch.float32, device=states.device)
+    n_acc = torch.zeros(states.shape[0], dtype=torch.int32, device=states.device)
+    for color in (0, 1):
+        d = 1 + torch.floor(u[:, color, 0] * (q - 1)).to(torch.int32)
+        trial = (s + d) % q
+        de = torch.zeros(s.shape, dtype=torch.float32, device=s.device)
+        for dim, shift in POTTS_DIRECTIONS:
+            nbr = torch.roll(s, shift, dim)
+            de = de + j * ((s == nbr).to(torch.float32) - (trial == nbr).to(torch.float32))
+        accept = (u[:, color, 1] < accept_prob(de, beta, rule)) & (par == color)
+        s = torch.where(accept, trial, s)
         de_total = de_total + torch.where(accept, de, 0.0).sum(dim=(-2, -1))
         n_acc = n_acc + accept.sum(dim=(-2, -1), dtype=torch.int32)
     return s.to(torch.int8), de_total, n_acc

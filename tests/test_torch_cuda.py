@@ -1,5 +1,10 @@
 """CUDA twins of the port's parity tests: each kernel against its plain version.
 
+Kernels A and B (fused Ising round), #1 and #4 (one Ising / Potts sweep on
+passed-in uniforms), #5 (fused Potts sweeps) and the per-sweep
+``jax.random`` draw; the Session paths on the card against the CPU; the
+interval loop of every path with host syncs made errors.
+
 These need a card and import no JAX, so they run wherever only PyTorch is
 installed; without a card they skip with a reason.  Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
@@ -17,14 +22,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import carry  # noqa: E402
 from repro_torch.api import RunSpec, Session  # noqa: E402
 from repro_torch.core import keys  # noqa: E402
 from repro_torch.core.ising import IsingSystem  # noqa: E402
 from repro_torch.engine import Engine, EngineConfig  # noqa: E402
 from repro_torch.engine.driver import make_interval_step  # noqa: E402
 from repro_torch.engine.stats import update_stats  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ising_sweep as isk  # noqa: E402
-from repro_torch.kernels import ops, prng  # noqa: E402
+from repro_torch.kernels import jax_uniform as ju  # noqa: E402
+from repro_torch.kernels import ops, prng, ref  # noqa: E402
+from repro_torch.kernels import potts_sweep as pk  # noqa: E402
 
 F32_EPS = 2.0 ** -23
 
@@ -119,10 +128,10 @@ def test_round_fused_on_cuda_equals_cpu(dev, pairing):
     energy = torch.linspace(-100, -20, 6, device=dev)[rung.long()]
     args = (spins, keys.key(2), 4, 1, rung, energy, betas)
     kw = dict(n_sweeps=3, n_rounds=3, rule="glauber", pairing=pairing)
-    isk.reset_launches()
+    build.reset_launches()
     got = ops.ising_round_fused(*(a.to(dev) if isinstance(a, torch.Tensor) else a
                                   for a in args), **kw)
-    assert isk.launches == {"ising_fused": 3, "exchange": 3}
+    assert {k: v for k, v in build.launches.items() if v} == {"ising_fused": 3, "exchange": 3}
     want = ops.ising_round_fused(*(a.cpu() if isinstance(a, torch.Tensor) else a
                                    for a in args), **kw)
     for i, (g, w) in enumerate(zip(got, want)):
@@ -132,12 +141,10 @@ def test_round_fused_on_cuda_equals_cpu(dev, pairing):
             assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("fused_round", [False, True], ids=["fused", "round"])
-def test_session_on_cuda_equals_cpu(dev, fused_round):
-    d = json.loads((Path(__file__).resolve().parents[1] / "examples" / "specs"
-                    / "ising_small_fused.json").read_text())
-    d["system"]["params"]["use_fused_round"] = fused_round
-    spec = RunSpec.from_json(d)
+@pytest.mark.parametrize("system", ["ising", "potts"])
+@pytest.mark.parametrize("path", ["sweep", "fused", "round"])
+def test_session_on_cuda_equals_cpu(dev, path, system):
+    spec = _small_spec(path, system)
     on_card = Session(spec, device="cuda").run().manifest()
     on_cpu = Session(spec, device="cpu").run().manifest()
     assert on_card["final"] == on_cpu["final"]
@@ -146,10 +153,13 @@ def test_session_on_cuda_equals_cpu(dev, fused_round):
             assert on_card["phases"][name]["summary"][k] == on_cpu["phases"][name]["summary"][k]
 
 
-def _small_spec(fused_round):
+def _small_spec(path, system="ising"):
     d = json.loads((Path(__file__).resolve().parents[1] / "examples" / "specs"
                     / "ising_small_fused.json").read_text())
-    d["system"]["params"]["use_fused_round"] = fused_round
+    if system == "potts":
+        d["system"] = {"name": "potts", "params": {"shape": [6, 4], "q": 3}}
+        d["observables"] = ["pmag"]
+    d["system"]["params"].update(use_fused=path != "sweep", use_fused_round=path == "round")
     return RunSpec.from_json(d)
 
 
@@ -158,17 +168,18 @@ def test_cuda_engine_refuses_a_cpu_state(dev):
     cfg = EngineConfig(n_replicas=4, swap_interval=2)
     cpu_state = Engine(system, cfg, device="cpu").init(keys.key(1), np.linspace(1, 3, 4))
     eng = Engine(system, cfg, device="cuda")
-    isk.reset_launches()
+    build.reset_launches()
     with pytest.raises(ValueError, match="is on cpu but the engine runs on cuda"):
         eng.run(cpu_state, 2)
     with pytest.raises(ValueError, match="is on cpu but the engine runs on cuda"):
         eng.reset_stats(cpu_state)
-    assert isk.launches == {"ising_fused": 0, "exchange": 0}
+    assert all(v == 0 for v in build.launches.values())
 
 
-@pytest.mark.parametrize("fused_round", [False, True], ids=["fused", "round"])
-def test_interval_loop_never_syncs_the_host(dev, fused_round):
-    session = Session(_small_spec(fused_round), device="cuda")
+@pytest.mark.parametrize("system", ["ising", "potts"])
+@pytest.mark.parametrize("path", ["sweep", "fused", "round"])
+def test_interval_loop_never_syncs_the_host(dev, path, system):
+    session = Session(_small_spec(path, system), device="cuda")
     eng = session.engine
     step = make_interval_step(eng.system, eng.config.spec, eng.observables)
     state = session.init_state()
@@ -182,3 +193,97 @@ def test_interval_loop_never_syncs_the_host(dev, fused_round):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(stats.n_records.item()) == 3
+
+
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+@pytest.mark.parametrize("j,b", [(1.0, 0.0), (0.7, 0.3)])
+def test_kernel_1_matches_plain(dev, rule, j, b):
+    spins, betas, _ = _lattice(11, 12, 30, dev)
+    u = torch.rand((12, 2, 30, 30), device=dev)
+    got = isk.ising_sweep_kernel(spins, u, betas, j=j, b=b, rule=rule)
+    want = ref.ising_sweep(spins, u, betas, j=j, b=b, rule=rule)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    if j == 1.0 and b == 0.0:
+        assert torch.equal(got[1], want[1])
+    else:
+        err = (got[1] - want[1]).abs().double()
+        assert bool((err <= 4 * F32_EPS * want[2].double() * 2 * (4 * j + b)).all())
+
+
+def _colours(seed, r, h, w, q, dev):
+    rng = np.random.default_rng(seed)
+    states = torch.from_numpy(rng.integers(0, q, (r, h, w)).astype(np.int8)).to(dev)
+    betas = torch.from_numpy((1.0 / np.geomspace(0.7, 2.9, r)).astype(np.float32)).to(dev)
+    rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(dev)
+    return states, betas, rung
+
+
+def _assert_potts_equal(got, want, j):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    if j == 1.0:
+        assert torch.equal(got[1], want[1])
+    else:
+        err = (got[1] - want[1]).abs().double()
+        assert bool((err <= 4 * F32_EPS * want[2].double() * 4 * abs(j)).all())
+
+
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+@pytest.mark.parametrize("q,j", [(3, 1.0), (5, 0.7)])
+def test_kernel_4_matches_plain(dev, rule, q, j):
+    states, betas, _ = _colours(12, 10, 20, 14, q, dev)
+    u = torch.rand((10, 2, 2, 20, 14), device=dev)
+    got = pk.potts_sweep_kernel(states, u, betas, q=q, j=j, rule=rule)
+    _assert_potts_equal(got, ref.potts_sweep(states, u, betas, q=q, j=j, rule=rule), j)
+
+
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+@pytest.mark.parametrize("q,j", [(3, 1.0), (5, 0.7)])
+def test_kernel_5_matches_plain(dev, rule, q, j):
+    states, betas, rung = _colours(13, 10, 12, 18, q, dev)
+    args = (states, keys.key(6, device=dev), torch.tensor(9, device=dev), betas, rung)
+    kw = dict(n_sweeps=4, q=q, j=j, rule=rule, replica_offset=2, t_add=3)
+    _assert_potts_equal(pk.potts_sweep_fused_kernel(*args, **kw),
+                        pk.potts_sweep_fused_plain(*args, **kw), j)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8), (2, 2, 6, 4), (2, 300, 300)])
+def test_jax_uniform_matches_plain(dev, shape):
+    key, t = keys.key(21, device=dev), torch.tensor(2**31 + 5, device=dev)
+    got = ju.jax_uniform_kernel(key, t, 40, shape)
+    ids = torch.tensor([0, 1, 17, 39], device=dev)
+    assert torch.equal(got[ids], ju.jax_uniform_plain(key, t, ids, shape))
+
+
+@pytest.mark.parametrize("path", ["fused", "round"])
+def test_potts_ops_on_cuda_equal_cpu(dev, path):
+    states, betas, rung = _colours(14, 6, 8, 6, 3, dev)
+    energy = torch.linspace(-60, -20, 6, device=dev)[rung.long()]
+    build.reset_launches()
+    if path == "fused":
+        args, kw = (states, keys.key(2), 4, betas), dict(n_sweeps=3, q=3, rule="glauber")
+        fn, want_launches = ops.potts_sweep_fused, {"potts_fused": 1}
+    else:
+        args = (states, keys.key(2), 4, 1, rung, energy, betas)
+        kw = dict(n_sweeps=3, n_rounds=3, q=3, rule="glauber", pack_bits=True)
+        fn, want_launches = ops.potts_round_fused, {"potts_fused": 3, "exchange": 3}
+    got = fn(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args), **kw)
+    assert {k: v for k, v in build.launches.items() if v} == want_launches
+    want = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args), **kw)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if path == "round" and i == 5:  # prob: CUDA expf vs the CPU's exp
+            torch.testing.assert_close(g.cpu(), w, rtol=4 * F32_EPS, atol=0)
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+def test_carry_from_reference_puts_a_potts_state_on_the_card(dev):
+    rng = np.random.default_rng(3)
+    arrays = {"states": rng.integers(0, 3, (4, 6, 4)).astype(np.int8),
+              "energy": np.zeros(4, np.float32), "rung": np.arange(4, dtype=np.int32),
+              "key": np.array([0, 5], np.uint32), "t": np.array(7), "phase": np.array(2)}
+    st = carry.from_reference(arrays, "cuda")
+    assert st.states.device.type == "cuda" and st.states.dtype == torch.int8
+    assert torch.equal(st.states.cpu(), torch.from_numpy(arrays["states"]))
+    out = Session(_small_spec("sweep", "potts"), device="cuda").engine.system.batched_mcmc_step(
+        st.key, st.t, st.states, torch.ones(4, device=dev))
+    assert out[0].shape == (4, 6, 4)

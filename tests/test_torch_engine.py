@@ -4,10 +4,14 @@
   ``t`` and ``phase`` are non-trivial) is carried into the port with
   `repro_torch.carry.from_reference`; both then run 3 chunks of the
   whole-round path and of the interval-fused path.
+  The per-sweep default path (``use_fused=False``) runs the same chunks.
 * Slice level: ``Session(spec).run()`` in both packages from the spec's seed
-  for ``examples/specs/ising_small_fused.json`` and its ``use_fused_round``
-  variant (the JAX side with ``use_pallas=False``, which its own tests pin
-  bit-equal to the Pallas kernels in interpret mode).
+  for ``examples/specs/ising_small_fused.json``, its ``use_fused_round``
+  variant and ``examples/specs/ising_small.json`` (the per-sweep path); the
+  JAX side with ``use_pallas=False``, which its own tests pin bit-equal to
+  the Pallas kernels in interpret mode.  ``python -m repro_torch run
+  examples/specs/ising_small.json --device cpu`` writes the manifest that
+  ``python -m repro run`` writes.
 
 Tolerances: spins, rungs, energies (j=1, b=0), sweep counters, swap
 attempt/accept counters and flow counters are exact; per-interval
@@ -16,6 +20,8 @@ scan XLA may divide by L² as a multiply by the reciprocal; the Welford means
 and M2 are held to rtol 1e-6 because XLA may contract ``m + d/n`` and
 ``m2 + d*(x-m)`` differently from torch (observed: 1 ulp on a mean); M2,
 a sum with cancellation, also gets an absolute floor of 4·eps·n·x².
+Swap probabilities in the per-sweep chunks' trace are held within 4 ulps
+relative, the bound of JAX's and torch's sigmoid (test_torch_kernels).
 The single allowed divergence is a decision flipped inside the ulp gap
 between the two frameworks' exp/sigmoid; `_explain_divergence` finds the
 first diverging interval and requires that.
@@ -43,10 +49,12 @@ from repro_torch.core import keys as tkeys  # noqa: E402
 from repro_torch.core import systems as tsystems  # noqa: E402
 from repro_torch.engine import Engine as TEngine  # noqa: E402
 from repro_torch.engine import EngineConfig as TEngineConfig  # noqa: E402
+from repro_torch.kernels import jax_uniform as tju  # noqa: E402
 from repro_torch.kernels import prng as tprng  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
-SPEC = Path(__file__).resolve().parents[1] / "examples" / "specs" / "ising_small_fused.json"
+SPECS = Path(__file__).resolve().parents[1] / "examples" / "specs"
+SPEC = SPECS / "ising_small_fused.json"
 OBS = ("absmag", "energy_per_site")
 EXACT_STATS = ("n_records", "swap_attempts", "swap_accepts", "direction",
                "round_trips", "up_visits", "labeled_visits", "weight_sum")
@@ -86,7 +94,7 @@ def _sweep_flip_possible(u, ladders, rule):
     return any(np.any((u >= a) & (u < z)) for a, z in zip(lo, hi) if a < z)
 
 
-def _explain_divergence(jtrace, ttrace, *, fused_round, words, k_run, t0, phase0,
+def _explain_divergence(jtrace, ttrace, *, mode, words, k_run, t0, phase0,
                         spi, r, length, ladders, rule):
     """Assert the first interval where the traces differ is an ulp-gap flip."""
     n = len(jtrace["energy"])
@@ -96,7 +104,7 @@ def _explain_divergence(jtrace, ttrace, *, fused_round, words, k_run, t0, phase0
         if e_same and not acc_diff.any():
             continue
         if e_same:  # the sweeps agreed: a swap decision flipped
-            if fused_round:
+            if mode == "round":
                 u = tprng.swap_uniforms(words, phase0 + k, r).numpy()
             else:
                 t_k = t0 + (k + 1) * spi
@@ -106,27 +114,31 @@ def _explain_divergence(jtrace, ttrace, *, fused_round, words, k_run, t0, phase0
             assert np.all(((u >= lo) & (u < hi))[acc_diff]), (
                 f"swap decision differs outside the ulp gap at interval {k}")
             return k
-        us = [tprng.ising_sweep_uniforms(words, t0 + k * spi + i, torch.arange(r), length)
-              for i in range(spi)]
+        ts = [t0 + k * spi + i for i in range(spi)]
+        if mode == "sweep":  # the jax.random per-sweep stream
+            us = [tju.jax_uniform_plain(k_run, torch.tensor(t), torch.arange(r),
+                                        (2, length, length)) for t in ts]
+        else:
+            us = [tprng.ising_sweep_uniforms(words, t, torch.arange(r), length) for t in ts]
         assert _sweep_flip_possible(torch.stack(us).numpy(), ladders, rule), (
             f"sweeps differ outside the ulp gap at interval {k}")
         return k
     raise AssertionError("final states differ but the traces agree")
 
 
-def _systems(fused_round):
-    params = {"length": 6, "accept_rule": "glauber", "use_fused": True,
-              "use_fused_round": fused_round}
+def _systems(mode):
+    params = {"length": 6, "accept_rule": "glauber", "use_fused": mode != "sweep",
+              "use_fused_round": mode == "round"}
     js = jsystems.make_system("ising", params)
     ts = tsystems.make_system("ising", params)
     return (js, jsystems.named_observables("ising", js, OBS),
             ts, tsystems.named_observables("ising", ts, OBS))
 
 
-@pytest.mark.parametrize("fused_round", [True, False], ids=["round", "fused"])
-def test_engine_chunks_from_one_state_match_jax(fused_round):
+@pytest.mark.parametrize("mode", ["round", "fused", "sweep"])
+def test_engine_chunks_from_one_state_match_jax(mode):
     r, spi, chunk = 6, 3, 2
-    js, jobs, ts, tobs = _systems(fused_round)
+    js, jobs, ts, tobs = _systems(mode)
     cfg = dict(n_replicas=r, swap_interval=spi, chunk_intervals=chunk, record_trace=True)
     jeng = JEngine(js, JEngineConfig(donate=False, **cfg), observables=jobs)
     temps = np.linspace(1.2, 3.8, r)
@@ -143,7 +155,7 @@ def test_engine_chunks_from_one_state_match_jax(fused_round):
         end["stats.swap_accepts"], tstate.stats.swap_accepts.numpy())
     if not same:
         _explain_divergence(
-            jres.trace, tres.trace, fused_round=fused_round,
+            jres.trace, tres.trace, mode=mode,
             words=tprng.key_words(torch.from_numpy(start["key"].astype(np.int64))),
             k_run=torch.from_numpy(start["key"].astype(np.int64)),
             t0=int(start["t"]), phase0=int(start["phase"]), spi=spi, r=r, length=6,
@@ -172,12 +184,17 @@ def test_engine_chunks_from_one_state_match_jax(fused_round):
         if k in OBS:  # ... but inside its fused scan XLA divides by L² as a
             # multiply by the reciprocal (34/36 -> 0.9444445, torch 0.9444444)
             np.testing.assert_allclose(got_k, jres.trace[k], rtol=2.0 ** -23, atol=0)
+        elif k == "swap_prob" and mode == "sweep":
+            # the per-sweep chunks meet arguments where JAX's and torch's
+            # sigmoid differ (by up to 3 ulps, test_torch_kernels); the
+            # fused chunks' arguments happen to agree bit for bit
+            np.testing.assert_allclose(got_k, jres.trace[k], rtol=4 * 2.0 ** -23, atol=0)
         else:
             np.testing.assert_array_equal(got_k, jres.trace[k], err_msg=k)
 
 
 def test_carry_from_reference_round_trips_a_jax_state():
-    js, jobs, _, _ = _systems(True)
+    js, jobs, _, _ = _systems("round")
     jeng = JEngine(js, JEngineConfig(n_replicas=4, swap_interval=2, donate=False),
                    observables=jobs)
     arrays = _dump(jeng.init(jax.random.key(3), np.linspace(1.0, 3.0, 4)))
@@ -192,38 +209,20 @@ def test_carry_from_reference_round_trips_a_jax_state():
     assert pt_only.__class__.__name__ == "PTState"
 
 
-def _spec_dict(fused_round):
-    d = json.loads(SPEC.read_text())
-    d["system"]["params"]["use_pallas"] = False
-    d["system"]["params"]["use_fused_round"] = fused_round
+def _spec_dict(mode):
+    if mode == "sweep":
+        d = json.loads((SPECS / "ising_small.json").read_text())
+    else:
+        d = json.loads(SPEC.read_text())
+        d["system"]["params"]["use_pallas"] = False
+        d["system"]["params"]["use_fused_round"] = mode == "round"
     d["engine"]["record_trace"] = True
     return d
 
 
-@pytest.mark.parametrize("fused_round", [False, True], ids=["fused", "round"])
-def test_session_matches_jax_from_seed(fused_round):
-    d = _spec_dict(fused_round)
-    jres = JSession(JRunSpec.from_json(d)).run()
-    tres = TSession(TRunSpec.from_json(d), device="cpu").run()
-    jm, tm = jres.manifest(), tres.manifest()
-    if jm["final"] != tm["final"]:
-        spi = d["engine"]["swap_interval"]
-        key = tkeys.key(d["seed"])
-        t0 = phase0 = 0
-        for name in jres.phases:
-            jt, tt = jres.phases[name].trace, tres.phases[name].trace
-            if not all(np.array_equal(jt[k], tt[k]) for k in jt):
-                _explain_divergence(
-                    jt, tt, fused_round=fused_round, words=tprng.key_words(tkeys.split(key)[1]),
-                    k_run=tkeys.split(key)[1], t0=t0, phase0=phase0, spi=spi,
-                    r=d["ladder"]["n_replicas"], length=8,
-                    ladders=[1.0 / np.asarray(x) for x in jres.phases[name].ladder_history],
-                    rule="glauber",
-                )
-                return
-            t0 += jres.phases[name].n_sweeps
-            phase0 += jres.phases[name].n_sweeps // spi
-        raise AssertionError("final states differ but every phase trace agrees")
+def _assert_manifests_match(jm, tm):
+    """Exact but for Welford means/variances (rtol 1e-6, see the module doc)."""
+    assert jm["final"] == tm["final"]
     assert jm["stopped_early"] == tm["stopped_early"]
     for name, jp in jm["phases"].items():
         tp = tm["phases"][name]
@@ -235,6 +234,54 @@ def test_session_matches_jax_from_seed(fused_round):
             else:
                 assert tp["summary"][k] == v, (name, k)
     assert jm["spec"]["system"] == tm["spec"]["system"]
+
+
+@pytest.mark.parametrize("mode", ["fused", "round", "sweep"])
+def test_session_matches_jax_from_seed(mode):
+    d = _spec_dict(mode)
+    jres = JSession(JRunSpec.from_json(d)).run()
+    tres = TSession(TRunSpec.from_json(d), device="cpu").run()
+    jm, tm = jres.manifest(), tres.manifest()
+    if jm["final"] != tm["final"]:
+        spi = d["engine"]["swap_interval"]
+        key = tkeys.key(d["seed"])
+        t0 = phase0 = 0
+        for name in jres.phases:
+            jt, tt = jres.phases[name].trace, tres.phases[name].trace
+            if not all(np.array_equal(jt[k], tt[k]) for k in jt):
+                _explain_divergence(
+                    jt, tt, mode=mode, words=tprng.key_words(tkeys.split(key)[1]),
+                    k_run=tkeys.split(key)[1], t0=t0, phase0=phase0, spi=spi,
+                    r=d["ladder"]["n_replicas"], length=8,
+                    ladders=[1.0 / np.asarray(x) for x in jres.phases[name].ladder_history],
+                    rule="glauber",
+                )
+                return
+            t0 += jres.phases[name].n_sweeps
+            phase0 += jres.phases[name].n_sweeps // spi
+        raise AssertionError("final states differ but every phase trace agrees")
+    _assert_manifests_match(jm, tm)
+    np.testing.assert_array_equal(tres.state.pt.states.numpy(),
+                                  np.asarray(jres.state.pt.states))
+    np.testing.assert_array_equal(tres.state.pt.rung.numpy(), np.asarray(jres.state.pt.rung))
+    for k in ("swap_attempts", "swap_accepts", "round_trips", "up_visits", "labeled_visits"):
+        np.testing.assert_array_equal(getattr(tres.state.stats, k).numpy(),
+                                      np.asarray(getattr(jres.state.stats, k)), err_msg=k)
+
+
+def test_cli_run_on_ising_small_matches_jax_cli(tmp_path):
+    """``python -m repro_torch run examples/specs/ising_small.json --device
+    cpu`` writes the manifest ``python -m repro run`` writes (both CLIs run
+    in this process)."""
+    from repro.api import cli as jcli
+    from repro_torch.api import cli as tcli
+
+    spec = str(SPECS / "ising_small.json")
+    assert jcli.main(["run", spec, "--out", str(tmp_path / "jax")]) == 0
+    assert tcli.main(["run", spec, "--device", "cpu", "--out", str(tmp_path / "port"),
+                      "--quiet"]) == 0
+    _assert_manifests_match(json.loads((tmp_path / "jax" / "manifest.json").read_text()),
+                            json.loads((tmp_path / "port" / "manifest.json").read_text()))
 
 
 @pytest.mark.parametrize("n", [1, 5, 8, 1500])

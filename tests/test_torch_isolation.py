@@ -6,7 +6,7 @@
 * ``python -m repro_torch run ... --device cpu`` writes a manifest, and
   ``--device cuda`` without a card fails instead of running on the CPU;
 * specs the slice cannot run are refused with `NotImplementedError` naming
-  the missing piece;
+  the missing piece, and specs an earlier slice refused now run;
 * a state on another device than its engine's, or a carried state asked
   for on a missing card, is refused instead of running elsewhere;
 * kernels build inside the source checkout (or where
@@ -130,8 +130,7 @@ def _spec(**edits):
 
 
 @pytest.mark.parametrize("edits,missing", [
-    ({"system__params__use_fused": False}, "unfused per-sweep path"),
-    ({"system__name": "potts", "system__params": {"shape": [4, 4], "q": 3}}, "'potts'"),
+    ({"system__params__use_fused": False, "system__params__pack_bits": True}, "pack_bits"),
     ({"engine__n_chains": 2}, "n_chains=2"),
     ({"engine__mesh": {"ensemble": 1, "replica": 2}}, "mesh"),
     ({"engine__swap_mode": "state"}, "swap_mode='state'"),
@@ -146,6 +145,21 @@ def test_unported_specs_are_refused_by_name(edits, missing):
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
         Session(_spec(**edits), device="cpu")
     assert missing in str(err.value)
+
+
+@pytest.mark.parametrize("edits", [
+    {"system__params__use_fused": False},
+    {"system__name": "potts", "system__params": {"shape": [4, 4], "q": 3},
+     "observables": ["pmag"]},
+], ids=["per-sweep", "potts"])
+def test_specs_refused_before_now_run(edits):
+    """The per-sweep default path and Potts were refused by name; they now
+    build and run a few sweeps on the CPU."""
+    session = Session(_spec(**edits), device="cpu")
+    state, result = session.engine.run(session.init_state(), 20)
+    assert result.n_sweeps == 20 and int(state.pt.t) == 20
+    assert bool(torch.isfinite(state.pt.energy).all())
+    assert sorted(state.pt.rung.tolist()) == list(range(8))
 
 
 def test_tpu_knobs_are_accepted_and_ignored():

@@ -1,4 +1,6 @@
-"""The port's sweep, exchange and fused-op functions against the JAX package.
+"""The port's Ising sweep, exchange and fused-op functions against the JAX package
+(the per-sweep op and one per-sweep system step included; Potts is in
+test_torch_potts.py).
 
 Same inputs (numpy, from a seed) through `repro.kernels` (its
 ``use_pallas=False`` path, which the JAX package's own tests pin bit-equal
@@ -28,8 +30,11 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import prng as jprng  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import keys as tkeys  # noqa: E402
+from repro_torch.kernels import build as tbuild  # noqa: E402
 from repro_torch.kernels import exchange as texchange  # noqa: E402
 from repro_torch.kernels import ising_sweep as tisk  # noqa: E402
+from repro_torch.kernels import jax_uniform as tju  # noqa: E402
+from repro_torch.kernels import potts_sweep as tpk  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import prng as tprng  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -98,6 +103,43 @@ def test_ref_ising_sweep_matches_jax(rule, j, b):
         assert _flip_possible(u, betas, j, b, rule), "sweep differs outside the ulp gap"
         return
     _assert_de(got[1].numpy(), want[1], want[2], j, b)
+
+
+@pytest.mark.parametrize("rule", ["metropolis", "glauber"])
+@pytest.mark.parametrize("j,b", [(1.0, 0.0), (0.7, 0.3)])
+def test_ops_ising_sweep_matches_jax(rule, j, b):
+    """The per-sweep op (kernel #1's dispatch) on the CPU against JAX's
+    ``ops.ising_sweep(use_pallas=False)``."""
+    rng, spins, betas = _lattice(11, 5, 8)
+    u = rng.random((5, 2, 8, 8), dtype=np.float32)
+    want = jops.ising_sweep(jnp.asarray(spins), jnp.asarray(u), jnp.asarray(betas),
+                            j=j, b=b, rule=rule, use_pallas=False)
+    got = tops.ising_sweep(torch.from_numpy(spins), torch.from_numpy(u),
+                           torch.from_numpy(betas), j=j, b=b, rule=rule, use_pallas=True)
+    same = np.array_equal(got[0].numpy(), np.asarray(want[0])) and np.array_equal(
+        got[2].numpy(), np.asarray(want[2]))
+    if not same:
+        assert _flip_possible(u, betas, j, rule), "sweep differs outside the ulp gap"
+        return
+    _assert_de(got[1].numpy(), want[1], want[2], j, b)
+
+
+def test_ising_batched_mcmc_step_matches_jax():
+    """One per-sweep step: JAX derives the replica keys fold_in(fold_in(key,
+    2t), r) and draws; the port draws from the run key and t directly."""
+    from repro.core.ising import IsingSystem as JIsing
+    from repro_torch.core.ising import IsingSystem as TIsing
+
+    _, spins, betas = _lattice(12, 5, 8)
+    t = 23
+    keys_r = jax.vmap(jax.random.fold_in, (None, 0))(
+        jax.random.fold_in(jax.random.key(4), 2 * t), jnp.arange(5, dtype=jnp.uint32))
+    want = JIsing(length=8, accept_rule="glauber").batched_mcmc_step(
+        keys_r, jnp.asarray(spins), jnp.asarray(betas))
+    got = TIsing(length=8, accept_rule="glauber").batched_mcmc_step(
+        tkeys.key(4), torch.tensor(t), torch.from_numpy(spins), torch.from_numpy(betas))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("rule", ["metropolis", "glauber"])
@@ -268,6 +310,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tisk.exchange_kernel(rung, torch.zeros(2), torch.zeros(2), torch.ones(2),
                              words, t0, pairing="deo", criterion="logistic")
+    with pytest.raises(ValueError, match="CUDA"):
+        tisk.ising_sweep_kernel(spins, torch.zeros((2, 2, 4, 4)), torch.ones(2))
+    with pytest.raises(ValueError, match="CUDA"):
+        tpk.potts_sweep_kernel(spins, torch.zeros((2, 2, 2, 4, 4)), torch.ones(2), q=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpk.potts_sweep_fused_kernel(spins, words, t0, torch.ones(2), rung, n_sweeps=1, q=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tju.jax_uniform_kernel(words, t0, 2, (2, 4, 4))
+    assert all(v == 0 for v in tbuild.launches.values())
 
 
 def test_ops_refuse_pack_bits_and_other_devices():
@@ -275,6 +326,6 @@ def test_ops_refuse_pack_bits_and_other_devices():
     with pytest.raises(NotImplementedError, match="not yet ported: pack_bits"):
         tops.ising_sweep_fused(spins, tkeys.key(0), 0, torch.ones(2), n_sweeps=1,
                                pack_bits=True)
-    with pytest.raises(ValueError, match="no Ising kernel"):
+    with pytest.raises(ValueError, match="no sweep kernel"):
         tops.ising_sweep_fused(spins.to("meta"), tkeys.key(0), 0, torch.ones(2),
                                n_sweeps=1)

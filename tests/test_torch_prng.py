@@ -2,9 +2,13 @@
 
 Random123 known-answer vectors for the cipher itself, then every stream of
 `repro.kernels.prng` and the partitionable ``jax.random`` functions the
-ported path uses (`repro_torch.core.keys`) over several keys, sweep
-counters, replicas and swap phases.  All comparisons are exact.
+ported path uses (`repro_torch.core.keys`: key, split, fold_in, bits,
+uniform, randint) over several keys, sweep counters, replicas and swap
+phases, and the per-sweep stream ``uniform(fold_in(fold_in(key, 2t), r))``
+of the default engine path.  All comparisons are exact.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -14,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import prng as jprng  # noqa: E402
 from repro_torch.core import keys as tkeys  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import prng as tprng  # noqa: E402
 
 SEEDS = [0, 7, 123456789, 2**40 + 3]
@@ -101,3 +106,47 @@ def test_batched_uniform_matches_vmap():
     want = np.asarray(jax.vmap(lambda kk: jax.random.uniform(kk, (6, 6)))(k))
     got = tkeys.uniform(torch.from_numpy(np.asarray(jax.random.key_data(k)).astype(np.int64)), (6, 6))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_potts_sweep_uniforms_match(seed):
+    jw, tw = _words(seed)
+    rep = np.array([0, 3, 1000], np.uint32)
+    for t in (0, 29, 2**31 + 7):
+        want = np.asarray(jprng.potts_sweep_uniforms(jw, t, jnp.asarray(rep), 4, 6))
+        got = tprng.potts_sweep_uniforms(tw, t, torch.from_numpy(rep.astype(np.int64)), 4, 6)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_matches_jax(seed):
+    """Single and batched keys; spans that are and are not powers of two."""
+    k = jax.random.key(seed)
+    ks = jax.random.split(k, 3)
+    tk = tkeys.key(seed)
+    for lo, hi in ((0, 2), (0, 3), (0, 5), (-4, 60), (0, 1000)):
+        np.testing.assert_array_equal(
+            tkeys.randint(tk, (5, 7), lo, hi).numpy(),
+            np.asarray(jax.random.randint(k, (5, 7), lo, hi)))
+        want = jax.vmap(lambda kk, lo=lo, hi=hi: jax.random.randint(kk, (4, 6), lo, hi))(ks)
+        np.testing.assert_array_equal(
+            tkeys.randint(tkeys.split(tk, 3), (4, 6), lo, hi).numpy(), np.asarray(want))
+
+
+@functools.partial(jax.jit, static_argnames="shape")
+def _per_sweep_draw(k, two_t, shape):
+    """The JAX engine's per-sweep draw of replicas 0..4 (one compile per shape)."""
+    kt = jax.random.fold_in(k, two_t)
+    return jax.vmap(lambda r: jax.random.uniform(jax.random.fold_in(kt, r), shape))(
+        jnp.arange(5, dtype=jnp.uint32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_per_sweep_stream_matches_jax(seed):
+    """`ops.jax_uniform` on the CPU is the JAX engine's per-sweep draw:
+    ``uniform(fold_in(fold_in(key, 2t), r), shape)`` for replica r."""
+    k = jax.random.key(seed)
+    for t, shape in ((0, (2, 4, 4)), (37, (2, 2, 4, 6)), (2**30 + 1, (2, 6, 6))):
+        want = _per_sweep_draw(k, jnp.uint32(2 * t), shape)
+        got = tops.jax_uniform(tkeys.key(seed), torch.tensor(t), 5, shape)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
