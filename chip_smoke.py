@@ -42,7 +42,23 @@ Phases, one line each or more (any failure raises and exits non-zero):
    fused and round paths at full width with every host sync an error; and
    ``examples/specs/ising_small.json`` and a small Potts spec on each of its
    three paths, run on the card and on the CPU, which must agree;
-10. a JSON line per kernel (launches, error, times, bound), the card line,
+10. kernel #2p (``csrc/ising_packed.cu``, ``pack_bits``) against its plain
+    version and against kernel A at L=300 R=1500 S=2 and at small odd R, at
+    its default group width and at 8 and 3 replicas a block; timed at S=2
+    and S=100 beside kernel A and its bound, at 8 a block too, and at
+    R=2112, where both kernels put 16 replicas on every SM;
+11. the packed round and fused paths through ``Session`` at full width (the
+    phase 4 and 5 specs with ``pack_bits``): manifests equal to the unpacked
+    runs', sweeps/s, ms/interval, launch counts, and the round path once
+    more under ``torch.profiler``;
+12. ``n_chains=2`` at full width on the packed round path: each chain equal
+    to its solo run from ``fold_in(key, c)``, no host sync in 3 intervals,
+    and a small two-chain spec equal on the card and the CPU;
+13. the Ising conformance entry (4x4, 5 rungs, 2 chains) on the round path
+    with ``pack_bits`` on the card: |z| <= 4 and Geweke <= 4; the same on
+    the interval-fused path; and a shortened entry whose report equals the
+    CPU's;
+14. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -51,6 +67,7 @@ no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -189,6 +206,49 @@ def check_kernel_a(torch, np, isk, keys, cases, device):
         max_err = max(max_err, err)
         print(f"  kernel A case L={length} R={r} S={sweeps} j={j} b={b} {rule}: "
               f"equal spins/nacc, max |dE err| {err}")
+    return max_err
+
+
+def check_packed(torch, np, isk, keys, cases, device):
+    """Phase 10: kernel #2p == kernel A (spins, ΔE, nacc bit for bit) at its
+    default group width and at 8 and 3 replicas a block, and == its plain
+    version (spins, nacc; ΔE as kernel A's); returns max |ΔE err| against
+    the plain version."""
+    max_err = 0.0
+    for n, (length, r, sweeps, j, b, rule) in enumerate(cases):
+        rng = np.random.default_rng(200 + n)
+        spins = torch.from_numpy(
+            rng.choice(np.array([-1, 1], np.int8), size=(r, length, length))).to(device)
+        temps = 1.0 + np.arange(r) * 3.0 / r
+        betas = torch.from_numpy((1.0 / temps).astype(np.float32)).to(device)
+        rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)
+        words = keys.key(int(rng.integers(1 << 31)), device=device)
+        t0 = torch.tensor(int(rng.integers(1 << 20)), dtype=torch.int64, device=device)
+        kw = dict(n_sweeps=sweeps, j=j, b=b, rule=rule, replica_offset=5)
+        got = isk.ising_sweep_packed_kernel(spins, words, t0, betas, rung, **kw)
+        kernel_a = isk.ising_sweep_fused_kernel(spins, words, t0, betas, rung, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, kernel_a)):
+            raise AssertionError(f"kernel #2p differs from kernel A: case {n}")
+        for group in (8, 3):  # full bytes with a partial last one, and odd groups
+            other = isk.ising_sweep_packed_kernel(spins, words, t0, betas, rung, **kw,
+                                                  group=group)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(other, kernel_a)):
+                raise AssertionError(f"kernel #2p group {group} differs from kernel A: case {n}")
+            del other
+        del kernel_a
+        want = isk.ising_sweep_packed_plain(spins, words, t0, betas, rung, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], want[0]) or not torch.equal(got[2], want[2]):
+            raise AssertionError(f"kernel #2p spins/nacc differ from plain: case {n}")
+        what = f"kernel #2p L={length} R={r} S={sweeps} j={j} b={b} {rule}"
+        err = assert_de(got[1], want[1], want[2], j == 1.0 and b == 0.0,
+                        2 * (4 * abs(j) + abs(b)), what)
+        max_err = max(max_err, err)
+        print(f"  {what}: equal to kernel A and to plain, max |dE err| vs plain {err}")
+        del got, want, spins
+        torch.cuda.empty_cache()
     return max_err
 
 
@@ -451,9 +511,11 @@ def main() -> int:
         Session, SystemSpec,
     )
     from repro_torch.core import keys
+    from repro_torch.core.systems import REGISTRY
     from repro_torch.engine.driver import make_interval_step
-    from repro_torch.engine.stats import update_stats
+    from repro_torch.engine.stats import chain_slice, update_stats
     from repro_torch.kernels import build, prng, ref
+    from repro_torch.validate import assert_conforms, run_conformance
     from repro_torch.kernels import ising_sweep as isk
     from repro_torch.kernels import jax_uniform as ju
     from repro_torch.kernels import potts_sweep as pk
@@ -561,6 +623,7 @@ def main() -> int:
 
     result, counts_round, wall, n_int, init_s = drive(spec_round, "round path")
     expect_launches(counts_round, "round path", ising_fused=n_int, exchange=n_int)
+    manifest_round = result.manifest()
     retunes = len(result.phases["burn"].ladder_history) - 1
     acc = result.phases["measure"].summary["swap_acceptance"]
     # per-kernel device time at the main path's shapes (not counted launches)
@@ -610,8 +673,10 @@ def main() -> int:
         )),
         **base,
     )
-    _, counts_fused, wall_f, n_int_f, _ = drive(spec_fused, "fused path")
+    result_f, counts_fused, wall_f, n_int_f, _ = drive(spec_fused, "fused path")
     expect_launches(counts_fused, "fused path", ising_fused=n_int_f)
+    manifest_fused = result_f.manifest()
+    del result_f
     for spec, what in ((spec_round, "round"), (spec_fused, "fused")):
         check_no_host_sync(torch, Session(spec, device="cuda"),
                            make_interval_step, update_stats, 3)
@@ -727,7 +792,197 @@ def main() -> int:
     print(f"phase 9 card == CPU [{card}]: examples/specs/ising_small.json (per-sweep path) "
           "and a 6x4 q=3 R=6 Potts spec on its per-sweep, fused and round paths")
 
-    # -- phase 10: kernel summary ---------------------------------------------
+    # -- phase 10: kernel #2p against its plain version and kernel A -----------
+    packed_cases = [(300, 1500, 2, 1.0, 0.0, "glauber"), (8, 5, 3, 1.0, 0.0, "glauber"),
+                    (30, 13, 4, 0.7, 0.3, "metropolis"), (64, 33, 6, 1.0, 0.3, "glauber")]
+    err_p = check_packed(torch, np, isk, keys, packed_cases, device)
+    blocks, threads, group = isk.packed_launch_shape(n_rep)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(9)
+    spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), size=(r2, l2, l2))).to(device)
+    main_kw = dict(n_sweeps=interval, rule="glauber")
+
+    def packed(sweep_kw, group=None):
+        return lambda: isk.ising_sweep_packed_kernel(spins, words, t0d, betas, rung,
+                                                     **sweep_kw, group=group)
+
+    def unpacked(sweep_kw):
+        return lambda: isk.ising_sweep_fused_kernel(spins, words, t0d, betas, rung, **sweep_kw)
+
+    # in turns within this process: A, #2p, #2p at 8 a block, and back
+    a_ms2 = cuda_ms(torch, unpacked(kw), 20)
+    p_ms = cuda_ms(torch, packed(kw), 20)
+    p8_ms = cuda_ms(torch, packed(kw, 8), 20)
+    a_main2 = cuda_ms(torch, unpacked(main_kw), 3)
+    p_main = cuda_ms(torch, packed(main_kw), 3)
+    p8_main = cuda_ms(torch, packed(main_kw, 8), 3)
+    a_main3 = cuda_ms(torch, unpacked(main_kw), 3)
+    p_plain_ms = cuda_ms(torch, lambda: isk.ising_sweep_packed_plain(
+        spins, words, t0d, betas, rung, **kw), 2)
+    # 2112 = 2 x 132 x 8 replicas: 16 per SM for both kernels, no quantisation
+    r_bal = 2 * n_sms * 8
+    spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), size=(r_bal, l2, l2))).to(device)
+    betas_bal = torch.from_numpy((1.0 / (1.0 + np.arange(r_bal) * 3.0 / r_bal)).astype(np.float32)).to(device)
+    rung_bal = torch.arange(r_bal, dtype=torch.int32, device=device)
+    a_bal = cuda_ms(torch, lambda: isk.ising_sweep_fused_kernel(
+        spins, words, t0d, betas_bal, rung_bal, **main_kw), 3)
+    p_bal = cuda_ms(torch, lambda: isk.ising_sweep_packed_kernel(
+        spins, words, t0d, betas_bal, rung_bal, **main_kw, group=8), 3)
+    del spins
+    torch.cuda.empty_cache()
+    print(f"phase 10 kernel #2p: {len(packed_cases)} cases equal to kernel A (spins, nacc, ΔE "
+          f"bit for bit, at its default group width and at 8 and 3 a block) and to plain "
+          f"(spins, nacc; ΔE exact at j=1,b=0, <= 4 ulps otherwise), max |ΔE err| vs "
+          f"plain {err_p}")
+    print(f"phase 10 times [{card}]: L=300 R=1500 S=2: kernel #2p {p_ms:.4f} ms "
+          f"({blocks} blocks of {group} replicas x {threads} threads on {n_sms} SMs), "
+          f"{p8_ms:.4f} ms at 8 a block ({-(-n_rep // 8)} blocks), kernel A {a_ms2:.4f} ms, "
+          f"plain {p_plain_ms:.4f} ms, bound {a_bound:.5f} ms by {a_by}; S=100: #2p "
+          f"{p_main:.3f} ms, at 8 a block {p8_main:.3f} ms, kernel A {a_main2:.3f} / "
+          f"{a_main3:.3f} ms (before / after), bound {a_main_bound:.3f} ms; R={r_bal} "
+          f"S=100 (16 replicas on every SM for both): #2p at 8 a block {p_bal:.3f} ms vs "
+          f"kernel A {a_bal:.3f} ms; library_ms: none")
+
+    # -- phase 11: the packed round and fused paths at full width -------------------
+    def with_pack_bits(spec):
+        d = json.loads(spec.to_json())
+        d["system"]["params"]["pack_bits"] = True
+        return RunSpec.from_json(d)
+
+    def same_run(packed, unpacked, what):
+        """Manifests equal but for the spec's pack_bits."""
+        if packed["spec"]["system"]["params"].pop("pack_bits") is not True:
+            raise AssertionError(f"{what}: spec lost pack_bits")
+        if packed != unpacked:
+            raise AssertionError(f"{what}: packed manifest != unpacked manifest")
+
+    spec_round_p, spec_fused_p = with_pack_bits(spec_round), with_pack_bits(spec_fused)
+    result, counts_pround_i, wall_p, _, _ = drive(spec_round_p, "packed round path")
+    expect_launches(counts_pround_i, "packed round path", ising_packed=n_int, exchange=n_int)
+    same_run(result.manifest(), manifest_round, "packed round path")
+    result, counts_pfused_i, wall_pf, _, _ = drive(spec_fused_p, "packed fused path")
+    expect_launches(counts_pfused_i, "packed fused path", ising_packed=n_int_f)
+    same_run(result.manifest(), manifest_fused, "packed fused path")
+    del result
+    torch.cuda.empty_cache()
+    for what, wall_x, sw, ni, cx in (("round", wall_p, sweeps, n_int, counts_pround_i),
+                                     ("fused", wall_pf, spec_fused.schedule.total_sweeps,
+                                      n_int_f, counts_pfused_i)):
+        print(f"phase 11 packed {what} path [{card}]: Session L=300 R=1500 S=100 pack_bits, "
+              f"{sw} sweeps in {wall_x:.3f} s = {sw / wall_x:.2f} sweeps/s "
+              f"({sw * n_rep / wall_x:.1f} replica-sweeps/s), {1e3 * wall_x / ni:.2f} "
+              f"ms/interval, launches { {k: v for k, v in cx.items() if v} }; manifest == "
+              "the unpacked run's")
+    session = Session(spec_round_p, device="cuda")
+    session.state = session.init_state()
+    torch.cuda.synchronize()
+    print(profile_breakdown(torch, build, session.run, n_int, card, "phase 11 packed round",
+                            {"kernel #2p": ("ising_packed_kernel", "ising_packed"),
+                             "kernel B": ("exchange_kernel", "exchange")}))
+    del session
+    torch.cuda.empty_cache()
+
+    # -- phase 12: two chains at full width on the packed round path ----------------
+    spec_chains = RunSpec(
+        system=SystemSpec("ising", {**params, "use_fused_round": True, "pack_bits": True}),
+        ladder=base["ladder"], engine=EngineSpec(swap_interval=interval, chunk_intervals=1,
+                                                 n_chains=2),
+        schedule=ScheduleSpec(phases=(PhaseSpec(name="run", n_sweeps=300),)),
+        observables=base["observables"], seed=0,
+    )
+    session = Session(spec_chains, device="cuda")
+    session.state = session.init_state()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t = time.perf_counter()
+    ens = session.run()
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t
+    counts_chains = dict(build.launches)
+    n_int_c = spec_chains.schedule.total_sweeps // interval
+    expect_launches(counts_chains, "two-chain path", ising_packed=2 * n_int_c,
+                    exchange=2 * n_int_c)
+    est = ens.state
+    if tuple(est.pt.states.shape) != (2, n_rep, length, length):
+        raise AssertionError(f"two-chain path: state shape {tuple(est.pt.states.shape)}")
+    solo_spec = RunSpec.from_json({**json.loads(spec_chains.to_json()),
+                                   "engine": {**json.loads(spec_chains.to_json())["engine"],
+                                              "n_chains": 1}})
+    for c in range(2):
+        solo = Session(solo_spec, device="cuda")
+        solo.state = solo.engine.init(keys.fold_in(keys.key(0), c), solo.temps)
+        sst = solo.run().state
+        for name in ("states", "rung", "energy", "t", "phase", "key"):
+            if not torch.equal(getattr(est.pt, name)[c], getattr(sst.pt, name)):
+                raise AssertionError(f"two-chain path: chain {c} {name} != its solo run")
+        mine = chain_slice(est.stats, c)
+        for name in ("swap_attempts", "swap_accepts", "round_trips", "n_records"):
+            if not torch.equal(getattr(mine, name), getattr(sst.stats, name)):
+                raise AssertionError(f"two-chain path: chain {c} stats {name} != solo")
+        if not torch.equal(mine.mean["energy"], sst.stats.mean["energy"]):
+            raise AssertionError(f"two-chain path: chain {c} mean energy != solo")
+        del solo, sst
+    state, _ = session.engine.advance(est, 1)  # warm-up of the advance itself
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = session.engine.advance(state, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del ens, est, state, session
+    torch.cuda.empty_cache()
+    small_chains = json.loads(small.to_json())
+    small_chains["engine"]["n_chains"] = 2
+    small_chains["system"]["params"]["pack_bits"] = True
+    card_equals_cpu(Session, RunSpec.from_json(small_chains), "small two-chain spec")
+    sw_c = spec_chains.schedule.total_sweeps
+    print(f"phase 12 two chains [{card}]: Session L=300 R=1500 n_chains=2 packed round path, "
+          f"{sw_c} sweeps per chain in {wall_c:.3f} s = {sw_c / wall_c:.2f} sweeps/s per chain "
+          f"({2 * sw_c * n_rep / wall_c:.1f} replica-sweeps/s over both), "
+          f"{1e3 * wall_c / n_int_c:.2f} ms/interval, launches "
+          f"{ {k: v for k, v in counts_chains.items() if v} } (host loop over chains); each "
+          "chain == its solo run from fold_in(key, c); no host sync in 3 intervals; small "
+          "two-chain spec equal on card and CPU")
+
+    # -- phase 13: the Ising conformance entry on the card --------------------------
+    round_packed = {"use_fused": True, "use_pallas": True, "use_fused_round": True,
+                    "pack_bits": True}
+    entry = REGISTRY["ising"]
+    build.reset_launches()
+    t = time.perf_counter()
+    report = run_conformance(entry, seed=0, system_params=round_packed, device="cuda")
+    wall_v = time.perf_counter() - t
+    counts_conf = dict(build.launches)
+    assert_conforms(report, z_max=4.0, geweke_max=4.0)
+    if report.n_retunes != entry.adapt_rounds:
+        raise AssertionError(f"conformance: {report.n_retunes} retunes")
+    worst_series, worst_z = report.worst()
+    t = time.perf_counter()
+    fused_report = run_conformance(entry, seed=0, device="cuda",
+                                   system_params={"use_fused": True, "use_pallas": True})
+    wall_vf = time.perf_counter() - t
+    assert_conforms(fused_report, z_max=4.0, geweke_max=4.0)
+    short = dataclasses.replace(entry, burn_sweeps=150, n_batches=4, sweeps_per_batch=100)
+    on_card = run_conformance(short, seed=0, system_params=round_packed, device="cuda")
+    on_cpu = run_conformance(short, seed=0, system_params=round_packed, device="cpu")
+    for f in ("temps", "means", "mcse", "exact", "z"):
+        a, b = getattr(on_card, f), getattr(on_cpu, f)
+        same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else all(np.array_equal(a[k], b[k]) for k in b))
+        if not same:
+            raise AssertionError(f"short conformance entry: card != CPU in {f}")
+    print(f"phase 13 conformance [{card}]: ising 4x4 R=5 n_chains=2 round path + pack_bits, "
+          f"{entry.burn_sweeps + entry.n_batches * entry.sweeps_per_batch} sweeps per chain "
+          f"in {wall_v:.2f} s, launches { {k: v for k, v in counts_conf.items() if v} }, "
+          f"{report.n_batches} batch means, {report.n_retunes} retunes, worst |z| "
+          f"{worst_z:.3f} ({worst_series}) <= 4, max |geweke| "
+          f"{max(float(np.abs(g).max()) for g in report.geweke.values()):.3f} <= 4; the "
+          f"fused path (validate --fused) in {wall_vf:.2f} s, worst |z| "
+          f"{fused_report.worst()[1]:.3f} ({fused_report.worst()[0]}) <= 4; short "
+          "entry report equal on card and CPU")
+
+    # -- phase 14: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -745,6 +1000,22 @@ def main() -> int:
          "shape": "L=300 R=1500 S=2", "main_ms": a_main,
          "main_bound_ms": a_main_bound, "main_shape": "L=300 R=1500 S=100",
          "fused_path_launches": counts_fused["ising_fused"]},
+        {"name": "ising_packed", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ising_packed.cu",
+         "replaces": "src/repro/kernels/ising_sweep.py:269",
+         "launches": counts_pround_i["ising_packed"], "max_abs_err": err_p,
+         "ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": a_bound,
+         "bound_by": a_by, "library_ms": None,
+         "shape": "L=300 R=1500 S=2", "main_ms": p_main,
+         "main_bound_ms": a_main_bound, "main_shape": "L=300 R=1500 S=100",
+         "kernel_a_ms": a_ms2, "kernel_a_main_ms": a_main2,
+         "grid": f"{blocks}x{threads}", "group": group,
+         "group8_ms": p8_ms, "group8_main_ms": p8_main,
+         "balanced_r": r_bal, "balanced_main_ms": p_bal,
+         "balanced_kernel_a_main_ms": a_bal,
+         "fused_path_launches": counts_pfused_i["ising_packed"],
+         "two_chain_launches": counts_chains["ising_packed"],
+         "conformance_launches": counts_conf["ising_packed"]},
         {"name": "exchange", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/exchange.cu",
          "replaces": "src/repro/kernels/ising_sweep.py:517",
@@ -770,7 +1041,7 @@ def main() -> int:
             potts_ms=times["jax_uniform"]["potts_ms"],
             potts_bound_ms=times["jax_uniform"]["potts_bound"][0]),
     ]
-    print(f"phase 10 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 14 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

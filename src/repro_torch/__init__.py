@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of the `repro` parallel-tempering sampler.
 
 The package mirrors `repro`'s subpackage layout (``kernels``, ``core``,
-``exchange``, ``engine``, ``api``) so every module has an obvious twin, and
-is held bit-exact against it from the same seed on the ported path: 2-D
-Ising checkerboard sweeps plus temp-mode replica exchange through the
-interval-fused (``use_fused``) and whole-round (``use_fused_round``)
-kernels.  Those kernels are hand-written CUDA for Hopper
+``exchange``, ``engine``, ``api``, ``validate``) so every module has an
+obvious twin, and is held bit-exact against it from the same seed on the
+ported path: 2-D Ising and q-state Potts checkerboard sweeps plus temp-mode
+replica exchange on the per-sweep, interval-fused (``use_fused``) and
+whole-round (``use_fused_round``) paths, Ising multispin coding
+(``pack_bits``), and the ensemble axis (``n_chains``); `validate` holds the
+chains against exact answers.  Those kernels are hand-written CUDA for Hopper
 (`repro_torch.kernels.csrc`); every one has a plain PyTorch version beside
 it, which is what runs for tensors on the CPU.
 

@@ -2,7 +2,8 @@
 
 Twin of `repro.api.session`: ``Engine.init(key(seed), ladder)`` then one
 ``Engine.run`` per phase, with a callback pipeline on the host loop.  The
-manifest has the JAX package's layout.  Checkpoints and resume are not
+manifest has the JAX package's layout (per-chain summaries and final
+energies with an ensemble).  Checkpoints and resume are not
 ported yet.
 """
 from __future__ import annotations
@@ -73,9 +74,12 @@ class SessionResult:
         return next(reversed(self.phases.values()))
 
     def final_energies(self) -> np.ndarray:
-        """Final per-rung energies, cold→hot."""
+        """Final per-rung energies, cold→hot (``(R,)`` or ``(C, R)``)."""
         e = self.state.pt.energy.cpu().numpy()
-        return e[np.argsort(self.state.pt.rung.cpu().numpy())]
+        rung = self.state.pt.rung.cpu().numpy()
+        if e.ndim == 1:
+            return e[np.argsort(rung)]
+        return np.stack([ec[np.argsort(rc)] for ec, rc in zip(e, rung)])
 
     def manifest(self) -> dict:
         """JSON-able result manifest, in the JAX package's layout."""
@@ -96,7 +100,7 @@ class SessionResult:
             "phases": phases,
             "stopped_early": bool(self.stopped_early),
             "final": {
-                "sweep": int(self.state.pt.t.item()),
+                "sweep": int(self.state.pt.t.reshape(-1)[0].item()),
                 "temps": (1.0 / betas).tolist(),
                 "energy": self.final_energies().tolist(),
             },

@@ -2,8 +2,8 @@
 
 ``spec_version`` 1, strict keys, lists canonicalized to tuples so
 ``RunSpec.from_json(spec.to_json()) == spec``.  What the port cannot run
-yet (other systems, meshes, ensembles, state-mode swaps, other strategies,
-the unfused path) parses here and is refused by name with
+yet (other systems, meshes, state-mode swaps, other strategies, the flow
+adapt mode, single-flip updates) parses here and is refused by name with
 `NotImplementedError` when a `Session` is built from it.
 """
 from __future__ import annotations

@@ -11,13 +11,16 @@ name                        JAX source
 ``states``                  ``pt.states`` (R, L, L) int8
 ``energy`` / ``rung``       ``pt.energy`` (R,) f32 / ``pt.rung`` (R,) int32
 ``key``                     ``jax.random.key_data(pt.key)`` (2,) uint32
-``t`` / ``phase``           ``pt.t`` / ``pt.phase`` scalars
+``t`` / ``phase``           ``pt.t`` / ``pt.phase`` scalars (per chain)
 ``betas``                   ``EngineState.betas`` (R,) f32 (engine only)
 ``stats.<field>``           each `OnlineStats` array field (engine only)
 ``stats.mean.<series>``     ``stats.mean[series]``; likewise ``stats.m2.``
 ==========================  ===============================================
 
 With ``betas`` present the result is an `EngineState`, else a `PTState`.
+An ensemble state (``n_chains = C > 1``) carries a leading chain axis on
+every array but ``betas``: ``states`` (C, R, ...), ``key`` (C, 2), ``t``
+and ``phase`` (C,), ``stats.*`` (C, R) and ``stats.n_records`` (C,).
 """
 from __future__ import annotations
 
@@ -41,13 +44,14 @@ def _t(x, dtype, device) -> torch.Tensor:
 def from_reference(arrays: dict[str, np.ndarray], device):
     """Port state from a JAX state dumped to numpy (see the module table)."""
     device = resolve_device(device)
+    chains = np.shape(arrays["energy"])[:-1]  # () or (C,)
     pt = PTState(
         states=_t(arrays["states"], torch.int8, device),
         energy=_t(arrays["energy"], torch.float32, device),
         rung=_t(arrays["rung"], torch.int32, device),
         key=_t(np.asarray(arrays["key"], np.uint32).astype(np.int64), torch.int64, device),
-        phase=_t(arrays["phase"], torch.int64, device).reshape(()),
-        t=_t(arrays["t"], torch.int64, device).reshape(()),
+        phase=_t(arrays["phase"], torch.int64, device).reshape(chains),
+        t=_t(arrays["t"], torch.int64, device).reshape(chains),
     )
     if "betas" not in arrays:
         return pt

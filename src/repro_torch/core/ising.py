@@ -4,7 +4,9 @@
 replica batch is ``(R, L, L)``.  The checkerboard update runs on three
 paths: per sweep (the default: ``jax.random`` uniforms, kernel #1), per
 interval (``use_fused``: S sweeps per launch of kernel A, torch exchange)
-or per round (``use_fused_round``: kernel A + the exchange kernel B).
+or per round (``use_fused_round``: kernel A + the exchange kernel B).  On
+the two fused paths ``pack_bits`` swaps kernel A for kernel #2p (multispin
+coding), with a bit-equal trajectory; the per-sweep path ignores it.
 """
 from __future__ import annotations
 
@@ -35,9 +37,9 @@ class IsingSystem:
 
     Attributes follow `repro.core.ising.IsingSystem`.  ``use_pallas`` and
     ``r_blk`` are TPU knobs: they are accepted and ignored, and on CUDA the
-    hand-written kernel always runs.  ``pack_bits`` and
-    ``update="single_flip"`` are not ported yet and raise
-    `NotImplementedError`.
+    hand-written kernel always runs.  ``pack_bits`` acts on the fused paths
+    only, as in the JAX package.  ``update="single_flip"`` is not ported yet
+    and raises `NotImplementedError`.
     """
 
     length: int
@@ -61,10 +63,6 @@ class IsingSystem:
         if self.length % 2 != 0:
             raise ValueError(
                 f"checkerboard update needs even L under PBC, got L={self.length}"
-            )
-        if self.pack_bits:
-            raise NotImplementedError(
-                "not yet ported: pack_bits multispin coding (TPU kernel #2p)"
             )
         if self.use_fused_round and not self.use_fused:
             raise ValueError("use_fused_round=True needs use_fused=True")
@@ -105,23 +103,26 @@ class IsingSystem:
 
     def batched_mcmc_interval(self, key, t, spins, betas, *, n_sweeps,
                               replica_offset=0):
-        """``n_sweeps`` sweeps of every replica at its per-slot beta (kernel A)."""
+        """``n_sweeps`` sweeps of every replica at its per-slot beta (kernel
+        A, or #2p with ``pack_bits``)."""
         from repro_torch.kernels import ops
 
         return ops.ising_sweep_fused(
             spins, key, t, betas, n_sweeps=n_sweeps,
             replica_offset=replica_offset, j=self.j, b=self.b,
-            rule=self.accept_rule,
+            rule=self.accept_rule, pack_bits=self.pack_bits,
         )
 
     def batched_mcmc_round(self, key, t, phase, spins, rung, energy, betas,
                            *, n_sweeps, n_rounds=1, criterion="logistic",
                            pairing="deo"):
-        """``n_rounds`` whole PT rounds (kernel A + kernel B per round)."""
+        """``n_rounds`` whole PT rounds (kernel A or #2p, then kernel B, per
+        round)."""
         from repro_torch.kernels import ops
 
         return ops.ising_round_fused(
             spins, key, t, phase, rung, energy, betas,
             n_sweeps=n_sweeps, n_rounds=n_rounds, j=self.j, b=self.b,
             rule=self.accept_rule, criterion=criterion, pairing=pairing,
+            pack_bits=self.pack_bits,
         )

@@ -1,7 +1,11 @@
-"""System constructor + named-observable registry (twin of `repro.core.systems`).
+"""System constructor + named-observable registry and the validation zoo
+(twin of `repro.core.systems`).
 
 The port registers the Ising and q-state Potts models.  Observables are batched: each
 factory takes the system and returns a function ``(R, ...) -> (R,)``.
+`REGISTRY` holds the zoo entries of those two systems with the JAX
+package's params, ladders and schedules; the other zoo systems are refused
+by name.
 """
 from __future__ import annotations
 
@@ -11,7 +15,15 @@ from typing import Any, Callable, Mapping, Sequence
 from repro_torch.core.ising import IsingSystem, lattice_energy, magnetization
 from repro_torch.core.potts import PottsSystem, potts_magnetization
 
-__all__ = ["SystemEntry", "CONSTRUCTORS", "make_system", "named_observables"]
+__all__ = [
+    "SystemEntry",
+    "CONSTRUCTORS",
+    "make_system",
+    "named_observables",
+    "RegisteredSystem",
+    "REGISTRY",
+    "registered",
+]
 
 # systems of the JAX package that this port does not run yet
 NOT_PORTED = ("gaussian", "ea_spin_glass", "hp_protein")
@@ -66,3 +78,71 @@ def named_observables(name: str, system: Any, names: Sequence[str]) -> dict[str,
             )
         out[obs] = avail[obs](system)
     return out
+
+
+# -- validation system zoo -------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RegisteredSystem:
+    """One system-zoo entry: a small instance with an exact ground truth.
+
+    Fields and defaults follow `repro.core.systems.RegisteredSystem`:
+    ``params`` name the instance through `CONSTRUCTORS`, ``temps`` is the
+    initial ladder (cold→hot), the engine runs ``n_chains`` chains with a
+    swap every ``swap_interval`` sweeps, ``burn_sweeps`` adapt and
+    equilibrate (``adapt_rounds`` retunes), then ``n_batches`` windows of
+    ``sweeps_per_batch`` sweeps are measured.  ``slow`` marks an exact
+    reference that costs more than ~10 s.
+    """
+
+    name: str
+    params: Mapping[str, Any]
+    observable_names: tuple
+    temps: tuple
+    swap_interval: int = 2
+    n_chains: int = 2
+    chunk_intervals: int = 25
+    burn_sweeps: int = 1200
+    n_batches: int = 8
+    sweeps_per_batch: int = 400
+    adapt_rounds: int = 2
+    slow: bool = False
+
+    def make(self) -> Any:
+        """The validation-scale system instance (via the constructor registry)."""
+        return make_system(self.name, self.params)
+
+    def observables(self, system: Any) -> dict[str, Callable]:
+        """Resolved batched observable fns for ``system``."""
+        return named_observables(self.name, system, self.observable_names)
+
+
+# Glauber per-site acceptance keeps the simultaneous checkerboard update
+# strictly stochastic on the tiny validation lattices (the JAX zoo's choice).
+REGISTRY: dict[str, RegisteredSystem] = {
+    "ising": RegisteredSystem(
+        name="ising",
+        params={"length": 4, "accept_rule": "glauber"},
+        observable_names=("absmag",),
+        temps=(1.5, 2.0, 2.6, 3.4, 4.4),
+    ),
+    "potts": RegisteredSystem(
+        name="potts",
+        params={"shape": (4, 4), "q": 3, "accept_rule": "glauber",
+                "use_pallas": True},
+        observable_names=("pmag",),
+        temps=(0.7, 1.0, 1.4, 2.0, 2.9),
+        slow=True,  # exact reference enumerates 3^16 ~ 43M states (~20 s)
+    ),
+}
+
+
+def registered(name: str) -> RegisteredSystem:
+    """The zoo entry ``name``; zoo systems of the JAX package that the port
+    does not run yet raise `NotImplementedError` by name."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"not yet ported: system {name!r}")
+    if name not in REGISTRY:
+        raise KeyError(f"unknown system {name!r}; registered: {sorted(REGISTRY)}")
+    return REGISTRY[name]

@@ -1,4 +1,5 @@
-"""Chunked streaming PT engine (twin of `repro.engine`), one chain, one device."""
+"""Chunked streaming PT engine (twin of `repro.engine`) on one device, with
+the ensemble axis (``n_chains``)."""
 from repro_torch.engine.adapt import AdaptConfig, AdaptState
 from repro_torch.engine.driver import (
     AdaptInfo,

@@ -1,7 +1,8 @@
 """In-loop ladder adaptation, acceptance mode (twin of `repro.engine.adapt`).
 
-Between chunks the engine reads the O(R) swap counters, computes per-pair
-acceptance over the window since the last retune, and retunes the interior
+Between chunks the engine reads the O(R) swap counters, pooled over the
+ensemble axis when there is one (all chains share one ladder), computes
+per-pair acceptance over the window since the last retune, and retunes the interior
 rungs with `core.ladder.tune_ladder` (Kofke equalization); the endpoints
 stay pinned.  Host-side numpy, identical to the JAX package.  The ``flow``
 mode is not ported yet.

@@ -1,4 +1,4 @@
-"""Chunked PT driver, single device, one chain (twin of `repro.engine.driver`).
+"""Chunked PT driver on one device (twin of `repro.engine.driver`).
 
 Ports the three branches of `repro.engine.driver.make_interval_step` and
 the chunked host loop of `repro.engine.Engine`:
@@ -20,9 +20,16 @@ back to back; ``t`` and ``phase`` are device scalars advanced on the device,
 so the interval loop never waits for the card.  The host reads the O(R)
 counters once per chunk, for the ladder feedback.
 
-Not ported yet, and refused with `NotImplementedError`: ``n_chains > 1``,
-``mesh``, ``swap_mode="state"``, and the SEO / windowed / VMPT strategies
-on the strategy path (the fused and per-sweep branches).
+The ensemble axis (``n_chains = C > 1``) stacks C independent chains
+``(C, R, ...)``; chain ``c`` is seeded from ``fold_in(key, c)``, so its
+trajectory does not depend on C.  Where JAX ``vmap``s the chunk over the
+chains, the engine runs each chain's chunk in turn on its slice of the
+stacked state (a host loop: C launches of each kernel per interval, still
+with no host sync) and stacks the results at the chunk's end.
+
+Not ported yet, and refused with `NotImplementedError`: ``mesh``,
+``swap_mode="state"``, and the SEO / windowed / VMPT strategies on the
+strategy path (the fused and per-sweep branches).
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.core.pt import PTState, init_replicas
 from repro_torch.device import resolve_device
 from repro_torch.engine import stats as stats_lib
 from repro_torch.engine.adapt import AdaptConfig, AdaptState, maybe_adapt
+from repro_torch.engine.stats import map_leaves, stack_leaves
 from repro_torch.exchange import DEO, ExchangeStrategy, make_strategy
 from repro_torch.kernels import exchange as kernel_exchange
 
@@ -207,10 +215,8 @@ class EngineConfig:
     def __post_init__(self):
         if self.chunk_intervals < 1:
             raise ValueError("chunk_intervals must be >= 1")
-        if self.n_chains != 1:
-            raise NotImplementedError(
-                f"not yet ported: n_chains={self.n_chains} (the ensemble axis)"
-            )
+        if self.n_chains < 1:
+            raise ValueError("n_chains must be >= 1")
         if self.mesh is not None:
             raise NotImplementedError("not yet ported: mesh (multi-device engine)")
         if self.swap_mode == "state":
@@ -234,7 +240,11 @@ class EngineConfig:
 
 @dataclasses.dataclass
 class EngineState:
-    """Device-resident engine state: chain, accumulators, (R,) f32 betas."""
+    """Device-resident engine state: chain(s), accumulators, (R,) f32 betas.
+
+    ``pt`` and ``stats`` leaves carry a leading chain axis ``C`` when
+    ``n_chains > 1``; the ladder is shared.
+    """
 
     pt: PTState
     stats: stats_lib.OnlineStats
@@ -270,11 +280,14 @@ class AdaptInfo:
 
 
 def _counters(state: EngineState) -> dict[str, np.ndarray]:
-    """Cumulative swap counters on the host (one sync per chunk)."""
-    return {
-        "attempts": state.stats.swap_attempts.cpu().numpy().astype(np.float64),
-        "accepts": state.stats.swap_accepts.cpu().numpy().astype(np.float64),
-    }
+    """Cumulative swap counters on the host, pooled over the ensemble axis
+    (one sync per chunk)."""
+    out = {}
+    for name, leaf in (("attempts", state.stats.swap_attempts),
+                       ("accepts", state.stats.swap_accepts)):
+        arr = leaf.cpu().numpy().astype(np.float64)
+        out[name] = arr.sum(axis=0) if arr.ndim == 2 else arr
+    return out
 
 
 def _state_tensors(state: EngineState):
@@ -325,8 +338,17 @@ class Engine:
         # the authoritative f64 ladder behind the f32 betas
         self._temps: np.ndarray | None = None
 
+    def _chain_axis(self) -> int:
+        """``n_chains`` for `stats.init_stats`: 0 means no ensemble axis."""
+        c = self.config.n_chains
+        return 0 if c == 1 else c
+
     def init(self, key: torch.Tensor, temps) -> EngineState:
-        """Fresh state on the given ladder from a (2,) key."""
+        """Fresh state on the given ladder from a (2,) key.
+
+        One chain starts from ``key`` itself; with an ensemble, chain ``c``
+        starts from ``fold_in(key, c)``.
+        """
         temps = np.asarray(temps, np.float64)
         if temps.shape != (self.config.n_replicas,):
             raise ValueError(
@@ -334,8 +356,14 @@ class Engine:
             )
         self._temps = temps.copy()
         self._adapt_state = None
-        pt = init_replicas(self.system, self.config.n_replicas, key.to(self.device))
-        stats = stats_lib.init_stats(self.config.n_replicas, self._names, self.device)
+        key = key.to(self.device)
+        r, c = self.config.n_replicas, self.config.n_chains
+        if c == 1:
+            pt = init_replicas(self.system, r, key)
+        else:
+            pt = stack_leaves([init_replicas(self.system, r, keys.fold_in(key, i))
+                               for i in range(c)])
+        stats = stats_lib.init_stats(r, self._names, self.device, self._chain_axis())
         return EngineState(pt=pt, stats=stats, betas=_betas(temps, self.device))
 
     def _require_on_device(self, state: EngineState) -> None:
@@ -357,11 +385,51 @@ class Engine:
     def reset_stats(self, state: EngineState) -> EngineState:
         """Zero the accumulators; flow labels are chain state and survive."""
         self._require_on_device(state)
-        stats = stats_lib.init_stats(self.config.n_replicas, self._names, self.device)
+        stats = stats_lib.init_stats(self.config.n_replicas, self._names, self.device,
+                                     self._chain_axis())
         stats.direction = state.stats.direction
         if self._adapt_state is not None:
             self._adapt_state.zero()
         return dataclasses.replace(state, stats=stats)
+
+    def _advance_chain(self, pt_st: PTState, stats, betas, n_intervals: int):
+        """``n_intervals`` intervals of one chain; device work only."""
+        cfg = self.config
+        recs = []
+        for _ in range(n_intervals):
+            pt_st, rec = self._step(pt_st, betas)
+            if cfg.track_stats:
+                stats = stats_lib.update_stats(stats, rec, pt_st.rung)
+            if cfg.record_trace:
+                recs.append(rec)
+        trace = {k: torch.stack([r[k] for r in recs]) for k in recs[0]} if recs else None
+        return pt_st, stats, trace
+
+    def advance(self, state: EngineState, n_intervals: int):
+        """``n_intervals`` intervals of every chain: what `run` issues between
+        two chunk boundaries, with no host sync.
+
+        Returns ``(state', trace)``; ``trace`` maps each record series to a
+        ``(T, R)`` tensor (``(C, T, R)`` with an ensemble) when
+        ``record_trace`` is on, else None.
+        """
+        if self.config.n_chains == 1:
+            pt_st, stats, trace = self._advance_chain(
+                state.pt, state.stats, state.betas, n_intervals)
+            return EngineState(pt=pt_st, stats=stats, betas=state.betas), trace
+        outs = [
+            self._advance_chain(map_leaves(state.pt, lambda x: x[c]),
+                                map_leaves(state.stats, lambda x: x[c]),
+                                state.betas, n_intervals)
+            for c in range(self.config.n_chains)
+        ]
+        trace = None
+        if outs[0][2] is not None:
+            trace = {k: torch.stack([o[2][k] for o in outs]) for k in outs[0][2]}
+        state = EngineState(pt=stack_leaves([o[0] for o in outs]),
+                            stats=stack_leaves([o[1] for o in outs]),
+                            betas=state.betas)
+        return state, trace
 
     def run(
         self,
@@ -372,7 +440,8 @@ class Engine:
         on_adapt: Callable[[AdaptInfo], Any] | None = None,
         keep_trace: bool = True,
     ) -> tuple[EngineState, RunResult]:
-        """Advance ``n_sweeps`` sweeps in chunks of ``chunk_intervals`` intervals.
+        """Advance ``n_sweeps`` sweeps (per chain) in chunks of
+        ``chunk_intervals`` intervals.
 
         Between chunks the host feeds measured swap acceptance to the ladder
         feedback when ``adapt`` is set, and calls ``on_chunk`` (truthy return
@@ -405,22 +474,12 @@ class Engine:
         stopped = False
         while done < n_intervals:
             this = min(cfg.chunk_intervals, n_intervals - done)
-            pt_st, stats, betas = state.pt, state.stats, state.betas
-            recs = []
-            for _ in range(this):
-                pt_st, rec = self._step(pt_st, betas)
-                if cfg.track_stats:
-                    stats = stats_lib.update_stats(stats, rec, pt_st.rung)
-                if cfg.record_trace:
-                    recs.append(rec)
-            state = EngineState(pt=pt_st, stats=stats, betas=betas)
+            state, trace = self.advance(state, this)
             done += this
             chunk_idx += 1
             chunk_np = None
-            if cfg.record_trace:
-                chunk_np = {
-                    k: torch.stack([r[k] for r in recs]).cpu().numpy() for k in recs[0]
-                }
+            if trace is not None:
+                chunk_np = {k: v.cpu().numpy() for k, v in trace.items()}
                 if keep_trace:
                     chunks.append(chunk_np)
             if self.adapt is not None and done < n_intervals:
@@ -459,7 +518,9 @@ class Engine:
                 break
         trace_out = None
         if chunks:
-            trace_out = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+            axis = 1 if cfg.n_chains > 1 else 0  # chain-first (C, T, R)
+            trace_out = {k: np.concatenate([c[k] for c in chunks], axis=axis)
+                         for k in chunks[0]}
         result = RunResult(
             summary=stats_lib.summarize(state.stats),
             trace=trace_out,

@@ -11,7 +11,8 @@ Nothing here runs at import time.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC``, never fast math.  The sweep kernels (``ising_fused.cu``,
-``sweep.cu``, ``potts_fused.cu``) and ``jax_uniform.cu`` add ``-fmad=false``
+``ising_packed.cu``, ``sweep.cu``, ``potts_fused.cu``) and
+``jax_uniform.cu`` add ``-fmad=false``
 so no float product is contracted into an FMA; ``exchange.cu`` keeps nvcc's
 default contraction, as PyTorch builds its own exp/sigmoid kernels, because
 its probabilities must match those torch ops.
@@ -48,6 +49,7 @@ _COMMON = [
 # library name -> extra nvcc flags
 SOURCES = {
     "ising_fused": ["-fmad=false"],
+    "ising_packed": ["-fmad=false"],
     "exchange": [],
     "sweep": ["-fmad=false"],
     "potts_fused": ["-fmad=false"],
@@ -59,10 +61,11 @@ MAX_SMEM_BYTES = 232448
 _P = ctypes.c_void_p
 
 # kernel name -> launches since the last reset (kernel A and B of the round
-# path, kernels #1 and #4 of sweep.cu, kernel #5, the jax.random helper)
+# path, kernel #2p, kernels #1 and #4 of sweep.cu, kernel #5, the jax.random
+# helper)
 launches = dict.fromkeys(
-    ("ising_fused", "exchange", "ising_sweep", "potts_sweep", "potts_fused",
-     "jax_uniform"), 0,
+    ("ising_fused", "ising_packed", "exchange", "ising_sweep", "potts_sweep",
+     "potts_fused", "jax_uniform"), 0,
 )
 
 

@@ -42,11 +42,11 @@ def _counter(value, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.int64, device=device).reshape(())
 
 
-def _refuse_pack_bits(pack_bits: bool) -> None:
+def _ising_sweeps(pack_bits: bool):
+    """(plain, kernel) pair of the Ising sweeps: #2p with ``pack_bits``, else A."""
     if pack_bits:
-        raise NotImplementedError(
-            "not yet ported: pack_bits multispin coding (TPU kernel #2p)"
-        )
+        return _isk.ising_sweep_packed_plain, _isk.ising_sweep_packed_kernel
+    return _isk.ising_sweep_fused_plain, _isk.ising_sweep_fused_kernel
 
 
 def _check_potts_pack_bits(pack_bits: bool, q: int) -> None:
@@ -134,13 +134,13 @@ def ising_sweep_fused(
 
     ``key`` is (2,) int64 key data, ``t`` the global sweep counter at entry,
     ``betas`` the per-slot (R,) inverse temperatures.  Returns ``(spins',
-    delta_e, n_accepted)`` summed over the interval.
+    delta_e, n_accepted)`` summed over the interval.  ``pack_bits`` runs
+    kernel #2p (on the CPU its plain version), whose results are kernel A's
+    bit for bit.
     """
-    _refuse_pack_bits(pack_bits)
     return _fused(
-        _isk.ising_sweep_fused_plain, _isk.ising_sweep_fused_kernel, spins, key,
-        t, betas, n_sweeps=n_sweeps, replica_offset=replica_offset, j=j, b=b,
-        rule=rule,
+        *_ising_sweeps(pack_bits), spins, key, t, betas, n_sweeps=n_sweeps,
+        replica_offset=replica_offset, j=j, b=b, rule=rule,
     )
 
 
@@ -242,16 +242,16 @@ def ising_round_fused(
 ):
     """``n_rounds`` × (``n_sweeps`` sweeps at ``betas[rung]`` + one exchange).
 
-    On CUDA each round is kernel A then kernel B, enqueued on the current
-    stream with no host sync between them.  Returns ``(spins', rung',
-    energy', n_accepted, accept, prob, attempt)`` with (n_rounds, R)
-    diagnostics in `repro.core.swap.accept_pairs` conventions.
+    On CUDA each round is kernel A (kernel #2p with ``pack_bits``) then
+    kernel B, enqueued on the current stream with no host sync between them.
+    Returns ``(spins', rung', energy', n_accepted, accept, prob, attempt)``
+    with (n_rounds, R) diagnostics in `repro.core.swap.accept_pairs`
+    conventions.
     """
-    _refuse_pack_bits(pack_bits)
     return _round_fused(
-        _isk.ising_sweep_fused_plain, _isk.ising_sweep_fused_kernel, spins, key,
-        t, phase, rung, energy, betas, n_sweeps=n_sweeps, n_rounds=n_rounds,
-        criterion=criterion, pairing=pairing, j=j, b=b, rule=rule,
+        *_ising_sweeps(pack_bits), spins, key, t, phase, rung, energy, betas,
+        n_sweeps=n_sweeps, n_rounds=n_rounds, criterion=criterion,
+        pairing=pairing, j=j, b=b, rule=rule,
     )
 
 

@@ -166,8 +166,9 @@ def potts_sweep_fused_plain(
     rep = replica_offset + torch.arange(r, dtype=torch.int64, device=states.device)
     de = torch.zeros(r, dtype=torch.float32, device=states.device)
     na = torch.zeros(r, dtype=torch.int32, device=states.device)
+    sk = prng.stream_key(words)
     for i in range(n_sweeps):
-        u = prng.potts_sweep_uniforms(words, t0 + (t_add + i), rep, h, w)
+        u = prng.sweep_planes(sk, t0 + (t_add + i), rep, 4, h, w).reshape(r, 2, 2, h, w)
         states, d, n = ref.potts_sweep(states, u, beta_slot, q=q, j=j, rule=rule)
         de = de + d
         na = na + n

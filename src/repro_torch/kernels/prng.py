@@ -30,6 +30,7 @@ __all__ = [
     "stream_key",
     "sweep_key",
     "plane_uniforms",
+    "sweep_planes",
     "ising_sweep_uniforms",
     "potts_sweep_uniforms",
     "swap_stream_key",
@@ -60,29 +61,32 @@ def _u32(x):
     return int(x) & MASK
 
 
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) & MASK) | (x >> (32 - d))
-
-
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32-20: key (k0,k1), counter (x0,x1) -> two uint32 words.
 
     Arguments are broadcastable int64 tensors of uint32 values, or Python
     ints.  Returns two int64 tensors of uint32 values (on the CPU when every
-    argument is an int).
+    argument is an int).  The rounds update two fresh tensors in place:
+    on the CPU path, where the tensors are small, the op count is the cost.
     """
+    dev = next((v.device for v in (k0, k1, x0, x1) if isinstance(v, torch.Tensor)), None)
     k0, k1, x0, x1 = (_u32(v) for v in (k0, k1, x0, x1))
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
-    x0 = (x0 + ks[0]) & MASK
-    x1 = (x1 + ks[1]) & MASK
+    a = torch.as_tensor((x0 + ks[0]) & MASK, device=dev)
+    b = torch.as_tensor((x1 + ks[1]) & MASK, device=dev)
+    x0, x1 = (t.clone() for t in torch.broadcast_tensors(a, b))
+    # x1 is masked before every rotation; x0 only feeds adds and xors, whose
+    # low 32 bits do not depend on its high bits, so it is masked once at the
+    # end (it stays below 2^38)
     for group in range(5):
         for d in _ROTATIONS[group % 2]:
-            x0 = (x0 + x1) & MASK
-            x1 = _rotl(x1, d) ^ x0
+            x0.add_(x1)
+            x1 = torch.bitwise_or(x1 << d, x1 >> (32 - d))
+            x1.bitwise_xor_(x0).bitwise_and_(MASK)
         inject = group + 1
-        x0 = (x0 + ks[inject % 3]) & MASK
-        x1 = (x1 + ks[(inject + 1) % 3] + inject) & MASK
-    return torch.as_tensor(x0), torch.as_tensor(x1)
+        x0.add_(ks[inject % 3])
+        x1.add_(ks[(inject + 1) % 3] + inject).bitwise_and_(MASK)
+    return x0.bitwise_and_(MASK), x1
 
 
 def to_uniform(bits: torch.Tensor) -> torch.Tensor:
@@ -117,31 +121,35 @@ def sweep_key(s0, s1, t, replica):
     return threefry2x32(s0, s1, t, replica)
 
 
-def plane_uniforms(w0, w1, plane: int, h: int, w: int) -> torch.Tensor:
-    """(..., h, w) f32 uniforms for one random lattice; site counter i*w + j."""
+def plane_uniforms(w0, w1, plane, h: int, w: int) -> torch.Tensor:
+    """(..., h, w) f32 uniforms for one random lattice; site counter i*w + j.
+
+    ``plane`` is an int, or an int64 tensor that broadcasts against the
+    lattice (a ``(P, 1, 1)`` column gives P planes in one hash).
+    """
     site = torch.arange(h * w, dtype=torch.int64, device=w0.device).reshape(h, w)
     b0, _ = threefry2x32(w0[..., None, None], w1[..., None, None], plane, site)
     return to_uniform(b0)
 
 
+def sweep_planes(sk, t, replica_ids, n_planes: int, h: int, w: int) -> torch.Tensor:
+    """(R, n_planes, H, W) f32: planes 0..n_planes-1 of sweep ``t`` for each
+    replica, from the stream key ``sk = stream_key(words)``."""
+    w0, w1 = sweep_key(sk[0], sk[1], t, replica_ids)
+    planes = torch.arange(n_planes, dtype=torch.int64, device=w0.device)[:, None, None]
+    return plane_uniforms(w0[..., None], w1[..., None], planes, h, w)
+
+
 def ising_sweep_uniforms(words, t, replica_ids, length: int) -> torch.Tensor:
     """(R, 2, L, L) f32 — the Ising sweep-``t`` uniforms of the fused stream."""
-    s0, s1 = stream_key(words)
-    w0, w1 = sweep_key(s0, s1, t, replica_ids)
-    return torch.stack(
-        [plane_uniforms(w0, w1, c, length, length) for c in (0, 1)], dim=1
-    )
+    return sweep_planes(stream_key(words), t, replica_ids, 2, length, length)
 
 
 def potts_sweep_uniforms(words, t, replica_ids, h: int, w: int) -> torch.Tensor:
     """(R, 2, 2, H, W) f32 — the Potts sweep-``t`` uniforms of the fused
     stream: colour x (proposal, accept), on plane ``2*colour + which``."""
-    s0, s1 = stream_key(words)
-    w0, w1 = sweep_key(s0, s1, t, replica_ids)
-    return torch.stack([
-        torch.stack([plane_uniforms(w0, w1, 2 * c + p, h, w) for p in (0, 1)], dim=1)
-        for c in (0, 1)
-    ], dim=1)
+    u = sweep_planes(stream_key(words), t, replica_ids, 4, h, w)
+    return u.reshape(u.shape[0], 2, 2, h, w)
 
 
 def swap_stream_key(words: torch.Tensor):

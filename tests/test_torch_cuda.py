@@ -1,9 +1,10 @@
 """CUDA twins of the port's parity tests: each kernel against its plain version.
 
-Kernels A and B (fused Ising round), #1 and #4 (one Ising / Potts sweep on
-passed-in uniforms), #5 (fused Potts sweeps) and the per-sweep
-``jax.random`` draw; the Session paths on the card against the CPU; the
-interval loop of every path with host syncs made errors.
+Kernels A and B (fused Ising round), #2p (A's sweeps on packed spins, also
+held against kernel A), #1 and #4 (one Ising / Potts sweep on passed-in
+uniforms), #5 (fused Potts sweeps) and the per-sweep ``jax.random`` draw;
+the Session paths on the card against the CPU, with one chain and with
+two; the interval loop of every path with host syncs made errors.
 
 These need a card and import no JAX, so they run wherever only PyTorch is
 installed; without a card they skip with a reason.  Run them on the card with
@@ -287,3 +288,86 @@ def test_carry_from_reference_puts_a_potts_state_on_the_card(dev):
     out = Session(_small_spec("sweep", "potts"), device="cuda").engine.system.batched_mcmc_step(
         st.key, st.t, st.states, torch.ones(4, device=dev))
     assert out[0].shape == (4, 6, 4)
+
+
+@pytest.mark.parametrize("group", [8, 3, None])  # None: the card's default width
+@pytest.mark.parametrize("length,r,sweeps,j,b,rule", [
+    (8, 5, 3, 1.0, 0.0, "glauber"),  # one partial byte
+    (30, 13, 4, 0.7, 0.3, "metropolis"),  # a full byte and a partial one
+    (16, 16, 5, 1.0, 0.3, "glauber"),  # two full bytes
+    (64, 33, 6, 1.0, 0.0, "metropolis"),
+])
+def test_packed_kernel_matches_plain_and_kernel_a(dev, length, r, sweeps, j, b, rule, group):
+    spins, betas, rung = _lattice(21, r, length, dev)
+    args = (spins, keys.key(6, device=dev), torch.tensor(9, device=dev), betas, rung)
+    kw = dict(n_sweeps=sweeps, j=j, b=b, rule=rule, replica_offset=2, t_add=3)
+    build.reset_launches()
+    got = isk.ising_sweep_packed_kernel(*args, **kw, group=group)
+    assert build.launches["ising_packed"] == 1
+    kernel_a = isk.ising_sweep_fused_kernel(*args, **kw)
+    for g, a in zip(got, kernel_a):  # ΔE too: kernel A's sums in kernel A's order
+        assert torch.equal(g, a)
+    want = isk.ising_sweep_packed_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    if j == 1.0 and b == 0.0:
+        assert torch.equal(got[1], want[1])
+    else:
+        err = (got[1] - want[1]).abs().double()
+        assert bool((err <= 4 * F32_EPS * want[2].double() * 2 * (4 * abs(j) + b)).all())
+
+
+def test_packed_round_on_cuda_equals_cpu(dev):
+    spins, betas, rung = _lattice(22, 11, 8, dev)
+    energy = torch.linspace(-100, -20, 11, device=dev)[rung.long()]
+    args = (spins, keys.key(2), 4, 1, rung, energy, betas)
+    kw = dict(n_sweeps=3, n_rounds=3, rule="glauber", pairing="deo", pack_bits=True)
+    build.reset_launches()
+    got = ops.ising_round_fused(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                                  for a in args), **kw)
+    assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 3, "exchange": 3}
+    want = ops.ising_round_fused(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                                   for a in args), **kw)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 5:  # prob: CUDA expf vs the CPU's vectorized exp, a few ulps
+            torch.testing.assert_close(g.cpu(), w, rtol=4 * F32_EPS, atol=0)
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("system", ["ising", "potts"])
+@pytest.mark.parametrize("path", ["sweep", "fused", "round"])
+def test_two_chains_on_cuda_equal_cpu(dev, path, system):
+    """``n_chains=2`` on the card equals ``n_chains=2`` on the CPU (Ising's
+    fused and round paths with ``pack_bits``)."""
+    d = json.loads(_small_spec(path, system).to_json())
+    d["engine"]["n_chains"] = 2
+    if system == "ising" and path != "sweep":
+        d["system"]["params"]["pack_bits"] = True
+    spec = RunSpec.from_json(d)
+    on_card = Session(spec, device="cuda").run().manifest()
+    on_cpu = Session(spec, device="cpu").run().manifest()
+    assert on_card["final"] == on_cpu["final"]
+    assert len(on_card["final"]["energy"]) == 2
+    for name in on_cpu["phases"]:
+        for k in ("swap_attempts", "swap_acceptance", "round_trips", "mean_energy"):
+            assert on_card["phases"][name]["summary"][k] == on_cpu["phases"][name]["summary"][k]
+
+
+@pytest.mark.parametrize("path", ["sweep", "round"])
+def test_ensemble_advance_never_syncs_the_host(dev, path):
+    d = json.loads(_small_spec(path).to_json())
+    d["engine"]["n_chains"] = 2
+    d["system"]["params"]["pack_bits"] = path == "round"
+    session = Session(RunSpec.from_json(d), device="cuda")
+    state, _ = session.engine.advance(session.init_state(), 1)  # warm-up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = session.engine.advance(state, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert state.stats.n_records.tolist() == [4, 4]
+    if path == "round":  # one launch of each kernel per chain and interval
+        assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 6,
+                                                                    "exchange": 6}

@@ -3,7 +3,8 @@
 * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports ``jax``
   or the JAX package ``repro`` (AST scan);
 * importing the port initializes no CUDA state and builds nothing;
-* ``python -m repro_torch run ... --device cpu`` writes a manifest, and
+* ``python -m repro_torch run ... --device cpu`` writes a manifest,
+  ``python -m repro_torch validate ising --device cpu`` passes, and
   ``--device cuda`` without a card fails instead of running on the CPU;
 * specs the slice cannot run are refused with `NotImplementedError` naming
   the missing piece, and specs an earlier slice refused now run;
@@ -97,6 +98,27 @@ def test_cli_run_on_cpu_writes_manifest(tmp_path):
     assert len(manifest["final"]["energy"]) == 8
 
 
+def test_cli_validate_on_cpu_passes_and_refuses_unported_systems(tmp_path):
+    """``python -m repro_torch validate ising --device cpu`` runs the zoo's
+    Ising entry (per-sweep path) against its exact answers and exits 0; a
+    zoo system the port lacks is refused by name with exit code 2."""
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "validate", "ising", "--device", "cpu",
+         "--out", str(tmp_path)],
+        env=_env(), capture_output=True, text=True, timeout=600, cwd=tmp_path,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "PASS" in out.stdout and "ladder retuned 2x" in out.stdout
+    report = json.loads((tmp_path / "validate_ising.json").read_text())
+    assert report["device"] == "cpu" and len(report["temps"]) == 5
+    refused = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "validate", "gaussian", "--device", "cpu"],
+        env=_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert refused.returncode == 2
+    assert "not yet ported: system 'gaussian'" in refused.stderr
+
+
 def test_cli_list_systems():
     out = subprocess.run([sys.executable, "-m", "repro_torch", "list-systems"],
                          env=_env(), capture_output=True, text=True, timeout=120)
@@ -130,14 +152,11 @@ def _spec(**edits):
 
 
 @pytest.mark.parametrize("edits,missing", [
-    ({"system__params__use_fused": False, "system__params__pack_bits": True}, "pack_bits"),
-    ({"engine__n_chains": 2}, "n_chains=2"),
     ({"engine__mesh": {"ensemble": 1, "replica": 2}}, "mesh"),
     ({"engine__swap_mode": "state"}, "swap_mode='state'"),
     ({"exchange__strategy": "windowed"}, "'windowed'"),
     ({"exchange__strategy": "vmpt"}, "'vmpt'"),
     ({"exchange__strategy": "seo"}, "'seo' on the strategy path"),
-    ({"system__params__pack_bits": True}, "pack_bits"),
     ({"system__params__update": "single_flip"}, "single_flip"),
     ({"adapt__mode": "flow"}, "'flow'"),
 ])
@@ -151,15 +170,22 @@ def test_unported_specs_are_refused_by_name(edits, missing):
     {"system__params__use_fused": False},
     {"system__name": "potts", "system__params": {"shape": [4, 4], "q": 3},
      "observables": ["pmag"]},
-], ids=["per-sweep", "potts"])
+    {"system__params__use_fused": False, "system__params__pack_bits": True},
+    {"engine__n_chains": 2},
+    {"system__params__pack_bits": True},
+], ids=["per-sweep", "potts", "per-sweep-pack_bits", "n_chains=2", "fused-pack_bits"])
 def test_specs_refused_before_now_run(edits):
-    """The per-sweep default path and Potts were refused by name; they now
+    """The per-sweep default path and Potts, then ``pack_bits`` (ignored on
+    the per-sweep path) and the ensemble axis were refused by name; they now
     build and run a few sweeps on the CPU."""
     session = Session(_spec(**edits), device="cpu")
     state, result = session.engine.run(session.init_state(), 20)
-    assert result.n_sweeps == 20 and int(state.pt.t) == 20
+    chains = session.spec.engine.n_chains
+    assert result.n_sweeps == 20
+    assert state.pt.t.tolist() == (20 if chains == 1 else [20] * chains)
     assert bool(torch.isfinite(state.pt.energy).all())
-    assert sorted(state.pt.rung.tolist()) == list(range(8))
+    rungs = state.pt.rung.reshape(chains, -1)
+    assert all(sorted(r.tolist()) == list(range(8)) for r in rungs)
 
 
 def test_tpu_knobs_are_accepted_and_ignored():

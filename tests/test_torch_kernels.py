@@ -321,11 +321,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert all(v == 0 for v in tbuild.launches.values())
 
 
-def test_ops_refuse_pack_bits_and_other_devices():
+def test_ops_refuse_other_devices():
     spins = torch.ones((2, 4, 4), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="not yet ported: pack_bits"):
-        tops.ising_sweep_fused(spins, tkeys.key(0), 0, torch.ones(2), n_sweeps=1,
-                               pack_bits=True)
     with pytest.raises(ValueError, match="no sweep kernel"):
         tops.ising_sweep_fused(spins.to("meta"), tkeys.key(0), 0, torch.ones(2),
                                n_sweeps=1)
