@@ -58,7 +58,22 @@ Phases, one line each or more (any failure raises and exits non-zero):
     with ``pack_bits`` on the card: |z| <= 4 and Geweke <= 4; the same on
     the interval-fused path; and a shortened entry whose report equals the
     CPU's;
-14. a JSON line per kernel (launches, error, times, bound), the card line,
+14. kernel #7 (``csrc/wkv6.cu``, the RWKV-6 recurrence) against its plain
+    version at the serving shapes of rwkv6-7b with B=4 (BH=256, dk=dv=64:
+    prefill T=512 from zero state, decode T=1 from a carried state) and at
+    the JAX package's small shapes, state threading and the w=1, k=0
+    identity; timed at both serving shapes beside its plain version;
+15. rwkv6-7b at full width and depth in bf16 (7.53e9 parameters drawn on
+    the card from a seeded generator): ``prefill_logits`` on (4, 512)
+    tokens, then ``launch.serve_lm.generate`` for B=4 over 64 tokens at
+    temperature 0.8 (ms/token against the HBM floor of streaming every
+    weight once), wkv6 launches equal to 32 per forward, peak memory, and
+    the prefill and the decode loop once more under ``torch.profiler``;
+16. decode logits of 16 steps against the full forward's at each position
+    at full width in f32 (30 GB of weights), within the JAX package's rtol
+    = atol = 3e-2 (step 0 within 1e-4); a reduced f32 model's prefill
+    logits and sampled tokens equal on the card and the CPU;
+17. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
@@ -67,6 +82,7 @@ no result.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -319,7 +335,8 @@ def check_no_host_sync(torch, session, make_interval_step, update_stats, n: int)
 
 
 def profile_breakdown(torch, build, run, n_int: int, card: str, label: str,
-                      kernels: dict) -> str:
+                      kernels: dict, groups: dict | None = None,
+                      unit: str = "interval") -> str:
     """Where one path's device time goes, from ``torch.profiler``.
 
     Sums the device time of every kernel and copy (device-side events only,
@@ -329,7 +346,10 @@ def profile_breakdown(torch, build, run, n_int: int, card: str, label: str,
     saw in the same run; else it says "not measured".  ``idle`` is the share
     of the profiled wall time with no device work (an upper bound on the true
     idle share: the profiler itself slows the host).  Host syncs are counted
-    over the whole run, chunk and phase boundaries included.
+    over the whole run, chunk and phase boundaries included.  ``groups`` maps
+    a label to substrings of kernel names (e.g. cuBLAS's GEMMs) whose device
+    time is summed and reported as a share of the wall, with no launch
+    count to check; ``unit`` names what ``n_int`` counts.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -359,15 +379,25 @@ def profile_breakdown(torch, build, run, n_int: int, card: str, label: str,
     named = {lab: sum(v for k, v in dev_us.items() if sub in k) / 1e3
              for lab, (sub, _) in kernels.items()}
     subs = [sub for sub, _ in kernels.values()]
+
+    def in_group(k, subs_g):
+        return any(g in k.lower() for g in subs_g) and not any(sub in k for sub in subs)
+
+    grouped = {lab: sum(v for k, v in dev_us.items() if in_group(k, subs_g)) / 1e3
+               for lab, subs_g in (groups or {}).items()}
+    all_g = [g for subs_g in (groups or {}).values() for g in subs_g]
     other = sorted(((v, k) for k, v in dev_us.items()
-                    if v and not any(sub in k for sub in subs)), reverse=True)
+                    if v and not any(sub in k for sub in subs) and not in_group(k, all_g)),
+                   reverse=True)
     top = "; ".join(f"{k[:50]} {v / 1e3 / n_int:.3f}" for v, k in other[:4])
-    parts = ", ".join(f"{lab} {ms / n_int:.4f} ms" for lab, ms in named.items())
-    return (f"{label} profile [{card}]: {n_int} intervals in {wall_ms:.1f} ms wall "
+    parts = ", ".join(f"{lab} {ms / n_int:.4f} ms ({ms / wall_ms:.3f} of the wall)"
+                      for lab, ms in {**named, **grouped}.items())
+    rest = busy_ms - sum(named.values()) - sum(grouped.values())
+    return (f"{label} profile [{card}]: {n_int} {unit}s in {wall_ms:.1f} ms wall "
             f"(profiled), device busy {busy_ms:.1f} ms, idle share "
-            f"{1 - busy_ms / wall_ms:.3f}; per interval: {parts}, other device work "
-            f"{(busy_ms - sum(named.values())) / n_int:.3f} ms (top: {top}), "
-            f"host syncs {syncs} in the run ({syncs / n_int:.2f} per interval); "
+            f"{1 - busy_ms / wall_ms:.3f}; per {unit}: {parts}, other device work "
+            f"{rest / n_int:.3f} ms (top: {top}), "
+            f"host syncs {syncs} in the run ({syncs / n_int:.2f} per {unit}); "
             f"launches seen {seen}")
 
 
@@ -490,6 +520,240 @@ def time_sweep_kernels(torch, np, isk, pk, ju, ref, prng, keys, device):
         main_bound=bound_threefry(2 * 100 * sites, 2.0 * sites))
     torch.cuda.empty_cache()
     return out
+
+
+def wkv6_inputs(torch, np, bh, t, dk, dv, seed, device, state=False):
+    """r, k, v, w, u and (with ``state``) an initial state from a numpy seed,
+    as the JAX package's wkv6 tests draw them (w = sigmoid(normal))."""
+    rng = np.random.default_rng(seed)
+    r, k = (rng.normal(size=(bh, t, dk)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(bh, t, dv)).astype(np.float32)
+    w = (1.0 / (1.0 + np.exp(-rng.normal(size=(bh, t, dk))))).astype(np.float32)
+    u = rng.normal(size=(bh, dk)).astype(np.float32)
+    s0 = rng.normal(size=(bh, dk, dv)).astype(np.float32) if state else None
+    return [None if x is None else torch.from_numpy(x).to(device)
+            for x in (r, k, v, w, u, s0)]
+
+
+def wkv6_bound(bh, t, dk, dv, state: bool) -> tuple[float, str]:
+    """Least time of kernel #7: r, k, w, v read and o written once, u read
+    once, the final state written once and the initial state read once when
+    there is one (``state``), against ~4·dk·dv + 3·dk + 2·dv f32 flops per
+    slab and step at the 67e12/s fp32 rate."""
+    n_state = (2 if state else 1) * bh * dk * dv
+    n_bytes = 4.0 * (bh * t * (3 * dk + 2 * dv) + n_state + bh * dk)
+    flops = float(bh * t * (4 * dk * dv + 3 * dk + 2 * dv))
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_wkv6(torch, np, wk, ref, device) -> float:
+    """Phase 14: kernel #7 == its plain version on the card; returns max |err|.
+
+    Tolerance: the rounding bound of the recurrence, 2·(dk + T)·eps times the
+    same recurrence run on |r|, |k|, |v|, w, |u|, |S0| (each output is a
+    dk-term dot product over a state that sums up to T decayed terms, and
+    the two versions add them in other orders); and, at the JAX package's
+    own small shapes, also its rtol = atol = 3e-5.
+    """
+    max_err = 0.0
+    cases = [((256, 512, 64, 64), False, "prefill"), ((256, 1, 64, 64), True, "decode"),
+             ((4, 33, 8, 8), False, "small"), ((2, 16, 16, 8), True, "small"),
+             ((1, 8, 4, 4), False, "small"), ((3, 64, 64, 64), True, "small")]
+    for n, ((bh, t, dk, dv), state, what) in enumerate(cases):
+        args = wkv6_inputs(torch, np, bh, t, dk, dv, 300 + n, device, state)
+        got = wk.wkv6_kernel(*args)
+        want = ref.wkv6(*args)
+        mag = ref.wkv6(*(None if x is None else x.abs() for x in args))
+        torch.cuda.synchronize()
+        for g, w_, m, name in zip(got, want, mag, ("o", "state")):
+            err = (g - w_).abs()
+            tol = 2 * (dk + t) * F32_EPS * m
+            if bool((err > tol).any()):
+                raise AssertionError(f"kernel #7 {what} {(bh, t, dk, dv)}: {name} beyond "
+                                     f"the rounding bound, max err {err.max().item()}")
+            if what == "small" and not torch.allclose(g, w_, rtol=3e-5, atol=3e-5):
+                raise AssertionError(f"kernel #7 {(bh, t, dk, dv)}: {name} beyond 3e-5")
+            max_err = max(max_err, err.max().item())
+    # state threading: T=32 in two halves == one run of 32
+    r, k, v, w, u, _ = wkv6_inputs(torch, np, 2, 32, 8, 8, 320, device)
+    o_full, s_full = wk.wkv6_kernel(r, k, v, w, u)
+    halves = [x[:, :16].contiguous() for x in (r, k, v, w)]
+    o1, s1 = wk.wkv6_kernel(*halves, u)
+    rest = [x[:, 16:].contiguous() for x in (r, k, v, w)]
+    o2, s2 = wk.wkv6_kernel(*rest, u, s1)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_full, torch.cat([o1, o2], 1)) and torch.equal(s_full, s2)):
+        raise AssertionError("kernel #7: two halves != one run of T=32")
+    # w=1, k=0 leaves the state unchanged and gives o = r @ S
+    s0 = torch.arange(16, dtype=torch.float32, device=device).reshape(1, 4, 4)
+    ones, zeros = (torch.full((1, 2, 4), f, device=device) for f in (1.0, 0.0))
+    o, s = wk.wkv6_kernel(ones, zeros, zeros, ones, torch.zeros((1, 4), device=device), s0)
+    if not torch.equal(s, s0) or not torch.allclose(o[0, 0], ones[0, 0] @ s0[0]):
+        raise AssertionError("kernel #7: w=1, k=0 is not the identity")
+    return max_err
+
+
+def time_wkv6(torch, np, wk, ref, device) -> dict:
+    """Phase 14 times: kernel #7 and its plain version on the same inputs at
+    the serving path's shapes (rwkv6-7b, B=4: BH=256, dk=dv=64), prefill
+    T=512 from zero state and decode T=1 from a carried state."""
+    out = {}
+    for name, t, state, reps, plain_reps in (("prefill", 512, False, 50, 2),
+                                             ("decode", 1, True, 500, 100)):
+        args = wkv6_inputs(torch, np, 256, t, 64, 64, 330, device, state)
+        out[name] = dict(
+            ms=cuda_ms(torch, lambda: wk.wkv6_kernel(*args), reps),
+            plain_ms=cuda_ms(torch, lambda: ref.wkv6(*args), plain_reps),
+            bound=wkv6_bound(256, t, 64, 64, state))
+    return out
+
+
+def rwkv_phases(torch, np, build, ref, device, card: str) -> dict:
+    """Phases 14-16: kernel #7 against its plain version, rwkv6-7b serving at
+    full width and depth, decode == full forward, and a reduced model on the
+    card == CPU.  Returns what the kernel summary needs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.rwkv_rounding import decode_vs_forward
+    from repro_torch.models import model as model_lib
+
+    # -- phase 14: kernel #7 (wkv6) against its plain version ------------------------
+    torch.cuda.empty_cache()
+    err_w = check_wkv6(torch, np, wk, ref, device)
+    wkv_times = time_wkv6(torch, np, wk, ref, device)
+    print(f"phase 14 kernel #7 (wkv6): equal to plain at the prefill (BH=256 T=512 dk=dv=64), "
+          f"decode (BH=256 T=1, carried state) and 4 small shapes within 2(dk+T)·eps·|terms| "
+          f"(and 3e-5 at the small ones); two halves == one run of T=32; w=1, k=0 the "
+          f"identity; max |err| {err_w}")
+    for name, tm in wkv_times.items():
+        print(f"phase 14 times [{card}]: wkv6 {name} {tm['ms']:.4f} ms vs plain "
+              f"{tm['plain_ms']:.4f} ms, bound {tm['bound'][0]:.5f} ms by {tm['bound'][1]}; "
+              "library_ms: none")
+
+    # -- phase 15: rwkv6-7b serving at full width and depth, bf16 --------------------
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the f32 checks below need full f32")
+    cfg = get_config("rwkv6_7b")
+    per_forward = cfg.n_layers  # one wkv6 launch per layer and forward
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lm = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    init_lm_s = time.perf_counter() - t
+    n_params = sum(q.numel() for q in lm.parameters())
+    # ModelConfig.n_params (the JAX package's analytic count) leaves out nine
+    # d-vectors a layer: the seven mu lerp weights, w0 and ln_scale
+    if n_params != cfg.n_params + 9 * cfg.d_model * cfg.n_layers:
+        raise AssertionError(f"rwkv6-7b: {n_params} parameters, ModelConfig {cfg.n_params}")
+    w_bytes = sum(q.numel() * q.element_size() for q in lm.parameters())
+    floor_ms = 1e3 * w_bytes / HBM_BYTES_PER_S  # a decode step streams every weight once
+    batch, seq, n_gen = 4, 512, 64
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    with torch.inference_mode():
+        model_lib.prefill_logits(lm, cfg, {"tokens": tokens})  # first use of each op
+        torch.cuda.synchronize()
+        build.reset_launches()
+        logits = model_lib.prefill_logits(lm, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        counts_prefill = dict(build.launches)
+        t = time.perf_counter()
+        for _ in range(3):
+            model_lib.prefill_logits(lm, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t) / 3
+    expect_launches(counts_prefill, "prefill", wkv6=per_forward)
+    if (tuple(logits.shape) != (batch, cfg.vocab) or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} {logits.dtype} not finite")
+    serve_lm.generate(lm, cfg, batch, 4, device)  # first use of the decode ops
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t = time.perf_counter()
+    seqs = serve_lm.generate(lm, cfg, batch, n_gen, device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    counts_gen = dict(build.launches)
+    expect_launches(counts_gen, "decode loop", wkv6=per_forward * n_gen)
+    if (tuple(seqs.shape) != (batch, n_gen + 1) or not bool((seqs[:, 0] == 1).all())
+            or not bool(((seqs >= 0) & (seqs < cfg.vocab)).all())):
+        raise AssertionError(f"generate: bad token ids {seqs[:, :8].tolist()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_token = 1e3 * gen_s / n_gen
+    print(f"phase 15 rwkv6-7b [{card}]: full width and depth (32 layers, d_model 4096, 64 "
+          f"heads x 64, d_ff 14336, vocab 65536, bf16), {n_params} parameters "
+          f"({w_bytes / 1e9:.3f} GB) initialised on the card in {init_lm_s:.3f} s; prefill "
+          f"(4, 512): {prefill_ms:.2f} ms = {batch * seq / prefill_ms * 1e3:.1f} tokens/s, "
+          f"wkv6 launches {counts_prefill['wkv6']} == {per_forward}; generate B=4 x {n_gen} "
+          f"tokens at temperature {serve_lm.TEMPERATURE}: {ms_token:.3f} ms/token = "
+          f"{batch * n_gen / gen_s:.1f} tokens/s, {ms_token / floor_ms:.2f}x the "
+          f"{floor_ms:.3f} ms HBM floor (weight bytes / 3.35 TB/s), wkv6 launches "
+          f"{counts_gen['wkv6']} == {per_forward} x {n_gen}; peak memory {peak_gb:.3f} GB; "
+          f"first sampled ids {seqs[0, :8].tolist()}")
+    gemms = {"matmul": ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")}
+    with torch.inference_mode():
+        print(profile_breakdown(
+            torch, build, lambda: model_lib.prefill_logits(lm, cfg, {"tokens": tokens}), 1,
+            card, "phase 15 prefill (4, 512)", {"wkv6": ("wkv6_kernel", "wkv6")},
+            groups=gemms, unit="forward"))
+    print(profile_breakdown(
+        torch, build, lambda: serve_lm.generate(lm, cfg, batch, 16, device), 16, card,
+        "phase 15 decode loop", {"wkv6": ("wkv6_kernel", "wkv6")}, groups=gemms,
+        unit="token"))
+
+    # -- phase 16: decode == full forward at full width; reduced model card == CPU ----
+    # Tolerance: the JAX package's own decode test's rtol = atol = 3e-2, in f32.
+    # The deviation comes from summation order (GEMM shapes, wkv6's T), which
+    # the 32 random layers amplify; in bf16 that amplified rounding alone is
+    # larger than 3e-2 (`repro_torch.launch.rwkv_rounding` measures it, PERF.md).
+    n_dec = 16
+    del lm
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        lm32 = model_lib.init_params(cfg32, torch.Generator(device=device).manual_seed(0),
+                                     device=device)
+        build.reset_launches()
+        steps32, full32 = decode_vs_forward(lm32, cfg32, tokens, n_dec)
+        torch.cuda.synchronize()
+        counts_dec = dict(build.launches)
+        del lm32
+        torch.cuda.empty_cache()
+    expect_launches(counts_dec, "f32 decode vs forward", wkv6=per_forward * (1 + n_dec))
+    dev32 = (steps32 - full32).abs()
+    if not bool(torch.isfinite(steps32).all()) or bool((dev32 > 3e-2 + 3e-2 * full32.abs()).any()):
+        raise AssertionError(f"f32 decode != full forward at full width: {dev32.max().item()}")
+    if bool((dev32[:, 0] > 1e-4 + 1e-4 * full32[:, 0].abs()).any()):
+        raise AssertionError(f"f32 decode step 0 != forward position 0: {dev32[:, 0].max().item()}")
+    print(f"phase 16 decode == full forward [{card}]: rwkv6-7b at full width, {n_dec} steps, "
+          f"f32 weights: max |decode - forward| {dev32.max().item():.3e} (step 0: "
+          f"{dev32[:, 0].max().item():.3e} <= 1e-4) within rtol = atol = 3e-2 (logits up "
+          f"to {full32.abs().max().item():.3f}), wkv6 launches {counts_dec['wkv6']} == "
+          f"{per_forward} x (1 + {n_dec})")
+    small = dataclasses.replace(get_config("rwkv6_7b", reduced=True), dtype="float32")
+    with torch.inference_mode():
+        lm_cpu = model_lib.init_params(small, 0, device="cpu")
+        lm_card = copy.deepcopy(lm_cpu).to(device)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(0, small.vocab, (2, 12)))
+        on_card = model_lib.prefill_logits(lm_card, small, {"tokens": toks.to(device)}).cpu()
+        on_cpu = model_lib.prefill_logits(lm_cpu, small, {"tokens": toks})
+    if not torch.allclose(on_card, on_cpu, rtol=1e-4, atol=1e-4):
+        raise AssertionError(f"reduced f32 prefill: card != CPU, "
+                             f"{(on_card - on_cpu).abs().max().item()}")
+    seq_card = serve_lm.generate(lm_card, small, 4, 32, device).cpu()
+    seq_cpu = serve_lm.generate(lm_cpu, small, 4, 32, "cpu")
+    if not torch.equal(seq_card, seq_cpu):
+        raise AssertionError("reduced f32 generate: card tokens != CPU tokens")
+    print(f"phase 16 reduced rwkv6 [{card}]: f32, 2 layers d_model 128: prefill logits on the "
+          f"card == CPU within 1e-4 (max |dev| {(on_card - on_cpu).abs().max().item():.3e}); "
+          f"generate B=4 x 32 tokens equal on card and CPU")
+    del lm_card
+    torch.cuda.empty_cache()
+
+    return {"err": err_w, "times": wkv_times, "prefill_launches": counts_prefill["wkv6"],
+            "decode_launches": counts_gen["wkv6"]}
 
 
 def main() -> int:
@@ -982,7 +1246,9 @@ def main() -> int:
           f"{fused_report.worst()[1]:.3f} ({fused_report.worst()[0]}) <= 4; short "
           "entry report equal on card and CPU")
 
-    # -- phase 14: kernel summary ---------------------------------------------
+    rw = rwkv_phases(torch, np, build, ref, device, card)
+
+    # -- phase 17: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1040,8 +1306,20 @@ def main() -> int:
             potts_path_launches=counts_psweep["jax_uniform"],
             potts_ms=times["jax_uniform"]["potts_ms"],
             potts_bound_ms=times["jax_uniform"]["potts_bound"][0]),
+        {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6.py:54",
+         "launches": rw["decode_launches"], "max_abs_err": rw["err"],
+         "ms": rw["times"]["decode"]["ms"], "plain_ms": rw["times"]["decode"]["plain_ms"],
+         "bound_ms": rw["times"]["decode"]["bound"][0],
+         "bound_by": rw["times"]["decode"]["bound"][1], "library_ms": None,
+         "shape": "BH=256 T=1 dk=dv=64 (decode, carried state)",
+         "prefill_ms": rw["times"]["prefill"]["ms"],
+         "prefill_plain_ms": rw["times"]["prefill"]["plain_ms"],
+         "prefill_bound_ms": rw["times"]["prefill"]["bound"][0],
+         "prefill_bound_by": rw["times"]["prefill"]["bound"][1],
+         "prefill_shape": "BH=256 T=512 dk=dv=64", "prefill_launches": rw["prefill_launches"]},
     ]
-    print(f"phase 14 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 17 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

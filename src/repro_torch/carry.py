@@ -1,4 +1,4 @@
-"""Carry a state of the JAX package over into the port.
+"""Carry a state or the LM weights of the JAX package over into the port.
 
 `from_reference` takes a `repro` ``PTState`` or ``EngineState`` dumped to
 numpy arrays under flat names and returns the port's state on ``device``
@@ -21,6 +21,13 @@ With ``betas`` present the result is an `EngineState`, else a `PTState`.
 An ensemble state (``n_chains = C > 1``) carries a leading chain axis on
 every array but ``betas``: ``states`` (C, R, ...), ``key`` (C, 2), ``t``
 and ``phase`` (C,), ``stats.*`` (C, R) and ``stats.n_records`` (C,).
+
+`lm_params_from_reference` takes the JAX package's LM parameter pytree
+(`repro.models.model.init_params`) as a nested dict of numpy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
+`repro_torch.models.transformer.LM` holding the same values: the stacked
+``groups/<i>_<kind>/...`` leaves (G, ...) are unstacked into the layers in
+order, then the ``tail`` layers, if any.
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.driver import EngineState
 from repro_torch.engine.stats import OnlineStats
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "lm_params_from_reference"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -73,3 +80,35 @@ def from_reference(arrays: dict[str, np.ndarray], device):
         pt=pt, stats=OnlineStats(**fields),
         betas=_t(arrays["betas"], torch.float32, device),
     )
+
+
+def _leaves(tree, prefix=""):
+    """(dotted name, array) pairs of a nested dict, depth first."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", value
+
+
+def lm_params_from_reference(params_np: dict, cfg, device):
+    """The port's `LM` with the JAX parameter pytree's values (see the module
+    docstring): the tensors the JAX code casts to the compute dtype at use
+    are stored cast, the f32 leaves (``w0``, ``u``, the norms) stay f32."""
+    from repro_torch.models.transformer import LM, plan
+
+    device = resolve_device(device)
+    model = LM(cfg, None, device)
+    pat, n_groups, _ = plan(cfg)
+    layers = []
+    for g in range(n_groups):
+        for i, kind in enumerate(pat):
+            stacked = params_np["groups"][f"{i}_{kind}"]
+            layers.append({n: np.asarray(a)[g] for n, a in _leaves(stacked)})
+    layers += [dict(_leaves(lp)) for lp in params_np.get("tail", [])]
+    state = {n: params_np[n] for n in ("embed", "final_norm", "unembed") if n in params_np}
+    for n, lp in enumerate(layers):
+        state.update({f"layers.{n}.{name}": a for name, a in lp.items()})
+    model.load_state_dict({n: torch.from_numpy(np.array(a)) for n, a in state.items()},
+                          strict=True)
+    return model

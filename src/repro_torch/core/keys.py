@@ -9,8 +9,13 @@ word on torch tensors:
 * ``split(key, n)``: key ``i`` is ``threefry(key, (0, i))`` (both words);
 * ``fold_in(key, d)``: ``threefry(key, (0, d))`` (both words);
 * ``random_bits(key, shape)``: ``b0 ^ b1`` of ``threefry(key, (0, flat index))``;
-* ``uniform(key, shape)``: the mantissa trick on those bits,
-  ``bitcast((bits >> 9) | 0x3F800000) - 1``;
+* ``uniform(key, shape, minval, maxval)``: the mantissa trick on those
+  bits, ``f = bitcast((bits >> 9) | 0x3F800000) - 1``, then
+  ``max(minval, f * (maxval - minval) + minval)`` in f32;
+* ``gumbel(key, shape)``: jax's default ("low") mode,
+  ``-log(-log(uniform(minval=finfo.tiny, maxval=1)))``;
+* ``categorical(key, logits)``: the Gumbel-max trick,
+  ``argmax(gumbel(key, logits.shape) + logits)`` (first index on ties);
 * ``randint(key, shape, lo, hi)``: int32 ``randint``: two bit draws from
   ``split(key)`` reduced modulo the span with JAX's ``2^32 mod span``
   multiplier.
@@ -27,7 +32,8 @@ import torch
 
 from repro_torch.kernels.prng import MASK, threefry2x32
 
-__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint"]
+__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint", "gumbel",
+           "categorical"]
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -73,11 +79,17 @@ def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
     return (b0 ^ b1).reshape(*k.shape[:-1], *shape)
 
 
-def uniform(k: torch.Tensor, shape) -> torch.Tensor:
-    """f32 ``jax.random.uniform(key, shape)`` in [0, 1) (batched like `random_bits`)."""
+def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """f32 ``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``
+    (batched like `random_bits`; bounds are Python floats)."""
     bits = random_bits(k, shape)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f, 0.0)
+    if (minval, maxval) == (0.0, 1.0):
+        return torch.clamp_min(f, 0.0)
+    # the bounds and their difference rounded to f32 on the host, as JAX
+    # converts them, then entering the device ops as scalars (no copy)
+    lo, hi = torch.tensor([minval, maxval], dtype=torch.float32)
+    return torch.clamp_min(f * (hi - lo).item() + lo.item(), lo.item())
 
 
 def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
@@ -94,3 +106,17 @@ def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     mult = (mult * mult) % span
     offset = ((((hi % span) * mult) & MASK) + lo % span) & MASK
     return (int(minval) + offset % span).to(torch.int32)
+
+
+def gumbel(k: torch.Tensor, shape) -> torch.Tensor:
+    """f32 ``jax.random.gumbel(key, shape)`` in its default ("low") mode."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(k, shape, minval=tiny, maxval=1.0)))
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """int64 ``jax.random.categorical(key, logits, axis=-1)`` for f32 logits:
+    the index of the largest ``gumbel + logits`` along the last axis."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes f32 logits, got {logits.dtype}")
+    return torch.argmax(gumbel(k, logits.shape) + logits, dim=-1)

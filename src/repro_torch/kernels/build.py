@@ -15,7 +15,8 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 ``jax_uniform.cu`` add ``-fmad=false``
 so no float product is contracted into an FMA; ``exchange.cu`` keeps nvcc's
 default contraction, as PyTorch builds its own exp/sigmoid kernels, because
-its probabilities must match those torch ops.
+its probabilities must match those torch ops; ``wkv6.cu`` keeps it too (its
+sums are held to a tolerance, not bit for bit).
 
 `launches` counts the launches of every kernel by name; each wrapper adds
 one where it launches its kernel, and nowhere else.  The wrappers share the
@@ -54,6 +55,7 @@ SOURCES = {
     "sweep": ["-fmad=false"],
     "potts_fused": ["-fmad=false"],
     "jax_uniform": ["-fmad=false"],
+    "wkv6": [],
 }
 _LOADED: dict[str, ctypes.CDLL] = {}
 # Hopper: 227 KB of shared memory per block (opt-in above 48 KB)
@@ -62,10 +64,10 @@ _P = ctypes.c_void_p
 
 # kernel name -> launches since the last reset (kernel A and B of the round
 # path, kernel #2p, kernels #1 and #4 of sweep.cu, kernel #5, the jax.random
-# helper)
+# helper, the RWKV-6 recurrence #7)
 launches = dict.fromkeys(
     ("ising_fused", "ising_packed", "exchange", "ising_sweep", "potts_sweep",
-     "potts_fused", "jax_uniform"), 0,
+     "potts_fused", "jax_uniform", "wkv6"), 0,
 )
 
 

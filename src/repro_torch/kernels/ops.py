@@ -1,9 +1,9 @@
-"""Public entry points of the sweep kernels (twins of `repro.kernels.ops`).
+"""Public entry points of the kernels (twins of `repro.kernels.ops`).
 
 The signatures are the JAX package's.  Dispatch is by the tensors' device
 alone: a CPU tensor runs the plain PyTorch version, a CUDA tensor launches
 the hand-written kernel (and raises if it cannot), anything else raises.
-``use_pallas`` and ``r_blk`` are TPU knobs, accepted and ignored.
+``use_pallas``, ``r_blk`` and ``chunk`` are TPU knobs, accepted and ignored.
 
 Besides the JAX package's ops, `jax_uniform` draws the per-sweep
 ``jax.random`` uniforms that `ising_sweep` and `potts_sweep` consume on the
@@ -18,6 +18,7 @@ from repro_torch.kernels import jax_uniform as _ju
 from repro_torch.kernels import potts_sweep as _pk
 from repro_torch.kernels import prng as _prng
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import wkv6 as _wkv6
 
 __all__ = [
     "jax_uniform",
@@ -27,13 +28,14 @@ __all__ = [
     "potts_sweep_fused",
     "ising_round_fused",
     "potts_round_fused",
+    "wkv6",
 ]
 
 
-def _device_kind(x: torch.Tensor) -> str:
+def _device_kind(x: torch.Tensor, what: str = "sweep kernel") -> str:
     kind = x.device.type
     if kind not in ("cpu", "cuda"):
-        raise ValueError(f"no sweep kernel for tensors on {x.device}")
+        raise ValueError(f"no {what} for tensors on {x.device}")
     return kind
 
 
@@ -282,3 +284,24 @@ def potts_round_fused(
         t, phase, rung, energy, betas, n_sweeps=n_sweeps, n_rounds=n_rounds,
         criterion=criterion, pairing=pairing, q=q, j=j, rule=rule,
     )
+
+
+def wkv6(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    initial_state: torch.Tensor | None = None,
+    *,
+    chunk: int = 64,
+    use_pallas: bool = True,
+):
+    """RWKV-6 recurrence; see `ref.wkv6` for the contract.
+
+    On CUDA one launch of kernel #7 covers all T steps (no padding of T).
+    Returns ``(o (BH, T, dv) f32, final_state (BH, dk, dv) f32)``.
+    """
+    if _device_kind(r, "wkv6 kernel") == "cpu":
+        return _ref.wkv6(r, k, v, w, u, initial_state)
+    return _wkv6.wkv6_kernel(r, k, v, w, u, initial_state)

@@ -1,16 +1,19 @@
-"""Plain PyTorch versions of the sweeps (twins of `repro.kernels.ref`).
+"""Plain PyTorch versions of the sweeps and of the RWKV-6 recurrence
+(twins of `repro.kernels.ref`).
 
 These are the numerical contracts the CUDA kernels are held against and the
 port's CPU path.  The op sequence is the JAX oracle's, so at ``j=1, b=0``
 (every ΔE an integer) spins, ΔE and acceptance counts are bit-equal to it;
 an acceptance ``u < p`` can still differ where the two frameworks' exp /
-sigmoid differ by an ulp and ``u`` falls between them.
+sigmoid differ by an ulp and ``u`` falls between them.  `wkv6` follows
+its oracle line for line; its float sums are held to a tolerance.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["accept_prob", "ising_sweep", "potts_sweep", "parity", "POTTS_DIRECTIONS"]
+__all__ = ["accept_prob", "ising_sweep", "potts_sweep", "parity", "POTTS_DIRECTIONS",
+           "wkv6"]
 
 
 def accept_prob(de: torch.Tensor, beta, rule: str) -> torch.Tensor:
@@ -112,3 +115,33 @@ def potts_sweep(
         de_total = de_total + torch.where(accept, de, 0.0).sum(dim=(-2, -1))
         n_acc = n_acc + accept.sum(dim=(-2, -1), dtype=torch.int32)
     return s.to(torch.int8), de_total, n_acc
+
+
+def wkv6(r, k, v, w, u, initial_state=None):
+    """RWKV-6 ("Finch") recurrence, one batch*head slab at a time.
+
+    Per head, with state ``S`` of shape (dk, dv)::
+
+        o_t = r_t @ S_{t-1}  +  (r_t · (u ⊙ k_t)) v_t
+        S_t = diag(w_t) S_{t-1} + k_t ⊗ v_t
+
+    Args:
+      r, k, w: (BH, T, dk) f32 (w already exp(-exp(...))-activated).
+      v: (BH, T, dv) f32; u: (BH, dk) f32 "bonus" for the current token.
+      initial_state: optional (BH, dk, dv) f32 (decode); zeros otherwise.
+
+    Returns (o (BH, T, dv) f32, final_state (BH, dk, dv) f32).
+    """
+    bh, t, dk = r.shape
+    dv = v.shape[-1]
+    if initial_state is None:
+        s = torch.zeros((bh, dk, dv), dtype=torch.float32, device=r.device)
+    else:
+        s = initial_state.to(torch.float32)
+    outs = []
+    for i in range(t):
+        rt, kt, vt, wt = r[:, i], k[:, i], v[:, i], w[:, i]
+        bonus = torch.sum(rt * u * kt, dim=-1, keepdim=True)
+        outs.append(torch.einsum("bk,bkv->bv", rt, s) + bonus * vt)
+        s = wt[:, :, None] * s + kt[:, :, None] * vt[:, None, :]
+    return torch.stack(outs, dim=1), s

@@ -1,0 +1,76 @@
+"""The RWKV-6 recurrence on the card: kernel #7 (``csrc/wkv6.cu``).
+
+Twin of `repro.kernels.wkv6.wkv6_pallas`, with the contract of
+`repro.kernels.ref.wkv6`.  `wkv6_kernel` launches one block per batch*head
+slab, which loops over all T steps in order with the (dk, dv) state in
+registers; it takes any T >= 1 (no padding of T) and dk, dv up to 64.
+`wkv6_plain` (`ref.wkv6`) is the same recurrence in plain torch ops, what
+`repro_torch.kernels.ops.wkv6` runs for CPU tensors.  The two agree within a
+few ulps of the terms' magnitude (summation order), not bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import check, raise_if, stream_of
+from repro_torch.kernels.ref import wkv6 as wkv6_plain
+
+__all__ = ["wkv6_kernel", "wkv6_plain", "MAX_DIM"]
+
+MAX_DIM = 64  # csrc/wkv6.cu: kMax
+_P = ctypes.c_void_p
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library("wkv6")
+    lib.wkv6_launch.restype = ctypes.c_int
+    lib.wkv6_launch.argtypes = [_P] * 8 + [ctypes.c_int] * 4 + [_P]
+    lib.wkv6_max_dim.restype = ctypes.c_int
+    if lib.wkv6_max_dim() != MAX_DIM:
+        raise RuntimeError(f"csrc/wkv6.cu takes dims up to {lib.wkv6_max_dim()}, "
+                           f"the wrapper expects {MAX_DIM}")
+    return lib
+
+
+def wkv6_kernel(r, k, v, w, u, initial_state=None):
+    """Kernel #7: ``(o, final_state)`` of the recurrence, one launch.
+
+    Args:
+      r, k, w: (BH, T, dk) f32 on CUDA; v: (BH, T, dv) f32; u: (BH, dk) f32;
+      initial_state: (BH, dk, dv) f32 or None (zeros).  All contiguous.
+    """
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel #7 (wkv6) needs CUDA tensors, got {dev}")
+    if r.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"wkv6 takes (BH, T, d) slabs, got r {tuple(r.shape)}, "
+                         f"v {tuple(v.shape)}")
+    bh, t, dk = r.shape
+    dv = v.shape[-1]
+    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM):
+        raise ValueError(f"kernel #7 (wkv6) takes 1 <= dk, dv <= {MAX_DIM}, "
+                         f"got dk={dk}, dv={dv}")
+    if t < 1 or not 1 <= bh < 2 ** 31:
+        raise ValueError(f"wkv6 needs T >= 1 and 1 <= BH < 2^31, got T={t}, BH={bh}")
+    for name, x, shape in (("r", r, (bh, t, dk)), ("k", k, (bh, t, dk)),
+                           ("w", w, (bh, t, dk)), ("v", v, (bh, t, dv)),
+                           ("u", u, (bh, dk))):
+        check(x, name, torch.float32, shape, dev)
+    if initial_state is not None:
+        check(initial_state, "initial_state", torch.float32, (bh, dk, dv), dev)
+    o = torch.empty((bh, t, dv), dtype=torch.float32, device=dev)
+    s_out = torch.empty((bh, dk, dv), dtype=torch.float32, device=dev)
+    s0 = None if initial_state is None else initial_state.data_ptr()
+    with torch.cuda.device(dev):
+        err = _lib().wkv6_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            s0, o.data_ptr(), s_out.data_ptr(), bh, t, dk, dv, stream_of(dev),
+        )
+    raise_if(err, "wkv6")
+    build.launches["wkv6"] += 1
+    return o, s_out

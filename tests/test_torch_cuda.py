@@ -2,9 +2,10 @@
 
 Kernels A and B (fused Ising round), #2p (A's sweeps on packed spins, also
 held against kernel A), #1 and #4 (one Ising / Potts sweep on passed-in
-uniforms), #5 (fused Potts sweeps) and the per-sweep ``jax.random`` draw;
-the Session paths on the card against the CPU, with one chain and with
-two; the interval loop of every path with host syncs made errors.
+uniforms), #5 (fused Potts sweeps), the per-sweep ``jax.random`` draw and
+#7 (the RWKV-6 recurrence); the Session paths on the card against the CPU,
+with one chain and with two; the interval loop of every path with host
+syncs made errors; the reduced rwkv6-7b on the card against the CPU.
 
 These need a card and import no JAX, so they run wherever only PyTorch is
 installed; without a card they skip with a reason.  Run them on the card with
@@ -13,7 +14,8 @@ installed; without a card they skip with a reason.  Run them on the card with
 Tolerances are those of the CPU parity tests: spins, acceptance counts,
 rungs and accept/attempt rows exact; ΔE exact at j=1, b=0 and within 4
 ulps of the largest partial-sum magnitude otherwise (summation order); a
-swap decision may differ only where its ``u`` lies between the two ``p``.
+swap decision may differ only where its ``u`` lies between the two ``p``;
+wkv6 within its rounding bound (see its test).
 """
 import json
 from pathlib import Path
@@ -371,3 +373,81 @@ def test_ensemble_advance_never_syncs_the_host(dev, path):
     if path == "round":  # one launch of each kernel per chain and interval
         assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 6,
                                                                     "exchange": 6}
+
+
+def _wkv6_inputs(seed, bh, t, dk, dv, dev, state=False):
+    rng = np.random.default_rng(seed)
+    r, k = (rng.normal(size=(bh, t, dk)).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(bh, t, dv)).astype(np.float32)
+    w = (1.0 / (1.0 + np.exp(-rng.normal(size=(bh, t, dk))))).astype(np.float32)
+    u = rng.normal(size=(bh, dk)).astype(np.float32)
+    s0 = rng.normal(size=(bh, dk, dv)).astype(np.float32) if state else None
+    return [None if x is None else torch.from_numpy(x).to(dev) for x in (r, k, v, w, u, s0)]
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,state", [
+    (256, 512, 64, 64, False),  # rwkv6-7b prefill, B=4
+    (256, 1, 64, 64, True),  # rwkv6-7b decode, carried state
+    (4, 33, 8, 8, False), (2, 16, 16, 8, True), (1, 8, 4, 4, False), (3, 64, 64, 64, True),
+])
+def test_wkv6_kernel_matches_plain(dev, bh, t, dk, dv, state):
+    """Kernel #7 == ``ref.wkv6`` within the recurrence's rounding bound,
+    2·(dk + T)·eps times the recurrence run on the inputs' magnitudes; and
+    within the JAX package's rtol = atol = 3e-5 where T <= 64."""
+    args = _wkv6_inputs(40 + t, bh, t, dk, dv, dev, state)
+    build.reset_launches()
+    got = ops.wkv6(*args)
+    assert {k: v for k, v in build.launches.items() if v} == {"wkv6": 1}
+    want = ref.wkv6(*args)
+    mag = ref.wkv6(*(None if x is None else x.abs() for x in args))
+    for g, w, m in zip(got, want, mag):
+        assert bool(((g - w).abs() <= 2 * (dk + t) * F32_EPS * m).all())
+        if t <= 64:
+            torch.testing.assert_close(g, w, rtol=3e-5, atol=3e-5)
+
+
+def test_wkv6_kernel_threads_state_and_refuses_what_it_lacks(dev):
+    r, k, v, w, u, _ = _wkv6_inputs(50, 2, 32, 8, 8, dev)
+    o_full, s_full = ops.wkv6(r, k, v, w, u)
+    first = [x[:, :16].contiguous() for x in (r, k, v, w)]
+    rest = [x[:, 16:].contiguous() for x in (r, k, v, w)]
+    o1, s1 = ops.wkv6(*first, u)
+    o2, s2 = ops.wkv6(*rest, u, s1)
+    assert torch.equal(o_full, torch.cat([o1, o2], 1)) and torch.equal(s_full, s2)
+    big = _wkv6_inputs(51, 1, 2, 65, 8, dev)
+    with pytest.raises(ValueError, match="dk, dv <= 64"):
+        ops.wkv6(*big)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv6(r[:, ::2], k[:, ::2], v[:, ::2], w[:, ::2], u)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.wkv6(r.double(), k.double(), v.double(), w.double(), u.double())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_rwkv_on_cuda_equals_cpu(dev, dtype):
+    """The reduced rwkv6-7b on the card against the same weights on the CPU:
+    f32 prefill logits within 1e-4 and sampled tokens equal; bf16 logits
+    within the JAX package's decode tolerance 3e-2 (rounding per op on both,
+    GEMMs summed in other orders).  One wkv6 launch per layer and forward."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import model as model_lib
+
+    cfg = dataclasses.replace(get_config("rwkv6_7b", reduced=True), dtype=dtype)
+    on_cpu = model_lib.init_params(cfg, 0, device="cpu")
+    on_card = copy.deepcopy(on_cpu).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (2, 12)))
+    build.reset_launches()
+    got = model_lib.prefill_logits(on_card, cfg, {"tokens": tokens.to(dev)})
+    assert {k: v for k, v in build.launches.items() if v} == {"wkv6": cfg.n_layers}
+    want = model_lib.prefill_logits(on_cpu, cfg, {"tokens": tokens})
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+    if dtype == "float32":
+        build.reset_launches()
+        seq_card = serve_lm.generate(on_card, cfg, 4, 8, dev)
+        assert build.launches["wkv6"] == 8 * cfg.n_layers
+        assert torch.equal(seq_card.cpu(), serve_lm.generate(on_cpu, cfg, 4, 8, "cpu"))

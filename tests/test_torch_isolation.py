@@ -13,7 +13,9 @@
 * kernels build inside the source checkout (or where
   ``$REPRO_TORCH_BUILD_DIR`` says), never beside an installed copy;
 * ``chip_smoke.py`` exits non-zero and prints no result without a card, and
-  when it stands alone in a directory.
+  when it stands alone in a directory;
+* running the reduced RWKV-6 model on the CPU through ``launch.serve_lm``
+  builds no kernel, touches no CUDA state and imports no JAX or ``repro``.
 """
 import dataclasses
 import ast
@@ -248,3 +250,23 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     if not torch.cuda.is_available():
         here = _run_chip_smoke(ROOT)
         assert here.returncode != 0 and '"ok"' not in here.stdout
+
+
+def test_lm_modules_touch_no_cuda_and_build_nothing():
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import serve_lm\n"
+        "from repro_torch.models import model\n"
+        "from repro_torch.kernels import build\n"
+        "cfg = get_config('rwkv6_7b', reduced=True)\n"
+        "out = serve_lm.generate(model.init_params(cfg, 0, device='cpu'), cfg, 2, 2, 'cpu')\n"
+        "assert tuple(out.shape) == (2, 3) and not build._LOADED\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not any(k.startswith(('jax', 'repro.')) or k == 'repro' for k in sys.modules)\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
