@@ -10,7 +10,10 @@ Phases, one line each or more (any failure raises and exits non-zero):
 1. device name and power limit, then the nvcc build of every kernel;
 2. kernel A (``csrc/ising_fused.cu``) against its plain PyTorch version on
    the card: the main path's L=300 R=1500 (S=2), then L=300 R=32 S=4,
-   L=64 R=64 S=10 and a j=0.7 b=0.3 case under metropolis and glauber;
+   L=64 R=64 S=10 and a j=0.7 b=0.3 case under metropolis and glauber, and
+   the shapes its row walk must get right at R=13 (L=2 and 4, L=30 and 66,
+   no multiple of a warp's lanes, and L=470 near the shared-memory limit),
+   at integer and non-integer j, b under both rules;
 3. kernel B (``csrc/exchange.cu``) against the plain ``exchange_step`` at
    R=1500, DEO/SEO x logistic/metropolis over 8 phases;
 4. the main path at full width through ``repro_torch.api.Session``: Ising
@@ -27,8 +30,10 @@ Phases, one line each or more (any failure raises and exits non-zero):
    and on the CPU, which must agree;
 6. kernels #1 and #4 (``csrc/sweep.cu``), #5 (``csrc/potts_fused.cu``) and
    the per-sweep ``jax.random`` draw (``csrc/jax_uniform.cu``) against their
-   plain versions on the card, at L=300 R=1500 and smaller cases, and each
-   one timed beside its plain version at the shapes its path gives it;
+   plain versions on the card, at L=300 R=1500 and smaller cases (#5 also at
+   2x2, 4x4, 8x6, 64x48, 30x66 and 470x470 with R=13, q in {2, 3, 64}, both
+   rules, j=1 and 0.7), and each one timed beside its plain version at the
+   shapes its path gives it;
 7. the per-sweep (default) Ising path at full width: L=300 R=1500, S=100,
    glauber, paper ladder, 3 intervals (200 burn with adaptation + 100
    measure); launches must be one ``jax_uniform`` and one kernel #1 per
@@ -43,10 +48,12 @@ Phases, one line each or more (any failure raises and exits non-zero):
    ``examples/specs/ising_small.json`` and a small Potts spec on each of its
    three paths, run on the card and on the CPU, which must agree;
 10. kernel #2p (``csrc/ising_packed.cu``, ``pack_bits``) against its plain
-    version and against kernel A at L=300 R=1500 S=2 and at small odd R, at
-    its default group width and at 8 and 3 replicas a block; timed at S=2
-    and S=100 beside kernel A and its bound, at 8 a block too, and at
-    R=2112, where both kernels put 16 replicas on every SM;
+    version and against kernel A (spins and counts bit for bit; ΔE equal
+    where every term is an integer, else each within 4 ulps of the plain
+    version's) at L=300 R=1500 S=2 and at small odd R, at its default group
+    width and at 8 and 3 replicas a block; timed at S=2 and S=100 beside
+    kernel A and its bound, at 8 a block too, and at R=2112, where both
+    kernels put 16 replicas on every SM;
 11. the packed round and fused paths through ``Session`` at full width (the
     phase 4 and 5 specs with ``pack_bits``): manifests equal to the unpacked
     runs', sweeps/s, ms/interval, launch counts, and the round path once
@@ -226,10 +233,11 @@ def check_kernel_a(torch, np, isk, keys, cases, device):
 
 
 def check_packed(torch, np, isk, keys, cases, device):
-    """Phase 10: kernel #2p == kernel A (spins, ΔE, nacc bit for bit) at its
-    default group width and at 8 and 3 replicas a block, and == its plain
-    version (spins, nacc; ΔE as kernel A's); returns max |ΔE err| against
-    the plain version."""
+    """Phase 10: kernel #2p == kernel A (spins, nacc bit for bit; ΔE too
+    where every term is an integer) at its default group width and at 8 and
+    3 replicas a block, and == its plain version (spins, nacc; ΔE exact at
+    integer terms, else both kernels' within 4 ulps: each sums a colour in
+    its own order); returns max |ΔE err| against the plain version."""
     max_err = 0.0
     for n, (length, r, sweeps, j, b, rule) in enumerate(cases):
         rng = np.random.default_rng(200 + n)
@@ -241,28 +249,35 @@ def check_packed(torch, np, isk, keys, cases, device):
         words = keys.key(int(rng.integers(1 << 31)), device=device)
         t0 = torch.tensor(int(rng.integers(1 << 20)), dtype=torch.int64, device=device)
         kw = dict(n_sweeps=sweeps, j=j, b=b, rule=rule, replica_offset=5)
+        exact = j == 1.0 and b == 0.0  # integer terms: every order sums exactly
         got = isk.ising_sweep_packed_kernel(spins, words, t0, betas, rung, **kw)
         kernel_a = isk.ising_sweep_fused_kernel(spins, words, t0, betas, rung, **kw)
         torch.cuda.synchronize()
-        if not all(torch.equal(g, a) for g, a in zip(got, kernel_a)):
+
+        def same_as_a(out):
+            return (torch.equal(out[0], kernel_a[0]) and torch.equal(out[2], kernel_a[2])
+                    and (not exact or torch.equal(out[1], kernel_a[1])))
+
+        if not same_as_a(got):
             raise AssertionError(f"kernel #2p differs from kernel A: case {n}")
         for group in (8, 3):  # full bytes with a partial last one, and odd groups
             other = isk.ising_sweep_packed_kernel(spins, words, t0, betas, rung, **kw,
                                                   group=group)
             torch.cuda.synchronize()
-            if not all(torch.equal(g, a) for g, a in zip(other, kernel_a)):
+            if not same_as_a(other):
                 raise AssertionError(f"kernel #2p group {group} differs from kernel A: case {n}")
             del other
-        del kernel_a
         want = isk.ising_sweep_packed_plain(spins, words, t0, betas, rung, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got[0], want[0]) or not torch.equal(got[2], want[2]):
             raise AssertionError(f"kernel #2p spins/nacc differ from plain: case {n}")
         what = f"kernel #2p L={length} R={r} S={sweeps} j={j} b={b} {rule}"
-        err = assert_de(got[1], want[1], want[2], j == 1.0 and b == 0.0,
-                        2 * (4 * abs(j) + abs(b)), what)
+        per_site = 2 * (4 * abs(j) + abs(b))
+        assert_de(kernel_a[1], want[1], want[2], exact, per_site, what + " (kernel A)")
+        err = assert_de(got[1], want[1], want[2], exact, per_site, what)
+        del kernel_a
         max_err = max(max_err, err)
-        print(f"  {what}: equal to kernel A and to plain, max |dE err| vs plain {err}")
+        print(f"  {what}: spins/nacc equal to kernel A and to plain, max |dE err| vs plain {err}")
         del got, want, spins
         torch.cuda.empty_cache()
     return max_err
@@ -408,6 +423,23 @@ def check_sweep_kernels(torch, np, isk, pk, ju, ref, prng, keys, device):
     whose values must be bit-equal)."""
     errs = {"ising_sweep": 0.0, "potts_sweep": 0.0, "potts_fused": 0.0, "jax_uniform": 0.0}
     rng = np.random.default_rng(60)
+
+    def check_fused(states, betas, h, w, r, q, j, rule, sweeps):
+        rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)
+        args = (states, prng.key_words(keys.key(int(rng.integers(1 << 31)), device=device)),
+                torch.tensor(int(rng.integers(1 << 20)), device=device), betas, rung)
+        kw = dict(n_sweeps=sweeps, q=q, j=j, rule=rule, replica_offset=3, t_add=2)
+        got = pk.potts_sweep_fused_kernel(*args, **kw)
+        want = pk.potts_sweep_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        what = f"kernel #5 {h}x{w} R={r} S={sweeps} q={q} j={j} {rule}"
+        if not torch.equal(got[0], want[0]) or not torch.equal(got[2], want[2]):
+            raise AssertionError(f"{what}: colours/nacc differ from plain")
+        errs["potts_fused"] = max(errs["potts_fused"], assert_de(
+            got[1], want[1], want[2], j == 1.0, 4 * abs(j), what))
+        del got, want
+        torch.cuda.empty_cache()
+
     for length, r, j, b, rule in ((300, 1500, 1.0, 0.0, "glauber"),
                                   (300, 32, 1.0, 0.0, "metropolis"),
                                   (64, 64, 0.7, 0.3, "glauber"),
@@ -440,20 +472,16 @@ def check_sweep_kernels(torch, np, isk, pk, ju, ref, prng, keys, device):
         errs["potts_sweep"] = max(errs["potts_sweep"], assert_de(
             got[1], want[1], want[2], j == 1.0, 4 * abs(j), what))
         del u, got, want
-        rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)
-        args = (states, prng.key_words(keys.key(int(rng.integers(1 << 31)), device=device)),
-                torch.tensor(int(rng.integers(1 << 20)), device=device), betas, rung)
-        kw = dict(n_sweeps=sweeps, q=q, j=j, rule=rule, replica_offset=3, t_add=2)
-        got = pk.potts_sweep_fused_kernel(*args, **kw)
-        want = pk.potts_sweep_fused_plain(*args, **kw)
-        torch.cuda.synchronize()
-        what = f"kernel #5 {h}x{w} R={r} S={sweeps} q={q} j={j} {rule}"
-        if not torch.equal(got[0], want[0]) or not torch.equal(got[2], want[2]):
-            raise AssertionError(f"{what}: colours/nacc differ from plain")
-        errs["potts_fused"] = max(errs["potts_fused"], assert_de(
-            got[1], want[1], want[2], j == 1.0, 4 * abs(j), what))
-        del got, want
-        torch.cuda.empty_cache()
+        check_fused(states, betas, h, w, r, q, j, rule, sweeps)
+    # kernel #5's row walk at its edges: smallest lattices, H != W, sides no
+    # multiple of 32, near the shared-memory limit; R=13, q in {2, 3, 64}
+    for h, w, sweeps in ((2, 2, 5), (4, 4, 5), (8, 6, 4), (64, 48, 4), (30, 66, 4),
+                         (470, 470, 2)):
+        for q, j, rule in ((2, 1.0, "metropolis"), (3, 0.7, "glauber"),
+                           (64, 1.0, "glauber"), (64, 0.7, "metropolis")):
+            states = torch.from_numpy(rng.integers(0, q, (13, h, w)).astype(np.int8)).to(device)
+            betas = torch.from_numpy((1.0 / np.geomspace(0.7, 2.9, 13)).astype(np.float32)).to(device)
+            check_fused(states, betas, h, w, 13, q, j, rule, sweeps)
     for shape, r in (((2, 300, 300), 1500), ((2, 2, 300, 300), 1500),
                      ((2, 8, 8), 8), ((2, 2, 6, 4), 5)):
         key = keys.key(int(rng.integers(1 << 31)), device=device)
@@ -799,6 +827,10 @@ def main() -> int:
     for rule in ("metropolis", "glauber"):
         cases += [(300, 32, 4, 1.0, 0.0, rule), (64, 64, 10, 1.0, 0.0, rule),
                   (64, 16, 3, 0.7, 0.3, rule)]
+        # the row walk's edges: smallest lattices, sides no multiple of 32,
+        # near the shared-memory limit; R=13 is a multiple of nothing
+        for length, sweeps in ((2, 5), (4, 5), (30, 4), (66, 4), (470, 3)):
+            cases += [(length, 13, sweeps, 1.0, 0.0, rule), (length, 13, sweeps, 0.7, 0.3, rule)]
     err_a = check_kernel_a(torch, np, isk, keys, cases, device)
     print(f"phase 2 kernel A: {len(cases)} cases equal to plain (spins, nacc; "
           f"ΔE exact at j=1,b=0, <= 4 ulps otherwise), max |ΔE err| {err_a}")
@@ -966,8 +998,8 @@ def main() -> int:
     # -- phase 6: kernels #1, #4, #5 and jax_uniform against plain -------------
     errs = check_sweep_kernels(torch, np, isk, pk, ju, ref, prng, keys, device)
     print(f"phase 6 kernels #1, #4, #5, jax_uniform: equal to plain at L=300 R=1500 "
-          f"and 3 smaller cases each (spins/colours, nacc; ΔE exact at j=1, <= 4 ulps "
-          f"otherwise; uniforms bit-equal), max |ΔE err| {errs}")
+          f"and 3 smaller cases each, #5 also in 24 walk-edge cases (spins/colours, nacc; "
+          f"ΔE exact at j=1, <= 4 ulps otherwise; uniforms bit-equal), max |ΔE err| {errs}")
     times = time_sweep_kernels(torch, np, isk, pk, ju, ref, prng, keys, device)
     for name, tm in times.items():
         print(f"phase 6 times [{card}]: {name} {tm['ms']:.4f} ms vs plain "
@@ -1094,10 +1126,10 @@ def main() -> int:
         spins, words, t0d, betas_bal, rung_bal, **main_kw, group=8), 3)
     del spins
     torch.cuda.empty_cache()
-    print(f"phase 10 kernel #2p: {len(packed_cases)} cases equal to kernel A (spins, nacc, ΔE "
-          f"bit for bit, at its default group width and at 8 and 3 a block) and to plain "
-          f"(spins, nacc; ΔE exact at j=1,b=0, <= 4 ulps otherwise), max |ΔE err| vs "
-          f"plain {err_p}")
+    print(f"phase 10 kernel #2p: {len(packed_cases)} cases equal to kernel A (spins, nacc "
+          f"bit for bit, ΔE too at j=1,b=0; at its default group width and at 8 and 3 a "
+          f"block) and to plain (spins, nacc; ΔE of both kernels exact at j=1,b=0, <= 4 "
+          f"ulps otherwise), max |ΔE err| vs plain {err_p}")
     print(f"phase 10 times [{card}]: L=300 R=1500 S=2: kernel #2p {p_ms:.4f} ms "
           f"({blocks} blocks of {group} replicas x {threads} threads on {n_sms} SMs), "
           f"{p8_ms:.4f} ms at 8 a block ({-(-n_rep // 8)} blocks), kernel A {a_ms2:.4f} ms, "

@@ -5,60 +5,87 @@
 //   repro/kernels/ising_sweep.py::ising_sweep_fused_pallas
 //     (_ising_sweep_fused_kernel, _ising_sweep_body), and the sweep half of
 //   repro/kernels/ising_sweep.py::ising_round_fused_pallas
-//     (_ising_round_fused_kernel).
+//     (_ising_round_fused_kernel; its exchange half is kernel B, exchange.cu).
 //
-// Design.  One block per replica slot holds the whole L x L int8 lattice in
-// dynamic shared memory for all S sweeps (the VMEM-resident tile rethought
-// for an SM: 90,000 B at the paper's L = 300, two blocks per SM).  256
-// threads stride over the active colour's L^2/2 sites; a site's uniform is
-// threefry(sweep key, (colour, i*L + j)), which depends on no other site, so
-// each thread hashes only the sites it updates.  __syncthreads() separates
-// the colours.  The slot's beta is betas[rung[slot]], read in-kernel from
-// the device rung map, so the interval-fused path (identity rung, per-slot
-// betas) and the whole-round path (rung-ordered betas) share this kernel.
+// Design: one block per replica slot runs the shared fused sweep loop
+// (checkerboard.cuh: colour-paired haloed lattice in shared memory, runs of
+// kSites sites of one row per thread, no division or wrap select per site)
+// with the Ising update below.  The slot's beta is betas[rung[slot]], read
+// in-kernel from the device rung map, so the interval-fused path (identity
+// rung, per-slot betas) and the whole-round path (rung-ordered betas) share
+// this kernel.  A site's uniform is to_uniform(hash(sweep key, colour,
+// i*L + j).x0), one Threefry block per update, the minimum the stream allows.
 //
-// Acceptance.  The kernel does no expf per site.  The wrapper builds, once
-// per launch and with the plain version's own torch ops, the 10-entry rows
+// Acceptance.  No expf per site.  The wrapper builds, once per launch and
+// with the plain version's own torch ops, the 10-entry rows
 //   de_tab[s][n]  = 2*s*(j*nbr - b)            s in {-1,+1}, nbr in {-4..4 step 2}
 //   p_tab[r][s][n] = accept_prob(de_tab, betas[r])
-// and the kernel selects from them.  Spins and acceptance counts are
-// therefore bit-equal to the plain version by construction, for any j, b
-// and rule.  Per-colour ΔE partial sums are reduced in a fixed order (warp
-// shuffles, then warps in index order; no atomics) and accumulated as the
-// JAX kernel does: per colour into the sweep, then per sweep.  At j=1, b=0
-// every term is an integer and the sum is exact; otherwise only the order
-// inside one colour's sum differs from the plain version.
+// and the block turns its rung's row into thresholds (checkerboard.cuh).
+// Spins sit in shared memory as 1 (up) and 0 (down), so entry s*5 + n is
+// five times the site's byte plus its neighbours'.  Spins and acceptance
+// counts are bit-equal to the plain version by construction, for any j, b
+// and rule; ΔE is exact at j=1, b=0 and otherwise differs from it only in
+// the order inside one colour's sum.
 //
-// Bound.  At L=300, R=1500, S=100 a launch moves 2 B/cell (270 MB, about
-// 80 us at 3.35 TB/s) but evaluates 1.35e10 Threefry-20 blocks of 72
-// 32-bit integer instructions each (2 counter adds, 20 rounds of add,
-// funnel-shift rotate and xor, 5 key injections of 2 adds): 9.7e11
-// instructions, 29 ms at Hopper's issue rate of 33.5e12/s (128 lanes per
-// SM x 132 SMs x 1.98 GHz; integer adds also issue on the FMA pipe).  It is
-// integer-ALU bound, by more than two orders of magnitude.  The design therefore spends nothing on memory (one
-// read and one write of the lattice per launch, tables in shared memory)
-// and hashes exactly one block per site update, the minimum the stream
-// allows.
+// Bound.  At L=300, R=1500, S=100 a launch moves 2 B/cell (270 MB, 0.08 ms
+// at 3.35 TB/s) but hashes 1.35e10 Threefry-20 blocks of 72 32-bit
+// instructions: 9.7e11 instructions, 29.055 ms at the 33.5e12/s issue rate
+// (128 lanes per SM x 132 SMs x 1.98 GHz).  Integer-instruction bound.
+//
+// First version: 256 threads striding over flat colour indices with
+// lattice::colour_site, one dependent hash per thread, 130 SASS
+// instructions per site update: 77.5 ms at S=100, 2.67x the bound, on an
+// H100 80GB HBM3 at 700 W (fused_probe.py; PERF.md §6 has both counts and
+// the new times).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (no
 // fast math), see repro_torch/kernels/build.py.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "block_reduce.cuh"
-#include "lattice.cuh"
-#include "threefry.cuh"
+#include "checkerboard.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kSites = 8;
 constexpr int kWarps = kThreads / 32;
-// shared-memory header: float/int reduction scratch + the two 10-entry tables
-constexpr int kHeaderBytes = kWarps * 4 * 2 + 10 * 4 * 2;
+// shared-memory header: float/int reduction scratch + the threshold/ΔE table
+constexpr int kHeaderBytes = kWarps * 8 + 10 * 8;
+
+// Spins live in shared memory as 1 (up) and 0 (down), so a site's table
+// entry s_idx*5 + n of the wrapper's rows is 5*v plus its four neighbours.
+struct IsingRule {
+  const checkerboard::Entry* tab;
+
+  __device__ static uint8_t to_shared(int8_t s) { return s > 0; }
+  __device__ static int8_t from_shared(uint8_t v) { return v ? 1 : -1; }
+
+  template <int kN>
+  __device__ __forceinline__ void update(const checkerboard::Site (&st)[kN],
+                                         const threefry::Schedule& ks, int c,
+                                         float& part, int& nacc) const {
+    uint32_t e[kN], bits[kN];
+#pragma unroll
+    for (int s = 0; s < kN; ++s) {
+      e[s] = 5 * st[s].v + st[s].up + st[s].dn + st[s].lf + st[s].rt;
+      bits[s] = threefry::hash(ks, static_cast<uint32_t>(c), st[s].ctr).x0;
+    }
+#pragma unroll
+    for (int s = 0; s < kN; ++s) {
+      const checkerboard::Entry ent = tab[e[s]];
+      if (st[s].live && checkerboard::accept(bits[s], ent.thr)) {
+        *st[s].at = static_cast<uint8_t>(1u - st[s].v);
+        part += ent.de;
+        ++nacc;
+      }
+    }
+  }
+};
 
 // spins_in may alias spins_out: a block reads its whole lattice into shared
 // memory before it writes anything back.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
                    float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
                    const int32_t* __restrict__ rung,
@@ -67,66 +94,22 @@ ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
                    const int64_t* __restrict__ key_words,
                    const int64_t* __restrict__ t0, long long t_add,
                    unsigned int replica_offset, int L, int n_sweeps) {
-  extern __shared__ unsigned char smem[];
+  extern __shared__ __align__(8) unsigned char smem[];
   float* fred = reinterpret_cast<float*>(smem);
   int* ired = reinterpret_cast<int*>(smem + kWarps * 4);
-  float* p_s = reinterpret_cast<float*>(smem + kWarps * 8);
-  float* de_s = p_s + 10;
-  int8_t* lat = reinterpret_cast<int8_t*>(smem + kHeaderBytes);
+  checkerboard::Entry* tab = reinterpret_cast<checkerboard::Entry*>(smem + kWarps * 8);
+  uint8_t* lat = smem + kHeaderBytes;
 
   const int slot = blockIdx.x;
-  const int LL = L * L;
-  const int8_t* src = spins_in + static_cast<size_t>(slot) * LL;
-  for (int i = threadIdx.x; i < LL; i += blockDim.x) lat[i] = src[i];
   if (threadIdx.x < 10) {
-    p_s[threadIdx.x] = p_tab[rung[slot] * 10 + threadIdx.x];
-    de_s[threadIdx.x] = de_tab[threadIdx.x];
+    tab[threadIdx.x] = {checkerboard::threshold(p_tab[rung[slot] * 10 + threadIdx.x]),
+                        de_tab[threadIdx.x]};
   }
-
-  const threefry::Pair sk = threefry::hash(
-      static_cast<uint32_t>(key_words[0]), static_cast<uint32_t>(key_words[1]),
-      threefry::DOMAIN, threefry::DOMAIN);
-  const uint32_t t_base = static_cast<uint32_t>(t0[0] + t_add);
-  const uint32_t rep = static_cast<uint32_t>(slot) + replica_offset;
-  const int n_colour = LL / 2;
-  float de_total = 0.0f;
-  int nacc = 0;
-  __syncthreads();
-
-  for (int sweep = 0; sweep < n_sweeps; ++sweep) {
-    const threefry::Pair wk =
-        threefry::hash(sk.x0, sk.x1, t_base + static_cast<uint32_t>(sweep), rep);
-    float ds = 0.0f;
-    for (int c = 0; c < 2; ++c) {
-      float part = 0.0f;
-      for (int idx = threadIdx.x; idx < n_colour; idx += blockDim.x) {
-        const lattice::Site st = lattice::colour_site(idx, c, L, L);
-        const int nbr = lat[st.up] + lat[st.dn] + lat[st.lf] + lat[st.rt];
-        const int sv = lat[st.site];
-        const int k = (sv > 0 ? 5 : 0) + ((nbr + 4) >> 1);
-        const float u = threefry::to_uniform(
-            threefry::hash(wk.x0, wk.x1, static_cast<uint32_t>(c),
-                           static_cast<uint32_t>(st.site)).x0);
-        if (u < p_s[k]) {
-          lat[st.site] = static_cast<int8_t>(-sv);
-          part += de_s[k];
-          ++nacc;
-        }
-      }
-      // the reduction's barriers also end this colour before the next reads it
-      const float colour_sum = block_reduce::sum<kWarps>(part, fred);
-      ds = ds + colour_sum;
-    }
-    de_total = de_total + ds;
-  }
-  const int nacc_total = block_reduce::sum<kWarps>(nacc, ired);
-
-  int8_t* dst = spins_out + static_cast<size_t>(slot) * LL;
-  for (int i = threadIdx.x; i < LL; i += blockDim.x) dst[i] = lat[i];
-  if (threadIdx.x == 0) {
-    de_out[slot] = de_total;
-    nacc_out[slot] = nacc_total;
-  }
+  const size_t cells = static_cast<size_t>(L) * L;
+  checkerboard::sweeps<kThreads, kSites>(
+      IsingRule{tab}, lat, fred, ired, spins_in + slot * cells, spins_out + slot * cells,
+      de_out, nacc_out, slot, key_words, t0, t_add,
+      static_cast<uint32_t>(slot) + replica_offset, L, L, n_sweeps);
 }
 
 }  // namespace
@@ -135,7 +118,7 @@ extern "C" {
 
 // Shared-memory bytes one launch needs at lattice side L.
 long long ising_fused_smem_bytes(int length) {
-  return kHeaderBytes + static_cast<long long>(length) * length;
+  return kHeaderBytes + checkerboard::lattice_bytes<kSites>(length, length);
 }
 
 // Launches kernel A on `stream`; returns cudaGetLastError() (0 = launched).

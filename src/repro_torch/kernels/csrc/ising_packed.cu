@@ -42,15 +42,17 @@
 // index arithmetic (lattice::colour_site, an integer division) is paid once
 // per group, and the group's Threefry hashes of a site are independent, so
 // the compiler can interleave them (instruction-level parallelism that
-// kernel A's one dependent hash per site lacks).
+// kernel A's first design, one dependent hash per thread, lacked).
 //
 // Stream and sums.  Replica k of the group draws kernel A's uniform,
 // to_uniform(hash(sweep_key(t0 + sweep, first + k + replica_offset),
-// colour, site).x0), where `first` is the group's first slot.  With kThreads = 256, kernel A's block size, each thread visits
-// kernel A's sites in kernel A's order, so each replica's ΔE partial sum is
-// kernel A's, and the fixed-order reductions (block_reduce.cuh, per colour,
-// then per sweep) are kernel A's too: spins, nacc and ΔE equal kernel A's
-// bit for bit, for any j and b.
+// colour, site).x0), where `first` is the group's first slot, so spins and
+// nacc equal kernel A's bit for bit for any j and b.  Its 256 threads visit
+// sites by flat colour index, kernel A's first order; kernel A now walks runs
+// of a row (checkerboard.cuh), so each colour's f32 ΔE sum is added in
+// another order: equal to kernel A's where every term is an integer (j=1,
+// b=0), else both within the plain version's 4-ulp bound.  The fixed-order
+// reductions (block_reduce.cuh, per colour, then per sweep) are kernel A's.
 //
 // Bound.  Kernel A's: the Threefry work, one block per site update (72
 // 32-bit instructions each), is 29.055 ms at L=300, R=1500, S=100 on the
@@ -67,7 +69,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // kernel A's: keeps ΔE bit-equal to it
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 8;  // replicas a byte can hold
 // shared-memory header: float/int reduction scratch, the group's p rows and

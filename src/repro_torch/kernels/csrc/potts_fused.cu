@@ -10,43 +10,107 @@
 // throughout, which is what pack_bits=True asks for (q <= 64), and the JAX
 // package pins the two trajectories as bitwise equal.
 //
-// Design: kernel A's (ising_fused.cu).  One block per replica slot holds the
-// H x W int8 lattice in dynamic shared memory for all S sweeps; 256 threads
-// stride over the active colour's sites; each site update hashes two
-// Threefry blocks of the sweep key, plane 2*colour (proposal) and plane
-// 2*colour+1 (acceptance), at counter i*W + j, which depend on no other
-// site.  The slot's beta is betas[rung[slot]], so the interval path
-// (identity rung, per-slot betas) and the round path (rung-ordered betas)
-// share this kernel.  ΔE and counts are reduced per colour in a fixed order
-// and accumulated per colour into the sweep, then per sweep, as the JAX
-// kernel does.  Acceptance selects from the 81-entry ΔE row and the
-// per-rung p row the wrapper builds with the plain version's ops (see
-// sweep.cu), so colours and counts equal the plain version's for any j and
-// rule.
+// Design: kernel A's, one scaffold (checkerboard.cuh): one block per replica
+// slot, colour-paired haloed lattice in shared memory, runs of kSites sites
+// of one row per thread, each site hashing two independent Threefry blocks
+// of the sweep key at counter i*W + j, plane 2*colour (proposal) and plane
+// 2*colour+1 (acceptance).  The slot's beta is betas[rung[slot]], so the
+// interval path (identity rung, per-slot betas) and the round path
+// (rung-ordered betas) share this kernel.
+//
+// The update.  The proposal is the plain version's, d = 1 +
+// floor(u_prop * (q-1)) in f32, computed as float(bits >> 8) * ((q-1) *
+// 2^-24): u_prop is exact, so both products round the same real number
+// once.  trial = (s + d) % q is min(s + d, s + d - q) in unsigned
+// arithmetic, exactly, as 0 <= s < q and 1 <= d <= q.  The (up, down, left,
+// right) tuple of terms 1 + [s == nbr] - [trial == nbr] indexes ΔE and the
+// acceptance threshold in the 81-entry rows the wrapper built with the plain
+// version's ops (see sweep.cu); the four neighbours' colours sit in the
+// bytes of one word, so both sets of equalities and the weighted index come
+// from a few word operations instead of eight compares and selects.  Colours
+// and counts equal the plain version's for any j and rule; ΔE is exact at
+// j=1 and otherwise differs only in the order inside one colour's sum.
 //
 // Bound.  At H=W=300, R=1500, S=100: 2 Threefry-20 blocks of 72 32-bit
-// instructions per site update, 2.7e10 blocks, 1.9e12 instructions, 58 ms
-// at Hopper's issue rate of 33.5e12/s (see ising_fused.cu), against 270 MB
-// of lattice traffic
-// (0.08 ms at 3.35 TB/s).  Integer-ALU bound; the design hashes exactly the
-// two blocks per update that the stream defines and nothing else.
+// instructions per site update, 2.7e10 blocks, 1.9e12 instructions, 58.110
+// ms at the 33.5e12/s issue rate (see ising_fused.cu), against 270 MB of
+// lattice traffic (0.08 ms at 3.35 TB/s).  Integer-instruction bound.
+//
+// First version: kernel A's first design plus lattice::potts_trial
+// (a runtime `% q`, eight compare/select pairs), 253 SASS instructions per
+// update: 146.4 ms at S=100, 2.52x the bound, on an H100 80GB HBM3 at 700 W
+// (fused_probe.py; PERF.md §6).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "block_reduce.cuh"
+#include "checkerboard.cuh"
 #include "lattice.cuh"
-#include "threefry.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kSites = 8;
 constexpr int kWarps = kThreads / 32;
-constexpr int kHeaderBytes = kWarps * 8 + 2 * lattice::kPottsTable * 4;
+constexpr int kHeaderBytes = kWarps * 8 + lattice::kPottsTable * 8;
+
+// 1 in each byte of nb that equals x, else 0 (every byte and x below 128,
+// so adding 0x7F to a byte never carries into the next).
+__device__ __forceinline__ uint32_t equal_bytes(uint32_t nb, uint32_t x) {
+  const uint32_t y = nb ^ (x * 0x01010101u);
+  return (~(y + 0x7F7F7F7Fu) >> 7) & 0x01010101u;
+}
+
+// weights of the up, down, left and right terms of the 81-entry index, one
+// per byte, reversed so that they meet their terms in the product's top byte
+constexpr uint32_t kWeights = (27u << 24) | (9u << 16) | (3u << 8) | 1u;
+
+struct PottsRule {
+  const checkerboard::Entry* tab;
+  int q;
+  float scale;  // (q - 1) * 2^-24
+
+  __device__ static uint8_t to_shared(int8_t s) { return static_cast<uint8_t>(s); }
+  __device__ static int8_t from_shared(uint8_t v) { return static_cast<int8_t>(v); }
+
+  template <int kN>
+  __device__ __forceinline__ void update(const checkerboard::Site (&st)[kN],
+                                         const threefry::Schedule& ks, int c,
+                                         float& part, int& nacc) const {
+    int trial[kN], e[kN];
+    uint32_t acc[kN];
+#pragma unroll
+    for (int s = 0; s < kN; ++s) {
+      const uint32_t prop = threefry::hash(ks, static_cast<uint32_t>(2 * c), st[s].ctr).x0;
+      acc[s] = threefry::hash(ks, static_cast<uint32_t>(2 * c + 1), st[s].ctr).x0;
+      const uint32_t v = st[s].v;
+      // (s + d) % q as min(s + d, s + d - q) in unsigned: s + d < 2q
+      const uint32_t sd = v + 1u + static_cast<uint32_t>(
+          floorf(static_cast<float>(prop >> 8) * scale));
+      const uint32_t t = min(sd, sd - static_cast<uint32_t>(q));
+      trial[s] = static_cast<int>(t);
+      // the neighbours' colours, one byte each (all < 128): up, dn, lf, rt
+      const uint32_t nb = st[s].up | st[s].dn << 8 | st[s].lf << 16 | st[s].rt << 24;
+      // byte d of `terms` is 1 + [v == n_d] - [t == n_d]; the product's top
+      // byte is their sum weighted 27, 9, 3, 1 (no byte carries: <= 80)
+      const uint32_t terms = equal_bytes(nb, v) - equal_bytes(nb, t) + 0x01010101u;
+      e[s] = static_cast<int>((terms * kWeights) >> 24);
+    }
+#pragma unroll
+    for (int s = 0; s < kN; ++s) {
+      const checkerboard::Entry ent = tab[e[s]];
+      if (st[s].live && checkerboard::accept(acc[s], ent.thr)) {
+        *st[s].at = static_cast<uint8_t>(trial[s]);
+        part += ent.de;
+        ++nacc;
+      }
+    }
+  }
+};
 
 // states_in may alias states_out: a block reads its whole lattice first.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
                    float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
                    const int32_t* __restrict__ rung, const float* __restrict__ p_tab,
@@ -54,60 +118,23 @@ potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
                    const int64_t* __restrict__ key_words,
                    const int64_t* __restrict__ t0, long long t_add,
                    unsigned int replica_offset, int H, int W, int q, int n_sweeps) {
-  extern __shared__ unsigned char smem[];
+  extern __shared__ __align__(8) unsigned char smem[];
   float* fred = reinterpret_cast<float*>(smem);
   int* ired = reinterpret_cast<int*>(smem + kWarps * 4);
-  float* p_s = reinterpret_cast<float*>(smem + kWarps * 8);
-  float* de_s = p_s + lattice::kPottsTable;
-  int8_t* lat = reinterpret_cast<int8_t*>(smem + kHeaderBytes);
+  checkerboard::Entry* tab = reinterpret_cast<checkerboard::Entry*>(smem + kWarps * 8);
+  uint8_t* lat = smem + kHeaderBytes;
 
   const int slot = blockIdx.x;
-  const int HW = H * W;
-  const int8_t* src = states_in + static_cast<size_t>(slot) * HW;
-  for (int i = threadIdx.x; i < HW; i += blockDim.x) lat[i] = src[i];
   const float* p_row = p_tab + static_cast<size_t>(rung[slot]) * lattice::kPottsTable;
-  for (int i = threadIdx.x; i < lattice::kPottsTable; i += blockDim.x) {
-    p_s[i] = p_row[i];
-    de_s[i] = de_tab[i];
+  for (int i = threadIdx.x; i < lattice::kPottsTable; i += kThreads) {
+    tab[i] = {checkerboard::threshold(p_row[i]), de_tab[i]};
   }
-
-  const threefry::Pair sk = threefry::hash(
-      static_cast<uint32_t>(key_words[0]), static_cast<uint32_t>(key_words[1]),
-      threefry::DOMAIN, threefry::DOMAIN);
-  const uint32_t t_base = static_cast<uint32_t>(t0[0] + t_add);
-  const uint32_t rep = static_cast<uint32_t>(slot) + replica_offset;
-  float de_total = 0.0f;
-  int nacc = 0;
-  __syncthreads();
-
-  for (int sweep = 0; sweep < n_sweeps; ++sweep) {
-    const threefry::Pair wk =
-        threefry::hash(sk.x0, sk.x1, t_base + static_cast<uint32_t>(sweep), rep);
-    float ds = 0.0f;
-    for (int c = 0; c < 2; ++c) {
-      float part = 0.0f;
-      for (int idx = threadIdx.x; idx < HW / 2; idx += blockDim.x) {
-        const lattice::Site st = lattice::colour_site(idx, c, H, W);
-        const uint32_t site = static_cast<uint32_t>(st.site);
-        const float u_prop = threefry::to_uniform(
-            threefry::hash(wk.x0, wk.x1, static_cast<uint32_t>(2 * c), site).x0);
-        const float u_acc = threefry::to_uniform(
-            threefry::hash(wk.x0, wk.x1, static_cast<uint32_t>(2 * c + 1), site).x0);
-        lattice::potts_trial(lat, st, u_prop, u_acc, q, p_s, de_s, part, nacc);
-      }
-      // the reduction's barriers also end this colour before the next reads it
-      ds = ds + block_reduce::sum<kWarps>(part, fred);
-    }
-    de_total = de_total + ds;
-  }
-  const int nacc_total = block_reduce::sum<kWarps>(nacc, ired);
-
-  int8_t* dst = states_out + static_cast<size_t>(slot) * HW;
-  for (int i = threadIdx.x; i < HW; i += blockDim.x) dst[i] = lat[i];
-  if (threadIdx.x == 0) {
-    de_out[slot] = de_total;
-    nacc_out[slot] = nacc_total;
-  }
+  const size_t cells = static_cast<size_t>(H) * W;
+  const PottsRule rule{tab, q, static_cast<float>(q - 1) * (1.0f / 16777216.0f)};
+  checkerboard::sweeps<kThreads, kSites>(
+      rule, lat, fred, ired, states_in + slot * cells, states_out + slot * cells, de_out,
+      nacc_out, slot, key_words, t0, t_add, static_cast<uint32_t>(slot) + replica_offset,
+      H, W, n_sweeps);
 }
 
 }  // namespace
@@ -115,7 +142,7 @@ potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
 extern "C" {
 
 long long potts_fused_smem_bytes(int height, int width) {
-  return kHeaderBytes + static_cast<long long>(height) * width;
+  return kHeaderBytes + checkerboard::lattice_bytes<kSites>(height, width);
 }
 
 // Launches kernel #5 on `stream`; returns cudaGetLastError() (0 = launched).

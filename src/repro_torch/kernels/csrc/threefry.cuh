@@ -19,13 +19,30 @@ struct Pair {
   uint32_t x0, x1;
 };
 
-// Threefry-2x32 with 20 rounds: key (k0, k1), counter (x0, x1).
-__device__ __forceinline__ Pair hash(uint32_t k0, uint32_t k1, uint32_t x0,
-                                     uint32_t x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ KS_PARITY};
+// A key's schedule: its three words and the second-word injections
+// ks[(g+1)%3] + g, made once per key, so that a loop hashing many counters
+// under one key (the fused sweeps' site loops) pays a two-input add per
+// injection.
+struct Schedule {
+  uint32_t ks[3];
+  uint32_t inj1[5];
+};
+
+__device__ __forceinline__ Schedule schedule(uint32_t k0, uint32_t k1) {
+  Schedule s;
+  s.ks[0] = k0;
+  s.ks[1] = k1;
+  s.ks[2] = k0 ^ k1 ^ KS_PARITY;
+#pragma unroll
+  for (int g = 1; g <= 5; ++g) s.inj1[g - 1] = s.ks[(g + 1) % 3] + static_cast<uint32_t>(g);
+  return s;
+}
+
+// Threefry-2x32 with 20 rounds under a key schedule, counter (x0, x1).
+__device__ __forceinline__ Pair hash(const Schedule& s, uint32_t x0, uint32_t x1) {
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
+  x0 += s.ks[0];
+  x1 += s.ks[1];
 #pragma unroll
   for (int group = 0; group < 5; ++group) {
 #pragma unroll
@@ -33,11 +50,16 @@ __device__ __forceinline__ Pair hash(uint32_t k0, uint32_t k1, uint32_t x0,
       x0 += x1;
       x1 = rotl(x1, rot[group % 2][r]) ^ x0;
     }
-    const int inject = group + 1;
-    x0 += ks[inject % 3];
-    x1 += ks[(inject + 1) % 3] + static_cast<uint32_t>(inject);
+    x0 += s.ks[(group + 1) % 3];
+    x1 += s.inj1[group];
   }
   return {x0, x1};
+}
+
+// Threefry-2x32 with 20 rounds: key (k0, k1), counter (x0, x1).
+__device__ __forceinline__ Pair hash(uint32_t k0, uint32_t k1, uint32_t x0,
+                                     uint32_t x1) {
+  return hash(schedule(k0, k1), x0, x1);
 }
 
 // Top 24 bits as an f32 in [0, 1): exact, never 1.0.

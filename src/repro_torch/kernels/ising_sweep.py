@@ -239,7 +239,9 @@ def ising_sweep_packed_kernel(
     """Kernel #2p: kernel A's sweeps with the spins packed up to 8 replicas
     a byte in shared memory.  Same arguments and results as
     `ising_sweep_fused_kernel`, and equal to it: spins and counts bit for
-    bit, ΔE too (each replica's sums are kernel A's, in kernel A's order).
+    bit, ΔE too where every term is an integer (j=1, b=0); otherwise the
+    two sum each colour in their own orders, both within the plain
+    version's 4-ulp bound.
     ``group`` (1..8 replicas per block) defaults to `packed_group` for the
     card's SM count; no result depends on it."""
     if spins.device.type != "cuda":

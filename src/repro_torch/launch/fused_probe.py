@@ -1,0 +1,294 @@
+"""SASS instruction counts and a block-width sweep of the fused sweep kernels
+A (``csrc/ising_fused.cu``) and #5 (``csrc/potts_fused.cu``), on the card.
+
+For each variant — the package's ``csrc`` as it is, each ``--baseline``
+directory as it is (e.g. an earlier commit's ``csrc``), and the package's
+``csrc`` with each ``--grid`` entry ``TxS`` substituted for its ``kThreads``
+/ ``kSites`` constants — it prints
+
+* ``nvcc -Xptxas -v``: registers, spills and shared memory of each kernel;
+* ``cuobjdump -sass``: the instructions of each innermost loop that hashes
+  (a backward branch whose body holds Threefry rotates and no such inner
+  loop), per site update, by class — integer ALU (SHF, LOP3, IADD3, ISETP,
+  SEL, LEA, IMNMX, PRMT, ...), FMA pipe (IMAD*, FMUL, FADD, FFMA),
+  conversion (I2F, I2FP, F2I, FRND), shared memory (LDS, STS), branch and
+  other (moves, uniform-datapath ops and Hopper's VIADD / VIADDMNMX, whose
+  pipe is not documented);
+  a Threefry block has 20 rotates, 19 when its second word is dead, so a
+  loop's hashes are its rotates / 19 rounded, its site updates the hashes
+  over the planes each update draws (1 Ising, 2 Potts);
+* times (CUDA events) at the main paths' shapes — kernel A at L=300 R=1500,
+  #5 at 300x300 q=3 R=1500, glauber, S=2 and S=100 — in turns (each
+  variant, then again in reverse order), beside the bound (72 32-bit
+  instructions per Threefry block at 33.5e12/s), after checking that each
+  variant's spins/colours and counts at S=2 equal the plain version's;
+  and the SM clock and power draw (``nvidia-smi``) while the package's
+  kernel runs at S=100.
+
+The kernels' C interfaces are the wrappers', so every variant runs on the
+wrappers' own tables.  Needs one card and the CUDA toolkit:
+
+    PYTHONPATH=src python -m repro_torch.launch.fused_probe --grid 256x2 1024x2 512x4
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import shutil
+import subprocess
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.core import keys
+from repro_torch.kernels import build, prng
+from repro_torch.kernels import ising_sweep as isk
+from repro_torch.kernels import potts_sweep as pk
+
+__all__ = ["build_variant", "ptxas_report", "sass_loops", "main"]
+
+KERNELS = {"ising_fused": 1, "potts_fused": 2}  # Threefry planes per site update
+THREEFRY_OPS = 72
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+CLASSES = {
+    "alu": ("SHF", "LOP3", "IADD3", "ISETP", "SEL", "LEA", "IMNMX", "PRMT", "IABS",
+            "FLO", "POPC", "BMSK", "SGXT", "FSEL", "FSETP", "LOP", "IADD", "SHL", "SHR"),
+    "fma": ("IMAD", "FMUL", "FADD", "FFMA", "IMUL"),
+    "conversion": ("I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F", "I2I"),
+    "shared": ("LDS", "STS"),
+    "branch": ("BRA", "BSSY", "BSYNC", "EXIT", "BAR", "WARPSYNC", "CALL", "RET", "JMP"),
+}
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+
+
+def _class(op: str) -> str:
+    base = op.split(".")[0]
+    for name, ops in CLASSES.items():
+        if base in ops:
+            return name
+    return "other"
+
+
+def build_variant(csrc: Path, name: str, out: Path, threads: int | None = None,
+                  sites: int | None = None) -> tuple[Path, subprocess.Popen]:
+    """Start compiling ``name``.cu from ``csrc`` (constants substituted) with
+    the package's flags and ``-Xptxas -v``; returns the library's path and
+    the running ``nvcc``, whose output holds ptxas's report."""
+    src = out / "src"
+    shutil.copytree(csrc, src, dirs_exist_ok=True)
+    text = (src / f"{name}.cu").read_text()
+    for const, value in (("kThreads", threads), ("kSites", sites)):
+        if value is not None:
+            text, n = re.subn(rf"constexpr int {const} = \d+;",
+                              f"constexpr int {const} = {value};", text)
+            if n != 1:
+                raise ValueError(f"{csrc / name}.cu has no single {const} constant")
+    (src / f"{name}.cu").write_text(text)
+    lib = out / f"lib{name}.so"
+    cmd = [build.nvcc_path(), *build._COMMON, *build.SOURCES[name], "-Xptxas", "-v",
+           "-I", str(src), "-o", str(lib), str(src / f"{name}.cu")]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+
+
+def ptxas_report(proc: subprocess.Popen, what: str) -> str:
+    """Wait for a `build_variant` compile; its registers, spills and entries."""
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {what}:\n{log}")
+    return "\n    ".join(ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln or "Compiling entry" in ln)
+
+
+def sass_loops(text: str, symbol: str) -> list[dict]:
+    """Innermost hashing loops of the kernel whose name holds ``symbol`` in
+    ``cuobjdump -sass`` output ``text``."""
+    body, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+            continue
+        m = _INSN.search(line) if inside else None
+        if m:
+            body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    loops = []
+    for addr, op, args in body:
+        target = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and target and int(target.group(1), 16) <= addr:
+            lo = int(target.group(1), 16)
+            ops = [o for a, o, _ in body if lo <= a <= addr]
+            rot = sum(o.startswith(("SHF.L.W", "SHF.R.W")) for o in ops)
+            if rot >= 19:
+                loops.append({"start": lo, "end": addr, "ops": ops, "rotates": rot})
+    inner = [lp for lp in loops if not any(
+        o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"] for o in loops)]
+    for lp in inner:
+        lp["hashes"] = round(lp["rotates"] / 19)
+        lp["classes"] = Counter(_class(o) for o in lp["ops"])
+        lp["opcodes"] = Counter(o.split(".")[0] for o in lp["ops"])
+    return inner
+
+
+def _report_sass(lib: Path, name: str) -> str:
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = []
+    for lp in sass_loops(text, name):
+        sites = lp["hashes"] / KERNELS[name]
+        per = {k: v / sites for k, v in sorted(lp["classes"].items())}
+        top = ", ".join(f"{o} {v / sites:.2f}" for o, v in lp["opcodes"].most_common(14))
+        out.append(f"loop 0x{lp['start']:x}-0x{lp['end']:x}: {len(lp['ops'])} instructions, "
+                   f"{lp['rotates']} rotates = {lp['hashes']} hashes = {sites:g} site updates; "
+                   f"per update {len(lp['ops']) / sites:.2f}: "
+                   + ", ".join(f"{k} {v:.2f}" for k, v in per.items()) + f"; opcodes: {top}")
+    return "\n    ".join(out) or "no hashing loop found"
+
+
+def _load(lib_path: Path, name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(lib_path))
+    p = ctypes.c_void_p
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    n_int = 3 if name == "ising_fused" else 5
+    fn.argtypes = [p] * 9 + [ctypes.c_longlong, ctypes.c_uint] + [ctypes.c_int] * n_int + [p]
+    return lib
+
+
+def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int):
+    """A closure that launches ``lib``'s kernel on ``inputs`` as the wrapper does."""
+    st, words, t0, rung, p_tab, de_tab = (inputs[k] for k in (
+        "states", "words", "t0", "rung", "p_tab", "de_tab"))
+    r, h, w = st.shape
+    out = torch.empty_like(st)
+    de = torch.empty(r, dtype=torch.float32, device=st.device)
+    nacc = torch.empty(r, dtype=torch.int32, device=st.device)
+    dims = (r, h, n_sweeps) if name == "ising_fused" else (r, h, w, 3, n_sweeps)
+
+    def launch():
+        err = getattr(lib, f"{name}_launch")(
+            st.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(), rung.data_ptr(),
+            p_tab.data_ptr(), de_tab.data_ptr(), words.data_ptr(), t0.data_ptr(), 0, 0,
+            *dims, build.stream_of(st.device))
+        build.raise_if(err, name)
+        return out, de, nacc
+    return launch
+
+
+def _inputs(name: str, device) -> dict:
+    rng = np.random.default_rng(61)
+    r, length = 1500, 300
+    if name == "ising_fused":
+        st = rng.choice(np.array([-1, 1], np.int8), size=(r, length, length))
+        betas = (1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)
+    else:
+        st = rng.integers(0, 3, (r, length, length)).astype(np.int8)
+        betas = (1.0 / np.geomspace(0.7, 2.9, r)).astype(np.float32)
+    betas = torch.from_numpy(betas).to(device)
+    if name == "ising_fused":
+        p_tab, de_tab = isk.accept_tables(betas, j=1.0, b=0.0, rule="glauber")
+    else:
+        p_tab, de_tab = pk.potts_tables(betas, j=1.0, rule="glauber")
+    return {"states": torch.from_numpy(st).to(device), "betas": betas,
+            "words": prng.key_words(keys.key(3, device=device)),
+            "t0": torch.zeros((), dtype=torch.int64, device=device),
+            "rung": torch.arange(r, dtype=torch.int32, device=device),
+            "p_tab": p_tab, "de_tab": de_tab}
+
+
+def _plain(name: str, inp: dict, n_sweeps: int):
+    args = (inp["states"], inp["words"], inp["t0"], inp["betas"], inp["rung"])
+    if name == "ising_fused":
+        return isk.ising_sweep_fused_plain(*args, n_sweeps=n_sweeps, rule="glauber")
+    return pk.potts_sweep_fused_plain(*args, n_sweeps=n_sweeps, q=3, rule="glauber")
+
+
+def _under_load(fn, reps: int) -> str:
+    """The card's SM clock and power draw while ``reps`` launches of ``fn`` run."""
+    for _ in range(reps):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    torch.cuda.synchronize()
+    return out.strip()
+
+
+def _ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", type=Path, nargs="*", default=[],
+                    help="other csrc directories to build as they are")
+    ap.add_argument("--grid", nargs="*", default=[],
+                    help="THREADSxSITES: block width and sites per thread to substitute "
+                         "for kThreads and kSites in the package's csrc")
+    ap.add_argument("--out", type=Path, default=build.build_root() / "probe")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("fused_probe needs a CUDA card")
+    device = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}")
+    variants = [(d.name, d, None, None) for d in args.baseline]
+    variants.append(("package", build.CSRC, None, None))
+    for entry in args.grid:
+        threads, sites = (int(v) for v in entry.split("x"))
+        variants.append((entry, build.CSRC, threads, sites))
+    builds = {}
+    for label, csrc, threads, sites in variants:  # every nvcc at once
+        for name in KERNELS:
+            out = args.out / label / name
+            if out.exists():
+                shutil.rmtree(out)
+            builds[label, name] = build_variant(csrc, name, out, threads, sites)
+    libs = {}
+    for (label, name), (lib_path, proc) in builds.items():
+        print(f"[{label}] {name} ptxas:\n    {ptxas_report(proc, f'{label} {name}')}")
+        print(f"[{label}] {name} SASS:\n    {_report_sass(lib_path, name)}")
+        libs[label, name] = _load(lib_path, name)
+    for name in KERNELS:
+        inp = _inputs(name, device)
+        sites = inp["states"].numel()
+        want = _plain(name, inp, 2)
+        for label, *_ in variants:
+            got = _launcher(libs[label, name], name, inp, 2)()
+            torch.cuda.synchronize()
+            if not torch.equal(got[0], want[0]) or not torch.equal(got[2], want[2]):
+                raise AssertionError(f"[{label}] {name} differs from the plain version at S=2")
+        del want
+        print(f"{name}: every variant equals the plain version at S=2 (states, nacc)")
+        times = {label: {2: [], 100: []} for label, *_ in variants}
+        order = [label for label, *_ in variants]
+        for label in order + order[::-1]:
+            for s, reps in ((2, 10), (100, 2)):
+                times[label][s].append(_ms(_launcher(libs[label, name], name, inp, s), reps))
+        load = _under_load(_launcher(libs["package", name], name, inp, 100), 6)
+        print(f"[package] {name}: SM clock, power draw during S=100 launches: {load}")
+        for label in order:
+            bounds = {s: 1e3 * KERNELS[name] * s * sites * THREEFRY_OPS / INT32_OPS_PER_S
+                      for s in (2, 100)}
+            print(f"[{label}] {name} [{card}]: " + "; ".join(
+                f"S={s} {' / '.join(f'{t:.4f}' for t in times[label][s])} ms "
+                f"(bound {bounds[s]:.4f} ms, bound/time {bounds[s] / min(times[label][s]):.3f})"
+                for s in (2, 100)))
+        del inp
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

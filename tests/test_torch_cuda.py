@@ -1,7 +1,8 @@
 """CUDA twins of the port's parity tests: each kernel against its plain version.
 
 Kernels A and B (fused Ising round), #2p (A's sweeps on packed spins, also
-held against kernel A), #1 and #4 (one Ising / Potts sweep on passed-in
+held against kernel A: spins and counts bit for bit, ΔE each within the
+plain version's bound), #1 and #4 (one Ising / Potts sweep on passed-in
 uniforms), #5 (fused Potts sweeps), the per-sweep ``jax.random`` draw and
 #7 (the RWKV-6 recurrence); the Session paths on the card against the CPU,
 with one chain and with two; the interval loop of every path with host
@@ -68,10 +69,16 @@ def test_streams_on_cuda_equal_cpu(dev):
                        keys.uniform(keys.key(4), (5, 5)))
 
 
+# shapes the walk must get right: the smallest even lattices, sides that are
+# no multiple of a warp's lanes, one near the shared-memory limit, an odd R
+WALK_SHAPES = [(30, 12), (2, 13), (4, 13), (66, 13), (470, 13)]
+
+
 @pytest.mark.parametrize("rule", ["metropolis", "glauber"])
 @pytest.mark.parametrize("j,b", [(1.0, 0.0), (0.7, 0.3)])
-def test_kernel_a_matches_plain(dev, rule, j, b):
-    spins, betas, rung = _lattice(5, 12, 30, dev)
+@pytest.mark.parametrize("length,r", WALK_SHAPES)
+def test_kernel_a_matches_plain(dev, rule, j, b, length, r):
+    spins, betas, rung = _lattice(5, r, length, dev)
     args = (spins, keys.key(6, device=dev), torch.tensor(9, device=dev), betas, rung)
     kw = dict(n_sweeps=4, j=j, b=b, rule=rule, replica_offset=2)
     got = isk.ising_sweep_fused_kernel(*args, **kw)
@@ -240,9 +247,11 @@ def test_kernel_4_matches_plain(dev, rule, q, j):
 
 
 @pytest.mark.parametrize("rule", ["metropolis", "glauber"])
-@pytest.mark.parametrize("q,j", [(3, 1.0), (5, 0.7)])
-def test_kernel_5_matches_plain(dev, rule, q, j):
-    states, betas, rung = _colours(13, 10, 12, 18, q, dev)
+@pytest.mark.parametrize("q,j", [(3, 1.0), (5, 0.7), (2, 1.0), (64, 0.7)])
+@pytest.mark.parametrize("h,w,r", [(12, 18, 10), (2, 2, 13), (4, 4, 13), (8, 6, 13),
+                                   (64, 48, 13), (30, 66, 13), (470, 470, 13)])
+def test_kernel_5_matches_plain(dev, rule, q, j, h, w, r):
+    states, betas, rung = _colours(13, r, h, w, q, dev)
     args = (states, keys.key(6, device=dev), torch.tensor(9, device=dev), betas, rung)
     kw = dict(n_sweeps=4, q=q, j=j, rule=rule, replica_offset=2, t_add=3)
     _assert_potts_equal(pk.potts_sweep_fused_kernel(*args, **kw),
@@ -307,15 +316,15 @@ def test_packed_kernel_matches_plain_and_kernel_a(dev, length, r, sweeps, j, b, 
     got = isk.ising_sweep_packed_kernel(*args, **kw, group=group)
     assert build.launches["ising_packed"] == 1
     kernel_a = isk.ising_sweep_fused_kernel(*args, **kw)
-    for g, a in zip(got, kernel_a):  # ΔE too: kernel A's sums in kernel A's order
-        assert torch.equal(g, a)
+    assert torch.equal(got[0], kernel_a[0]) and torch.equal(got[2], kernel_a[2])
     want = isk.ising_sweep_packed_plain(*args, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
-    if j == 1.0 and b == 0.0:
-        assert torch.equal(got[1], want[1])
-    else:
-        err = (got[1] - want[1]).abs().double()
-        assert bool((err <= 4 * F32_EPS * want[2].double() * 2 * (4 * abs(j) + b)).all())
+    if j == 1.0 and b == 0.0:  # integer terms: every order sums exactly
+        assert torch.equal(got[1], want[1]) and torch.equal(kernel_a[1], want[1])
+    else:  # #2p and kernel A sum each colour in their own orders
+        for de in (got[1], kernel_a[1]):
+            err = (de - want[1]).abs().double()
+            assert bool((err <= 4 * F32_EPS * want[2].double() * 2 * (4 * abs(j) + b)).all())
 
 
 def test_packed_round_on_cuda_equals_cpu(dev):

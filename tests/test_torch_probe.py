@@ -1,0 +1,72 @@
+"""The fused-kernel probe's parts that need no card: the SASS loop count and
+the source substitution (``repro_torch.launch.fused_probe``)."""
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.launch import fused_probe as fp  # noqa: E402
+
+
+def _insn(addr: int, text: str) -> str:
+    return f"        /*{addr:04x}*/                   {text} ;  /* 0x000000000000 */\n"
+
+
+def _sass(name: str, body: list[str], outer: bool) -> str:
+    """A kernel whose inner loop is ``body`` (once per hash: 19 rotates),
+    inside an outer loop that hashes once more when ``outer``."""
+    lines, addr = [f"\t\tFunction : _ZN12_GLOBAL__N_1{len(name)}{name}EPKa\n"], 0
+    for text in ["LDC R1, c[0x0][0x28]"] + (["SHF.L.W.U32.HI R9, R8, 0xd, R8"] * 19 if outer else []):
+        lines.append(_insn(addr, text))
+        addr += 16
+    inner = addr
+    for text in body:
+        lines.append(_insn(addr, text))
+        addr += 16
+    lines.append(_insn(addr, f"@!P0 BRA 0x{inner:x}"))
+    addr += 16
+    lines.append(_insn(addr, "@P1 BRA 0x0"))
+    lines.append(_insn(addr + 16, "EXIT"))
+    return "".join(lines)
+
+
+HASH = ["SHF.L.W.U32.HI R5, R4, 0xd, R4", "LOP3.LUT R5, R5, R6, RZ, 0x3c, !PT",
+        "IMAD.IADD R6, R6, 0x1, R5"]
+
+
+@pytest.mark.parametrize("outer", [False, True])
+def test_sass_loops_counts_the_innermost_hashing_loop(outer):
+    body = HASH * 19 * 2 + ["LDS.U8 R7, [R3]", "ISETP.GE.AND P0, PT, R3, R2, PT",
+                            "I2FP.F32.U32 R8, R7", "VIADD R3, R3, 0x2"]
+    text = _sass("ising_fused_kernel", body, outer) + _sass("other_kernel", HASH * 19, False)
+    (loop,) = fp.sass_loops(text, "ising_fused")
+    assert loop["rotates"] == 38 and loop["hashes"] == 2
+    assert len(loop["ops"]) == len(body) + 1  # the backward branch too
+    assert loop["classes"] == {"alu": 19 * 2 * 2 + 1, "fma": 38, "shared": 1,
+                               "conversion": 1, "other": 1, "branch": 1}
+    assert loop["opcodes"]["SHF"] == 38 and loop["opcodes"]["VIADD"] == 1
+
+
+def test_sass_loops_skips_loops_without_a_hash_and_other_kernels():
+    text = _sass("potts_fused_kernel", ["LDS.U8 R7, [R3]"] * 4, False)
+    assert fp.sass_loops(text, "potts_fused") == []
+    assert fp.sass_loops(_sass("ising_fused_kernel", HASH * 19, False), "potts_fused") == []
+
+
+def test_build_variant_refuses_a_source_without_the_constant(tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "ising_fused.cu").write_text("constexpr int kThreads = 512;\n")
+    with pytest.raises(ValueError, match="kSites"):
+        fp.build_variant(csrc, "ising_fused", tmp_path / "out", threads=256, sites=4)
+    text = (tmp_path / "out" / "src" / "ising_fused.cu").read_text()
+    assert text == "constexpr int kThreads = 512;\n"  # nothing written on refusal
+
+
+def test_package_kernels_carry_the_constants_the_probe_substitutes():
+    csrc = Path(fp.build.CSRC)
+    for name in fp.KERNELS:
+        text = (csrc / f"{name}.cu").read_text()
+        assert text.count("constexpr int kThreads = ") == 1
+        assert text.count("constexpr int kSites = ") == 1
