@@ -47,13 +47,14 @@ Phases, one line each or more (any failure raises and exits non-zero):
    fused and round paths at full width with every host sync an error; and
    ``examples/specs/ising_small.json`` and a small Potts spec on each of its
    three paths, run on the card and on the CPU, which must agree;
-10. kernel #2p (``csrc/ising_packed.cu``, ``pack_bits``) against its plain
-    version and against kernel A (spins and counts bit for bit; ΔE equal
-    where every term is an integer, else each within 4 ulps of the plain
-    version's) at L=300 R=1500 S=2 and at small odd R, at its default group
-    width and at 8 and 3 replicas a block; timed at S=2 and S=100 beside
-    kernel A and its bound, at 8 a block too, and at R=2112, where both
-    kernels put 16 replicas on every SM;
+10. kernel #2p (``csrc/ising_packed.cu``, ``pack_bits``) against kernel A
+    (spins, counts and ΔE bit for bit) and against its plain version
+    (spins and counts; ΔE exact where every term is an integer, else within
+    4 ulps) at L=300 R=1500 S=2 (j=1 b=0 and j=0.7 b=0.3), at small odd R,
+    and at the shapes phase 2 gives A's row walk (L=2, 4, 30, 66, 470 at
+    R=13), at its default group width and at 1, 3 and 8 replicas a block;
+    timed at S=2 and S=100 beside kernel A and its bound, at 8 a block too,
+    and at R=2112, where both kernels put 16 replicas on every SM, in turns;
 11. the packed round and fused paths through ``Session`` at full width (the
     phase 4 and 5 specs with ``pack_bits``): manifests equal to the unpacked
     runs', sweeps/s, ms/interval, launch counts, and the round path once
@@ -67,9 +68,13 @@ Phases, one line each or more (any failure raises and exits non-zero):
     CPU's;
 14. kernel #7 (``csrc/wkv6.cu``, the RWKV-6 recurrence) against its plain
     version at the serving shapes of rwkv6-7b with B=4 (BH=256, dk=dv=64:
-    prefill T=512 from zero state, decode T=1 from a carried state) and at
-    the JAX package's small shapes, state threading and the w=1, k=0
-    identity; timed at both serving shapes beside its plain version;
+    prefill T=512 from zero state, decode T=1 from a carried state), at
+    the JAX package's small shapes, at rows that are no multiple of 16
+    bytes (dk, dv in 1, 5, 63) and over several 32-step stages (T=33,
+    T=1000); state threading (two launches equal one, bit for bit, split at
+    a stage boundary and off one) and the w=1, k=0 identity; timed at both
+    serving shapes beside its plain version, by CUDA events and by the
+    profiler's device time;
 15. rwkv6-7b at full width and depth in bf16 (7.53e9 parameters drawn on
     the card from a seeded generator): ``prefill_logits`` on (4, 512)
     tokens, then ``launch.serve_lm.generate`` for B=4 over 64 tokens at
@@ -233,11 +238,12 @@ def check_kernel_a(torch, np, isk, keys, cases, device):
 
 
 def check_packed(torch, np, isk, keys, cases, device):
-    """Phase 10: kernel #2p == kernel A (spins, nacc bit for bit; ΔE too
-    where every term is an integer) at its default group width and at 8 and
-    3 replicas a block, and == its plain version (spins, nacc; ΔE exact at
-    integer terms, else both kernels' within 4 ulps: each sums a colour in
-    its own order); returns max |ΔE err| against the plain version."""
+    """Phase 10: kernel #2p == kernel A (spins, nacc and ΔE bit for bit:
+    each replica's partial sums add A's terms in A's order) at its default
+    group width and at 1, 3 and 8 replicas a block, and == its plain version
+    (spins, nacc; ΔE exact at integer terms, else within 4 ulps: the walk
+    sums a colour in another order than the plain version); returns max
+    |ΔE err| against the plain version."""
     max_err = 0.0
     for n, (length, r, sweeps, j, b, rule) in enumerate(cases):
         rng = np.random.default_rng(200 + n)
@@ -255,12 +261,11 @@ def check_packed(torch, np, isk, keys, cases, device):
         torch.cuda.synchronize()
 
         def same_as_a(out):
-            return (torch.equal(out[0], kernel_a[0]) and torch.equal(out[2], kernel_a[2])
-                    and (not exact or torch.equal(out[1], kernel_a[1])))
+            return all(torch.equal(x, y) for x, y in zip(out, kernel_a))
 
         if not same_as_a(got):
             raise AssertionError(f"kernel #2p differs from kernel A: case {n}")
-        for group in (8, 3):  # full bytes with a partial last one, and odd groups
+        for group in (1, 3, 8):  # kernel A's update, odd groups, full bytes
             other = isk.ising_sweep_packed_kernel(spins, words, t0, betas, rung, **kw,
                                                   group=group)
             torch.cuda.synchronize()
@@ -277,7 +282,8 @@ def check_packed(torch, np, isk, keys, cases, device):
         err = assert_de(got[1], want[1], want[2], exact, per_site, what)
         del kernel_a
         max_err = max(max_err, err)
-        print(f"  {what}: spins/nacc equal to kernel A and to plain, max |dE err| vs plain {err}")
+        print(f"  {what}: spins, nacc and ΔE equal to kernel A at 4 widths, spins/nacc to "
+              f"plain, max |dE err| vs plain {err}")
         del got, want, spins
         torch.cuda.empty_cache()
     return max_err
@@ -587,7 +593,11 @@ def check_wkv6(torch, np, wk, ref, device) -> float:
     max_err = 0.0
     cases = [((256, 512, 64, 64), False, "prefill"), ((256, 1, 64, 64), True, "decode"),
              ((4, 33, 8, 8), False, "small"), ((2, 16, 16, 8), True, "small"),
-             ((1, 8, 4, 4), False, "small"), ((3, 64, 64, 64), True, "small")]
+             ((1, 8, 4, 4), False, "small"), ((3, 64, 64, 64), True, "small"),
+             # rows that are no multiple of 16 bytes (4-byte copies), several stages
+             ((2, 33, 1, 5), True, "unaligned"), ((3, 33, 63, 5), False, "unaligned"),
+             ((2, 33, 5, 63), True, "unaligned"), ((2, 1000, 63, 1), True, "stages"),
+             ((2, 1000, 5, 63), False, "stages"), ((4, 1000, 64, 64), True, "stages")]
     for n, ((bh, t, dk, dv), state, what) in enumerate(cases):
         args = wkv6_inputs(torch, np, bh, t, dk, dv, 300 + n, device, state)
         got = wk.wkv6_kernel(*args)
@@ -603,16 +613,17 @@ def check_wkv6(torch, np, wk, ref, device) -> float:
             if what == "small" and not torch.allclose(g, w_, rtol=3e-5, atol=3e-5):
                 raise AssertionError(f"kernel #7 {(bh, t, dk, dv)}: {name} beyond 3e-5")
             max_err = max(max_err, err.max().item())
-    # state threading: T=32 in two halves == one run of 32
-    r, k, v, w, u, _ = wkv6_inputs(torch, np, 2, 32, 8, 8, 320, device)
-    o_full, s_full = wk.wkv6_kernel(r, k, v, w, u)
-    halves = [x[:, :16].contiguous() for x in (r, k, v, w)]
-    o1, s1 = wk.wkv6_kernel(*halves, u)
-    rest = [x[:, 16:].contiguous() for x in (r, k, v, w)]
-    o2, s2 = wk.wkv6_kernel(*rest, u, s1)
-    torch.cuda.synchronize()
-    if not (torch.equal(o_full, torch.cat([o1, o2], 1)) and torch.equal(s_full, s2)):
-        raise AssertionError("kernel #7: two halves != one run of T=32")
+    # state threading: two launches == one, bit for bit: T=32 in halves, and
+    # splits off the kernel's 32-step stages, with aligned and unaligned rows
+    for n, (t, split, dk, dv) in enumerate(((32, 16, 8, 8), (100, 45, 64, 64),
+                                            (1000, 333, 64, 64), (70, 1, 5, 63))):
+        r, k, v, w, u, s0 = wkv6_inputs(torch, np, 3, t, dk, dv, 320 + n, device, state=True)
+        o_full, s_full = wk.wkv6_kernel(r, k, v, w, u, s0)
+        o1, s1 = wk.wkv6_kernel(*(x[:, :split].contiguous() for x in (r, k, v, w)), u, s0)
+        o2, s2 = wk.wkv6_kernel(*(x[:, split:].contiguous() for x in (r, k, v, w)), u, s1)
+        torch.cuda.synchronize()
+        if not (torch.equal(o_full, torch.cat([o1, o2], 1)) and torch.equal(s_full, s2)):
+            raise AssertionError(f"kernel #7: T={t} split at {split} != one run")
     # w=1, k=0 leaves the state unchanged and gives o = r @ S
     s0 = torch.arange(16, dtype=torch.float32, device=device).reshape(1, 4, 4)
     ones, zeros = (torch.full((1, 2, 4), f, device=device) for f in (1.0, 0.0))
@@ -622,16 +633,43 @@ def check_wkv6(torch, np, wk, ref, device) -> float:
     return max_err
 
 
+def profiler_ms(torch, fn, reps: int, name: str) -> tuple[float, int]:
+    """Mean device time in ms of one launch of the kernels whose name holds
+    ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler`` (no
+    host time in it), and how many launches the profiler saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one small op first, so that the tracer is running when fn starts
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    seen = sum(e.count for e in rows)
+    if seen == 0:
+        raise AssertionError(f"the profiler saw no {name} launch")
+    return sum(float(e.self_device_time_total) for e in rows) / seen / 1e3, seen
+
+
 def time_wkv6(torch, np, wk, ref, device) -> dict:
     """Phase 14 times: kernel #7 and its plain version on the same inputs at
     the serving path's shapes (rwkv6-7b, B=4: BH=256, dk=dv=64), prefill
-    T=512 from zero state and decode T=1 from a carried state."""
+    T=512 from zero state and decode T=1 from a carried state; CUDA events
+    around back-to-back launches (the wrapper's host time included where it
+    exceeds the kernel's) and the profiler's device time per launch."""
     out = {}
     for name, t, state, reps, plain_reps in (("prefill", 512, False, 50, 2),
                                              ("decode", 1, True, 500, 100)):
         args = wkv6_inputs(torch, np, 256, t, 64, 64, 330, device, state)
         out[name] = dict(
             ms=cuda_ms(torch, lambda: wk.wkv6_kernel(*args), reps),
+            device=profiler_ms(torch, lambda: wk.wkv6_kernel(*args), 50, "wkv6"),
             plain_ms=cuda_ms(torch, lambda: ref.wkv6(*args), plain_reps),
             bound=wkv6_bound(256, t, 64, 64, state))
     return out
@@ -652,13 +690,16 @@ def rwkv_phases(torch, np, build, ref, device, card: str) -> dict:
     err_w = check_wkv6(torch, np, wk, ref, device)
     wkv_times = time_wkv6(torch, np, wk, ref, device)
     print(f"phase 14 kernel #7 (wkv6): equal to plain at the prefill (BH=256 T=512 dk=dv=64), "
-          f"decode (BH=256 T=1, carried state) and 4 small shapes within 2(dk+T)·eps·|terms| "
-          f"(and 3e-5 at the small ones); two halves == one run of T=32; w=1, k=0 the "
-          f"identity; max |err| {err_w}")
+          f"decode (BH=256 T=1, carried state), 4 small shapes, 3 with dk or dv in 1, 5, 63 "
+          f"(T=33) and 3 of T=1000 within 2(dk+T)·eps·|terms| (and 3e-5 at the small ones); "
+          f"two launches == one at T=32 split 16, T=100 split 45, T=1000 split 333, T=70 "
+          f"split 1 (dk=5, dv=63); w=1, k=0 the identity; max |err| {err_w}")
     for name, tm in wkv_times.items():
-        print(f"phase 14 times [{card}]: wkv6 {name} {tm['ms']:.4f} ms vs plain "
-              f"{tm['plain_ms']:.4f} ms, bound {tm['bound'][0]:.5f} ms by {tm['bound'][1]}; "
-              "library_ms: none")
+        dev_ms, seen = tm["device"]
+        print(f"phase 14 times [{card}]: wkv6 {name} {tm['ms']:.4f} ms (CUDA events), "
+              f"{dev_ms:.5f} ms device time (profiler, {seen} of 50 launches seen) vs plain "
+              f"{tm['plain_ms']:.4f} ms, bound {tm['bound'][0]:.5f} ms by {tm['bound'][1]}, "
+              f"bound/device time {tm['bound'][0] / dev_ms:.3f}; library_ms: none")
 
     # -- phase 15: rwkv6-7b serving at full width and depth, bf16 --------------------
     if torch.backends.cuda.matmul.allow_tf32:
@@ -1089,10 +1130,14 @@ def main() -> int:
           "and a 6x4 q=3 R=6 Potts spec on its per-sweep, fused and round paths")
 
     # -- phase 10: kernel #2p against its plain version and kernel A -----------
-    packed_cases = [(300, 1500, 2, 1.0, 0.0, "glauber"), (8, 5, 3, 1.0, 0.0, "glauber"),
-                    (30, 13, 4, 0.7, 0.3, "metropolis"), (64, 33, 6, 1.0, 0.3, "glauber")]
+    packed_cases = [(300, 1500, 2, 1.0, 0.0, "glauber"), (300, 1500, 2, 0.7, 0.3, "glauber"),
+                    (8, 5, 3, 1.0, 0.0, "glauber"), (30, 13, 4, 0.7, 0.3, "metropolis"),
+                    (64, 33, 6, 1.0, 0.3, "glauber")]
+    for rule in ("metropolis", "glauber"):  # phase 2's row-walk edges
+        for side, n_sw in ((2, 5), (4, 5), (30, 4), (66, 4), (470, 3)):
+            packed_cases += [(side, 13, n_sw, 1.0, 0.0, rule), (side, 13, n_sw, 0.7, 0.3, rule)]
     err_p = check_packed(torch, np, isk, keys, packed_cases, device)
-    blocks, threads, group = isk.packed_launch_shape(n_rep)
+    blocks, threads, group = isk.packed_launch_shape(n_rep, length)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     rng = np.random.default_rng(9)
     spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), size=(r2, l2, l2))).to(device)
@@ -1120,24 +1165,30 @@ def main() -> int:
     spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), size=(r_bal, l2, l2))).to(device)
     betas_bal = torch.from_numpy((1.0 / (1.0 + np.arange(r_bal) * 3.0 / r_bal)).astype(np.float32)).to(device)
     rung_bal = torch.arange(r_bal, dtype=torch.int32, device=device)
-    a_bal = cuda_ms(torch, lambda: isk.ising_sweep_fused_kernel(
-        spins, words, t0d, betas_bal, rung_bal, **main_kw), 3)
-    p_bal = cuda_ms(torch, lambda: isk.ising_sweep_packed_kernel(
-        spins, words, t0d, betas_bal, rung_bal, **main_kw, group=8), 3)
+    def balanced(fn):
+        return lambda: fn(spins, words, t0d, betas_bal, rung_bal, **main_kw)
+
+    # in turns: A, #2p, #2p, A
+    a_bal = cuda_ms(torch, balanced(isk.ising_sweep_fused_kernel), 3)
+    p_bal = cuda_ms(torch, balanced(isk.ising_sweep_packed_kernel), 3)
+    p_bal2 = cuda_ms(torch, balanced(isk.ising_sweep_packed_kernel), 3)
+    a_bal2 = cuda_ms(torch, balanced(isk.ising_sweep_fused_kernel), 3)
+    bal_group = isk.packed_launch_shape(r_bal, length)[2]
     del spins
     torch.cuda.empty_cache()
     print(f"phase 10 kernel #2p: {len(packed_cases)} cases equal to kernel A (spins, nacc "
-          f"bit for bit, ΔE too at j=1,b=0; at its default group width and at 8 and 3 a "
-          f"block) and to plain (spins, nacc; ΔE of both kernels exact at j=1,b=0, <= 4 "
-          f"ulps otherwise), max |ΔE err| vs plain {err_p}")
+          f"and ΔE bit for bit, at its default group width and at 1, 3 and 8 a block) and "
+          f"to plain (spins, nacc; ΔE exact at j=1,b=0, <= 4 ulps otherwise), max |ΔE err| "
+          f"vs plain {err_p}")
     print(f"phase 10 times [{card}]: L=300 R=1500 S=2: kernel #2p {p_ms:.4f} ms "
           f"({blocks} blocks of {group} replicas x {threads} threads on {n_sms} SMs), "
           f"{p8_ms:.4f} ms at 8 a block ({-(-n_rep // 8)} blocks), kernel A {a_ms2:.4f} ms, "
           f"plain {p_plain_ms:.4f} ms, bound {a_bound:.5f} ms by {a_by}; S=100: #2p "
           f"{p_main:.3f} ms, at 8 a block {p8_main:.3f} ms, kernel A {a_main2:.3f} / "
           f"{a_main3:.3f} ms (before / after), bound {a_main_bound:.3f} ms; R={r_bal} "
-          f"S=100 (16 replicas on every SM for both): #2p at 8 a block {p_bal:.3f} ms vs "
-          f"kernel A {a_bal:.3f} ms; library_ms: none")
+          f"S=100 (16 replicas on every SM for both): #2p at {bal_group} a block {p_bal:.3f} / "
+          f"{p_bal2:.3f} ms vs kernel A {a_bal:.3f} / {a_bal2:.3f} ms (in turns); "
+          f"library_ms: none")
 
     # -- phase 11: the packed round and fused paths at full width -------------------
     def with_pack_bits(spec):
@@ -1309,8 +1360,8 @@ def main() -> int:
          "kernel_a_ms": a_ms2, "kernel_a_main_ms": a_main2,
          "grid": f"{blocks}x{threads}", "group": group,
          "group8_ms": p8_ms, "group8_main_ms": p8_main,
-         "balanced_r": r_bal, "balanced_main_ms": p_bal,
-         "balanced_kernel_a_main_ms": a_bal,
+         "balanced_r": r_bal, "balanced_main_ms": min(p_bal, p_bal2),
+         "balanced_kernel_a_main_ms": min(a_bal, a_bal2),
          "fused_path_launches": counts_pfused_i["ising_packed"],
          "two_chain_launches": counts_chains["ising_packed"],
          "conformance_launches": counts_conf["ising_packed"]},
@@ -1345,7 +1396,9 @@ def main() -> int:
          "bound_ms": rw["times"]["decode"]["bound"][0],
          "bound_by": rw["times"]["decode"]["bound"][1], "library_ms": None,
          "shape": "BH=256 T=1 dk=dv=64 (decode, carried state)",
+         "device_ms": rw["times"]["decode"]["device"][0],
          "prefill_ms": rw["times"]["prefill"]["ms"],
+         "prefill_device_ms": rw["times"]["prefill"]["device"][0],
          "prefill_plain_ms": rw["times"]["prefill"]["plain_ms"],
          "prefill_bound_ms": rw["times"]["prefill"]["bound"][0],
          "prefill_bound_by": rw["times"]["prefill"]["bound"][1],

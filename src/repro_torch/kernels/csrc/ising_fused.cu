@@ -10,22 +10,17 @@
 // Design: one block per replica slot runs the shared fused sweep loop
 // (checkerboard.cuh: colour-paired haloed lattice in shared memory, runs of
 // kSites sites of one row per thread, no division or wrap select per site)
-// with the Ising update below.  The slot's beta is betas[rung[slot]], read
-// in-kernel from the device rung map, so the interval-fused path (identity
-// rung, per-slot betas) and the whole-round path (rung-ordered betas) share
-// this kernel.  A site's uniform is to_uniform(hash(sweep key, colour,
-// i*L + j).x0), one Threefry block per update, the minimum the stream allows.
+// at one replica a block, with the Ising update of ising_rules.cuh.  The
+// slot's beta is betas[rung[slot]], read in-kernel from the device rung
+// map, so the interval-fused path (identity rung, per-slot betas) and the
+// whole-round path (rung-ordered betas) share this kernel.  A site's
+// uniform is to_uniform(hash(sweep key, colour, i*L + j).x0), one Threefry
+// block per update, the minimum the stream allows.
 //
-// Acceptance.  No expf per site.  The wrapper builds, once per launch and
-// with the plain version's own torch ops, the 10-entry rows
-//   de_tab[s][n]  = 2*s*(j*nbr - b)            s in {-1,+1}, nbr in {-4..4 step 2}
-//   p_tab[r][s][n] = accept_prob(de_tab, betas[r])
-// and the block turns its rung's row into thresholds (checkerboard.cuh).
-// Spins sit in shared memory as 1 (up) and 0 (down), so entry s*5 + n is
-// five times the site's byte plus its neighbours'.  Spins and acceptance
-// counts are bit-equal to the plain version by construction, for any j, b
-// and rule; ΔE is exact at j=1, b=0 and otherwise differs from it only in
-// the order inside one colour's sum.
+// Acceptance: the wrapper's per-rung rows as thresholds (ising_rules.cuh),
+// no expf per site.  Spins and acceptance counts are bit-equal to the plain
+// version by construction, for any j, b and rule; ΔE is exact at j=1, b=0
+// and otherwise differs from it only in the order inside one colour's sum.
 //
 // Bound.  At L=300, R=1500, S=100 a launch moves 2 B/cell (270 MB, 0.08 ms
 // at 3.35 TB/s) but hashes 1.35e10 Threefry-20 blocks of 72 32-bit
@@ -44,6 +39,7 @@
 #include <cstdint>
 
 #include "checkerboard.cuh"
+#include "ising_rules.cuh"
 
 namespace {
 
@@ -52,36 +48,6 @@ constexpr int kSites = 8;
 constexpr int kWarps = kThreads / 32;
 // shared-memory header: float/int reduction scratch + the threshold/ΔE table
 constexpr int kHeaderBytes = kWarps * 8 + 10 * 8;
-
-// Spins live in shared memory as 1 (up) and 0 (down), so a site's table
-// entry s_idx*5 + n of the wrapper's rows is 5*v plus its four neighbours.
-struct IsingRule {
-  const checkerboard::Entry* tab;
-
-  __device__ static uint8_t to_shared(int8_t s) { return s > 0; }
-  __device__ static int8_t from_shared(uint8_t v) { return v ? 1 : -1; }
-
-  template <int kN>
-  __device__ __forceinline__ void update(const checkerboard::Site (&st)[kN],
-                                         const threefry::Schedule& ks, int c,
-                                         float& part, int& nacc) const {
-    uint32_t e[kN], bits[kN];
-#pragma unroll
-    for (int s = 0; s < kN; ++s) {
-      e[s] = 5 * st[s].v + st[s].up + st[s].dn + st[s].lf + st[s].rt;
-      bits[s] = threefry::hash(ks, static_cast<uint32_t>(c), st[s].ctr).x0;
-    }
-#pragma unroll
-    for (int s = 0; s < kN; ++s) {
-      const checkerboard::Entry ent = tab[e[s]];
-      if (st[s].live && checkerboard::accept(bits[s], ent.thr)) {
-        *st[s].at = static_cast<uint8_t>(1u - st[s].v);
-        part += ent.de;
-        ++nacc;
-      }
-    }
-  }
-};
 
 // spins_in may alias spins_out: a block reads its whole lattice into shared
 // memory before it writes anything back.
@@ -106,9 +72,9 @@ ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
                         de_tab[threadIdx.x]};
   }
   const size_t cells = static_cast<size_t>(L) * L;
-  checkerboard::sweeps<kThreads, kSites>(
-      IsingRule{tab}, lat, fred, ired, spins_in + slot * cells, spins_out + slot * cells,
-      de_out, nacc_out, slot, key_words, t0, t_add,
+  checkerboard::sweeps<kThreads, kSites, 1>(
+      ising::Rule{tab}, lat, fred, ired, nullptr, spins_in + slot * cells,
+      spins_out + slot * cells, de_out, nacc_out, slot, key_words, t0, t_add,
       static_cast<uint32_t>(slot) + replica_offset, L, L, n_sweeps);
 }
 

@@ -1,12 +1,11 @@
 // Checkerboard site indexing and the Potts site update of the kernels that
-// visit sites by flat colour index: #1 / #4 (sweep.cu) and #2p
-// (ising_packed.cu).  colour_site costs a runtime division by W/2, four wrap
-// selects and five row*W+col products per site, and potts_trial a runtime
-// `% q`: about half of the first fused kernels' instructions outside the
-// cipher (PERF.md §6), so kernels A and #5 moved to checkerboard.cuh, whose
-// walk carries the row and column and whose halo needs no wrap.  #1 / #4 read
-// their uniforms from device memory and sit at half of their byte bound
-// with this indexing; #2p pays it once per group of replicas.
+// visit sites by flat colour index, #1 / #4 (sweep.cu).  colour_site costs
+// a runtime division by W/2, four wrap selects and five row*W+col products
+// per site, and potts_trial a runtime `% q`: about half of the first fused
+// kernels' instructions outside the cipher (PERF.md §6), so kernels A, #5
+// and #2p moved to checkerboard.cuh, whose walk carries the row and column
+// and whose halo needs no wrap.  #1 / #4 read their uniforms from device
+// memory and sit at half of their byte bound with this indexing.
 #pragma once
 #include <cstdint>
 

@@ -131,10 +131,10 @@ potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
   }
   const size_t cells = static_cast<size_t>(H) * W;
   const PottsRule rule{tab, q, static_cast<float>(q - 1) * (1.0f / 16777216.0f)};
-  checkerboard::sweeps<kThreads, kSites>(
-      rule, lat, fred, ired, states_in + slot * cells, states_out + slot * cells, de_out,
-      nacc_out, slot, key_words, t0, t_add, static_cast<uint32_t>(slot) + replica_offset,
-      H, W, n_sweeps);
+  checkerboard::sweeps<kThreads, kSites, 1>(
+      rule, lat, fred, ired, nullptr, states_in + slot * cells, states_out + slot * cells,
+      de_out, nacc_out, slot, key_words, t0, t_add,
+      static_cast<uint32_t>(slot) + replica_offset, H, W, n_sweeps);
 }
 
 }  // namespace

@@ -56,6 +56,40 @@ __device__ __forceinline__ Pair hash(const Schedule& s, uint32_t x0, uint32_t x1
   return {x0, x1};
 }
 
+// First output words of kN blocks, counters (x0, ctr[n]), under one key
+// schedule, round by round across the blocks: the kN chains sit side by
+// side in the instruction stream, which is where the compiler keeps them
+// when registers are short (kernel #2p's replica pass).
+template <int kN>
+__device__ __forceinline__ void hash_x0(const Schedule& s, uint32_t x0,
+                                        const uint32_t (&ctr)[kN], uint32_t (&out)[kN]) {
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t a[kN], b[kN];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    a[n] = x0 + s.ks[0];
+    b[n] = ctr[n] + s.ks[1];
+  }
+#pragma unroll
+  for (int group = 0; group < 5; ++group) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        a[n] += b[n];
+        b[n] = rotl(b[n], rot[group % 2][r]) ^ a[n];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      a[n] += s.ks[(group + 1) % 3];
+      b[n] += s.inj1[group];
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) out[n] = a[n];
+}
+
 // Threefry-2x32 with 20 rounds: key (k0, k1), counter (x0, x1).
 __device__ __forceinline__ Pair hash(uint32_t k0, uint32_t k1, uint32_t x0,
                                      uint32_t x1) {

@@ -65,6 +65,8 @@ def _libs() -> tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]:
         smem.argtypes = [ctypes.c_int]
     lib_p.ising_packed_threads.restype = ctypes.c_int
     lib_p.ising_packed_threads.argtypes = []
+    lib_p.ising_packed_blocks_per_sm.restype = ctypes.c_int
+    lib_p.ising_packed_blocks_per_sm.argtypes = [ctypes.c_int, _P]
     lib_b.exchange_launch.restype = ctypes.c_int
     lib_b.exchange_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
@@ -203,10 +205,19 @@ def ising_sweep_fused_kernel(
 PACKED_MAX_GROUP = 8
 
 
-def packed_group(n_replicas: int, n_sms: int) -> int:
+def packed_group(n_replicas: int, n_sms: int, blocks_per_sm: int = 2) -> int:
     """Kernel #2p's group width: the widest of 1..8 that minimises the
-    replicas on the busiest SM, ``ceil(ceil(R/g) / n_sms) * min(g, R)``
-    (two blocks fit an SM, so blocks beyond one per SM share one)."""
+    replicas on the busiest SM, ``ceil(ceil(R/g) / n_sms) * min(g, R)``.
+
+    ``blocks_per_sm`` is how many blocks an SM holds at once (the kernel's
+    occupancy at its lattice side).  The card hands blocks out one an SM at
+    a time, so the busiest SM gets ``ceil(blocks / n_sms)`` groups whether
+    they run together (up to ``blocks_per_sm``) or in turn, and its replica
+    count, which the kernel's issue-bound time follows, is the same: the
+    width does not depend on it.  A kernel that fits no block raises."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"kernel #2p fits {blocks_per_sm} blocks an SM: it cannot launch")
+
     def busiest(g):
         blocks = _cdiv(n_replicas, g)
         return _cdiv(blocks, n_sms) * min(g, n_replicas)
@@ -223,11 +234,23 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def packed_launch_shape(n_replicas: int, device="cuda") -> tuple[int, int, int]:
-    """(blocks, threads per block, group width) of a kernel #2p launch over
-    ``n_replicas`` slots on ``device``."""
+@functools.cache
+def _blocks_per_sm(length: int, device: torch.device) -> int:
+    """Kernel #2p's blocks an SM at lattice side ``length`` (its occupancy)."""
     _, _, lib_p = _libs()
-    group = packed_group(n_replicas, _sm_count(torch.device(device)))
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib_p.ising_packed_blocks_per_sm(int(length), ctypes.byref(blocks))
+    raise_if(err, "ising_packed occupancy")
+    return blocks.value
+
+
+def packed_launch_shape(n_replicas: int, length: int, device="cuda") -> tuple[int, int, int]:
+    """(blocks, threads per block, group width) of a kernel #2p launch over
+    ``n_replicas`` slots of side ``length`` on ``device``."""
+    _, _, lib_p = _libs()
+    device = torch.device(device)
+    group = packed_group(n_replicas, _sm_count(device), _blocks_per_sm(length, device))
     return _cdiv(n_replicas, group), lib_p.ising_packed_threads(), group
 
 
@@ -238,16 +261,15 @@ def ising_sweep_packed_kernel(
 ):
     """Kernel #2p: kernel A's sweeps with the spins packed up to 8 replicas
     a byte in shared memory.  Same arguments and results as
-    `ising_sweep_fused_kernel`, and equal to it: spins and counts bit for
-    bit, ΔE too where every term is an integer (j=1, b=0); otherwise the
-    two sum each colour in their own orders, both within the plain
-    version's 4-ulp bound.
-    ``group`` (1..8 replicas per block) defaults to `packed_group` for the
-    card's SM count; no result depends on it."""
+    `ising_sweep_fused_kernel`, and equal to it bit for bit: spins, counts
+    and ΔE (each replica's partial sums add kernel A's terms in kernel A's
+    order).  ``group`` (1..8 replicas per block) defaults to `packed_group`
+    for the card's SM count and the kernel's occupancy; no result depends
+    on it."""
     if spins.device.type != "cuda":
         raise ValueError(f"kernel #2p needs CUDA tensors, got {spins.device}")
     if group is None:
-        group = packed_launch_shape(spins.shape[0], spins.device)[2]
+        group = packed_launch_shape(spins.shape[0], spins.shape[-1], spins.device)[2]
     if not 1 <= group <= PACKED_MAX_GROUP:
         raise ValueError(f"kernel #2p groups 1..{PACKED_MAX_GROUP} replicas, got {group}")
     return _launch_sweeps(

@@ -1,9 +1,12 @@
 """The RWKV-6 recurrence on the card: kernel #7 (``csrc/wkv6.cu``).
 
 Twin of `repro.kernels.wkv6.wkv6_pallas`, with the contract of
-`repro.kernels.ref.wkv6`.  `wkv6_kernel` launches one block per batch*head
-slab, which loops over all T steps in order with the (dk, dv) state in
-registers; it takes any T >= 1 (no padding of T) and dk, dv up to 64.
+`repro.kernels.ref.wkv6`.  `wkv6_kernel` launches one 64-thread block per
+batch*head slab, which loops over all T steps in order with the (dk, dv)
+state spread over its threads' registers (16 rows of 4 columns each) and
+the next 32 steps' inputs copied into shared memory while the current ones
+run; it takes any T >= 1 (no padding of T) and dk, dv up to 64.  Its sums
+have a fixed order, so a run split into two launches equals one.
 `wkv6_plain` (`ref.wkv6`) is the same recurrence in plain torch ops, what
 `repro_torch.kernels.ops.wkv6` runs for CPU tensors.  The two agree within a
 few ulps of the terms' magnitude (summation order), not bit for bit.

@@ -1,5 +1,6 @@
 """SASS instruction counts and a block-width sweep of the fused sweep kernels
-A (``csrc/ising_fused.cu``) and #5 (``csrc/potts_fused.cu``), on the card.
+A (``csrc/ising_fused.cu``), #5 (``csrc/potts_fused.cu``) and #2p
+(``csrc/ising_packed.cu``), on the card.
 
 For each variant — the package's ``csrc`` as it is, each ``--baseline``
 directory as it is (e.g. an earlier commit's ``csrc``), and the package's
@@ -16,14 +17,21 @@ directory as it is (e.g. an earlier commit's ``csrc``), and the package's
   pipe is not documented);
   a Threefry block has 20 rotates, 19 when its second word is dead, so a
   loop's hashes are its rotates / 19 rounded, its site updates the hashes
-  over the planes each update draws (1 Ising, 2 Potts);
+  over the planes each update draws (1 Ising, 2 Potts); #2p's innermost
+  hashing loop is one replica's pass over a run, so the probe also prints
+  the instructions of the enclosing run loop outside it (the loads, the
+  adder and the store a site shares among its group's replicas);
 * times (CUDA events) at the main paths' shapes — kernel A at L=300 R=1500,
   #5 at 300x300 q=3 R=1500, glauber, S=2 and S=100 — in turns (each
   variant, then again in reverse order), beside the bound (72 32-bit
   instructions per Threefry block at 33.5e12/s), after checking that each
   variant's spins/colours and counts at S=2 equal the plain version's;
   and the SM clock and power draw (``nvidia-smi``) while the package's
-  kernel runs at S=100.
+  kernel runs at S=100;
+* #2p beside kernel A, in turns at S=100 with L=300, at R=1500 and R=2112,
+  at the card's default group width and at 8 a block, after checking each
+  variant's #2p at S=2 against the plain version (spins, counts) and
+  against the package's kernel A (ΔE too, bit for bit).
 
 The kernels' C interfaces are the wrappers', so every variant runs on the
 wrappers' own tables.  Needs one card and the CUDA toolkit:
@@ -50,7 +58,9 @@ from repro_torch.kernels import potts_sweep as pk
 
 __all__ = ["build_variant", "ptxas_report", "sass_loops", "main"]
 
-KERNELS = {"ising_fused": 1, "potts_fused": 2}  # Threefry planes per site update
+# Threefry planes per site update
+KERNELS = {"ising_fused": 1, "potts_fused": 2, "ising_packed": 1}
+N_INT_ARGS = {"ising_fused": 3, "potts_fused": 5, "ising_packed": 4}
 THREEFRY_OPS = 72
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
 CLASSES = {
@@ -123,12 +133,18 @@ def sass_loops(text: str, symbol: str) -> list[dict]:
             rot = sum(o.startswith(("SHF.L.W", "SHF.R.W")) for o in ops)
             if rot >= 19:
                 loops.append({"start": lo, "end": addr, "ops": ops, "rotates": rot})
-    inner = [lp for lp in loops if not any(
-        o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"] for o in loops)]
+    def inside(a, b):
+        return a is not b and b["start"] <= a["start"] and a["end"] <= b["end"]
+
+    inner = [lp for lp in loops if not any(inside(o, lp) for o in loops)]
     for lp in inner:
         lp["hashes"] = round(lp["rotates"] / 19)
         lp["classes"] = Counter(_class(o) for o in lp["ops"])
         lp["opcodes"] = Counter(o.split(".")[0] for o in lp["ops"])
+        outer = [o for o in loops if inside(lp, o)]
+        if outer:  # the smallest enclosing hashing loop's instructions outside this one
+            enclosing = min(outer, key=lambda o: o["end"] - o["start"])
+            lp["outside"] = len(enclosing["ops"]) - len(lp["ops"])
     return inner
 
 
@@ -141,10 +157,13 @@ def _report_sass(lib: Path, name: str) -> str:
         sites = lp["hashes"] / KERNELS[name]
         per = {k: v / sites for k, v in sorted(lp["classes"].items())}
         top = ", ".join(f"{o} {v / sites:.2f}" for o, v in lp["opcodes"].most_common(14))
+        shared = (f"; enclosing loop: {lp['outside']} more ({lp['outside'] / sites:.2f} a site)"
+                  if name == "ising_packed" and "outside" in lp else "")
         out.append(f"loop 0x{lp['start']:x}-0x{lp['end']:x}: {len(lp['ops'])} instructions, "
                    f"{lp['rotates']} rotates = {lp['hashes']} hashes = {sites:g} site updates; "
                    f"per update {len(lp['ops']) / sites:.2f}: "
-                   + ", ".join(f"{k} {v:.2f}" for k, v in per.items()) + f"; opcodes: {top}")
+                   + ", ".join(f"{k} {v:.2f}" for k, v in per.items()) + f"; opcodes: {top}"
+                   + shared)
     return "\n    ".join(out) or "no hashing loop found"
 
 
@@ -153,20 +172,22 @@ def _load(lib_path: Path, name: str) -> ctypes.CDLL:
     p = ctypes.c_void_p
     fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
-    n_int = 3 if name == "ising_fused" else 5
-    fn.argtypes = [p] * 9 + [ctypes.c_longlong, ctypes.c_uint] + [ctypes.c_int] * n_int + [p]
+    fn.argtypes = ([p] * 9 + [ctypes.c_longlong, ctypes.c_uint]
+                   + [ctypes.c_int] * N_INT_ARGS[name] + [p])
     return lib
 
 
-def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int):
-    """A closure that launches ``lib``'s kernel on ``inputs`` as the wrapper does."""
+def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int, group: int = 0):
+    """A closure that launches ``lib``'s kernel on ``inputs`` as the wrapper
+    does (#2p at ``group`` replicas a block)."""
     st, words, t0, rung, p_tab, de_tab = (inputs[k] for k in (
         "states", "words", "t0", "rung", "p_tab", "de_tab"))
     r, h, w = st.shape
     out = torch.empty_like(st)
     de = torch.empty(r, dtype=torch.float32, device=st.device)
     nacc = torch.empty(r, dtype=torch.int32, device=st.device)
-    dims = (r, h, n_sweeps) if name == "ising_fused" else (r, h, w, 3, n_sweeps)
+    dims = {"ising_fused": (r, h, n_sweeps), "potts_fused": (r, h, w, 3, n_sweeps),
+            "ising_packed": (r, h, n_sweeps, group)}[name]
 
     def launch():
         err = getattr(lib, f"{name}_launch")(
@@ -178,17 +199,17 @@ def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int):
     return launch
 
 
-def _inputs(name: str, device) -> dict:
+def _inputs(name: str, device, r: int = 1500) -> dict:
     rng = np.random.default_rng(61)
-    r, length = 1500, 300
-    if name == "ising_fused":
+    length = 300
+    if name != "potts_fused":
         st = rng.choice(np.array([-1, 1], np.int8), size=(r, length, length))
         betas = (1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)
     else:
         st = rng.integers(0, 3, (r, length, length)).astype(np.int8)
         betas = (1.0 / np.geomspace(0.7, 2.9, r)).astype(np.float32)
     betas = torch.from_numpy(betas).to(device)
-    if name == "ising_fused":
+    if name != "potts_fused":
         p_tab, de_tab = isk.accept_tables(betas, j=1.0, b=0.0, rule="glauber")
     else:
         p_tab, de_tab = pk.potts_tables(betas, j=1.0, rule="glauber")
@@ -201,7 +222,7 @@ def _inputs(name: str, device) -> dict:
 
 def _plain(name: str, inp: dict, n_sweeps: int):
     args = (inp["states"], inp["words"], inp["t0"], inp["betas"], inp["rung"])
-    if name == "ising_fused":
+    if name != "potts_fused":
         return isk.ising_sweep_fused_plain(*args, n_sweeps=n_sweeps, rule="glauber")
     return pk.potts_sweep_fused_plain(*args, n_sweeps=n_sweeps, q=3, rule="glauber")
 
@@ -260,7 +281,7 @@ def main(argv=None) -> int:
         print(f"[{label}] {name} ptxas:\n    {ptxas_report(proc, f'{label} {name}')}")
         print(f"[{label}] {name} SASS:\n    {_report_sass(lib_path, name)}")
         libs[label, name] = _load(lib_path, name)
-    for name in KERNELS:
+    for name in ("ising_fused", "potts_fused"):
         inp = _inputs(name, device)
         sites = inp["states"].numel()
         want = _plain(name, inp, 2)
@@ -287,7 +308,44 @@ def main(argv=None) -> int:
                 for s in (2, 100)))
         del inp
         torch.cuda.empty_cache()
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for r in (1500, 2 * n_sms * 8):
+        _packed_beside_a(libs, [label for label, *_ in variants], r, card, device)
     return 0
+
+
+def _packed_beside_a(libs: dict, labels: list, r: int, card: str, device) -> None:
+    """#2p at the default width and at 8 a block, in turns with kernel A, at
+    L=300 R=``r`` S=100, every variant of both."""
+    inp = _inputs("ising_packed", device, r)
+    group = isk.packed_launch_shape(r, 300, device)[2]
+    want = _plain("ising_packed", inp, 2)
+    kernel_a = _launcher(libs["package", "ising_fused"], "ising_fused", inp, 2)()
+    runs = []
+    for label in labels:
+        runs.append((label, "ising_fused", 0))
+        for g in sorted({group, 8}):
+            got = _launcher(libs[label, "ising_packed"], "ising_packed", inp, 2, g)()
+            torch.cuda.synchronize()
+            if not torch.equal(got[0], want[0]) or not torch.equal(got[2], want[2]):
+                raise AssertionError(f"[{label}] #2p group {g} differs from the plain version")
+            same_de = torch.equal(got[1], kernel_a[1])
+            print(f"[{label}] ising_packed R={r} group {g}: equal to plain at S=2 (spins, "
+                  f"nacc); ΔE {'equal to' if same_de else 'differs from'} kernel A's")
+            runs.append((label, "ising_packed", g))
+    del want, kernel_a
+    times = {run: [] for run in runs}
+    for run in runs + runs[::-1]:
+        label, name, g = run
+        times[run].append(_ms(_launcher(libs[label, name], name, inp, 100, g), 2))
+    bound = 1e3 * 100 * inp["states"].numel() * THREEFRY_OPS / INT32_OPS_PER_S
+    for (label, name, g), ts in times.items():
+        what = "kernel A" if name == "ising_fused" else f"#2p at {g} a block"
+        print(f"[{label}] {what} [{card}]: L=300 R={r} S=100 "
+              f"{' / '.join(f'{x:.4f}' for x in ts)} ms (bound {bound:.4f} ms, "
+              f"bound/time {bound / min(ts):.3f})")
+    del inp
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """CUDA twins of the port's parity tests: each kernel against its plain version.
 
 Kernels A and B (fused Ising round), #2p (A's sweeps on packed spins, also
-held against kernel A: spins and counts bit for bit, ΔE each within the
-plain version's bound), #1 and #4 (one Ising / Potts sweep on passed-in
+held against kernel A: spins, counts and ΔE bit for bit, at every group
+width and on the walk's edge shapes), #1 and #4 (one Ising / Potts sweep on passed-in
 uniforms), #5 (fused Potts sweeps), the per-sweep ``jax.random`` draw and
 #7 (the RWKV-6 recurrence); the Session paths on the card against the CPU,
 with one chain and with two; the interval loop of every path with host
@@ -301,7 +301,7 @@ def test_carry_from_reference_puts_a_potts_state_on_the_card(dev):
     assert out[0].shape == (4, 6, 4)
 
 
-@pytest.mark.parametrize("group", [8, 3, None])  # None: the card's default width
+@pytest.mark.parametrize("group", [8, 3, 1, None])  # None: the card's default width
 @pytest.mark.parametrize("length,r,sweeps,j,b,rule", [
     (8, 5, 3, 1.0, 0.0, "glauber"),  # one partial byte
     (30, 13, 4, 0.7, 0.3, "metropolis"),  # a full byte and a partial one
@@ -316,15 +316,29 @@ def test_packed_kernel_matches_plain_and_kernel_a(dev, length, r, sweeps, j, b, 
     got = isk.ising_sweep_packed_kernel(*args, **kw, group=group)
     assert build.launches["ising_packed"] == 1
     kernel_a = isk.ising_sweep_fused_kernel(*args, **kw)
-    assert torch.equal(got[0], kernel_a[0]) and torch.equal(got[2], kernel_a[2])
+    # #2p walks kernel A's runs and adds each replica's terms in A's order
+    assert all(torch.equal(g, a) for g, a in zip(got, kernel_a))
     want = isk.ising_sweep_packed_plain(*args, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
     if j == 1.0 and b == 0.0:  # integer terms: every order sums exactly
-        assert torch.equal(got[1], want[1]) and torch.equal(kernel_a[1], want[1])
-    else:  # #2p and kernel A sum each colour in their own orders
-        for de in (got[1], kernel_a[1]):
-            err = (de - want[1]).abs().double()
-            assert bool((err <= 4 * F32_EPS * want[2].double() * 2 * (4 * abs(j) + b)).all())
+        assert torch.equal(got[1], want[1])
+    else:  # the kernels sum each colour in their walk's order, the plain version in its own
+        err = (got[1] - want[1]).abs().double()
+        assert bool((err <= 4 * F32_EPS * want[2].double() * 2 * (4 * abs(j) + b)).all())
+
+
+@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("j,b,rule", [(1.0, 0.0, "glauber"), (0.7, 0.3, "metropolis")])
+@pytest.mark.parametrize("length,r", WALK_SHAPES)
+def test_packed_kernel_equals_kernel_a_on_the_walk_shapes(dev, length, r, j, b, rule, group):
+    """#2p on kernel A's row-walk edges (L=2, 4, 30, 66, 470): spins, counts
+    and ΔE bit for bit kernel A's, with full and partial groups."""
+    spins, betas, rung = _lattice(23, r, length, dev)
+    args = (spins, keys.key(7, device=dev), torch.tensor(11, device=dev), betas, rung)
+    kw = dict(n_sweeps=3, j=j, b=b, rule=rule, replica_offset=4, t_add=2)
+    got = isk.ising_sweep_packed_kernel(*args, **kw, group=group)
+    kernel_a = isk.ising_sweep_fused_kernel(*args, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, kernel_a))
 
 
 def test_packed_round_on_cuda_equals_cpu(dev):
@@ -398,6 +412,9 @@ def _wkv6_inputs(seed, bh, t, dk, dv, dev, state=False):
     (256, 512, 64, 64, False),  # rwkv6-7b prefill, B=4
     (256, 1, 64, 64, True),  # rwkv6-7b decode, carried state
     (4, 33, 8, 8, False), (2, 16, 16, 8, True), (1, 8, 4, 4, False), (3, 64, 64, 64, True),
+    # rows that are no multiple of 16 bytes (4-byte copies), several stages
+    (2, 33, 1, 5, True), (3, 33, 63, 5, False), (2, 1000, 5, 63, True),
+    (2, 1000, 64, 64, False),
 ])
 def test_wkv6_kernel_matches_plain(dev, bh, t, dk, dv, state):
     """Kernel #7 == ``ref.wkv6`` within the recurrence's rounding bound,
@@ -413,6 +430,17 @@ def test_wkv6_kernel_matches_plain(dev, bh, t, dk, dv, state):
         assert bool(((g - w).abs() <= 2 * (dk + t) * F32_EPS * m).all())
         if t <= 64:
             torch.testing.assert_close(g, w, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("t,split,dk,dv", [(100, 45, 64, 64), (70, 1, 5, 63), (33, 32, 63, 1)])
+def test_wkv6_split_off_a_stage_boundary_equals_one_run(dev, t, split, dk, dv):
+    """Two launches carrying the state equal one, bit for bit, where the split
+    is off the kernel's 32-step stages (and at one, with unaligned rows)."""
+    r, k, v, w, u, s0 = _wkv6_inputs(52, 3, t, dk, dv, dev, state=True)
+    o_full, s_full = ops.wkv6(r, k, v, w, u, s0)
+    o1, s1 = ops.wkv6(*(x[:, :split].contiguous() for x in (r, k, v, w)), u, s0)
+    o2, s2 = ops.wkv6(*(x[:, split:].contiguous() for x in (r, k, v, w)), u, s1)
+    assert torch.equal(o_full, torch.cat([o1, o2], 1)) and torch.equal(s_full, s2)
 
 
 def test_wkv6_kernel_threads_state_and_refuses_what_it_lacks(dev):

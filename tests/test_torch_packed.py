@@ -185,6 +185,22 @@ def test_packed_group_balances_the_busiest_sm(r, n_sms, group):
     assert tisk.packed_group(r, n_sms) == group
 
 
+@pytest.mark.parametrize("r,n_sms,blocks_per_sm,group", [
+    (1500, 132, 1, 6), (1500, 132, 3, 6),  # 250 blocks: 2 on the busiest SM, together or in turn
+    (2112, 132, 1, 8), (2112, 132, 3, 8),
+    (1056, 132, 1, 8), (1056, 132, 3, 8), (300, 132, 1, 3), (16, 4, 3, 4), (5, 132, 1, 1),
+])
+def test_packed_group_at_one_and_three_blocks_an_sm(r, n_sms, blocks_per_sm, group):
+    """Blocks go out one an SM at a time, so the busiest SM's replica count,
+    and the width, are the same whether its groups run together or in turn."""
+    assert tisk.packed_group(r, n_sms, blocks_per_sm) == group
+
+
+def test_packed_group_refuses_a_kernel_that_fits_no_block():
+    with pytest.raises(ValueError, match="cannot launch"):
+        tisk.packed_group(1500, 132, 0)
+
+
 def test_packed_kernel_wrapper_refuses_cpu_tensors():
     spins = torch.ones((2, 4, 4), dtype=torch.int8)
     with pytest.raises(ValueError, match="kernel #2p needs CUDA"):

@@ -1,5 +1,5 @@
-"""The fused-kernel probe's parts that need no card: the SASS loop count and
-the source substitution (``repro_torch.launch.fused_probe``)."""
+"""The kernel probes' parts that need no card: the SASS loop count and the
+source substitutions (``repro_torch.launch.fused_probe``, ``wkv6_probe``)."""
 from pathlib import Path
 
 import pytest
@@ -7,6 +7,7 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.launch import fused_probe as fp  # noqa: E402
+from repro_torch.launch import wkv6_probe as wp  # noqa: E402
 
 
 def _insn(addr: int, text: str) -> str:
@@ -48,6 +49,28 @@ def test_sass_loops_counts_the_innermost_hashing_loop(outer):
     assert loop["opcodes"]["SHF"] == 38 and loop["opcodes"]["VIADD"] == 1
 
 
+def test_sass_loops_counts_what_an_enclosing_loop_adds_around_the_hashes():
+    """#2p's innermost hashing loop is one replica's pass over a run; the run
+    loop around it adds the site's shared loads, adder and store."""
+    shared = ["LDS.U8 R7, [R3]"] * 5 + ["LOP3.LUT R5, R5, R6, RZ, 0x3c, !PT"] * 4
+    lines = [f"\t\tFunction : _ZN12_GLOBAL__N_119ising_packed_kernelEPKa\n"]
+    addr = 0
+    for text in shared:
+        lines.append(_insn(addr, text))
+        addr += 16
+    inner = addr
+    for text in HASH * 19:
+        lines.append(_insn(addr, text))
+        addr += 16
+    lines.append(_insn(addr, f"@!P0 BRA 0x{inner:x}"))
+    lines.append(_insn(addr + 16, "STS.U8 [R3], R5"))
+    lines.append(_insn(addr + 32, "@!P1 BRA 0x0"))
+    lines.append(_insn(addr + 48, "EXIT"))
+    (loop,) = fp.sass_loops("".join(lines), "ising_packed")
+    assert loop["hashes"] == 1 and len(loop["ops"]) == 3 * 19 + 1
+    assert loop["outside"] == len(shared) + 2  # the store and the outer branch
+
+
 def test_sass_loops_skips_loops_without_a_hash_and_other_kernels():
     text = _sass("potts_fused_kernel", ["LDS.U8 R7, [R3]"] * 4, False)
     assert fp.sass_loops(text, "potts_fused") == []
@@ -66,7 +89,22 @@ def test_build_variant_refuses_a_source_without_the_constant(tmp_path):
 
 def test_package_kernels_carry_the_constants_the_probe_substitutes():
     csrc = Path(fp.build.CSRC)
+    assert set(fp.KERNELS) == {"ising_fused", "potts_fused", "ising_packed"}
     for name in fp.KERNELS:
         text = (csrc / f"{name}.cu").read_text()
         assert text.count("constexpr int kThreads = ") == 1
         assert text.count("constexpr int kSites = ") == 1
+
+
+@pytest.mark.parametrize("rows,cols", [(16, 1), (8, 4), (4, 8)])
+def test_wkv6_probe_substitutes_the_package_tile(rows, cols):
+    text = (Path(fp.build.CSRC) / "wkv6.cu").read_text()
+    assert text.count("constexpr int kRows = ") == 1 and text.count("constexpr int kCols = ") == 1
+    out = wp.substitute(text, rows, cols)
+    assert f"constexpr int kRows = {rows};" in out and f"constexpr int kCols = {cols};" in out
+    assert len(out.splitlines()) == len(text.splitlines())
+
+
+def test_wkv6_probe_refuses_a_source_without_the_tile():
+    with pytest.raises(ValueError, match="kCols"):
+        wp.substitute("constexpr int kRows = 16;\n", 8, 4)
