@@ -14,12 +14,18 @@ Phases, one line each or more (any failure raises and exits non-zero):
    the shapes its row walk must get right at R=13 (L=2 and 4, L=30 and 66,
    no multiple of a warp's lanes, and L=470 near the shared-memory limit),
    at integer and non-integer j, b under both rules;
-3. kernel B (``csrc/exchange.cu``) against the plain ``exchange_step`` at
-   R=1500, DEO/SEO x logistic/metropolis over 8 phases;
+3. the round exchange (``csrc/exchange.cuh``, run by the last block of a
+   round launch of kernel A, #2p or #5) against the plain ``exchange_step``
+   at R=1500, DEO/SEO x logistic/metropolis over 8 phases, through a round
+   launch of each of the three kernels with no sweep; one round launch of
+   each at the main path's shapes (L=300 R=1500 S=2; #5 on 300x300 q=3),
+   in place, against the plain sweeps then the plain exchange; the tail (a
+   round launch less the same launch without the exchange, profiler device
+   time) at L=32 R=1500 S=1 and L=300 R=1500 S=2;
 4. the main path at full width through ``repro_torch.api.Session``: Ising
    L=300, glauber, whole-round fused kernels, paper ladder R=1500, swap
-   interval 100, logistic DEO, adaptation in burn, 300 + 300 sweeps; launch
-   counts must equal the interval count and the incremental energy must
+   interval 100, logistic DEO, adaptation in burn, 300 + 300 sweeps; one
+   launch and one exchange per interval, and the incremental energy must
    equal the recomputed lattice energy exactly;
    the same run again, warm, and once more under ``torch.profiler``, which
    says where the device time goes, the device's idle share and the host
@@ -41,7 +47,7 @@ Phases, one line each or more (any failure raises and exits non-zero):
    under ``torch.profiler``;
 8. the Potts per-sweep and round paths at full width: 300x300, q=3,
    R=1500, S=100, glauber, geometric ladder 0.7-2.9, 3 intervals each, with
-   the same checks (round path: one kernel #5 and one kernel B per
+   the same checks (round path: one kernel #5 launch and one exchange per
    interval), the round path once more under the profiler;
 9. 3 intervals of the Ising per-sweep path and of the Potts per-sweep,
    fused and round paths at full width with every host sync an error; and
@@ -88,7 +94,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
 17. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
-It imports nothing of JAX or of the JAX package.  Without a CUDA device, or
+After every phase each round launch's ticket must read 0 again (one that
+faulted would leave its ticket set).  It imports nothing of JAX or of the
+JAX package.  Without a CUDA device, or
 without the repository's ``src/`` beside it, it exits non-zero and prints
 no result.
 """
@@ -117,8 +125,8 @@ INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # 32-bit instructions of one Threefry-2x32-20 block once its key schedule is
 # set: 2 counter adds, 20 rounds of (add, funnel-shift rotate, xor), 5 key
 # injections of 2 adds (the injection count folds into the key word).
-# Kernel A hashes one block per site update, kernel #5 two, kernel B one per
-# rung (+3 per launch), jax_uniform one per uniform.
+# Kernel A hashes one block per site update, kernel #5 two, the round
+# exchange one per rung (+3 per launch), jax_uniform one per uniform.
 THREEFRY_OPS = 2 + 20 * 3 + 5 * 2
 F32_EPS = 2.0 ** -23
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
@@ -289,47 +297,154 @@ def check_packed(torch, np, isk, keys, cases, device):
     return max_err
 
 
-def check_kernel_b(torch, np, isk, keys, prng, device, r=1500):
-    """Phase 3: kernel B == plain exchange_step on the card; returns max |dp|."""
-    rng = np.random.default_rng(7)
-    temps = 1.0 + np.arange(r) * 3.0 / r
-    betas = torch.from_numpy((1.0 / temps).astype(np.float32)).to(device)
-    words = keys.key(11, device=device)
+def check_round_exchange(torch, isk, pk, prng, cases):
+    """Phase 3: the round exchange == plain exchange_step on the card.
+
+    Each case (`fused_probe.exchange_cases`: 32 exchanges at R=1500) runs
+    through a round launch of kernel A, #2p and #5 with no sweep (S=0, so
+    each slot's ΔE is 0) on ``energy + de``: the three launches' rows must
+    be equal bit for bit, and equal to ``exchange_plain`` on (energy, de) in
+    rung, energy and attempt, and in prob and accept except where u lies
+    between the two p.  Returns (max |dp|, prob differences)."""
     max_err = 0.0
     n_prob_diff = 0
-    for pairing in ("deo", "seo"):
-        for criterion in ("logistic", "metropolis"):
-            for phase in range(8):
-                rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)
-                # rung-ordered energies ~ an equilibrated ladder, so Δβ·ΔE is
-                # O(1) and the probabilities are not all saturated
-                by_rung = -180000 + 100 * np.arange(r) + rng.integers(-400, 400, r)
-                energy = torch.from_numpy(
-                    by_rung[rung.cpu().numpy()].astype(np.float32)).to(device)
-                de = torch.from_numpy(
-                    (4 * rng.integers(-50, 50, r)).astype(np.float32)).to(device)
-                ph0 = torch.tensor(1000 + phase, dtype=torch.int64, device=device)
-                kw = dict(pairing=pairing, criterion=criterion, phase_add=phase)
-                got = isk.exchange_kernel(rung, energy, de, betas, words, ph0, **kw)
-                want = isk.exchange_plain(rung, energy, de, betas, words, ph0, **kw)
-                torch.cuda.synchronize()
-                u = prng.swap_uniforms(words, ph0 + phase, r)
-                lo = torch.minimum(got[3], want[3])
-                hi = torch.maximum(got[3], want[3])
-                in_gap = (u >= lo) & (u < hi)
-                prob_diff = got[3] != want[3]
-                acc_diff = got[2] != want[2]
-                if bool((prob_diff & ~in_gap).any()) or bool((acc_diff & ~in_gap).any()):
-                    raise AssertionError(
-                        f"kernel B prob/accept differ outside the ulp gap: "
-                        f"{pairing}/{criterion} phase {phase}")
-                if not torch.equal(got[4], want[4]) or not torch.equal(got[1], want[1]):
-                    raise AssertionError(f"kernel B attempt/energy differ: {pairing}/{criterion}")
-                if not bool(acc_diff.any()) and not torch.equal(got[0], want[0]):
-                    raise AssertionError(f"kernel B rung differs: {pairing}/{criterion}")
-                n_prob_diff += int(prob_diff.sum().item())
-                max_err = max(max_err, (got[3] - want[3]).abs().max().item())
+    for c in cases:
+        r = c["rung"].shape[0]
+        dev = c["rung"].device
+        spins = torch.ones((r, 2, 2), dtype=torch.int8, device=dev)
+        t0 = torch.zeros((), dtype=torch.int64, device=dev)
+        what = f"{c['pairing']}/{c['criterion']} phase {c['phase']}"
+        kw = dict(pairing=c["pairing"], criterion=c["criterion"], phase_add=c["phase"],
+                  n_sweeps=0)
+        args = (c["words"], t0, c["ph0"], c["betas"], c["rung"], c["energy"] + c["de"])
+        outs = [isk.ising_round_kernel(spins, *args, **kw),
+                isk.ising_round_kernel(spins, *args, pack_bits=True, **kw),
+                pk.potts_round_kernel(spins * 0, *args, q=3, **kw)]
+        rows = [(o[1], o[2], o[4], o[5], o[6]) for o in outs]
+        torch.cuda.synchronize()
+        for other, name in zip(rows[1:], ("#2p", "#5")):
+            if not all(torch.equal(x, y) for x, y in zip(rows[0], other)):
+                raise AssertionError(f"round exchange: kernel {name}'s rows != kernel A's: {what}")
+        got = rows[0]
+        want = isk.exchange_plain(c["rung"], c["energy"], c["de"], c["betas"], c["words"],
+                                  c["ph0"], pairing=c["pairing"], criterion=c["criterion"],
+                                  phase_add=c["phase"])
+        u = prng.swap_uniforms(c["words"], c["ph0"] + c["phase"], r)
+        lo = torch.minimum(got[3], want[3])
+        hi = torch.maximum(got[3], want[3])
+        in_gap = (u >= lo) & (u < hi)
+        prob_diff = got[3] != want[3]
+        acc_diff = got[2] != want[2]
+        if bool((prob_diff & ~in_gap).any()) or bool((acc_diff & ~in_gap).any()):
+            raise AssertionError(f"round exchange prob/accept differ outside the ulp gap: {what}")
+        if not torch.equal(got[4], want[4]) or not torch.equal(got[1], want[1]):
+            raise AssertionError(f"round exchange attempt/energy differ: {what}")
+        if not bool(acc_diff.any()) and not torch.equal(got[0], want[0]):
+            raise AssertionError(f"round exchange rung differs: {what}")
+        n_prob_diff += int(prob_diff.sum().item())
+        max_err = max(max_err, (got[3] - want[3]).abs().max().item())
     return max_err, n_prob_diff
+
+
+def check_rounds_at_full_width(torch, np, isk, pk, keys, prng, device, r=1500,
+                               length=300) -> list:
+    """Phase 3: one round launch each of kernels A, #2p (its default group)
+    and #5 at the main path's shapes (L=300 R=1500 S=2 glauber; #5 on
+    300x300 colours, q=3), on a permuted rung and energies near an
+    equilibrated ladder, every output written in place over its input,
+    against the plain sweeps then ``exchange_plain`` on the same inputs:
+    spins, counts, energy' and attempt bit-equal, prob and accept equal but
+    where u lies between the two p, rung' equal where no decision differs.
+    So every one of the launch's blocks hands its ΔE to the last block's
+    exchange at the grid the main path launches.  Returns one (kernel,
+    exchange, accepted swaps, prob differences, max |dp|) a launch."""
+    n_sweeps = 2
+    rng = np.random.default_rng(9)
+    betas = torch.from_numpy((1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)).to(device)
+    words = keys.key(13, device=device)
+    t0 = torch.tensor(40, dtype=torch.int64, device=device)
+    ph0 = torch.tensor(7, dtype=torch.int64, device=device)
+    spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8),
+                                        size=(r, length, length))).to(device)
+    colours = torch.from_numpy(rng.integers(0, 3, (r, length, length)).astype(np.int8)).to(device)
+    runs = (("A", spins, isk.ising_sweep_fused_plain, isk.ising_round_kernel, {}, {},
+             "deo", "logistic"),
+            ("#2p", spins, isk.ising_sweep_packed_plain, isk.ising_round_kernel, {},
+             {"pack_bits": True}, "seo", "logistic"),
+            ("#5", colours, pk.potts_sweep_fused_plain, pk.potts_round_kernel, {"q": 3},
+             {"q": 3}, "deo", "metropolis"))
+    out = []
+    for name, states, plain, kernel, plain_kw, round_kw, pairing, criterion in runs:
+        rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)
+        by_rung = -180000 + 100 * np.arange(r) + rng.integers(-400, 400, r)
+        energy = torch.from_numpy(by_rung.astype(np.float32)).to(device)[rung.long()]
+        xw = dict(pairing=pairing, criterion=criterion)
+        want_states, de, nacc = plain(states, words, t0, betas, rung, n_sweeps=n_sweeps,
+                                      rule="glauber", t_add=3, **plain_kw)
+        want = isk.exchange_plain(rung, energy, de, betas, words, ph0, phase_add=2, **xw)
+        del de
+        st, rg, en = states.clone(), rung.clone(), energy.clone()
+        rows = [torch.empty(r, dtype=d, device=device)
+                for d in (torch.bool, torch.float32, torch.bool)]
+        got = kernel(st, words, t0, ph0, betas, rg, en, n_sweeps=n_sweeps, rule="glauber",
+                     t_add=3, phase_add=2, out=(st, rg, en, *rows), **round_kw, **xw)
+        torch.cuda.synchronize()
+        what = f"round launch of kernel {name} at full width ({pairing}/{criterion})"
+        if not torch.equal(got[0], want_states) or not torch.equal(got[3], nacc):
+            raise AssertionError(f"{what}: spins/nacc differ from the plain sweeps")
+        if not torch.equal(got[2], want[1]) or not torch.equal(got[6], want[4]):
+            raise AssertionError(f"{what}: energy'/attempt differ from exchange_plain")
+        u = prng.swap_uniforms(words, ph0 + 2, r)
+        lo, hi = torch.minimum(got[5], want[3]), torch.maximum(got[5], want[3])
+        in_gap = (u >= lo) & (u < hi)
+        diff = (got[4] != want[2]) | (got[5] != want[3])
+        if bool((diff & ~in_gap).any()):
+            raise AssertionError(f"{what}: prob/accept differ outside the ulp gap")
+        if not bool(diff.any()) and not torch.equal(got[1], want[0]):
+            raise AssertionError(f"{what}: rung' differs from exchange_plain")
+        out.append((name, f"{pairing}/{criterion}", int(got[4].sum().item()),
+                    int((got[5] != want[3]).sum().item()),
+                    (got[5] - want[3]).abs().max().item()))
+        del want_states, nacc, want, got, st, rg, en, rows
+        torch.cuda.empty_cache()
+    return out
+
+
+def counts_now(build) -> dict:
+    """Launches by kernel since the last reset, and under ``exchange`` the
+    round exchanges run (inside launches of A, #2p or #5, none of their own)."""
+    return {**build.launches, **build.epilogues}
+
+
+def check_tickets(build, what: str) -> None:
+    """Every round ticket reads 0: no round launch was left half done."""
+    dirty = build.dirty_tickets()
+    if dirty:
+        raise AssertionError(f"{what}: round tickets left set: {dirty}")
+
+
+def round_tail(torch, isk, spins, words, t0, betas, rung, energy, n_sweeps, reps,
+               pack_bits=False):
+    """Device time (profiler) of a round launch of kernel A (#2p with
+    ``pack_bits``) and of the same launch without the exchange, in turns
+    (sweeps, round, round, sweeps); returns (round ms, sweeps ms), each the
+    lower of its two readings."""
+    name = "ising_packed_kernel" if pack_bits else "ising_fused_kernel"
+    sweep = isk.ising_sweep_packed_kernel if pack_bits else isk.ising_sweep_fused_kernel
+    ph0 = torch.zeros((), dtype=torch.int64, device=spins.device)
+    kw = dict(n_sweeps=n_sweeps, rule="glauber")
+
+    def sweeps_only():
+        sweep(spins, words, t0, betas, rung, **kw)
+
+    def one_round():
+        isk.ising_round_kernel(spins, words, t0, ph0, betas, rung, energy, pairing="deo",
+                               criterion="logistic", pack_bits=pack_bits, **kw)
+
+    times = {fn: [] for fn in (sweeps_only, one_round)}
+    for fn in (sweeps_only, one_round, one_round, sweeps_only):
+        times[fn].append(profiler_ms(torch, fn, reps, name)[0])
+    return min(times[one_round]), min(times[sweeps_only])
 
 
 def check_no_host_sync(torch, session, make_interval_step, update_stats, n: int) -> None:
@@ -852,6 +967,7 @@ def main() -> int:
     from repro_torch.kernels import ising_sweep as isk
     from repro_torch.kernels import jax_uniform as ju
     from repro_torch.kernels import potts_sweep as pk
+    from repro_torch.launch import fused_probe
 
     t_start = time.perf_counter()
     device = torch.device("cuda")
@@ -876,11 +992,29 @@ def main() -> int:
     print(f"phase 2 kernel A: {len(cases)} cases equal to plain (spins, nacc; "
           f"ΔE exact at j=1,b=0, <= 4 ulps otherwise), max |ΔE err| {err_a}")
 
-    # -- phase 3: kernel B against its plain version -------------------------
-    err_b, n_prob_diff = check_kernel_b(torch, np, isk, keys, prng, device)
-    print(f"phase 3 kernel B: 32 exchanges at R=1500 equal to plain (rung, "
-          f"accept, attempt), prob max |err| {err_b}, {n_prob_diff} prob "
-          "differences, all inside the u ulp gap")
+    # -- phase 3: the round exchange against its plain version --------------
+    build.reset_launches()
+    err_b, n_prob_diff = check_round_exchange(torch, isk, pk, prng,
+                                              list(fused_probe.exchange_cases(device)))
+    expect_launches(counts_now(build), "phase 3", ising_fused=32, ising_packed=32,
+                    potts_fused=32, exchange=96)
+    check_tickets(build, "phase 3")
+    print(f"phase 3 round exchange: 32 exchanges at R=1500 through round launches of "
+          f"kernels A, #2p and #5 (S=0), rows equal across the three and to plain (rung, "
+          f"energy, attempt; accept and prob but inside the u ulp gap), prob max |err| "
+          f"{err_b}, {n_prob_diff} prob differences, one exchange per launch")
+    build.reset_launches()
+    full = check_rounds_at_full_width(torch, np, isk, pk, keys, prng, device)
+    expect_launches(counts_now(build), "phase 3 full width", ising_fused=1, ising_packed=1,
+                    potts_fused=1, exchange=3)
+    check_tickets(build, "phase 3 full width")
+    err_b = max(err_b, *(e for *_, e in full))
+    print("phase 3 round launches at full width: L=300 R=1500 S=2 (A, #2p) and 300x300 q=3 "
+          "(#5), permuted rung, every output in place, equal to the plain sweeps + "
+          "exchange_plain (spins, nacc, energy', attempt; rung', accept and prob but inside "
+          "the u ulp gap): " + "; ".join(
+              f"{name} {x} {n_acc} swaps accepted, {n_diff} prob differences, max |dp| {e}"
+              for name, x, n_acc, n_diff, e in full))
 
     # same-input timings: kernel vs plain at the main path's shapes
     rng = np.random.default_rng(5)
@@ -901,13 +1035,25 @@ def main() -> int:
     betas_b = torch.from_numpy((1.0 / (1.0 + np.arange(rb) * 3.0 / rb)).astype(np.float32)).to(device)
     ph = torch.zeros((), dtype=torch.int64, device=device)
     xw = dict(pairing="deo", criterion="logistic")
-    b_ms = cuda_ms(torch, lambda: isk.exchange_kernel(rung_b, energy_b, de_b, betas_b, words, ph, **xw), 200)
     b_plain_ms = cuda_ms(torch, lambda: isk.exchange_plain(rung_b, energy_b, de_b, betas_b, words, ph, **xw), 50)
     b_bound, b_by = bound_threefry(rb + 3, 30.0 * rb)
+    # the exchange's tail: a round launch less the same launch without it,
+    # at short rounds (L=32, S=1) and at the main path's S=2
+    spins32 = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), size=(rb, 32, 32))).to(device)
+    tails = {}
+    for what, st, n_sw, reps in (("L=32 R=1500 S=1", spins32, 1, 200),
+                                 ("L=300 R=1500 S=2", spins, s2, 20)):
+        tails[what] = round_tail(torch, isk, st, words, t0d, betas_b, rung_b, energy_b,
+                                 n_sw, reps)
+    del spins32
+    check_tickets(build, "phase 3 times")
+    b_ms = tails["L=32 R=1500 S=1"][0] - tails["L=32 R=1500 S=1"][1]
     print(f"phase 3 times [{card}]: kernel A {a_ms:.4f} ms vs plain {a_plain_ms:.4f} ms "
-          f"(L=300 R=1500 S=2, bound {a_bound:.5f} ms by {a_by}); kernel B "
-          f"{b_ms:.4f} ms vs plain {b_plain_ms:.4f} ms (R=1500, bound "
-          f"{b_bound:.6f} ms by {b_by}); library_ms: none")
+          f"(L=300 R=1500 S=2, bound {a_bound:.5f} ms by {a_by}); round exchange tail "
+          + "; ".join(f"{what}: round launch {rd:.5f} ms, sweeps alone {sw:.5f} ms, tail "
+                      f"{rd - sw:.5f} ms" for what, (rd, sw) in tails.items())
+          + f" (profiler device time, lower of two turns each); plain exchange "
+          f"{b_plain_ms:.4f} ms (R=1500, bound {b_bound:.6f} ms by {b_by}); library_ms: none")
 
     # -- phase 4: the main path at full width --------------------------------
     length, n_rep, interval = 300, 1500, 100
@@ -941,7 +1087,8 @@ def main() -> int:
         result = session.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = dict(build.launches)
+        counts = counts_now(build)
+        check_tickets(build, what)
         st = result.state.pt
         n_int = spec.schedule.total_sweeps // interval
         if not torch.equal(st.energy, session.engine.system.batched_energy(st.states)):
@@ -959,6 +1106,7 @@ def main() -> int:
         return result, counts, wall, n_int, init_s
 
     result, counts_round, wall, n_int, init_s = drive(spec_round, "round path")
+    # one launch a round, which runs the round's exchange
     expect_launches(counts_round, "round path", ising_fused=n_int, exchange=n_int)
     manifest_round = result.manifest()
     retunes = len(result.phases["burn"].ladder_history) - 1
@@ -968,8 +1116,9 @@ def main() -> int:
     a_main = cuda_ms(torch, lambda: isk.ising_sweep_fused_kernel(
         st.states, st.key, st.t, result.state.betas, st.rung, n_sweeps=interval,
         rule="glauber"), 2)
-    b_main = cuda_ms(torch, lambda: isk.exchange_kernel(
-        st.rung, st.energy, de_b, result.state.betas, st.key, st.phase, **xw), 200)
+    round_main = cuda_ms(torch, lambda: isk.ising_round_kernel(
+        st.states, st.key, st.t, st.phase, result.state.betas, st.rung, st.energy,
+        n_sweeps=interval, rule="glauber", **xw), 2)
     a_main_bound, _ = bound_threefry(n_rep * length * length * interval,
                                      2.0 * n_rep * length * length)
     sweeps = spec_round.schedule.total_sweeps
@@ -977,11 +1126,11 @@ def main() -> int:
           f"init {init_s:.3f} s, then {sweeps} sweeps in {wall:.3f} s = "
           f"{sweeps / wall:.2f} sweeps/s "
           f"({sweeps * n_rep / wall:.1f} replica-sweeps/s), "
-          f"{1e3 * wall / n_int:.2f} ms/interval, launches A {counts_round['ising_fused']}, "
-          f"B {counts_round['exchange']} == {n_int} intervals, {retunes} retunes, mean swap acceptance "
-          f"{float(np.mean(acc)):.4f}; kernel A {a_main:.3f} ms/launch (S=100, "
-          f"bound {a_main_bound:.3f} ms), kernel B {b_main:.4f} ms/launch; "
-          "energy == lattice_energy exactly; library_ms: none")
+          f"{1e3 * wall / n_int:.2f} ms/interval, launches A {counts_round['ising_fused']} "
+          f"and exchanges {counts_round['exchange']} == {n_int} intervals, {retunes} retunes, "
+          f"mean swap acceptance {float(np.mean(acc)):.4f}; kernel A {a_main:.3f} ms/launch "
+          f"(S=100, bound {a_main_bound:.3f} ms), a round launch (A + exchange) "
+          f"{round_main:.3f} ms; energy == lattice_energy exactly; library_ms: none")
     # the same run again in this warm process: the first run also pays
     # one-time costs (first allocations, first use of each torch kernel)
     session = Session(spec_round, device="cuda")
@@ -998,8 +1147,8 @@ def main() -> int:
     session.state = session.init_state()
     torch.cuda.synchronize()
     print(profile_breakdown(torch, build, session.run, n_int, card, "phase 4",
-                            {"kernel A": ("ising_fused_kernel", "ising_fused"),
-                             "kernel B": ("exchange_kernel", "exchange")}))
+                            {"kernel A": ("ising_fused_kernel", "ising_fused")}))
+    check_tickets(build, "phase 4")
 
     # -- phase 5: interval-fused path, and card == CPU on a small spec --------
     spec_fused = RunSpec(
@@ -1017,6 +1166,7 @@ def main() -> int:
     for spec, what in ((spec_round, "round"), (spec_fused, "fused")):
         check_no_host_sync(torch, Session(spec, device="cuda"),
                            make_interval_step, update_stats, 3)
+    check_tickets(build, "phase 5")
     print(f"phase 5 no host sync [{card}]: 3 intervals of the round and of the "
           "fused path at L=300 R=1500 under set_sync_debug_mode('error')")
     small = RunSpec(
@@ -1032,6 +1182,7 @@ def main() -> int:
         observables=("absmag", "energy_per_site"),
     )
     card_equals_cpu(Session, small, "small spec")
+    check_tickets(build, "phase 5 small spec")
     print(f"phase 5 fused path [{card}]: {spec_fused.schedule.total_sweeps} sweeps "
           f"in {wall_f:.3f} s, launches A {counts_fused['ising_fused']} == "
           f"{n_int_f} intervals; small spec (L=8 R=8, round path) equal on card and CPU")
@@ -1098,8 +1249,8 @@ def main() -> int:
     session.state = session.init_state()
     torch.cuda.synchronize()
     print(profile_breakdown(torch, build, session.run, n_int_pr, card, "phase 8 Potts round",
-                            {"kernel #5": ("potts_fused_kernel", "potts_fused"),
-                             "kernel B": ("exchange_kernel", "exchange")}))
+                            {"kernel #5": ("potts_fused_kernel", "potts_fused")}))
+    check_tickets(build, "phase 8")
 
     # -- phase 9: no host sync on the new paths; card == CPU ----------------------
     for spec in (spec_sweep, spec_psweep, spec_pfused, spec_pround):
@@ -1126,6 +1277,7 @@ def main() -> int:
             observables=("pmag",), seed=3,
         )
         card_equals_cpu(Session, small_potts, f"small Potts spec ({path})")
+    check_tickets(build, "phase 9")
     print(f"phase 9 card == CPU [{card}]: examples/specs/ising_small.json (per-sweep path) "
           "and a 6x4 q=3 R=6 Potts spec on its per-sweep, fused and round paths")
 
@@ -1224,8 +1376,8 @@ def main() -> int:
     session.state = session.init_state()
     torch.cuda.synchronize()
     print(profile_breakdown(torch, build, session.run, n_int, card, "phase 11 packed round",
-                            {"kernel #2p": ("ising_packed_kernel", "ising_packed"),
-                             "kernel B": ("exchange_kernel", "exchange")}))
+                            {"kernel #2p": ("ising_packed_kernel", "ising_packed")}))
+    check_tickets(build, "phase 11")
     del session
     torch.cuda.empty_cache()
 
@@ -1245,7 +1397,7 @@ def main() -> int:
     ens = session.run()
     torch.cuda.synchronize()
     wall_c = time.perf_counter() - t
-    counts_chains = dict(build.launches)
+    counts_chains = counts_now(build)
     n_int_c = spec_chains.schedule.total_sweeps // interval
     expect_launches(counts_chains, "two-chain path", ising_packed=2 * n_int_c,
                     exchange=2 * n_int_c)
@@ -1284,6 +1436,7 @@ def main() -> int:
     small_chains["system"]["params"]["pack_bits"] = True
     card_equals_cpu(Session, RunSpec.from_json(small_chains), "small two-chain spec")
     sw_c = spec_chains.schedule.total_sweeps
+    check_tickets(build, "phase 12")
     print(f"phase 12 two chains [{card}]: Session L=300 R=1500 n_chains=2 packed round path, "
           f"{sw_c} sweeps per chain in {wall_c:.3f} s = {sw_c / wall_c:.2f} sweeps/s per chain "
           f"({2 * sw_c * n_rep / wall_c:.1f} replica-sweeps/s over both), "
@@ -1300,7 +1453,11 @@ def main() -> int:
     t = time.perf_counter()
     report = run_conformance(entry, seed=0, system_params=round_packed, device="cuda")
     wall_v = time.perf_counter() - t
-    counts_conf = dict(build.launches)
+    counts_conf = counts_now(build)
+    # one launch of #2p a round, per chain, each running the round's exchange
+    conf_rounds = entry.n_chains * (entry.burn_sweeps + entry.n_batches
+                                    * entry.sweeps_per_batch) // entry.swap_interval
+    expect_launches(counts_conf, "conformance", ising_packed=conf_rounds, exchange=conf_rounds)
     assert_conforms(report, z_max=4.0, geweke_max=4.0)
     if report.n_retunes != entry.adapt_rounds:
         raise AssertionError(f"conformance: {report.n_retunes} retunes")
@@ -1319,6 +1476,7 @@ def main() -> int:
                 else all(np.array_equal(a[k], b[k]) for k in b))
         if not same:
             raise AssertionError(f"short conformance entry: card != CPU in {f}")
+    check_tickets(build, "phase 13")
     print(f"phase 13 conformance [{card}]: ising 4x4 R=5 n_chains=2 round path + pack_bits, "
           f"{entry.burn_sweeps + entry.n_batches * entry.sweeps_per_batch} sweeps per chain "
           f"in {wall_v:.2f} s, launches { {k: v for k, v in counts_conf.items() if v} }, "
@@ -1365,14 +1523,22 @@ def main() -> int:
          "fused_path_launches": counts_pfused_i["ising_packed"],
          "two_chain_launches": counts_chains["ising_packed"],
          "conformance_launches": counts_conf["ising_packed"]},
+        # the round exchange runs inside the round launches of A, #2p and #5:
+        # "launches" counts the exchanges run, "ms" is its tail (a round launch
+        # less the same launch without it, profiler device time) at L=32 S=1
         {"name": "exchange", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/exchange.cu",
+         "source": "src/repro_torch/kernels/csrc/exchange.cuh",
          "replaces": "src/repro/kernels/ising_sweep.py:517",
          "launches": counts_round["exchange"], "max_abs_err": err_b,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
          "bound_by": b_by, "library_ms": None,
-         "shape": "R=1500", "main_ms": b_main,
-         "potts_round_launches": counts_pround["exchange"]},
+         "shape": "R=1500, in a round launch of kernel A at L=32 S=1",
+         "tail_ms": {what: rd - sw for what, (rd, sw) in tails.items()},
+         "round_launch_ms": {what: rd for what, (rd, _) in tails.items()},
+         "main_round_launch_ms": round_main,
+         "also_replaces": "src/repro/kernels/potts_sweep.py:372 (in kernel #5)",
+         "potts_round_exchanges": counts_pround["exchange"],
+         "packed_round_exchanges": counts_pround_i["exchange"]},
         row("ising_sweep", "sweep.cu", "src/repro/kernels/ising_sweep.py:121",
             counts_sweep["ising_sweep"], shape="L=300 R=1500"),
         row("potts_sweep", "sweep.cu", "src/repro/kernels/potts_sweep.py:109",
@@ -1382,7 +1548,7 @@ def main() -> int:
             main_ms=times["potts_fused"]["main_ms"],
             main_bound_ms=times["potts_fused"]["main_bound"][0],
             main_shape="300x300 q=3 R=1500 S=100",
-            also_replaces="src/repro/kernels/potts_sweep.py:372 (with exchange)"),
+            also_replaces="src/repro/kernels/potts_sweep.py:372 (with the exchange)"),
         row("jax_uniform", "jax_uniform.cu",
             "none: XLA's jax.random.uniform (src/repro/engine/driver.py:171)",
             counts_sweep["jax_uniform"], shape="R=1500 x (2,300,300)",

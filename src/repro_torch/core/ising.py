@@ -4,9 +4,10 @@
 replica batch is ``(R, L, L)``.  The checkerboard update runs on three
 paths: per sweep (the default: ``jax.random`` uniforms, kernel #1), per
 interval (``use_fused``: S sweeps per launch of kernel A, torch exchange)
-or per round (``use_fused_round``: kernel A + the exchange kernel B).  On
-the two fused paths ``pack_bits`` swaps kernel A for kernel #2p (multispin
-coding), with a bit-equal trajectory; the per-sweep path ignores it.
+or per round (``use_fused_round``: one launch of kernel A whose last block
+runs the exchange).  On the two fused paths ``pack_bits`` swaps kernel A
+for kernel #2p (multispin coding), with a bit-equal trajectory; the
+per-sweep path ignores it.
 """
 from __future__ import annotations
 
@@ -116,8 +117,8 @@ class IsingSystem:
     def batched_mcmc_round(self, key, t, phase, spins, rung, energy, betas,
                            *, n_sweeps, n_rounds=1, criterion="logistic",
                            pairing="deo"):
-        """``n_rounds`` whole PT rounds (kernel A or #2p, then kernel B, per
-        round)."""
+        """``n_rounds`` whole PT rounds (one launch of kernel A or #2p per
+        round, its last block running the exchange)."""
         from repro_torch.kernels import ops
 
         return ops.ising_round_fused(

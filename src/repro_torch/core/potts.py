@@ -5,7 +5,8 @@ lattice, each bond once; colours are int8 in {0..q-1}.  The checkerboard
 update proposes a uniformly random different colour.  It runs on the same
 three paths as `repro_torch.core.ising.IsingSystem`: per sweep (kernel #4
 on ``jax.random`` uniforms), per interval (``use_fused``: kernel #5) and per
-round (``use_fused_round``: kernel #5 + the exchange kernel B).
+round (``use_fused_round``: one launch of kernel #5 a round, its last
+block running the exchange).
 """
 from __future__ import annotations
 
@@ -107,7 +108,8 @@ class PottsSystem:
     def batched_mcmc_round(self, key, t, phase, states, rung, energy, betas,
                            *, n_sweeps, n_rounds=1, criterion="logistic",
                            pairing="deo"):
-        """``n_rounds`` whole PT rounds (kernel #5 + kernel B per round)."""
+        """``n_rounds`` whole PT rounds (one launch of kernel #5 per round,
+        its last block running the exchange)."""
         from repro_torch.kernels import ops
 
         return ops.potts_round_fused(

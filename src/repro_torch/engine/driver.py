@@ -4,9 +4,9 @@ Ports the three branches of `repro.engine.driver.make_interval_step` and
 the chunked host loop of `repro.engine.Engine`:
 
 * **fused_round** — each interval is one call of the system's
-  ``batched_mcmc_round``: S sweeps in one launch (kernel A or #5) then
-  kernel B (the temp-mode exchange drawn from the counter swap stream at
-  ``phase``);
+  ``batched_mcmc_round``: one launch (kernel A, #2p or #5) of S sweeps
+  whose last block runs the temp-mode exchange drawn from the counter swap
+  stream at ``phase``;
 * **fused** — ``batched_mcmc_interval`` for the sweeps (kernel A or #5),
   then the DEO strategy's swap phase in torch on ``uniform(fold_in(key,
   2t+1), (R,))``, the JAX engine's draw;

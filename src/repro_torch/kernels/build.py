@@ -13,15 +13,19 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC``, never fast math.  The sweep kernels (``ising_fused.cu``,
 ``ising_packed.cu``, ``sweep.cu``, ``potts_fused.cu``) and
 ``jax_uniform.cu`` add ``-fmad=false``
-so no float product is contracted into an FMA; ``exchange.cu`` keeps nvcc's
-default contraction, as PyTorch builds its own exp/sigmoid kernels, because
-its probabilities must match those torch ops; ``wkv6.cu`` keeps it too (its
-sums are held to a tolerance, not bit for bit).
+so no float product is contracted into an FMA (the round exchange that
+kernels A, #2p and #5 run, ``exchange.cuh``, has no product followed by a
+sum, and its exp/sigmoid are libdevice's as in PyTorch's own kernels);
+``wkv6.cu`` keeps nvcc's default contraction (its sums are held to a
+tolerance, not bit for bit).
 
 `launches` counts the launches of every kernel by name; each wrapper adds
-one where it launches its kernel, and nowhere else.  The wrappers share the
-argument checks (`check`, `check_smem`), `stream_of` and `raise_if` below,
-and `sweep_lib`, the library of kernels #1 and #4.
+one where it launches its kernel, and nowhere else.  `epilogues` counts the
+round exchanges those launches ran (one per round launch of kernels A, #2p
+and #5).  The wrappers share the argument checks (`check`, `check_smem`,
+`check_round`), `stream_of`, `raise_if`, the round launches' arguments
+(`round_args`, `scratch_bytes`, `ROUND_ARGTYPES`, `NO_ROUND`) and
+`sweep_lib`, the library of kernels #1 and #4.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ import torch
 
 __all__ = [
     "CSRC", "SOURCES", "build_root", "nvcc_path", "build_all", "library",
-    "launches", "reset_launches", "MAX_SMEM_BYTES", "check", "check_smem",
-    "stream_of", "raise_if", "sweep_lib",
+    "launches", "epilogues", "reset_launches", "MAX_SMEM_BYTES", "check",
+    "check_smem", "check_round", "round_args", "scratch_bytes", "dirty_tickets",
+    "ROUND_ARGTYPES", "NO_ROUND", "stream_of", "raise_if", "sweep_lib",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -51,7 +56,6 @@ _COMMON = [
 SOURCES = {
     "ising_fused": ["-fmad=false"],
     "ising_packed": ["-fmad=false"],
-    "exchange": [],
     "sweep": ["-fmad=false"],
     "potts_fused": ["-fmad=false"],
     "jax_uniform": ["-fmad=false"],
@@ -62,18 +66,22 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 MAX_SMEM_BYTES = 232448
 _P = ctypes.c_void_p
 
-# kernel name -> launches since the last reset (kernel A and B of the round
-# path, kernel #2p, kernels #1 and #4 of sweep.cu, kernel #5, the jax.random
-# helper, the RWKV-6 recurrence #7)
+# kernel name -> launches since the last reset (kernel A, kernel #2p,
+# kernels #1 and #4 of sweep.cu, kernel #5, the jax.random helper, the
+# RWKV-6 recurrence #7)
 launches = dict.fromkeys(
-    ("ising_fused", "ising_packed", "exchange", "ising_sweep", "potts_sweep",
-     "potts_fused", "jax_uniform", "wkv6"), 0,
+    ("ising_fused", "ising_packed", "ising_sweep", "potts_sweep", "potts_fused",
+     "jax_uniform", "wkv6"), 0,
 )
+# round exchanges run at the end of a launch of kernel A, #2p or #5 since the
+# last reset (no launch of their own)
+epilogues = {"exchange": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, epilogues):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:
@@ -196,3 +204,91 @@ def check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
 def raise_if(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed with cudaError {err}")
+
+
+# -- the round launches' exchange arguments (csrc/exchange.cuh) --------------
+
+# C types of a round launch's exchange arguments (rung_out, energy_in,
+# energy_out, betas, phase0, phase_add, seo, metropolis, the accept, prob and
+# attempt rows, scratch, ticket), between a sweep launch's own and its stream
+NO_ROUND = (None,) * 5 + (0, 0, 0) + (None,) * 5
+ROUND_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [_P] * 5
+# (device index, stream) -> the ticket of the round launches on that stream:
+# one uint32 that each block adds one to and the last block sets back to 0.
+# Launches on one stream run one after another, so they can share it; two
+# streams must not, since two round launches in flight at once would count
+# each other's blocks, and one would run its exchange before all of its own
+# blocks were done.  The scratch rows are per stream and size for the same reason.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+_SCRATCH: dict[tuple[int, int, int], torch.Tensor] = {}
+
+
+@functools.cache
+def scratch_bytes(lib: ctypes.CDLL) -> int:
+    """The exchange scratch bytes a replica that ``lib``'s round launches
+    use (its ``exchange_scratch_bytes()``, i.e. ``exchange::kScratchBytes``)."""
+    fn = lib.exchange_scratch_bytes
+    fn.restype, fn.argtypes = ctypes.c_longlong, []
+    return int(fn())
+
+
+def check_round(r: int, device, rung, energy, phase0, rows, *, pairing: str,
+                criterion: str):
+    """Check a round launch's exchange arguments and its ``(rung', energy',
+    accept, prob, attempt)`` rows (allocated where ``rows`` is None; ``rung'``
+    and ``energy'`` may be ``rung`` and ``energy`` themselves); returns the rows."""
+    from repro_torch.kernels import exchange
+
+    if pairing not in exchange.PAIRINGS or criterion not in exchange.CRITERIA:
+        raise ValueError(f"unsupported exchange {pairing!r}/{criterion!r}")
+    check(energy, "energy", torch.float32, (r,), device)
+    check(phase0, "phase0", torch.int64, (), device)
+    if rows is None:
+        rows = (torch.empty_like(rung), torch.empty_like(energy),
+                torch.empty(r, dtype=torch.bool, device=device),
+                torch.empty(r, dtype=torch.float32, device=device),
+                torch.empty(r, dtype=torch.bool, device=device))
+    if len(rows) != 5:
+        raise ValueError(f"a round writes 5 exchange rows, got {len(rows)}")
+    for x, name, dtype in zip(rows, ("rung out", "energy out", "accept row", "prob row",
+                                     "attempt row"),
+                              (torch.int32, torch.float32, torch.bool, torch.float32,
+                               torch.bool)):
+        check(x, name, dtype, (r,), device)
+    return tuple(rows)
+
+
+def round_args(lib: ctypes.CDLL, betas, xchg) -> tuple:
+    """A launch of ``lib``'s sweep kernel: its exchange arguments in
+    `ROUND_ARGTYPES` order.  `NO_ROUND` where ``xchg`` is None (the sweeps
+    alone), else those of the round ``xchg = (energy, phase0, rows, keywords
+    of the exchange)`` (rows checked by `check_round`), with the ticket of
+    the current stream and scratch rows for ``len(betas)`` replicas at
+    `scratch_bytes` (``lib``) a replica (both made on first use and kept)."""
+    if xchg is None:
+        return NO_ROUND
+    energy, phase0, rows, kw = xchg
+    dev = betas.device
+    key = (dev.index, stream_of(dev))
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    n_bytes = scratch_bytes(lib) * betas.shape[0]
+    scratch = _SCRATCH.get((*key, n_bytes))
+    if scratch is None:
+        scratch = _SCRATCH[(*key, n_bytes)] = torch.empty(n_bytes, dtype=torch.uint8,
+                                                          device=dev)
+    rung_out, energy_out, acc, prob, att = rows
+    return (rung_out.data_ptr(), energy.data_ptr(), energy_out.data_ptr(),
+            betas.data_ptr(), phase0.data_ptr(), int(kw["phase_add"]), int(kw["pairing"] == "seo"),
+            int(kw["criterion"] == "metropolis"), acc.data_ptr(), prob.data_ptr(),
+            att.data_ptr(), scratch.data_ptr(), ticket.data_ptr())
+
+
+def dirty_tickets() -> dict[tuple[int, int], int]:
+    """The round tickets that are not 0, by (device index, stream).  A round
+    launch that ran to its end leaves its ticket at 0; one that faulted may
+    not, and the next round launch on that stream would then misfire, so a
+    caller that checks after a run fails on any.  Reads each from the card."""
+    values = {key: int(t.item()) for key, t in _TICKETS.items()}
+    return {key: v for key, v in values.items() if v != 0}

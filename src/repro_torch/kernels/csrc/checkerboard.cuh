@@ -79,6 +79,7 @@
 #include <cstdint>
 
 #include "block_reduce.cuh"
+#include "exchange.cuh"
 #include "threefry.cuh"
 
 namespace checkerboard {
@@ -182,7 +183,12 @@ __device__ __forceinline__ void refresh_halo(uint8_t* lat, int c, int H, int hal
 // one bit).  At kRep = 1 the rule's update takes the sweep's key schedule,
 // the thread's ΔE partial and count; at kRep > 1 the kRep schedules in
 // shared memory and kRep partials and counts.  `src` may alias `dst`: every
-// lattice is read before anything is written.
+// lattice is read before anything is written.  With round arguments (a
+// non-null `round.ticket`, a uniform branch the interval-fused path never
+// takes) thread 0 takes the round's ticket right after the block's ΔE store,
+// while the other threads write the lattice back, and leaves in ired[0]
+// whether it was the last; the kernel then calls exchange::exchange_if_last
+// (exchange.cuh) once, so the exchange's code is not repeated per kRep.
 template <int kThreads, int kSites, int kRep, class Rule>
 __device__ __forceinline__ void sweeps(const Rule& rule, uint8_t* lat, float* fred,
                                        int* ired, Scratch<kRep>* scratch,
@@ -190,7 +196,7 @@ __device__ __forceinline__ void sweeps(const Rule& rule, uint8_t* lat, float* fr
                                        int32_t* nacc_out, int slot,
                                        const int64_t* key_words, const int64_t* t0,
                                        long long t_add, uint32_t rep, int H, int W,
-                                       int n_sweeps) {
+                                       int n_sweeps, const exchange::Round& round) {
   static_assert(kRep >= 1 && kRep <= 8, "a shared-memory byte holds 1..8 replicas");
   constexpr int kWarps = kThreads / 32;
   const int half = W / 2;
@@ -270,14 +276,15 @@ __device__ __forceinline__ void sweeps(const Rule& rule, uint8_t* lat, float* fr
       de_total = de_total + ds;
     }
     const int nacc_total = block_reduce::sum<kWarps>(nacc, ired);
+    if (threadIdx.x == 0) {
+      de_out[slot] = de_total;
+      nacc_out[slot] = nacc_total;
+      if (round.ticket != nullptr) *ired = exchange::take_ticket(round);
+    }
 
     for (Walker w(threadIdx.x, kThreads, W); w.i < H; w.step()) {
       const int i = w.i, j = w.k;
       dst[i * W + j] = Rule::from_shared(lat[cell(i + 1, (j >> 1) + 1, pitch, (i + j) & 1)]);
-    }
-    if (threadIdx.x == 0) {
-      de_out[slot] = de_total;
-      nacc_out[slot] = nacc_total;
     }
   } else {
     float part[kRep];
@@ -331,6 +338,14 @@ __device__ __forceinline__ void sweeps(const Rule& rule, uint8_t* lat, float* fr
     int nacc_total[kRep];
 #pragma unroll
     for (int r = 0; r < kRep; ++r) nacc_total[r] = block_reduce::sum<kWarps>(nacc[r], ired);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int r = 0; r < kRep; ++r) {
+        de_out[slot + r] = scratch->de_total[r];
+        nacc_out[slot + r] = nacc_total[r];
+      }
+      if (round.ticket != nullptr) *ired = exchange::take_ticket(round);
+    }
 
     for (Walker w(threadIdx.x, kThreads, W); w.i < H; w.step()) {
       const int i = w.i, j = w.k;
@@ -338,13 +353,6 @@ __device__ __forceinline__ void sweeps(const Rule& rule, uint8_t* lat, float* fr
 #pragma unroll
       for (int r = 0; r < kRep; ++r) {
         dst[r * cells + i * W + j] = Rule::from_shared(static_cast<uint8_t>((v >> r) & 1u));
-      }
-    }
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int r = 0; r < kRep; ++r) {
-        de_out[slot + r] = scratch->de_total[r];
-        nacc_out[slot + r] = nacc_total[r];
       }
     }
   }

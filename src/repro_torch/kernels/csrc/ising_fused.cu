@@ -3,9 +3,10 @@
 //
 // Replaces (TPU, Pallas):
 //   repro/kernels/ising_sweep.py::ising_sweep_fused_pallas
-//     (_ising_sweep_fused_kernel, _ising_sweep_body), and the sweep half of
+//     (_ising_sweep_fused_kernel, _ising_sweep_body), and
 //   repro/kernels/ising_sweep.py::ising_round_fused_pallas
-//     (_ising_round_fused_kernel; its exchange half is kernel B, exchange.cu).
+//     (_ising_round_fused_kernel: its sweeps here, its exchange in the same
+//     launch by the last block to finish, exchange.cuh).
 //
 // Design: one block per replica slot runs the shared fused sweep loop
 // (checkerboard.cuh: colour-paired haloed lattice in shared memory, runs of
@@ -13,9 +14,10 @@
 // at one replica a block, with the Ising update of ising_rules.cuh.  The
 // slot's beta is betas[rung[slot]], read in-kernel from the device rung
 // map, so the interval-fused path (identity rung, per-slot betas) and the
-// whole-round path (rung-ordered betas) share this kernel.  A site's
-// uniform is to_uniform(hash(sweep key, colour, i*L + j).x0), one Threefry
-// block per update, the minimum the stream allows.
+// whole-round path (rung-ordered betas) share this kernel; a round launch
+// also carries the exchange's arguments, and one launch is one PT round.
+// A site's uniform is to_uniform(hash(sweep key, colour, i*L + j).x0), one
+// Threefry block per update, the minimum the stream allows.
 //
 // Acceptance: the wrapper's per-rung rows as thresholds (ising_rules.cuh),
 // no expf per site.  Spins and acceptance counts are bit-equal to the plain
@@ -50,16 +52,18 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kHeaderBytes = kWarps * 8 + 10 * 8;
 
 // spins_in may alias spins_out: a block reads its whole lattice into shared
-// memory before it writes anything back.
+// memory before it writes anything back.  `rung` may be round.rung_out: every
+// block reads its rung before the exchange writes the new map.
 __global__ void __launch_bounds__(kThreads, 2)
 ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
                    float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
-                   const int32_t* __restrict__ rung,
+                   const int32_t* rung,
                    const float* __restrict__ p_tab,
                    const float* __restrict__ de_tab,
                    const int64_t* __restrict__ key_words,
                    const int64_t* __restrict__ t0, long long t_add,
-                   unsigned int replica_offset, int L, int n_sweeps) {
+                   unsigned int replica_offset, int L, int n_sweeps,
+                   const exchange::Round round) {
   extern __shared__ __align__(8) unsigned char smem[];
   float* fred = reinterpret_cast<float*>(smem);
   int* ired = reinterpret_cast<int*>(smem + kWarps * 4);
@@ -75,12 +79,17 @@ ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
   checkerboard::sweeps<kThreads, kSites, 1>(
       ising::Rule{tab}, lat, fred, ired, nullptr, spins_in + slot * cells,
       spins_out + slot * cells, de_out, nacc_out, slot, key_words, t0, t_add,
-      static_cast<uint32_t>(slot) + replica_offset, L, L, n_sweeps);
+      static_cast<uint32_t>(slot) + replica_offset, L, L, n_sweeps, round);
+  if (round.ticket != nullptr) exchange::exchange_if_last(round, de_out, key_words, ired);
 }
 
 }  // namespace
 
 extern "C" {
+
+// Exchange scratch bytes a replica (exchange.cuh): the wrapper sizes the
+// round launch's scratch buffer from it.
+long long exchange_scratch_bytes() { return exchange::kScratchBytes; }
 
 // Shared-memory bytes one launch needs at lattice side L.
 long long ising_fused_smem_bytes(int length) {
@@ -88,11 +97,17 @@ long long ising_fused_smem_bytes(int length) {
 }
 
 // Launches kernel A on `stream`; returns cudaGetLastError() (0 = launched).
+// The arguments from rung_out on are the round's exchange (exchange.cuh);
+// a null ticket launches the sweeps alone.
 int ising_fused_launch(const void* spins_in, void* spins_out, void* de_out,
                        void* nacc_out, const void* rung, const void* p_tab,
                        const void* de_tab, const void* key_words, const void* t0,
                        long long t_add, unsigned int replica_offset,
-                       int n_replicas, int length, int n_sweeps, void* stream) {
+                       int n_replicas, int length, int n_sweeps, void* rung_out,
+                       const void* energy_in, void* energy_out, const void* betas,
+                       const void* phase0, long long phase_add, int seo,
+                       int metropolis, void* acc_row, void* prob_row, void* att_row,
+                       void* scratch, void* ticket, void* stream) {
   const int smem = static_cast<int>(ising_fused_smem_bytes(length));
   cudaError_t err = cudaFuncSetAttribute(
       ising_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -103,7 +118,10 @@ int ising_fused_launch(const void* spins_in, void* spins_out, void* de_out,
       static_cast<float*>(de_out), static_cast<int32_t*>(nacc_out),
       static_cast<const int32_t*>(rung), static_cast<const float*>(p_tab),
       static_cast<const float*>(de_tab), static_cast<const int64_t*>(key_words),
-      static_cast<const int64_t*>(t0), t_add, replica_offset, length, n_sweeps);
+      static_cast<const int64_t*>(t0), t_add, replica_offset, length, n_sweeps,
+      exchange::make_round(rung, rung_out, energy_in, energy_out, betas, phase0, phase_add,
+                           n_replicas, seo, metropolis, acc_row, prob_row, att_row,
+                           scratch, ticket));
   return static_cast<int>(cudaGetLastError());
 }
 

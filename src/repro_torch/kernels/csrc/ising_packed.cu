@@ -11,10 +11,13 @@
 // (R, L, L) spins in and out (they may alias), ΔE f32 (R,), nacc i32 (R,),
 // the rung map, the per-rung p rows and the 10-entry ΔE row the wrapper
 // builds with the plain version's ops, the run-key words and the device
-// sweep counter.  A slot's beta is betas[rung[slot]], read in-kernel, so
-// one kernel serves the interval-fused path (identity rung) and, followed
-// by the unchanged kernel B, the whole-round path.  The engine's state stays
-// int8: a block packs on load and unpacks on store, as the JAX kernel does.
+// sweep counter, and the round's exchange arguments (exchange.cuh).  A
+// slot's beta is betas[rung[slot]], read in-kernel, so one kernel serves the
+// interval-fused path (identity rung, no exchange) and the whole-round path,
+// one launch a round: the last block to finish runs the exchange over all R
+// slots once (never a group's padding bits: the grid's last group is
+// partial, not padded).  The engine's state stays int8: a block packs on
+// load and unpacks on store, as the JAX kernel does.
 //
 // Word width.  The JAX kernel packs 32 replicas into a uint32 plane.  On an
 // SM a 32-replica plane at the paper's L = 300 takes 4 L^2 = 360 KB of
@@ -97,10 +100,10 @@ template <int K>
 __device__ __forceinline__ void group_sweeps(
     unsigned char* smem, const int8_t* spins_in, int8_t* spins_out,
     float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
-    const int32_t* __restrict__ rung, const float* __restrict__ p_tab,
+    const int32_t* rung, const float* __restrict__ p_tab,
     const float* __restrict__ de_tab, const int64_t* __restrict__ key_words,
     const int64_t* __restrict__ t0, long long t_add, unsigned int replica_offset,
-    int first, int L, int n_sweeps) {
+    int first, int L, int n_sweeps, const exchange::Round& round) {
   float* fred = reinterpret_cast<float*>(smem);
   int* ired = reinterpret_cast<int*>(smem + kWarps * 4);
   checkerboard::Entry* tab = reinterpret_cast<checkerboard::Entry*>(smem + kTableOffset);
@@ -120,27 +123,28 @@ __device__ __forceinline__ void group_sweeps(
     checkerboard::sweeps<kThreads, kSites, 1>(
         ising::Rule{tab}, lat, fred, ired, nullptr, spins_in + first * cells,
         spins_out + first * cells, de_out, nacc_out, first, key_words, t0, t_add, rep,
-        L, L, n_sweeps);
+        L, L, n_sweeps, round);
   } else {
     checkerboard::sweeps<kThreads, kSites, K>(
         ising::PackedRule<K>{tab}, lat, fred, ired, scratch, spins_in + first * cells,
         spins_out + first * cells, de_out, nacc_out, first, key_words, t0, t_add, rep,
-        L, L, n_sweeps);
+        L, L, n_sweeps, round);
   }
 }
 
 // spins_in may alias spins_out: a block reads its group's lattices into
 // shared memory before it writes anything back, and touches no other group.
+// `rung` may be round.rung_out (see ising_fused.cu).
 __global__ void __launch_bounds__(kThreads, 2)
 ising_packed_kernel(const int8_t* spins_in, int8_t* spins_out,
                     float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
-                    const int32_t* __restrict__ rung,
+                    const int32_t* rung,
                     const float* __restrict__ p_tab,
                     const float* __restrict__ de_tab,
                     const int64_t* __restrict__ key_words,
                     const int64_t* __restrict__ t0, long long t_add,
                     unsigned int replica_offset, int n_replicas, int group,
-                    int L, int n_sweeps) {
+                    int L, int n_sweeps, const exchange::Round round) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int first = blockIdx.x * group;
   const int bits = n_replicas - first < group ? n_replicas - first : group;
@@ -148,7 +152,7 @@ ising_packed_kernel(const int8_t* spins_in, int8_t* spins_out,
   case K:                                                                        \
     group_sweeps<K>(smem, spins_in, spins_out, de_out, nacc_out, rung, p_tab,    \
                     de_tab, key_words, t0, t_add, replica_offset, first, L,      \
-                    n_sweeps);                                                   \
+                    n_sweeps, round);                                            \
     break;
   switch (bits) {  // uniform over the block: only the last group is partial
     REPRO_GROUP(1)
@@ -163,11 +167,19 @@ ising_packed_kernel(const int8_t* spins_in, int8_t* spins_out,
       break;
   }
 #undef REPRO_GROUP
+  if (round.ticket != nullptr) {  // one copy of the exchange for all group widths
+    const int* flag = reinterpret_cast<int*>(smem + kWarps * 4);  // group_sweeps' ired
+    exchange::exchange_if_last(round, de_out, key_words, flag);
+  }
 }
 
 }  // namespace
 
 extern "C" {
+
+// Exchange scratch bytes a replica (exchange.cuh): the wrapper sizes the
+// round launch's scratch buffer from it.
+long long exchange_scratch_bytes() { return exchange::kScratchBytes; }
 
 // Shared-memory bytes one launch needs at lattice side L.
 long long ising_packed_smem_bytes(int length) {
@@ -189,13 +201,17 @@ int ising_packed_blocks_per_sm(int length, int* blocks) {
 }
 
 // Launches kernel #2p on `stream`, one block per `group` (1..8) replicas;
-// returns cudaGetLastError() (0 = launched).
+// returns cudaGetLastError() (0 = launched).  The arguments from rung_out on
+// are the round's exchange, as for kernel A.
 int ising_packed_launch(const void* spins_in, void* spins_out, void* de_out,
                         void* nacc_out, const void* rung, const void* p_tab,
                         const void* de_tab, const void* key_words, const void* t0,
                         long long t_add, unsigned int replica_offset,
                         int n_replicas, int length, int n_sweeps, int group,
-                        void* stream) {
+                        void* rung_out, const void* energy_in, void* energy_out,
+                        const void* betas, const void* phase0, long long phase_add,
+                        int seo, int metropolis, void* acc_row, void* prob_row,
+                        void* att_row, void* scratch, void* ticket, void* stream) {
   if (group < 1 || group > kGroup) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(ising_packed_smem_bytes(length));
   cudaError_t err = cudaFuncSetAttribute(
@@ -208,7 +224,10 @@ int ising_packed_launch(const void* spins_in, void* spins_out, void* de_out,
       static_cast<const int32_t*>(rung), static_cast<const float*>(p_tab),
       static_cast<const float*>(de_tab), static_cast<const int64_t*>(key_words),
       static_cast<const int64_t*>(t0), t_add, replica_offset, n_replicas, group,
-      length, n_sweeps);
+      length, n_sweeps,
+      exchange::make_round(rung, rung_out, energy_in, energy_out, betas, phase0, phase_add,
+                           n_replicas, seo, metropolis, acc_row, prob_row, att_row,
+                           scratch, ticket));
   return static_cast<int>(cudaGetLastError());
 }
 

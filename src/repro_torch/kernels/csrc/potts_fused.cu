@@ -3,9 +3,10 @@
 //
 // Replaces (TPU, Pallas):
 //   repro/kernels/potts_sweep.py::potts_sweep_fused_pallas
-//     (_potts_sweep_fused_kernel, _potts_sweep_body), and the sweep half of
+//     (_potts_sweep_fused_kernel, _potts_sweep_body), and
 //   repro/kernels/potts_sweep.py::potts_round_fused_pallas
-//     (_potts_round_fused_kernel; its exchange half is kernel B, exchange.cu).
+//     (_potts_round_fused_kernel: its sweeps here, its exchange in the same
+//     launch by the last block to finish, exchange.cuh).
 // Both pack_bits settings of the JAX kernel run here: the lattice is int8
 // throughout, which is what pack_bits=True asks for (q <= 64), and the JAX
 // package pins the two trajectories as bitwise equal.
@@ -16,7 +17,8 @@
 // of the sweep key at counter i*W + j, plane 2*colour (proposal) and plane
 // 2*colour+1 (acceptance).  The slot's beta is betas[rung[slot]], so the
 // interval path (identity rung, per-slot betas) and the round path
-// (rung-ordered betas) share this kernel.
+// (rung-ordered betas, and the exchange's arguments: one launch a round)
+// share this kernel.
 //
 // The update.  The proposal is the plain version's, d = 1 +
 // floor(u_prop * (q-1)) in f32, computed as float(bits >> 8) * ((q-1) *
@@ -110,14 +112,16 @@ struct PottsRule {
 };
 
 // states_in may alias states_out: a block reads its whole lattice first.
+// `rung` may be round.rung_out (see ising_fused.cu).
 __global__ void __launch_bounds__(kThreads, 2)
 potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
                    float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
-                   const int32_t* __restrict__ rung, const float* __restrict__ p_tab,
+                   const int32_t* rung, const float* __restrict__ p_tab,
                    const float* __restrict__ de_tab,
                    const int64_t* __restrict__ key_words,
                    const int64_t* __restrict__ t0, long long t_add,
-                   unsigned int replica_offset, int H, int W, int q, int n_sweeps) {
+                   unsigned int replica_offset, int H, int W, int q, int n_sweeps,
+                   const exchange::Round round) {
   extern __shared__ __align__(8) unsigned char smem[];
   float* fred = reinterpret_cast<float*>(smem);
   int* ired = reinterpret_cast<int*>(smem + kWarps * 4);
@@ -134,23 +138,33 @@ potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
   checkerboard::sweeps<kThreads, kSites, 1>(
       rule, lat, fred, ired, nullptr, states_in + slot * cells, states_out + slot * cells,
       de_out, nacc_out, slot, key_words, t0, t_add,
-      static_cast<uint32_t>(slot) + replica_offset, H, W, n_sweeps);
+      static_cast<uint32_t>(slot) + replica_offset, H, W, n_sweeps, round);
+  if (round.ticket != nullptr) exchange::exchange_if_last(round, de_out, key_words, ired);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Exchange scratch bytes a replica (exchange.cuh): the wrapper sizes the
+// round launch's scratch buffer from it.
+long long exchange_scratch_bytes() { return exchange::kScratchBytes; }
+
 long long potts_fused_smem_bytes(int height, int width) {
   return kHeaderBytes + checkerboard::lattice_bytes<kSites>(height, width);
 }
 
 // Launches kernel #5 on `stream`; returns cudaGetLastError() (0 = launched).
+// The arguments from rung_out on are the round's exchange, as for kernel A.
 int potts_fused_launch(const void* states_in, void* states_out, void* de_out,
                        void* nacc_out, const void* rung, const void* p_tab,
                        const void* de_tab, const void* key_words, const void* t0,
                        long long t_add, unsigned int replica_offset, int n_replicas,
-                       int height, int width, int q, int n_sweeps, void* stream) {
+                       int height, int width, int q, int n_sweeps, void* rung_out,
+                       const void* energy_in, void* energy_out, const void* betas,
+                       const void* phase0, long long phase_add, int seo,
+                       int metropolis, void* acc_row, void* prob_row, void* att_row,
+                       void* scratch, void* ticket, void* stream) {
   const int smem = static_cast<int>(potts_fused_smem_bytes(height, width));
   cudaError_t err = cudaFuncSetAttribute(
       potts_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -161,7 +175,10 @@ int potts_fused_launch(const void* states_in, void* states_out, void* de_out,
       static_cast<const int32_t*>(rung), static_cast<const float*>(p_tab),
       static_cast<const float*>(de_tab), static_cast<const int64_t*>(key_words),
       static_cast<const int64_t*>(t0), t_add, replica_offset, height, width, q,
-      n_sweeps);
+      n_sweeps,
+      exchange::make_round(rung, rung_out, energy_in, energy_out, betas, phase0, phase_add,
+                           n_replicas, seo, metropolis, acc_row, prob_row, att_row,
+                           scratch, ticket));
   return static_cast<int>(cudaGetLastError());
 }
 

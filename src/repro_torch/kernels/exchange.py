@@ -2,8 +2,8 @@
 
 The JAX version writes every gather as a one-hot compare-sum because Mosaic
 cannot lower a gather or argsort; here they are real gathers and a scatter,
-with equal results.  This is the plain version that CUDA kernel B
-(`csrc/exchange.cu`) is held against, and the port's CPU path.
+with equal results.  This is the plain version that the round launches'
+exchange (`csrc/exchange.cuh`) is held against, and the port's CPU path.
 """
 from __future__ import annotations
 

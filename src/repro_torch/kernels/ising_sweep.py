@@ -3,23 +3,25 @@
 * kernel #1, ``csrc/sweep.cu`` — one checkerboard sweep with the uniforms
   passed in (replaces `repro.kernels.ising_sweep.ising_sweep_pallas`);
 * kernel A, ``csrc/ising_fused.cu`` — S checkerboard sweeps per launch
-  (replaces `repro.kernels.ising_sweep.ising_sweep_fused_pallas` and the
-  sweep half of ``ising_round_fused_pallas``);
+  (replaces `repro.kernels.ising_sweep.ising_sweep_fused_pallas`);
 * kernel #2p, ``csrc/ising_packed.cu`` — kernel A's sweeps on replica-bit-
   packed spins, up to 8 replicas a byte (replaces the ``pack_bits`` body
   `repro.kernels.ising_sweep._ising_sweep_body_packed` of both fused
   kernels);
-* kernel B, ``csrc/exchange.cu`` — one temp-mode exchange on the O(R) rows
-  (the exchange half of ``ising_round_fused_pallas``; Potts rounds reuse it).
+* a whole PT round, ``ising_round_kernel`` — one launch of kernel A (or
+  #2p) whose last block to finish runs the temp-mode exchange on the O(R)
+  rows (``csrc/exchange.cuh``), as ``ising_round_fused_pallas`` is one
+  ``pallas_call``; Potts rounds run the same exchange in kernel #5.
 
-Each ``*_kernel`` wrapper checks device, dtype, shape and contiguity,
-allocates its outputs with ``torch.empty``, launches on the current stream
-without synchronising, raises if the launch was refused, and adds one to
+Each ``*_kernel`` wrapper checks dtype, shape and contiguity, then the
+device (a CPU tensor is refused), allocates its outputs with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch was refused, and adds one to
 ``build.launches[name]``, all through the helpers of `build`.  Each plain
-version (``*_plain``, or `ref.ising_sweep` for kernel #1) computes the same
-thing with plain torch ops on any device; it is what
-`repro_torch.kernels.ops` runs for CPU tensors and what the kernels are
-compared with on the card.
+version (``*_plain``, or `ref.ising_sweep` for kernel #1, `exchange_plain`
+for the round's exchange) computes the same thing with plain torch ops on
+any device; it is what `repro_torch.kernels.ops` runs for CPU tensors and
+what the kernels are compared with on the card.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ __all__ = [
     "packed_launch_shape",
     "pack_spins",
     "unpack_spins",
-    "exchange_kernel",
+    "ising_round_kernel",
     "exchange_plain",
 ]
 
@@ -50,14 +52,14 @@ _P = ctypes.c_void_p
 
 
 @functools.cache
-def _libs() -> tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]:
-    """Kernels A, B and #2p, built on first use, with their C signatures."""
-    lib_a, lib_b = build.library("ising_fused"), build.library("exchange")
-    lib_p = build.library("ising_packed")
-    # kernel #2p takes kernel A's arguments and its group width
+def _libs() -> tuple[ctypes.CDLL, ctypes.CDLL]:
+    """Kernels A and #2p, built on first use, with their C signatures."""
+    lib_a, lib_p = build.library("ising_fused"), build.library("ising_packed")
+    # kernel #2p takes kernel A's arguments and its group width; both then
+    # take a round's exchange arguments (null for the sweeps alone)
     args = [_P] * 9 + [ctypes.c_longlong, ctypes.c_uint] + [ctypes.c_int] * 3
-    lib_a.ising_fused_launch.argtypes = args + [_P]
-    lib_p.ising_packed_launch.argtypes = args + [ctypes.c_int, _P]
+    lib_a.ising_fused_launch.argtypes = args + build.ROUND_ARGTYPES + [_P]
+    lib_p.ising_packed_launch.argtypes = args + [ctypes.c_int] + build.ROUND_ARGTYPES + [_P]
     for lib, name in ((lib_a, "ising_fused"), (lib_p, "ising_packed")):
         getattr(lib, f"{name}_launch").restype = ctypes.c_int
         smem = getattr(lib, f"{name}_smem_bytes")
@@ -67,14 +69,7 @@ def _libs() -> tuple[ctypes.CDLL, ctypes.CDLL, ctypes.CDLL]:
     lib_p.ising_packed_threads.argtypes = []
     lib_p.ising_packed_blocks_per_sm.restype = ctypes.c_int
     lib_p.ising_packed_blocks_per_sm.argtypes = [ctypes.c_int, _P]
-    lib_b.exchange_launch.restype = ctypes.c_int
-    lib_b.exchange_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-    ]
-    lib_b.exchange_smem_bytes.restype = ctypes.c_longlong
-    lib_b.exchange_smem_bytes.argtypes = [ctypes.c_int]
-    return lib_a, lib_b, lib_p
+    return lib_a, lib_p
 
 
 def de_table(j: float, b: float, device) -> torch.Tensor:
@@ -140,41 +135,56 @@ def ising_sweep_kernel(spins, u, betas, *, j: float = 1.0, b: float = 0.0,
 
 
 def _launch_sweeps(name, spins, words, t0, betas, rung, *, n_sweeps, j, b,
-                   rule, replica_offset, t_add, out, extra=()):
+                   rule, replica_offset, t_add, out, group=None, xchg=None):
     """Check, allocate and launch kernel A (``ising_fused``) or #2p
-    (``ising_packed``, whose group width comes in ``extra``), which share
-    one interface."""
+    (``ising_packed``, ``group`` replicas a block), which share one
+    interface.  ``xchg`` is a round's ``(energy, phase0, rows, exchange
+    keywords)`` with its rows checked (`build.check_round`): the launch then
+    runs the exchange too; without it, the sweeps alone."""
     what = {"ising_fused": "kernel A", "ising_packed": "kernel #2p"}[name]
     dev = spins.device
-    if dev.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
     r, length = spins.shape[0], spins.shape[-1]
     check(spins, "spins", torch.int8, (r, length, length), dev)
     check(words, "key words", torch.int64, (2,), dev)
     check(t0, "t0", torch.int64, (), dev)
     check(betas, "betas", torch.float32, (r,), dev)
     check(rung, "rung", torch.int32, (r,), dev)
+    if out is not None:
+        check(out, "out", torch.int8, (r, length, length), dev)
     if length % 2:
         raise ValueError(f"checkerboard sweeps need even L, got {length}")
-    lib_a, _, lib_p = _libs()
+    if n_sweeps < 0:
+        raise ValueError(f"n_sweeps must be >= 0, got {n_sweeps}")
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+    extra = ()
+    if name == "ising_packed":
+        if group is None:
+            group = packed_launch_shape(r, length, dev)[2]
+        if not 1 <= group <= PACKED_MAX_GROUP:
+            raise ValueError(f"kernel #2p groups 1..{PACKED_MAX_GROUP} replicas, got {group}")
+        extra = (int(group),)
+    lib_a, lib_p = _libs()
     lib = lib_a if name == "ising_fused" else lib_p
     check_smem(getattr(lib, f"{name}_smem_bytes")(length), f"{what} at L={length}")
     p_tab, de_tab = accept_tables(betas, j=j, b=b, rule=rule)
     if out is None:
         out = torch.empty_like(spins)
-    check(out, "out", torch.int8, (r, length, length), dev)
     de = torch.empty(r, dtype=torch.float32, device=dev)
     nacc = torch.empty(r, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        round_args = build.round_args(lib, betas, xchg)
         err = getattr(lib, f"{name}_launch")(
             spins.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(),
             rung.data_ptr(), p_tab.data_ptr(), de_tab.data_ptr(),
             words.data_ptr(), t0.data_ptr(), int(t_add),
             int(replica_offset) & prng.MASK, r, length, int(n_sweeps), *extra,
-            stream_of(dev),
+            *round_args, stream_of(dev),
         )
     raise_if(err, name)
     build.launches[name] += 1
+    if xchg is not None:
+        build.epilogues["exchange"] += 1
     return out, de, nacc
 
 
@@ -237,7 +247,7 @@ def _sm_count(device: torch.device) -> int:
 @functools.cache
 def _blocks_per_sm(length: int, device: torch.device) -> int:
     """Kernel #2p's blocks an SM at lattice side ``length`` (its occupancy)."""
-    _, _, lib_p = _libs()
+    _, lib_p = _libs()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib_p.ising_packed_blocks_per_sm(int(length), ctypes.byref(blocks))
@@ -248,7 +258,7 @@ def _blocks_per_sm(length: int, device: torch.device) -> int:
 def packed_launch_shape(n_replicas: int, length: int, device="cuda") -> tuple[int, int, int]:
     """(blocks, threads per block, group width) of a kernel #2p launch over
     ``n_replicas`` slots of side ``length`` on ``device``."""
-    _, _, lib_p = _libs()
+    _, lib_p = _libs()
     device = torch.device(device)
     group = packed_group(n_replicas, _sm_count(device), _blocks_per_sm(length, device))
     return _cdiv(n_replicas, group), lib_p.ising_packed_threads(), group
@@ -266,16 +276,10 @@ def ising_sweep_packed_kernel(
     order).  ``group`` (1..8 replicas per block) defaults to `packed_group`
     for the card's SM count and the kernel's occupancy; no result depends
     on it."""
-    if spins.device.type != "cuda":
-        raise ValueError(f"kernel #2p needs CUDA tensors, got {spins.device}")
-    if group is None:
-        group = packed_launch_shape(spins.shape[0], spins.shape[-1], spins.device)[2]
-    if not 1 <= group <= PACKED_MAX_GROUP:
-        raise ValueError(f"kernel #2p groups 1..{PACKED_MAX_GROUP} replicas, got {group}")
     return _launch_sweeps(
         "ising_packed", spins, words, t0, betas, rung, n_sweeps=n_sweeps, j=j,
         b=b, rule=rule, replica_offset=replica_offset, t_add=t_add, out=out,
-        extra=(int(group),),
+        group=group,
     )
 
 
@@ -397,64 +401,53 @@ def ising_sweep_packed_plain(
     return unpack_spins(packed, r), de, na
 
 
-def exchange_kernel(
-    rung, energy, de, betas, words, phase0, *, pairing: str, criterion: str,
-    phase_add: int = 0, out=None,
+def ising_round_kernel(
+    spins, words, t0, phase0, betas, rung, energy, *, n_sweeps: int,
+    pairing: str, criterion: str, j: float = 1.0, b: float = 0.0,
+    rule: str = "metropolis", t_add: int = 0, phase_add: int = 0,
+    pack_bits: bool = False, group: int | None = None, out=None,
 ):
-    """Kernel B: ``energy += de`` then one exchange at phase ``phase0 + phase_add``.
+    """One whole PT round in one launch: kernel A (#2p with ``pack_bits``,
+    ``group`` replicas a block) sweeps every slot ``n_sweeps`` times at
+    ``betas[rung[slot]]``, then the block that finishes last adds each
+    slot's ΔE to ``energy`` and runs one exchange at phase ``phase0 +
+    phase_add`` (``csrc/exchange.cuh``).
 
     Args:
-      rung: (R,) int32; energy, de, betas: (R,) f32 (betas in rung order).
-      words: (2,) int64 key words; phase0: () int64 swap counter (device).
-      out: optional ``(rung', energy', accept, prob, attempt)`` buffers;
-        ``rung'``/``energy'`` may be the inputs themselves.
+      spins: (R, L, L) int8 on CUDA, L even.
+      words: (2,) int64 run-key words; t0, phase0: () int64 sweep and swap
+        counters (device); ``t_add`` / ``phase_add`` are added on the device.
+      betas: (R,) f32 ladder in rung order; rung: (R,) int32 slot -> rung;
+        energy: (R,) f32 per slot.
+      out: optional ``(spins', rung', energy', accept, prob, attempt)``
+        buffers; ``spins'``, ``rung'`` and ``energy'`` may be the inputs
+        themselves (every block reads its slot's rung before the exchange
+        writes ``rung'``).
 
-    Returns ``(rung' int32, energy' f32, accept bool, prob f32, attempt bool)``.
+    Returns ``(spins', rung', energy', n_accepted, accept, prob, attempt)``,
+    equal to the plain sweeps then `exchange_plain` on their ΔE.
     """
-    dev = rung.device
-    if dev.type != "cuda":
-        raise ValueError(f"kernel B needs CUDA tensors, got {dev}")
-    if pairing not in exchange.PAIRINGS or criterion not in exchange.CRITERIA:
-        raise ValueError(f"unsupported exchange {pairing!r}/{criterion!r}")
-    n = rung.shape[0]
-    check(rung, "rung", torch.int32, (n,), dev)
-    for x, name in ((energy, "energy"), (de, "de"), (betas, "betas")):
-        check(x, name, torch.float32, (n,), dev)
-    check(words, "key words", torch.int64, (2,), dev)
-    check(phase0, "phase0", torch.int64, (), dev)
-    _, lib_b, _ = _libs()
-    check_smem(lib_b.exchange_smem_bytes(n), f"kernel B at R={n}")
-    if out is None:
-        out = (
-            torch.empty_like(rung), torch.empty_like(energy),
-            torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty(n, dtype=torch.float32, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev),
-        )
-    rung_out, energy_out, acc, prob, att = out
-    check(rung_out, "rung out", torch.int32, (n,), dev)
-    check(energy_out, "energy out", torch.float32, (n,), dev)
-    check(acc, "accept row", torch.bool, (n,), dev)
-    check(prob, "prob row", torch.float32, (n,), dev)
-    check(att, "attempt row", torch.bool, (n,), dev)
-    with torch.cuda.device(dev):
-        err = lib_b.exchange_launch(
-            rung.data_ptr(), rung_out.data_ptr(), energy.data_ptr(),
-            energy_out.data_ptr(), de.data_ptr(), betas.data_ptr(),
-            words.data_ptr(), phase0.data_ptr(), int(phase_add), n,
-            int(pairing == "seo"), int(criterion == "metropolis"),
-            acc.data_ptr(), prob.data_ptr(), att.data_ptr(), stream_of(dev),
-        )
-    raise_if(err, "exchange")
-    build.launches["exchange"] += 1
-    return out
+    r = spins.shape[0]
+    rows = build.check_round(r, spins.device, rung, energy, phase0,
+                             None if out is None else out[1:], pairing=pairing,
+                             criterion=criterion)
+    xkw = dict(phase_add=phase_add, pairing=pairing, criterion=criterion)
+    spins_out, _, nacc = _launch_sweeps(
+        "ising_packed" if pack_bits else "ising_fused", spins, words, t0, betas,
+        rung, n_sweeps=n_sweeps, j=j, b=b, rule=rule, replica_offset=0,
+        t_add=t_add, out=None if out is None else out[0], group=group,
+        xchg=(energy, phase0, rows, xkw),
+    )
+    rung_out, energy_out, acc, prob, att = rows
+    return spins_out, rung_out, energy_out, nacc, acc, prob, att
 
 
 def exchange_plain(
     rung, energy, de, betas, words, phase0, *, pairing: str, criterion: str,
     phase_add: int = 0,
 ):
-    """Plain version of kernel B (`exchange.exchange_step` after ``energy + de``)."""
+    """Plain version of a round launch's exchange: ``energy + de``, then
+    `exchange.exchange_step`; returns ``(rung', energy', accept, prob, attempt)``."""
     energy = energy + de
     new_rung, acc, prob, att, _ = exchange.exchange_step(
         rung, energy, betas, phase0 + phase_add, words,

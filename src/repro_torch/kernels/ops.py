@@ -11,6 +11,8 @@ engine's default path.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ising_sweep as _isk
@@ -175,8 +177,9 @@ def potts_sweep_fused(
 def _round_fused(plain, kernel, states, key, t, phase, rung, energy, betas, *,
                  n_sweeps, n_rounds, criterion, pairing, **kw):
     """Shared body of the whole-round ops: per round, S sweeps at
-    ``betas[rung]`` (``plain`` or ``kernel``), then one exchange (kernel B
-    or its plain version).  On CUDA nothing waits for the card."""
+    ``betas[rung]`` then one exchange.  On the CPU the plain sweeps then
+    `exchange_plain`; on CUDA one launch of the round ``kernel`` a round,
+    with nothing waiting for the card."""
     kind = _device_kind(states)
     dev = states.device
     words = _prng.key_words(key).to(dev)
@@ -209,15 +212,12 @@ def _round_fused(plain, kernel, states, key, t, phase, rung, energy, betas, *,
     out = torch.empty_like(states)
     rung_out, energy_out = torch.empty_like(rung), torch.empty_like(energy)
     for k in range(n_rounds):
-        out, de, na = kernel(
-            states, words, t0, betas, rung, n_sweeps=n_sweeps,
-            t_add=k * n_sweeps, out=out, **kw,
-        )
+        na = kernel(
+            states, words, t0, ph0, betas, rung, energy, n_sweeps=n_sweeps,
+            t_add=k * n_sweeps, phase_add=k,
+            out=(out, rung_out, energy_out, acc[k], prob[k], att[k]), **xw, **kw,
+        )[3]
         na_total += na
-        _isk.exchange_kernel(
-            rung, energy, de, betas, words, ph0, phase_add=k,
-            out=(rung_out, energy_out, acc[k], prob[k], att[k]), **xw,
-        )
         # later rounds update the output buffers in place
         states, rung, energy = out, rung_out, energy_out
     return out, rung_out, energy_out, na_total, acc, prob, att
@@ -244,16 +244,18 @@ def ising_round_fused(
 ):
     """``n_rounds`` × (``n_sweeps`` sweeps at ``betas[rung]`` + one exchange).
 
-    On CUDA each round is kernel A (kernel #2p with ``pack_bits``) then
-    kernel B, enqueued on the current stream with no host sync between them.
+    On CUDA each round is one launch of kernel A (kernel #2p with
+    ``pack_bits``) whose last block runs the exchange, enqueued on the
+    current stream with no host sync.
     Returns ``(spins', rung', energy', n_accepted, accept, prob, attempt)``
     with (n_rounds, R) diagnostics in `repro.core.swap.accept_pairs`
     conventions.
     """
     return _round_fused(
-        *_ising_sweeps(pack_bits), spins, key, t, phase, rung, energy, betas,
-        n_sweeps=n_sweeps, n_rounds=n_rounds, criterion=criterion,
-        pairing=pairing, j=j, b=b, rule=rule,
+        _ising_sweeps(pack_bits)[0],
+        functools.partial(_isk.ising_round_kernel, pack_bits=pack_bits), spins,
+        key, t, phase, rung, energy, betas, n_sweeps=n_sweeps, n_rounds=n_rounds,
+        criterion=criterion, pairing=pairing, j=j, b=b, rule=rule,
     )
 
 
@@ -277,10 +279,10 @@ def potts_round_fused(
     use_pallas: bool = True,
 ):
     """Whole-round Potts op; see `ising_round_fused`.  On CUDA each round is
-    kernel #5 then kernel B."""
+    one launch of kernel #5 whose last block runs the exchange."""
     _check_potts_pack_bits(pack_bits, q)
     return _round_fused(
-        _pk.potts_sweep_fused_plain, _pk.potts_sweep_fused_kernel, states, key,
+        _pk.potts_sweep_fused_plain, _pk.potts_round_kernel, states, key,
         t, phase, rung, energy, betas, n_sweeps=n_sweeps, n_rounds=n_rounds,
         criterion=criterion, pairing=pairing, q=q, j=j, rule=rule,
     )

@@ -5,12 +5,15 @@
   passed in (replaces `repro.kernels.potts_sweep.potts_sweep_pallas`); its
   plain version is `ref.potts_sweep`;
 * kernel #5, ``csrc/potts_fused.cu`` — S sweeps per launch with in-kernel
-  Threefry uniforms (replaces ``potts_sweep_fused_pallas`` and the sweep half
-  of ``potts_round_fused_pallas``, whose exchange half is kernel B).
+  Threefry uniforms (replaces ``potts_sweep_fused_pallas``);
+* a whole PT round, ``potts_round_kernel`` — one launch of kernel #5 whose
+  last block to finish runs the round's exchange (``csrc/exchange.cuh``;
+  replaces ``potts_round_fused_pallas``).
 
-The wrappers follow `repro_torch.kernels.ising_sweep`: check, allocate with
-``torch.empty``, launch on the current stream without a sync, raise if the
-launch was refused, count the launch in ``build.launches``.
+The wrappers follow `repro_torch.kernels.ising_sweep`: check, refuse a CPU
+tensor, allocate with ``torch.empty``, launch on the current stream without
+a sync, raise if the launch was refused, count the launch in
+``build.launches``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ __all__ = [
     "potts_sweep_kernel",
     "potts_sweep_fused_kernel",
     "potts_sweep_fused_plain",
+    "potts_round_kernel",
 ]
 
 _P = ctypes.c_void_p
@@ -38,7 +42,7 @@ def _fused_lib() -> ctypes.CDLL:
     lib.potts_fused_launch.restype = ctypes.c_int
     lib.potts_fused_launch.argtypes = [_P] * 9 + [
         ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P,
+        ctypes.c_int, ctypes.c_int, *build.ROUND_ARGTYPES, _P,
     ]
     lib.potts_fused_smem_bytes.restype = ctypes.c_longlong
     lib.potts_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -66,8 +70,6 @@ def potts_tables(betas: torch.Tensor, *, j: float, rule: str):
 
 
 def _shape(states: torch.Tensor, what: str):
-    if states.device.type != "cuda":
-        raise ValueError(f"{what} needs CUDA tensors, got {states.device}")
     if states.dim() != 3:
         raise ValueError(f"{what} takes (R, H, W) states, got {tuple(states.shape)}")
     r, h, w = states.shape
@@ -99,6 +101,7 @@ def potts_sweep_kernel(states, u, betas, *, q: int, j: float = 1.0,
     check(states, "states", torch.int8, (r, h, w), dev)
     check(u, "u", torch.float32, (r, 2, 2, h, w), dev)
     check(betas, "betas", torch.float32, (r,), dev)
+    _refuse_cpu(dev, "kernel #4")
     lib = build.sweep_lib()
     check_smem(lib.potts_sweep_smem_bytes(h, w), f"kernel #4 at {h}x{w}")
     p_tab, de_tab = potts_tables(betas, j=j, rule=rule)
@@ -116,6 +119,51 @@ def potts_sweep_kernel(states, u, betas, *, q: int, j: float = 1.0,
     return out, de, nacc
 
 
+def _refuse_cpu(dev, what: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {dev}")
+
+
+def _launch_fused(states, words, t0, betas, rung, *, n_sweeps, q, j, rule,
+                  replica_offset, t_add, out, xchg=None):
+    """Check, allocate and launch kernel #5; ``xchg`` as in
+    `ising_sweep._launch_sweeps` (a round's exchange, else the sweeps alone)."""
+    r, h, w = _shape(states, "kernel #5")
+    _check_q(q)
+    dev = states.device
+    check(states, "states", torch.int8, (r, h, w), dev)
+    check(words, "key words", torch.int64, (2,), dev)
+    check(t0, "t0", torch.int64, (), dev)
+    check(betas, "betas", torch.float32, (r,), dev)
+    check(rung, "rung", torch.int32, (r,), dev)
+    if out is not None:
+        check(out, "out", torch.int8, (r, h, w), dev)
+    if n_sweeps < 0:
+        raise ValueError(f"n_sweeps must be >= 0, got {n_sweeps}")
+    _refuse_cpu(dev, "kernel #5")
+    lib = _fused_lib()
+    check_smem(lib.potts_fused_smem_bytes(h, w), f"kernel #5 at {h}x{w}")
+    p_tab, de_tab = potts_tables(betas, j=j, rule=rule)
+    if out is None:
+        out = torch.empty_like(states)
+    de = torch.empty(r, dtype=torch.float32, device=dev)
+    nacc = torch.empty(r, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        round_args = build.round_args(lib, betas, xchg)
+        err = lib.potts_fused_launch(
+            states.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(),
+            rung.data_ptr(), p_tab.data_ptr(), de_tab.data_ptr(),
+            words.data_ptr(), t0.data_ptr(), int(t_add),
+            int(replica_offset) & prng.MASK, r, h, w, q, int(n_sweeps),
+            *round_args, stream_of(dev),
+        )
+    raise_if(err, "potts_fused")
+    build.launches["potts_fused"] += 1
+    if xchg is not None:
+        build.epilogues["exchange"] += 1
+    return out, de, nacc
+
+
 def potts_sweep_fused_kernel(
     states, words, t0, betas, rung, *, n_sweeps: int, q: int, j: float = 1.0,
     rule: str = "metropolis", replica_offset: int = 0, t_add: int = 0,
@@ -126,33 +174,31 @@ def potts_sweep_fused_kernel(
     Arguments and results as `ising_sweep.ising_sweep_fused_kernel`, with
     (R, H, W) int8 colours and ``q``.
     """
-    r, h, w = _shape(states, "kernel #5")
-    _check_q(q)
-    dev = states.device
-    check(states, "states", torch.int8, (r, h, w), dev)
-    check(words, "key words", torch.int64, (2,), dev)
-    check(t0, "t0", torch.int64, (), dev)
-    check(betas, "betas", torch.float32, (r,), dev)
-    check(rung, "rung", torch.int32, (r,), dev)
-    lib = _fused_lib()
-    check_smem(lib.potts_fused_smem_bytes(h, w), f"kernel #5 at {h}x{w}")
-    p_tab, de_tab = potts_tables(betas, j=j, rule=rule)
-    if out is None:
-        out = torch.empty_like(states)
-    check(out, "out", torch.int8, (r, h, w), dev)
-    de = torch.empty(r, dtype=torch.float32, device=dev)
-    nacc = torch.empty(r, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.potts_fused_launch(
-            states.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(),
-            rung.data_ptr(), p_tab.data_ptr(), de_tab.data_ptr(),
-            words.data_ptr(), t0.data_ptr(), int(t_add),
-            int(replica_offset) & prng.MASK, r, h, w, q, int(n_sweeps),
-            stream_of(dev),
-        )
-    raise_if(err, "potts_fused")
-    build.launches["potts_fused"] += 1
-    return out, de, nacc
+    return _launch_fused(
+        states, words, t0, betas, rung, n_sweeps=n_sweeps, q=q, j=j, rule=rule,
+        replica_offset=replica_offset, t_add=t_add, out=out,
+    )
+
+
+def potts_round_kernel(
+    states, words, t0, phase0, betas, rung, energy, *, n_sweeps: int, q: int,
+    pairing: str, criterion: str, j: float = 1.0, rule: str = "metropolis",
+    t_add: int = 0, phase_add: int = 0, out=None,
+):
+    """One whole Potts PT round in one launch of kernel #5, its last block
+    running the exchange; arguments and results as
+    `ising_sweep.ising_round_kernel`, with (R, H, W) int8 colours and ``q``."""
+    rows = build.check_round(states.shape[0], states.device, rung, energy, phase0,
+                             None if out is None else out[1:], pairing=pairing,
+                             criterion=criterion)
+    xkw = dict(phase_add=phase_add, pairing=pairing, criterion=criterion)
+    states_out, _, nacc = _launch_fused(
+        states, words, t0, betas, rung, n_sweeps=n_sweeps, q=q, j=j, rule=rule,
+        replica_offset=0, t_add=t_add, out=None if out is None else out[0],
+        xchg=(energy, phase0, rows, xkw),
+    )
+    rung_out, energy_out, acc, prob, att = rows
+    return states_out, rung_out, energy_out, nacc, acc, prob, att
 
 
 def potts_sweep_fused_plain(

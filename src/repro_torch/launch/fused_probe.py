@@ -1,6 +1,7 @@
 """SASS instruction counts and a block-width sweep of the fused sweep kernels
 A (``csrc/ising_fused.cu``), #5 (``csrc/potts_fused.cu``) and #2p
-(``csrc/ising_packed.cu``), on the card.
+(``csrc/ising_packed.cu``), and their round exchange against an earlier
+``csrc`` whose rounds were two launches, on the card.
 
 For each variant — the package's ``csrc`` as it is, each ``--baseline``
 directory as it is (e.g. an earlier commit's ``csrc``), and the package's
@@ -31,12 +32,23 @@ directory as it is (e.g. an earlier commit's ``csrc``), and the package's
 * #2p beside kernel A, in turns at S=100 with L=300, at R=1500 and R=2112,
   at the card's default group width and at 8 a block, after checking each
   variant's #2p at S=2 against the plain version (spins, counts) and
-  against the package's kernel A (ΔE too, bit for bit).
+  against the package's kernel A (ΔE too, bit for bit);
+* for each ``--baseline`` whose rounds are two launches (its ``csrc`` has
+  ``exchange.cu``, kernel B): B's rows against the package's round exchange
+  on `exchange_cases` (prob, accept, attempt, rung and energy, bit for
+  bit).  Whole rounds of the two designs are timed tree against tree, each
+  through its own package, by ``round_timing.py``;
+* for the package and each variant whose rounds are one launch, the
+  exchange tail of A, #2p and #5 at L=32 R=1500 S=1 (the shortest rounds,
+  where it shows most), L=300 R=1500 S=2 and S=100: the round launch less
+  the same launch without the exchange, by the profiler's device time, in
+  turns.
 
 The kernels' C interfaces are the wrappers', so every variant runs on the
 wrappers' own tables.  Needs one card and the CUDA toolkit:
 
     PYTHONPATH=src python -m repro_torch.launch.fused_probe --grid 256x2 1024x2 512x4
+    PYTHONPATH=src python -m repro_torch.launch.fused_probe --baseline build/base_csrc
 """
 from __future__ import annotations
 
@@ -56,7 +68,7 @@ from repro_torch.kernels import build, prng
 from repro_torch.kernels import ising_sweep as isk
 from repro_torch.kernels import potts_sweep as pk
 
-__all__ = ["build_variant", "ptxas_report", "sass_loops", "main"]
+__all__ = ["build_variant", "ptxas_report", "sass_loops", "exchange_cases", "main"]
 
 # Threefry planes per site update
 KERNELS = {"ising_fused": 1, "potts_fused": 2, "ising_packed": 1}
@@ -98,7 +110,8 @@ def build_variant(csrc: Path, name: str, out: Path, threads: int | None = None,
                 raise ValueError(f"{csrc / name}.cu has no single {const} constant")
     (src / f"{name}.cu").write_text(text)
     lib = out / f"lib{name}.so"
-    cmd = [build.nvcc_path(), *build._COMMON, *build.SOURCES[name], "-Xptxas", "-v",
+    # an earlier csrc's exchange.cu (kernel B) was built with nvcc's defaults
+    cmd = [build.nvcc_path(), *build._COMMON, *build.SOURCES.get(name, []), "-Xptxas", "-v",
            "-I", str(src), "-o", str(lib), str(src / f"{name}.cu")]
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True)
@@ -167,19 +180,32 @@ def _report_sass(lib: Path, name: str) -> str:
     return "\n    ".join(out) or "no hashing loop found"
 
 
-def _load(lib_path: Path, name: str) -> ctypes.CDLL:
+def _split(csrc: Path) -> bool:
+    """Whether ``csrc`` runs a round as two launches: its sweep kernels take
+    no exchange arguments and kernel B (``exchange.cu``) follows them."""
+    return (csrc / "exchange.cu").is_file()
+
+
+def _load(lib_path: Path, name: str, split: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     p = ctypes.c_void_p
     fn = getattr(lib, f"{name}_launch")
     fn.restype = ctypes.c_int
+    if name == "exchange":
+        fn.argtypes = [p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [p] * 4
+        return lib
     fn.argtypes = ([p] * 9 + [ctypes.c_longlong, ctypes.c_uint]
-                   + [ctypes.c_int] * N_INT_ARGS[name] + [p])
+                   + [ctypes.c_int] * N_INT_ARGS[name]
+                   + ([] if split else build.ROUND_ARGTYPES) + [p])
+    lib.split = split
     return lib
 
 
-def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int, group: int = 0):
+def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int, group: int = 0,
+              xchg=None):
     """A closure that launches ``lib``'s kernel on ``inputs`` as the wrapper
-    does (#2p at ``group`` replicas a block)."""
+    does (#2p at ``group`` replicas a block); with ``xchg`` (as
+    `build.round_args` takes it) a round launch, else the sweeps alone."""
     st, words, t0, rung, p_tab, de_tab = (inputs[k] for k in (
         "states", "words", "t0", "rung", "p_tab", "de_tab"))
     r, h, w = st.shape
@@ -188,20 +214,20 @@ def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int, group: i
     nacc = torch.empty(r, dtype=torch.int32, device=st.device)
     dims = {"ising_fused": (r, h, n_sweeps), "potts_fused": (r, h, w, 3, n_sweeps),
             "ising_packed": (r, h, n_sweeps, group)}[name]
+    round_args = () if lib.split else build.round_args(lib, inputs["betas"], xchg)
 
     def launch():
         err = getattr(lib, f"{name}_launch")(
             st.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(), rung.data_ptr(),
             p_tab.data_ptr(), de_tab.data_ptr(), words.data_ptr(), t0.data_ptr(), 0, 0,
-            *dims, build.stream_of(st.device))
+            *dims, *round_args, build.stream_of(st.device))
         build.raise_if(err, name)
         return out, de, nacc
     return launch
 
 
-def _inputs(name: str, device, r: int = 1500) -> dict:
+def _inputs(name: str, device, r: int = 1500, length: int = 300) -> dict:
     rng = np.random.default_rng(61)
-    length = 300
     if name != "potts_fused":
         st = rng.choice(np.array([-1, 1], np.int8), size=(r, length, length))
         betas = (1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)
@@ -270,8 +296,9 @@ def main(argv=None) -> int:
         threads, sites = (int(v) for v in entry.split("x"))
         variants.append((entry, build.CSRC, threads, sites))
     builds = {}
+    split = {label: _split(csrc) for label, csrc, *_ in variants}
     for label, csrc, threads, sites in variants:  # every nvcc at once
-        for name in KERNELS:
+        for name in [*KERNELS, *(["exchange"] if split[label] else [])]:
             out = args.out / label / name
             if out.exists():
                 shutil.rmtree(out)
@@ -279,8 +306,9 @@ def main(argv=None) -> int:
     libs = {}
     for (label, name), (lib_path, proc) in builds.items():
         print(f"[{label}] {name} ptxas:\n    {ptxas_report(proc, f'{label} {name}')}")
-        print(f"[{label}] {name} SASS:\n    {_report_sass(lib_path, name)}")
-        libs[label, name] = _load(lib_path, name)
+        if name != "exchange":
+            print(f"[{label}] {name} SASS:\n    {_report_sass(lib_path, name)}")
+        libs[label, name] = _load(lib_path, name, split[label])
     for name in ("ising_fused", "potts_fused"):
         inp = _inputs(name, device)
         sites = inp["states"].numel()
@@ -311,6 +339,9 @@ def main(argv=None) -> int:
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
     for r in (1500, 2 * n_sms * 8):
         _packed_beside_a(libs, [label for label, *_ in variants], r, card, device)
+    _tails(libs, [label for label, *_ in variants if not split[label]], card, device)
+    for label in (label for label, *_ in variants if split[label]):
+        _exchange_bits(libs[label, "exchange"], label, device)
     return 0
 
 
@@ -346,6 +377,134 @@ def _packed_beside_a(libs: dict, labels: list, r: int, card: str, device) -> Non
               f"bound/time {bound / min(ts):.3f})")
     del inp
     torch.cuda.empty_cache()
+
+
+def exchange_cases(device, r: int = 1500):
+    """32 exchange cases at R replicas: DEO/SEO x logistic/metropolis x 8
+    phases, each with a fresh rung map, per-slot energies whose rung order is
+    near an equilibrated ladder (Δβ·ΔE of order 1 between neighbours, so the
+    probabilities are not all saturated) and a ΔE row of multiples of 4.
+    Yields dicts of rung, energy, de, betas (rung order), words, ph0 (a
+    device counter) and the pairing, criterion and phase (added to ph0)."""
+    rng = np.random.default_rng(7)
+    temps = 1.0 + np.arange(r) * 3.0 / r
+    betas = torch.from_numpy((1.0 / temps).astype(np.float32)).to(device)
+    words = keys.key(11, device=device)
+    for pairing in ("deo", "seo"):
+        for criterion in ("logistic", "metropolis"):
+            for phase in range(8):
+                rung = rng.permutation(r).astype(np.int32)
+                by_rung = -180000 + 100 * np.arange(r) + rng.integers(-400, 400, r)
+                yield {"pairing": pairing, "criterion": criterion, "phase": phase,
+                       "rung": torch.from_numpy(rung).to(device),
+                       "energy": torch.from_numpy(by_rung[rung].astype(np.float32)).to(device),
+                       "de": torch.from_numpy(
+                           (4 * rng.integers(-50, 50, r)).astype(np.float32)).to(device),
+                       "betas": betas, "words": words,
+                       "ph0": torch.tensor(1000 + phase, dtype=torch.int64, device=device)}
+
+
+def _exchange_launch(lib_b, rung, energy, de, betas, words, ph0, phase_add, pairing,
+                     criterion, out):
+    """An earlier csrc's kernel B on the rows, into ``out`` = (rung', energy',
+    accept, prob, attempt), as its wrapper launched it."""
+    err = lib_b.exchange_launch(
+        rung.data_ptr(), out[0].data_ptr(), energy.data_ptr(), out[1].data_ptr(),
+        de.data_ptr(), betas.data_ptr(), words.data_ptr(), ph0.data_ptr(), int(phase_add),
+        rung.shape[0], int(pairing == "seo"), int(criterion == "metropolis"),
+        out[2].data_ptr(), out[3].data_ptr(), out[4].data_ptr(), build.stream_of(rung.device))
+    build.raise_if(err, "exchange")
+
+
+def _exchange_bits(lib_b, label: str, device) -> None:
+    """The baseline's kernel B against the package's round exchange (a round
+    launch of kernel A with no sweep, on energy + ΔE) on `exchange_cases`:
+    counts the cases whose rows are equal bit for bit."""
+    same, diffs = 0, []
+    for c in exchange_cases(device):
+        r = c["rung"].shape[0]
+        out = (torch.empty_like(c["rung"]), torch.empty_like(c["energy"]),
+               torch.empty(r, dtype=torch.bool, device=device),
+               torch.empty(r, dtype=torch.float32, device=device),
+               torch.empty(r, dtype=torch.bool, device=device))
+        _exchange_launch(lib_b, c["rung"], c["energy"], c["de"], c["betas"], c["words"],
+                         c["ph0"], c["phase"], c["pairing"], c["criterion"], out)
+        got = isk.ising_round_kernel(
+            torch.ones((r, 2, 2), dtype=torch.int8, device=device), c["words"],
+            torch.zeros((), dtype=torch.int64, device=device), c["ph0"], c["betas"], c["rung"],
+            c["energy"] + c["de"], n_sweeps=0, pairing=c["pairing"], criterion=c["criterion"],
+            phase_add=c["phase"])
+        torch.cuda.synchronize()
+        rows = (got[1], got[2], got[4], got[5], got[6])
+        if all(torch.equal(x, y) for x, y in zip(out, rows)):
+            same += 1
+        else:
+            diffs.append(f"{c['pairing']}/{c['criterion']} phase {c['phase']}: prob differs at "
+                         f"{int((out[3] != got[5]).sum())} rungs, max "
+                         f"{(out[3] - got[5]).abs().max().item():.3e}")
+    print(f"[{label}] kernel B vs the package's round exchange: {same} of 32 cases equal bit "
+          f"for bit (rung, energy, accept, prob, attempt)"
+          + "".join(f"\n    {d}" for d in diffs))
+
+
+def _tails(libs: dict, labels: list, card: str, device) -> None:
+    """The exchange tail of kernels A, #2p (default group) and #5 in each
+    one-launch variant: a round launch (DEO, logistic) less the same launch
+    without the exchange, profiler device time, each variant in turns and
+    back, at L=32 R=1500 S=1 (the shortest rounds, where it shows most),
+    L=300 R=1500 S=2 and S=100 (#5 on LxL colours, q=3)."""
+    r = 1500
+    for length, n_sweeps, reps in ((32, 1, 300), (300, 2, 20), (300, 100, 3)):
+        for name in KERNELS:
+            inp = _inputs(name, device, r, length)
+            rng = np.random.default_rng(63)
+            inp["rung"] = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)
+            energy = torch.zeros(r, device=device)
+            ph0 = torch.zeros((), dtype=torch.int64, device=device)
+            rows = build.check_round(r, energy.device, inp["rung"], energy, ph0, None,
+                                     pairing="deo", criterion="logistic")
+            xchg = (energy, ph0, rows, dict(phase_add=0, pairing="deo", criterion="logistic"))
+            group = isk.packed_launch_shape(r, length, device)[2] if name == "ising_packed" else 0
+            times = {(label, w): [] for label in labels for w in (False, True)}
+            order = list(times)
+            for key in order + order[::-1]:
+                label, with_round = key
+                fn = _launcher(libs[label, name], name, inp, n_sweeps, group,
+                               xchg if with_round else None)
+                times[key].append(_device_ms(fn, reps, f"{name}_kernel")[1])
+            if build.dirty_tickets():
+                raise AssertionError(f"round tickets left set: {build.dirty_tickets()}")
+            for label in labels:
+                alone, rnd = times[label, False], times[label, True]
+                print(f"[{label}] {name} exchange tail [{card}]: L={length} R={r} "
+                      f"S={n_sweeps}: round launch " + " / ".join(f"{1e3 * x:.2f}" for x in rnd)
+                      + " us, sweeps alone " + " / ".join(f"{1e3 * x:.2f}" for x in alone)
+                      + f" us, tail {1e3 * (min(rnd) - min(alone)):.2f} us (lower readings)")
+            del inp
+            torch.cuda.empty_cache()
+
+
+def _device_ms(fn, reps: int, symbol: str, others: tuple = ()) -> tuple[float, float]:
+    """(all device time, device time of the kernels whose names hold
+    ``symbol`` or one of ``others``) per call of ``fn`` over ``reps`` calls,
+    by the profiler; NaN where the profiler saw another count of ``symbol``
+    launches than ``reps`` (one a call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)  # the tracer runs before fn starts
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if sum(e.count for e in rows if symbol in e.key) != reps:
+        return float("nan"), float("nan")
+    total = sum(float(e.self_device_time_total) for e in rows)
+    named = sum(float(e.self_device_time_total) for e in rows
+                if any(sym in e.key for sym in (symbol, *others)))
+    return total / reps / 1e3, named / reps / 1e3
 
 
 if __name__ == "__main__":

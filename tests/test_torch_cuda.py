@@ -1,6 +1,8 @@
 """CUDA twins of the port's parity tests: each kernel against its plain version.
 
-Kernels A and B (fused Ising round), #2p (A's sweeps on packed spins, also
+Kernel A, the round launches of A, #2p and #5 (sweeps, then the exchange run
+by the last block to finish) against the plain sweeps and `exchange_plain`,
+#2p (A's sweeps on packed spins, also
 held against kernel A: spins, counts and ΔE bit for bit, at every group
 width and on the walk's edge shapes), #1 and #4 (one Ising / Potts sweep on passed-in
 uniforms), #5 (fused Potts sweeps), the per-sweep ``jax.random`` draw and
@@ -18,6 +20,7 @@ ulps of the largest partial-sum magnitude otherwise (summation order); a
 swap decision may differ only where its ``u`` lies between the two ``p``;
 wkv6 within its rounding bound (see its test).
 """
+import functools
 import json
 from pathlib import Path
 
@@ -105,31 +108,135 @@ def test_kernel_a_in_place_and_refusals(dev):
         isk.ising_sweep_fused_kernel(spins.float(), *args, n_sweeps=1)
 
 
+# kernel -> (plain sweeps, round wrapper); #2p at 3 replicas a block, so
+# R=40 ends in a partial group of one
+ROUND_KERNELS = {
+    "ising_fused": (isk.ising_sweep_fused_plain, isk.ising_round_kernel),
+    "ising_packed": (isk.ising_sweep_packed_plain,
+                     functools.partial(isk.ising_round_kernel, pack_bits=True, group=3)),
+    "potts_fused": (functools.partial(pk.potts_sweep_fused_plain, q=3),
+                    functools.partial(pk.potts_round_kernel, q=3)),
+}
+
+
+def _round_inputs(kernel, seed, r, dev):
+    """States, betas, rung and per-slot energies near an equilibrated ladder
+    (Δβ·ΔE of order 1 between neighbours, so swaps neither always nor never
+    happen)."""
+    if kernel == "potts_fused":
+        states, betas, rung = _colours(seed, r, 8, 6, 3, dev)
+    else:
+        states, betas, rung = _lattice(seed, r, 8, dev)
+    by_rung = torch.from_numpy((-2000.0 + 20 * np.arange(r)).astype(np.float32)).to(dev)
+    return states, betas, rung, by_rung[rung.long()]
+
+
+def _check_round(kernel, got, before, words, t0, ph0, betas, k, xw):
+    """One round launch's outputs against the plain sweeps and
+    `exchange_plain` on the same inputs: spins, counts, energy and attempt
+    bit-equal; prob and accept equal or differing only where u lies between
+    the two p; rung equal when no decision differs.  Returns whether any did."""
+    plain = ROUND_KERNELS[kernel][0]
+    states, rung, energy = before
+    want_states, de, na = plain(states, words, t0, betas, rung, n_sweeps=2, t_add=2 * k,
+                                rule="glauber")
+    want = isk.exchange_plain(rung, energy, de, betas, words, ph0, phase_add=k, **xw)
+    assert torch.equal(got[0], want_states) and torch.equal(got[3], na)
+    assert torch.equal(got[2], want[1]) and torch.equal(got[6], want[4])
+    u = prng.swap_uniforms(words, ph0 + k, len(rung))
+    lo, hi = torch.minimum(got[5], want[3]), torch.maximum(got[5], want[3])
+    in_gap = (u >= lo) & (u < hi)
+    diff = (got[4] != want[2]) | (got[5] != want[3])
+    assert not bool((diff & ~in_gap).any())
+    if not bool(diff.any()):
+        assert torch.equal(got[1], want[0])
+    return bool(diff.any())
+
+
 @pytest.mark.parametrize("pairing", ["deo", "seo"])
 @pytest.mark.parametrize("criterion", ["logistic", "metropolis"])
-def test_kernel_b_matches_plain(dev, pairing, criterion):
+@pytest.mark.parametrize("kernel", sorted(ROUND_KERNELS))
+def test_round_kernel_matches_plain(dev, kernel, pairing, criterion):
+    """Three rounds, each one launch with every output in place (``out`` =
+    the inputs): each equals the plain sweeps + `exchange_plain` on that
+    round's inputs; one launch and one exchange a round."""
     r = 40
-    rng = np.random.default_rng(7)
-    rung = rng.permutation(r).astype(np.int32)
-    energy = (-2000.0 + 20 * np.arange(r))[rung].astype(np.float32)
-    args = (
-        torch.from_numpy(rung).to(dev), torch.from_numpy(energy).to(dev),
-        torch.full((r,), 4.0, device=dev),
-        torch.from_numpy((1.0 / np.linspace(1, 4, r)).astype(np.float32)).to(dev),
-        keys.key(1, device=dev), torch.tensor(3, device=dev),
-    )
-    kw = dict(pairing=pairing, criterion=criterion, phase_add=2)
-    got = [x.cpu().numpy() for x in isk.exchange_kernel(*args, **kw)]
-    want = [x.cpu().numpy() for x in isk.exchange_plain(*args, **kw)]
-    np.testing.assert_array_equal(got[4], want[4])
-    np.testing.assert_array_equal(got[1], want[1])
-    diff = (got[2] != want[2]) | (got[3] != want[3])
-    if diff.any():
-        u = prng.swap_uniforms(args[4], 5, r).cpu().numpy()
-        lo, hi = np.minimum(got[3], want[3]), np.maximum(got[3], want[3])
-        assert np.all(((u >= lo) & (u < hi))[diff])
-        return
-    np.testing.assert_array_equal(got[0], want[0])
+    states, betas, rung, energy = _round_inputs(kernel, 31, r, dev)
+    words, t0, ph0 = keys.key(1, device=dev), torch.tensor(5, device=dev), torch.tensor(3, device=dev)
+    xw = dict(pairing=pairing, criterion=criterion)
+    acc, prob, att = (torch.empty((3, r), dtype=d, device=dev)
+                      for d in (torch.bool, torch.float32, torch.bool))
+    for k in range(3):
+        before = (states.clone(), rung.clone(), energy.clone())
+        build.reset_launches()
+        got = ROUND_KERNELS[kernel][1](
+            states, words, t0, ph0, betas, rung, energy, n_sweeps=2, rule="glauber",
+            t_add=2 * k, phase_add=k, out=(states, rung, energy, acc[k], prob[k], att[k]), **xw)
+        assert [x.data_ptr() for x in got[:3]] == [states.data_ptr(), rung.data_ptr(),
+                                                   energy.data_ptr()]
+        assert {n: v for n, v in build.launches.items() if v} == {kernel: 1}
+        assert build.epilogues == {"exchange": 1}
+        if _check_round(kernel, got, before, words, t0, ph0, betas, k, xw):
+            break  # a decision inside the ulp gap: the chains part from here
+    assert build.dirty_tickets() == {}
+
+
+@pytest.mark.parametrize("kernel", sorted(ROUND_KERNELS))
+def test_round_scratch_is_sized_from_the_library(dev, kernel):
+    """The scratch rows a round launch is given hold `build.scratch_bytes`
+    of its own library a replica (8: e_rung and perm), at every R."""
+    lib = build.library(kernel)
+    assert build.scratch_bytes(lib) == 8
+    for r in (7, 40):
+        _, betas, rung, energy = _round_inputs(kernel, 60 + r, r, dev)
+        ph0 = torch.zeros((), dtype=torch.int64, device=dev)
+        rows = build.check_round(r, energy.device, rung, energy, ph0, None, pairing="deo",
+                                 criterion="logistic")
+        args = build.round_args(lib, betas, (energy, ph0, rows, dict(
+            phase_add=0, pairing="deo", criterion="logistic")))
+        scratch = [t for t in build._SCRATCH.values() if t.data_ptr() == args[-2]]
+        assert len(scratch) == 1 and scratch[0].numel() == 8 * r
+
+
+@pytest.mark.parametrize("kernel", sorted(ROUND_KERNELS))
+def test_round_kernel_at_other_sizes_leaves_the_ticket_at_zero(dev, kernel):
+    """Round launches at R = 1500 (three passes of the exchange's block over
+    the rows), 7 and 40 in a row on one stream: each equals the plain round,
+    and the stream's ticket reads 0 after each."""
+    words, t0, ph0 = keys.key(4, device=dev), torch.tensor(0, device=dev), torch.tensor(8, device=dev)
+    xw = dict(pairing="deo", criterion="logistic")
+    for n, r in enumerate((1500, 7, 40)):
+        states, betas, rung, energy = _round_inputs(kernel, 40 + n, r, dev)
+        got = ROUND_KERNELS[kernel][1](states, words, t0, ph0, betas, rung, energy,
+                                       n_sweeps=2, rule="glauber", **xw)
+        _check_round(kernel, got, (states, rung, energy), words, t0, ph0, betas, 0, xw)
+        assert build.dirty_tickets() == {}
+
+
+@pytest.mark.parametrize("kernel", sorted(ROUND_KERNELS))
+def test_rounds_back_to_back_equal_rounds_one_at_a_time(dev, kernel):
+    """40 rounds queued back to back in one op call (each launch reading the
+    rung, energy and spins the one before wrote in place) equal the same 40
+    rounds one call each with the host waiting for the card in between."""
+    states, betas, rung, energy = _round_inputs(kernel, 51, 40, dev)
+    key = keys.key(9)
+    if kernel == "potts_fused":
+        op = functools.partial(ops.potts_round_fused, q=3)
+    else:
+        op = functools.partial(ops.ising_round_fused, pack_bits=kernel == "ising_packed")
+    kw = dict(n_sweeps=1, rule="glauber", pairing="seo")
+    queued = op(states, key, 7, 2, rung, energy, betas, n_rounds=40, **kw)
+    st, rg, en, rows = states, rung, energy, []
+    for k in range(40):
+        st, rg, en, na, acc, prob, att = op(st, key, 7 + k, 2 + k, rg, en, betas, **kw)
+        torch.cuda.synchronize()
+        rows.append((na, acc[0], prob[0], att[0]))
+    assert torch.equal(queued[0], st) and torch.equal(queued[1], rg)
+    assert torch.equal(queued[2], en)
+    assert torch.equal(queued[3], sum(r[0] for r in rows))
+    for i in (1, 2, 3):
+        assert torch.equal(queued[3 + i], torch.stack([r[i] for r in rows]))
+    assert build.dirty_tickets() == {}
 
 
 @pytest.mark.parametrize("pairing", ["deo", "seo"])
@@ -141,7 +248,8 @@ def test_round_fused_on_cuda_equals_cpu(dev, pairing):
     build.reset_launches()
     got = ops.ising_round_fused(*(a.to(dev) if isinstance(a, torch.Tensor) else a
                                   for a in args), **kw)
-    assert {k: v for k, v in build.launches.items() if v} == {"ising_fused": 3, "exchange": 3}
+    assert {k: v for k, v in build.launches.items() if v} == {"ising_fused": 3}
+    assert build.epilogues == {"exchange": 3}
     want = ops.ising_round_fused(*(a.cpu() if isinstance(a, torch.Tensor) else a
                                    for a in args), **kw)
     for i, (g, w) in enumerate(zip(got, want)):
@@ -277,9 +385,10 @@ def test_potts_ops_on_cuda_equal_cpu(dev, path):
     else:
         args = (states, keys.key(2), 4, 1, rung, energy, betas)
         kw = dict(n_sweeps=3, n_rounds=3, q=3, rule="glauber", pack_bits=True)
-        fn, want_launches = ops.potts_round_fused, {"potts_fused": 3, "exchange": 3}
+        fn, want_launches = ops.potts_round_fused, {"potts_fused": 3}
     got = fn(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args), **kw)
     assert {k: v for k, v in build.launches.items() if v} == want_launches
+    assert build.epilogues == {"exchange": 3 if path == "round" else 0}
     want = fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args), **kw)
     for i, (g, w) in enumerate(zip(got, want)):
         if path == "round" and i == 5:  # prob: CUDA expf vs the CPU's exp
@@ -349,7 +458,8 @@ def test_packed_round_on_cuda_equals_cpu(dev):
     build.reset_launches()
     got = ops.ising_round_fused(*(a.to(dev) if isinstance(a, torch.Tensor) else a
                                   for a in args), **kw)
-    assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 3, "exchange": 3}
+    assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 3}
+    assert build.epilogues == {"exchange": 3}
     want = ops.ising_round_fused(*(a.cpu() if isinstance(a, torch.Tensor) else a
                                    for a in args), **kw)
     for i, (g, w) in enumerate(zip(got, want)):
@@ -393,9 +503,9 @@ def test_ensemble_advance_never_syncs_the_host(dev, path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert state.stats.n_records.tolist() == [4, 4]
-    if path == "round":  # one launch of each kernel per chain and interval
-        assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 6,
-                                                                    "exchange": 6}
+    if path == "round":  # one launch and one exchange per chain and interval
+        assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 6}
+        assert build.epilogues == {"exchange": 6}
 
 
 def _wkv6_inputs(seed, bh, t, dk, dv, dev, state=False):

@@ -307,9 +307,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     rung = torch.arange(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         tisk.ising_sweep_fused_kernel(spins, words, t0, torch.ones(2), rung, n_sweeps=1)
+    for pack_bits in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            tisk.ising_round_kernel(spins, words, t0, t0, torch.ones(2), rung, torch.zeros(2),
+                                    n_sweeps=1, pairing="deo", criterion="logistic",
+                                    pack_bits=pack_bits)
     with pytest.raises(ValueError, match="CUDA"):
-        tisk.exchange_kernel(rung, torch.zeros(2), torch.zeros(2), torch.ones(2),
-                             words, t0, pairing="deo", criterion="logistic")
+        tpk.potts_round_kernel(spins, words, t0, t0, torch.ones(2), rung, torch.zeros(2),
+                               n_sweeps=1, q=3, pairing="seo", criterion="metropolis")
     with pytest.raises(ValueError, match="CUDA"):
         tisk.ising_sweep_kernel(spins, torch.zeros((2, 2, 4, 4)), torch.ones(2))
     with pytest.raises(ValueError, match="CUDA"):
@@ -319,6 +324,81 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tju.jax_uniform_kernel(words, t0, 2, (2, 4, 4))
     assert all(v == 0 for v in tbuild.launches.values())
+    assert tbuild.epilogues == {"exchange": 0}
+
+
+def _round_args(r=2, length=4):
+    """Valid CPU arguments of a round wrapper: (states, words, t0, phase0,
+    betas, rung, energy) and the ``out`` buffers."""
+    states = torch.ones((r, length, length), dtype=torch.int8)
+    args = (states, torch.zeros(2, dtype=torch.int64), torch.zeros((), dtype=torch.int64),
+            torch.zeros((), dtype=torch.int64), torch.ones(r),
+            torch.arange(r, dtype=torch.int32), torch.zeros(r))
+    out = (torch.empty_like(states), torch.empty(r, dtype=torch.int32), torch.empty(r),
+           torch.empty(r, dtype=torch.bool), torch.empty(r), torch.empty(r, dtype=torch.bool))
+    return args, out
+
+
+@pytest.mark.parametrize("source", ["ising_fused.cu", "ising_packed.cu", "potts_fused.cu"])
+def test_round_libraries_export_their_exchange_scratch_size(source):
+    """Each library that runs the round exchange exports the scratch bytes a
+    replica of ``exchange.cuh`` (``exchange::kScratchBytes``), so the wrapper
+    (`build.round_args`) sizes the buffer from the kernel's own layout."""
+    text = (tbuild.CSRC / source).read_text()
+    assert "exchange::make_round(" in text  # its launches run the exchange
+    assert "long long exchange_scratch_bytes() { return exchange::kScratchBytes; }" in text
+    assert "constexpr int kScratchBytes" in (tbuild.CSRC / "exchange.cuh").read_text()
+
+
+@pytest.mark.parametrize("system", ["ising", "ising_packed", "potts"])
+@pytest.mark.parametrize("bad,match", [
+    ("energy_shape", "energy has shape"), ("energy_dtype", "energy has dtype"),
+    ("phase0", "phase0 has shape"), ("rung_out", "rung out has dtype"),
+    ("energy_out", "energy out has shape"), ("accept", "accept row has dtype"),
+    ("prob", "prob row has shape"), ("attempt", "attempt row has dtype"),
+    ("spins_out", "out has shape"), ("rows", "5 exchange rows"), ("rung", "rung has dtype"),
+    ("pairing", "unsupported exchange"),
+])
+def test_round_wrappers_refuse_mismatched_rows_before_launch(system, bad, match):
+    """The round wrappers name a mismatched argument or ``out`` buffer before
+    any device check, build or launch: nothing is counted."""
+    args, out = _round_args()
+    args, out = list(args), list(out)
+    kw = dict(n_sweeps=1, pairing="deo", criterion="logistic")
+    r = 2
+    if bad == "energy_shape":
+        args[6] = torch.zeros(r + 1)
+    elif bad == "energy_dtype":
+        args[6] = torch.zeros(r, dtype=torch.float64)
+    elif bad == "phase0":
+        args[3] = torch.zeros(1, dtype=torch.int64)
+    elif bad == "rung_out":
+        out[1] = torch.empty(r, dtype=torch.int64)
+    elif bad == "energy_out":
+        out[2] = torch.empty(r + 1)
+    elif bad == "accept":
+        out[3] = torch.empty(r, dtype=torch.uint8)
+    elif bad == "prob":
+        out[4] = torch.empty(2 * r)
+    elif bad == "attempt":
+        out[5] = torch.empty(r)
+    elif bad == "spins_out":
+        out[0] = torch.empty((r, 6, 6), dtype=torch.int8)
+    elif bad == "rows":
+        out = out[:-1]
+    elif bad == "rung":
+        args[5] = torch.arange(r, dtype=torch.int64)
+    elif bad == "pairing":
+        kw["pairing"] = "windowed"
+    tbuild.reset_launches()
+    with pytest.raises((ValueError, TypeError), match=match):
+        if system == "potts":
+            tpk.potts_round_kernel(*args, q=3, out=tuple(out), **kw)
+        else:
+            tisk.ising_round_kernel(*args, pack_bits=system == "ising_packed", out=tuple(out),
+                                    **kw)
+    assert all(v == 0 for v in tbuild.launches.values())
+    assert tbuild.epilogues == {"exchange": 0}
 
 
 def test_ops_refuse_other_devices():

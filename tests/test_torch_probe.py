@@ -1,12 +1,15 @@
-"""The kernel probes' parts that need no card: the SASS loop count and the
-source substitutions (``repro_torch.launch.fused_probe``, ``wkv6_probe``)."""
+"""The kernel probes' parts that need no card: the SASS loop count, the
+source substitutions, the exchange cases and the round timings' specs
+(``repro_torch.launch.fused_probe``, ``wkv6_probe``, ``round_timing``)."""
 from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
+from repro_torch.api import RunSpec  # noqa: E402
 from repro_torch.launch import fused_probe as fp  # noqa: E402
+from repro_torch.launch import round_timing as rt  # noqa: E402
 from repro_torch.launch import wkv6_probe as wp  # noqa: E402
 
 
@@ -108,3 +111,34 @@ def test_wkv6_probe_substitutes_the_package_tile(rows, cols):
 def test_wkv6_probe_refuses_a_source_without_the_tile():
     with pytest.raises(ValueError, match="kCols"):
         wp.substitute("constexpr int kRows = 16;\n", 8, 4)
+
+
+def test_exchange_cases_cover_both_pairings_criteria_and_eight_phases():
+    cases = list(fp.exchange_cases("cpu", r=40))
+    assert len(cases) == 32
+    assert {(c["pairing"], c["criterion"], c["phase"]) for c in cases} == {
+        (p, c, k) for p in ("deo", "seo") for c in ("logistic", "metropolis") for k in range(8)}
+    for c in cases:
+        assert sorted(c["rung"].tolist()) == list(range(40))
+        assert c["energy"].dtype == c["de"].dtype == c["betas"].dtype == torch.float32
+        assert int(c["ph0"]) == 1000 + c["phase"]
+        # rung order is near an equilibrated ladder: neighbours 100 apart, +-400
+        by_rung = torch.empty_like(c["energy"])
+        by_rung[c["rung"].long()] = c["energy"]
+        assert bool(((by_rung[1:] - by_rung[:-1]).abs() < 1000).all())
+
+
+def test_split_tells_a_csrc_whose_rounds_are_two_launches(tmp_path):
+    assert not fp._split(Path(fp.build.CSRC))
+    (tmp_path / "exchange.cu").write_text("// kernel B\n")
+    assert fp._split(tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(rt.CONFIGS))
+def test_round_timing_specs_are_round_path_specs(name):
+    spec = rt.make_spec(name)
+    assert RunSpec.from_json(spec.to_json()) == spec
+    params = spec.system.params
+    assert params["use_fused"] and params["use_fused_round"]
+    assert spec.ladder.n_replicas == 1500
+    assert spec.schedule.total_sweeps == spec.engine.swap_interval * rt.CONFIGS[name][3]
