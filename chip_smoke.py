@@ -91,7 +91,28 @@ Phases, one line each or more (any failure raises and exits non-zero):
     at full width in f32 (30 GB of weights), within the JAX package's rtol
     = atol = 3e-2 (step 0 within 1e-4); a reduced f32 model's prefill
     logits and sampled tokens equal on the card and the CPU;
-17. a JSON line per kernel (launches, error, times, bound), the card line,
+17. checkpoint and resume: the paper's Ising spec on the round path
+    (L=300, R=1500, S=100, glauber, logistic DEO, 200 burn sweeps with
+    adaptation + 200 measure, a chunk an interval) run through, and run
+    again with a ``CheckpointCallback`` every chunk and an
+    ``EarlyStopCallback`` at sweep 300, then finished by
+    ``Session.from_checkpoint``: every leaf of the final engine state and
+    the f64 ladder equal bit for bit, one round launch and one exchange per
+    resumed interval, tickets 0, the checkpoint's bytes and the seconds of
+    a save and of the restore; the same on the packed round path (#2p) at
+    L=64, and a small Potts round spec resumed mid-measure on the card
+    equal to its uninterrupted CPU run;
+18. the exchange strategies at full width (L=300 R=1500 S=100, two
+    intervals each): SEO, windowed (window 4), VMPT and DEO with
+    ``swap_mode="state"`` on the interval-fused path (kernel A), and state
+    mode on the per-sweep path (#1 + ``jax_uniform``): rung maps are
+    permutations (the identity in state mode), the incremental energy is
+    the lattice energy exactly, 3 more intervals run with every host sync
+    an error; ms per interval, and the ms of a proposal call at R=1500;
+19. card == CPU on L=8 R=8 specs: SEO, windowed, VMPT, state mode (fused
+    and per-sweep) and flow adaptation (which must retune), and the phase 5
+    round spec resumed on the card from a checkpoint at sweep 600;
+20. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 After every phase each round launch's ticket must read 0 again (one that
@@ -105,8 +126,10 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -196,13 +219,27 @@ def assert_de(got, want, nacc, exact: bool, per_site: float, what: str) -> float
     return err.max().item()
 
 
-def card_equals_cpu(Session, spec, what: str) -> None:
-    """The spec's run on the card and on the CPU give equal manifests."""
+def card_equals_cpu(Session, spec, what: str, mean_rtol: float = 0.0) -> dict:
+    """The spec's run on the card and on the CPU give equal manifests;
+    returns the card's."""
     on_card = Session(spec, device="cuda").run().manifest()
-    on_cpu = Session(spec, device="cpu").run().manifest()
-    for name in on_cpu["phases"]:
+    manifests_equal(on_card, Session(spec, device="cpu").run().manifest(), what, mean_rtol)
+    return on_card
+
+
+def manifests_equal(on_card: dict, on_cpu: dict, what: str, mean_rtol: float = 0.0) -> None:
+    """Counters and the final state exact; the mean energy exact, or within
+    ``mean_rtol`` relative where it is weighted by swap probabilities (VMPT:
+    the card's and the CPU's sigmoid may differ in the last ulps)."""
+    for name in on_card["phases"]:
+        got, want = on_card["phases"][name]["summary"], on_cpu["phases"][name]["summary"]
         for key in ("swap_attempts", "swap_acceptance", "round_trips", "mean_energy"):
-            if on_card["phases"][name]["summary"][key] != on_cpu["phases"][name]["summary"][key]:
+            if key == "mean_energy" and mean_rtol:
+                a, b = (sum(x, []) if isinstance(x[0], list) else x
+                        for x in (got[key], want[key]))
+                if any(abs(u - v) > mean_rtol * abs(v) for u, v in zip(a, b)):
+                    raise AssertionError(f"{what}: card != CPU in {name}.{key}")
+            elif got[key] != want[key]:
                 raise AssertionError(f"{what}: card != CPU in {name}.{key}")
     if on_card["final"] != on_cpu["final"]:
         raise AssertionError(f"{what}: card != CPU final state")
@@ -447,19 +484,22 @@ def round_tail(torch, isk, spins, words, t0, betas, rung, energy, n_sweeps, reps
     return min(times[one_round]), min(times[sweeps_only])
 
 
-def check_no_host_sync(torch, session, make_interval_step, update_stats, n: int) -> None:
+def check_no_host_sync(torch, session, make_interval_step, update_stats, n: int) -> float:
     """Phase 5: ``n`` intervals of the session's path with every host sync an error.
 
     Runs the engine's own interval step and stats update (what `Engine.run`
     issues between two chunk boundaries) under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on any stream
-    or device synchronisation and any blocking host<->device copy.
+    or device synchronisation and any blocking host<->device copy.  Returns
+    the wall seconds of the ``n`` intervals (after a warm-up interval, to a
+    final synchronisation).
     """
     eng = session.engine
     step = make_interval_step(eng.system, eng.config.spec, eng.observables)
     state = session.init_state()
     pt, stats = step(state.pt, state.betas)[0], state.stats  # warm-up launch
     torch.cuda.synchronize()
+    t = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(n):
@@ -468,6 +508,57 @@ def check_no_host_sync(torch, session, make_interval_step, update_stats, n: int)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def resume_equals_uninterrupted(torch, np, build, api, ckpt, spec, stop: int, what: str,
+                                launch: str) -> dict:
+    """Phase 17: ``spec`` run through, and run again with a checkpoint every
+    chunk and an early stop at sweep ``stop``, then finished by
+    ``Session.from_checkpoint``; the two final states must be equal bit for
+    bit (every leaf of the engine state, the f64 ladder) and the resumed run
+    must launch ``launch`` once a round with one exchange in it.  Returns
+    the resumed run's launches, the checkpoint's bytes and the seconds of
+    one save and of the restore."""
+    full = api.Session(spec, device="cuda")
+    full.state = full.init_state()
+    full.run()
+    with tempfile.TemporaryDirectory() as d:
+        part = api.Session(spec, device="cuda", callbacks=[
+            api.CheckpointCallback(d),
+            api.EarlyStopCallback(lambda i: int(i.state.pt.t.reshape(-1)[0].item()) >= stop)])
+        part.state = part.init_state()
+        if not part.run().stopped_early:
+            raise AssertionError(f"{what}: the early stop did not fire")
+        del part
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resumed = api.Session.from_checkpoint(d, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        if resumed.remaining_sweeps != spec.schedule.total_sweeps - stop:
+            raise AssertionError(f"{what}: {resumed.remaining_sweeps} sweeps left")
+        build.reset_launches()
+        result = resumed.run()
+        torch.cuda.synchronize()
+        counts = counts_now(build)
+        check_tickets(build, what)
+        n_int = (spec.schedule.total_sweeps - stop) // spec.engine.swap_interval
+        expect_launches(counts, what, **{launch: n_int, "exchange": n_int})
+        got, want = ckpt.to_arrays(result.state), ckpt.to_arrays(full.state)
+        diff = [k for k in want if not np.array_equal(got[k], want[k])]
+        if diff or not np.array_equal(resumed.engine._temps, full.engine._temps):
+            raise AssertionError(f"{what}: resumed != uninterrupted in {diff or 'the ladder'}")
+        newest = ckpt.CheckpointManager(d)._step_dir(ckpt.CheckpointManager(d).steps()[-1])
+        n_bytes = sum(os.path.getsize(os.path.join(newest, f)) for f in os.listdir(newest))
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.CheckpointManager(d).save(spec.schedule.total_sweeps, result.state,
+                                       meta={"temps": list(resumed.engine._temps)})
+        save_s = time.perf_counter() - t
+    return dict(counts=counts, n_int=n_int, bytes=n_bytes, save_s=save_s,
+                restore_s=restore_s)
 
 
 def profile_breakdown(torch, build, run, n_int: int, card: str, label: str,
@@ -954,10 +1045,13 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
+    from repro_torch import api
+    from repro_torch import checkpoint as ckpt
     from repro_torch.api import (
-        AdaptSpec, EngineSpec, LadderSpec, PhaseSpec, RunSpec, ScheduleSpec,
+        AdaptSpec, EngineSpec, ExchangeSpec, LadderSpec, PhaseSpec, RunSpec, ScheduleSpec,
         Session, SystemSpec,
     )
+    from repro_torch.exchange import make_strategy
     from repro_torch.core import keys
     from repro_torch.core.systems import REGISTRY
     from repro_torch.engine.driver import make_interval_step
@@ -1489,7 +1583,152 @@ def main() -> int:
 
     rw = rwkv_phases(torch, np, build, ref, device, card)
 
-    # -- phase 17: kernel summary ---------------------------------------------
+    # -- phase 17: checkpoint and resume, bit-equal to an uninterrupted run ------
+    spec_resume = RunSpec(
+        system=SystemSpec("ising", {**params, "use_fused_round": True}),
+        schedule=ScheduleSpec(phases=(
+            PhaseSpec(name="burn", n_sweeps=200, adapt=True),
+            PhaseSpec(name="measure", n_sweeps=200, reset_stats=True),
+        )),
+        **base,
+    )
+    resume_main = resume_equals_uninterrupted(torch, np, build, api, ckpt, spec_resume, 300,
+                                              "resume round path", "ising_fused")
+    print(f"phase 17 resume [{card}]: Session L=300 R=1500 S=100 round path, 200 burn "
+          f"(adapt) + 200 measure, a checkpoint every chunk, stopped at sweep 300 and "
+          f"finished by Session.from_checkpoint: every engine-state leaf (spins, rung, "
+          f"energy, key words, t, phase, stats) and the f64 ladder equal to the "
+          f"uninterrupted run bit for bit; resumed launches "
+          f"{ {k: v for k, v in resume_main['counts'].items() if v} } == "
+          f"{resume_main['n_int']} rounds, tickets 0; checkpoint {resume_main['bytes']} "
+          f"bytes, one save {resume_main['save_s']:.3f} s, from_checkpoint "
+          f"{resume_main['restore_s']:.3f} s")
+    spec_resume_p = RunSpec.from_json({**json.loads(spec_resume.to_json()), "system": {
+        "name": "ising", "params": {**params, "length": 64, "use_fused_round": True,
+                                    "pack_bits": True}}})
+    resume_packed = resume_equals_uninterrupted(torch, np, build, api, ckpt, spec_resume_p,
+                                                300, "resume packed round path",
+                                                "ising_packed")
+    potts_round_small = RunSpec(
+        system=SystemSpec("potts", {"shape": (6, 4), "q": 3, "accept_rule": "glauber",
+                                    "use_fused": True, "use_fused_round": True}),
+        ladder=LadderSpec(kind="geometric", n_replicas=6, t_min=0.7, t_max=2.9),
+        engine=EngineSpec(swap_interval=5, chunk_intervals=4),
+        adapt=AdaptSpec(target=0.3, min_attempts_per_pair=3, max_rounds=2),
+        schedule=ScheduleSpec(phases=(
+            PhaseSpec(name="burn", n_sweeps=100, adapt=True),
+            PhaseSpec(name="measure", n_sweeps=100, reset_stats=True),
+        )),
+        observables=("pmag",), seed=3,
+    )
+
+    def resumed_on_card(spec, stop):
+        with tempfile.TemporaryDirectory() as d:
+            Session(spec, device="cuda", callbacks=[
+                api.CheckpointCallback(d),
+                api.EarlyStopCallback(lambda i: int(i.state.pt.t.reshape(-1)[0].item()) >= stop),
+            ]).run()
+            return Session.from_checkpoint(d, device="cuda").run().manifest()
+
+    manifests_equal(resumed_on_card(potts_round_small, 140),
+                    Session(potts_round_small, device="cpu").run().manifest(),
+                    "small Potts round spec resumed mid-measure")
+    check_tickets(build, "phase 17")
+    print(f"phase 17 resume [{card}]: the packed round path (#2p) at L=64 R=1500, the same "
+          f"schedule: equal bit for bit, launches "
+          f"{ {k: v for k, v in resume_packed['counts'].items() if v} }; a 6x4 q=3 R=6 Potts "
+          "round spec stopped at sweep 140 (mid-measure) and resumed on the card == its "
+          "uninterrupted CPU run")
+
+    # -- phase 18: the exchange strategies and state mode at full width ---------
+    run200 = ScheduleSpec(phases=(PhaseSpec(name="run", n_sweeps=200),))
+    per_sweep = {"length": length, "accept_rule": "glauber"}
+    eng1 = dict(swap_interval=interval, chunk_intervals=1)
+    strategy_runs = (
+        ("SEO", params, EngineSpec(**eng1), ExchangeSpec("seo")),
+        ("windowed (4)", params, EngineSpec(**eng1), ExchangeSpec("windowed", 4)),
+        ("VMPT", params, EngineSpec(**eng1), ExchangeSpec("vmpt")),
+        ("DEO swap_mode=state", params, EngineSpec(**eng1, swap_mode="state"), ExchangeSpec()),
+        ("per-sweep DEO swap_mode=state", per_sweep, EngineSpec(**eng1, swap_mode="state"),
+         ExchangeSpec()),
+    )
+    strategy_ms, counts_strategy = {}, {}
+    for what, sys_params, eng, ex in strategy_runs:
+        spec = RunSpec(system=SystemSpec("ising", sys_params), engine=eng, exchange=ex,
+                       schedule=run200, ladder=base["ladder"],
+                       observables=base["observables"], seed=0)
+        result, counts_x, wall_x, n_int_x, _ = drive(spec, what)
+        if "per-sweep" in what:
+            expect_launches(counts_x, what, jax_uniform=200, ising_sweep=200)
+        else:
+            expect_launches(counts_x, what, ising_fused=n_int_x)
+        if eng.swap_mode == "state" and not torch.equal(
+                result.state.pt.rung, torch.arange(n_rep, dtype=torch.int32, device=device)):
+            raise AssertionError(f"{what}: rungs moved in state mode")
+        del result
+        warm = check_no_host_sync(torch, Session(spec, device="cuda"), make_interval_step,
+                                  update_stats, 3)
+        strategy_ms[what] = (1e3 * wall_x / n_int_x, 1e3 * warm / 3)
+        counts_strategy[what] = counts_x
+        torch.cuda.empty_cache()
+    check_tickets(build, "phase 18")
+    print(f"phase 18 strategies [{card}]: Session L=300 R=1500 S=100, 2 intervals each "
+          "(kernel A + the strategy in torch; the last on #1 + jax_uniform): every rung map "
+          "a permutation (the identity in state mode), incremental energy == lattice energy "
+          "exactly, 3 more intervals with no host sync; ms/interval (first 2 through "
+          "Session, then 3 warm): " + "; ".join(
+              f"{what} {a:.2f} / {b:.2f}" for what, (a, b) in strategy_ms.items()))
+    k1 = keys.key(1, device=device)
+    propose_ms = {}
+    for name, prm in (("deo", {}), ("seo", {}), ("windowed", {"window": 4})):
+        strat = make_strategy(name, prm)
+        for ph in range(2):
+            p = strat.propose_pairs(k1, torch.tensor(ph, device=device), n_rep)
+            if not torch.equal(p[p], torch.arange(n_rep, device=device)):
+                raise AssertionError(f"{name}: proposal is not an involution")
+        phase_t = torch.zeros((), dtype=torch.int64, device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):
+            strat.propose_pairs(k1, phase_t, n_rep)
+        torch.cuda.synchronize()
+        propose_ms[name] = 1e3 * (time.perf_counter() - t) / 20
+    print(f"phase 18 proposals [{card}]: R=1500, wall ms a call (host clock, 20 calls, "
+          "synchronised): " + ", ".join(f"{k} {v:.3f}" for k, v in propose_ms.items())
+          + " (windowed: 750 windows of both tilings in one batch)")
+
+    # -- phase 19: card == CPU on small specs ----------------------------------------
+    small_fused = json.loads(small.to_json())
+    small_fused["system"]["params"]["use_fused_round"] = False
+    small_cases = {
+        "SEO": {"exchange": {"strategy": "seo"}},
+        "windowed (4)": {"exchange": {"strategy": "windowed", "window": 4}},
+        "VMPT": {"exchange": {"strategy": "vmpt"}},
+        "swap_mode=state": {"engine": {**small_fused["engine"], "swap_mode": "state"}},
+        "per-sweep swap_mode=state": {
+            "engine": {**small_fused["engine"], "swap_mode": "state"},
+            "system": {"name": "ising", "params": {"length": 8, "accept_rule": "glauber"}}},
+        "flow adaptation": {
+            "ladder": {"kind": "geometric", "n_replicas": 8, "t_min": 1.0, "t_max": 4.0},
+            "adapt": {"mode": "flow", "rate": 0.5, "flow_min_visits": 10, "max_rounds": 2},
+            "schedule": {"phases": [{"name": "burn", "n_sweeps": 400, "adapt": True},
+                                    {"name": "measure", "n_sweeps": 200,
+                                     "reset_stats": True}]}},
+    }
+    for what, edits in small_cases.items():
+        m = card_equals_cpu(Session, RunSpec.from_json({**small_fused, **edits}),
+                            f"small spec, {what}", mean_rtol=1e-6 if what == "VMPT" else 0.0)
+        if what == "flow adaptation" and len(m["phases"]["burn"]["ladder_history"]) < 2:
+            raise AssertionError("small flow spec: no retune")
+    manifests_equal(resumed_on_card(small, 600), Session(small, device="cpu").run().manifest(),
+                    "small round spec resumed mid-measure")
+    check_tickets(build, "phase 19")
+    print(f"phase 19 card == CPU [{card}]: L=8 R=8 fused-path specs with SEO, windowed (4), "
+          "VMPT (mean energy within 1e-6 relative: swap probabilities weight it), state mode "
+          "(fused and per-sweep) and flow adaptation (retuned), and the round spec stopped "
+          "at sweep 600 and resumed on the card: equal manifests")
+
+    # -- phase 20: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1506,7 +1745,10 @@ def main() -> int:
          "bound_by": a_by, "library_ms": None,
          "shape": "L=300 R=1500 S=2", "main_ms": a_main,
          "main_bound_ms": a_main_bound, "main_shape": "L=300 R=1500 S=100",
-         "fused_path_launches": counts_fused["ising_fused"]},
+         "fused_path_launches": counts_fused["ising_fused"],
+         "resume_launches": resume_main["counts"]["ising_fused"],
+         "strategy_path_launches": {what: c["ising_fused"] for what, c in
+                                    counts_strategy.items() if "per-sweep" not in what}},
         {"name": "ising_packed", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ising_packed.cu",
          "replaces": "src/repro/kernels/ising_sweep.py:269",
@@ -1522,7 +1764,8 @@ def main() -> int:
          "balanced_kernel_a_main_ms": min(a_bal, a_bal2),
          "fused_path_launches": counts_pfused_i["ising_packed"],
          "two_chain_launches": counts_chains["ising_packed"],
-         "conformance_launches": counts_conf["ising_packed"]},
+         "conformance_launches": counts_conf["ising_packed"],
+         "resume_launches": resume_packed["counts"]["ising_packed"]},
         # the round exchange runs inside the round launches of A, #2p and #5:
         # "launches" counts the exchanges run, "ms" is its tail (a round launch
         # less the same launch without it, profiler device time) at L=32 S=1
@@ -1538,9 +1781,11 @@ def main() -> int:
          "main_round_launch_ms": round_main,
          "also_replaces": "src/repro/kernels/potts_sweep.py:372 (in kernel #5)",
          "potts_round_exchanges": counts_pround["exchange"],
-         "packed_round_exchanges": counts_pround_i["exchange"]},
+         "packed_round_exchanges": counts_pround_i["exchange"],
+         "resume_exchanges": resume_main["counts"]["exchange"]},
         row("ising_sweep", "sweep.cu", "src/repro/kernels/ising_sweep.py:121",
-            counts_sweep["ising_sweep"], shape="L=300 R=1500"),
+            counts_sweep["ising_sweep"], shape="L=300 R=1500",
+            state_mode_launches=counts_strategy["per-sweep DEO swap_mode=state"]["ising_sweep"]),
         row("potts_sweep", "sweep.cu", "src/repro/kernels/potts_sweep.py:109",
             counts_psweep["potts_sweep"], shape="300x300 q=3 R=1500"),
         row("potts_fused", "potts_fused.cu", "src/repro/kernels/potts_sweep.py:245",
@@ -1554,7 +1799,8 @@ def main() -> int:
             counts_sweep["jax_uniform"], shape="R=1500 x (2,300,300)",
             potts_path_launches=counts_psweep["jax_uniform"],
             potts_ms=times["jax_uniform"]["potts_ms"],
-            potts_bound_ms=times["jax_uniform"]["potts_bound"][0]),
+            potts_bound_ms=times["jax_uniform"]["potts_bound"][0],
+            state_mode_launches=counts_strategy["per-sweep DEO swap_mode=state"]["jax_uniform"]),
         {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6.py:54",
          "launches": rw["decode_launches"], "max_abs_err": rw["err"],
@@ -1570,7 +1816,7 @@ def main() -> int:
          "prefill_bound_by": rw["times"]["prefill"]["bound"][1],
          "prefill_shape": "BH=256 T=512 dk=dv=64", "prefill_launches": rw["prefill_launches"]},
     ]
-    print(f"phase 17 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 20 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

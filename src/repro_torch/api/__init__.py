@@ -1,5 +1,13 @@
 """Declarative run API of the port (twin of `repro.api`)."""
-from repro_torch.api.session import Callback, ProgressCallback, Session, SessionResult
+from repro_torch.api.session import (
+    Callback,
+    CheckpointCallback,
+    EarlyStopCallback,
+    ProgressCallback,
+    Session,
+    SessionResult,
+    TraceWriterCallback,
+)
 from repro_torch.api.spec import (
     SPEC_VERSION,
     AdaptSpec,
@@ -17,6 +25,8 @@ __all__ = [
     "SPEC_VERSION",
     "AdaptSpec",
     "Callback",
+    "CheckpointCallback",
+    "EarlyStopCallback",
     "EngineSpec",
     "ExchangeSpec",
     "LadderSpec",
@@ -27,5 +37,6 @@ __all__ = [
     "Session",
     "SessionResult",
     "SystemSpec",
+    "TraceWriterCallback",
     "simple_schedule",
 ]

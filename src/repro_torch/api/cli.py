@@ -2,18 +2,23 @@
 
 Subcommands:
 
-  run SPEC.json [--out DIR] [--device cuda|cpu]
+  run SPEC.json [--out DIR] [--device cuda|cpu] [--checkpoint-every N]
                   execute the spec end to end and write ``DIR/manifest.json``
-                  (default device: cuda; cpu runs the plain PyTorch versions)
-  validate SYSTEM [--seed N] [--exchange deo] [--fused] [--out DIR]
+                  (default device: cuda; cpu runs the plain PyTorch versions),
+                  checkpointing into ``DIR/checkpoints`` every N chunks
+  resume DIR [--device cuda|cpu]
+                  continue a ``run`` output directory (of either package)
+                  from ``DIR/checkpoints``; writes ``DIR/manifest.json``
+  validate SYSTEM [--seed N] [--exchange NAME] [--fused] [--out DIR]
                   [--device cuda|cpu]
                   conformance-run a system-zoo entry (``ising``, ``potts``)
                   against its exact reference; exit 1 on failure, 2 for a
-                  system or option the port lacks; ``--fused`` runs the
-                  interval-fused kernel path
+                  system the port lacks or an unknown strategy; ``--fused``
+                  runs the interval-fused kernel path
   list-systems    registered systems and their observables
+  list-strategies registered replica-exchange strategies
 
-``resume`` and ``serve`` are not ported yet.
+``serve`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import sys
 
 import numpy as np
 
-from repro_torch.api.session import ProgressCallback, Session
+from repro_torch.api.session import CheckpointCallback, ProgressCallback, Session
 from repro_torch.api.spec import RunSpec
 
 __all__ = ["main"]
@@ -38,13 +43,29 @@ def _cmd_run(args) -> int:
         "runs", os.path.splitext(os.path.basename(args.spec))[0]
     )
     os.makedirs(out, exist_ok=True)
-    callbacks = [] if args.quiet else [ProgressCallback()]
+    callbacks = [] if args.quiet else [ProgressCallback(every=args.progress_every)]
+    callbacks.append(CheckpointCallback(os.path.join(out, "checkpoints"),
+                                        every_chunks=args.checkpoint_every))
     result = Session(spec, callbacks=callbacks, device=args.device).run()
     path = result.write_manifest(os.path.join(out, "manifest.json"))
     if not args.quiet:
         temps = 1.0 / result.state.betas.cpu().numpy().astype(np.float64)
         print(f"final ladder: {np.round(temps, 4).tolist()}", file=sys.stderr)
     print(path)
+    return 0
+
+
+def _cmd_resume(args) -> int:
+    ckdir = os.path.join(args.dir, "checkpoints")
+    callbacks = [] if args.quiet else [ProgressCallback(every=args.progress_every)]
+    callbacks.append(CheckpointCallback(ckdir, every_chunks=args.checkpoint_every))
+    session = Session.from_checkpoint(ckdir, callbacks=callbacks, device=args.device)
+    if session.remaining_sweeps == 0:
+        print(f"nothing to resume: the checkpointed run already covers all "
+              f"{session.spec.schedule.total_sweeps} scheduled sweeps", file=sys.stderr)
+        return 0
+    result = session.run()
+    print(result.write_manifest(os.path.join(args.dir, "manifest.json")))
     return 0
 
 
@@ -58,9 +79,11 @@ def _cmd_validate(args) -> int:
     except (KeyError, NotImplementedError) as err:
         print(err.args[0], file=sys.stderr)
         return 2
-    if args.exchange != "deo":
-        print(f"not yet ported: exchange strategy {args.exchange!r} on the "
-              "strategy path", file=sys.stderr)
+    from repro_torch.exchange import available_strategies
+
+    if args.exchange not in available_strategies():
+        print(f"unknown exchange strategy {args.exchange!r}; registered: "
+              f"{available_strategies()}", file=sys.stderr)
         return 2
     # use_pallas rides along as in the JAX CLI; the port ignores it
     system_params = {"use_fused": True, "use_pallas": True} if args.fused else None
@@ -108,6 +131,15 @@ def _cmd_list_systems(args) -> int:
     return 0
 
 
+def _cmd_list_strategies(args) -> int:
+    from repro_torch import exchange
+
+    for name in exchange.available_strategies():
+        print(f"{name}")
+        print(f"  {exchange.strategy_help(name)}")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m repro_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -115,13 +147,26 @@ def main(argv=None) -> int:
     run.add_argument("spec")
     run.add_argument("--out", default=None, help="output directory")
     run.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    run.add_argument("--checkpoint-every", type=int, default=10,
+                     help="chunks between checkpoints")
+    run.add_argument("--progress-every", type=int, default=10,
+                     help="chunks between progress lines")
     run.add_argument("--quiet", action="store_true")
     run.set_defaults(fn=_cmd_run)
+    res = sub.add_parser("resume", help="continue a checkpointed run directory")
+    res.add_argument("dir", help="a previous `run` output dir")
+    res.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    res.add_argument("--checkpoint-every", type=int, default=10,
+                     help="chunks between checkpoints")
+    res.add_argument("--progress-every", type=int, default=10)
+    res.add_argument("--quiet", action="store_true")
+    res.set_defaults(fn=_cmd_resume)
     val = sub.add_parser("validate",
                          help="conformance-run a zoo system vs its exact reference")
     val.add_argument("system", help="registry name (ising, potts)")
     val.add_argument("--seed", type=int, default=0)
-    val.add_argument("--exchange", default="deo", help="replica-exchange strategy")
+    val.add_argument("--exchange", default="deo",
+                     help="replica-exchange strategy (see list-strategies)")
     val.add_argument("--fused", action="store_true",
                      help="run the interval-fused kernel path (use_fused=True)")
     val.add_argument("--out", default=None, help="also write the report JSON here")
@@ -129,5 +174,7 @@ def main(argv=None) -> int:
     val.set_defaults(fn=_cmd_validate)
     ls = sub.add_parser("list-systems", help="registered systems")
     ls.set_defaults(fn=_cmd_list_systems)
+    lst = sub.add_parser("list-strategies", help="registered replica-exchange strategies")
+    lst.set_defaults(fn=_cmd_list_strategies)
     args = parser.parse_args(argv)
     return args.fn(args)

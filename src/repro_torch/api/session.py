@@ -1,10 +1,18 @@
 """`Session`: compile a `RunSpec` into an `Engine` and run its schedule.
 
 Twin of `repro.api.session`: ``Engine.init(key(seed), ladder)`` then one
-``Engine.run`` per phase, with a callback pipeline on the host loop.  The
-manifest has the JAX package's layout (per-chain summaries and final
-energies with an ensemble).  Checkpoints and resume are not
-ported yet.
+``Engine.run`` per phase, with a callback pipeline on the host loop
+(progress, checkpoints, early stop, trace files).  The manifest has the
+JAX package's layout (per-chain summaries and final energies with an
+ensemble).
+
+Resume: `CheckpointCallback` saves ``spec.json`` once and the
+``EngineState`` with the f64 ladder and the adaptation window in the step
+meta, in the JAX package's checkpoint format; `Session.from_checkpoint`
+rebuilds the Session from the directory alone and ``run()`` replays the
+remaining sweeps of the schedule, bit-equal to the uninterrupted run.
+Either package resumes the other's checkpoints.  ``ObsCallback`` waits for
+the port's telemetry layer.
 """
 from __future__ import annotations
 
@@ -17,14 +25,23 @@ from typing import Sequence
 import numpy as np
 
 from repro_torch.api.spec import PhaseSpec, RunSpec
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import keys
 from repro_torch.engine import AdaptInfo, ChunkInfo, Engine, EngineState, RunResult
+from repro_torch.engine.adapt import AdaptState
 
-__all__ = ["Callback", "ProgressCallback", "Session", "SessionResult"]
+__all__ = ["Callback", "CheckpointCallback", "EarlyStopCallback", "ProgressCallback",
+           "TraceWriterCallback", "Session", "SessionResult"]
 
 
 class Callback:
-    """Observer hooks along a Session run; ``on_chunk`` may return truthy to stop."""
+    """Observer hooks along a Session run; ``on_chunk`` may return truthy to stop.
+
+    ``consumes_trace = True`` takes ownership of the per-chunk trace: the
+    engine then keeps no copy for ``RunResult.trace``.
+    """
+
+    consumes_trace = False
 
     def on_phase_start(self, session: "Session", phase: PhaseSpec) -> None:
         pass
@@ -36,6 +53,9 @@ class Callback:
         pass
 
     def on_phase_end(self, session: "Session", phase: PhaseSpec, result: RunResult) -> None:
+        pass
+
+    def on_checkpoint(self, session: "Session", step: int) -> None:
         pass
 
 
@@ -58,6 +78,75 @@ class ProgressCallback(Callback):
     def on_adapt(self, session, info):
         print(f"[{session.current_phase.name}] ladder retune #{info.round}: "
               f"T = {np.round(info.temps, 3).tolist()}", file=self.stream)
+
+
+class CheckpointCallback(Callback):
+    """``spec.json`` once, then the state every ``every_chunks`` chunks and at
+    every phase end (a phase end right after a chunk's save is skipped)."""
+
+    def __init__(self, directory_or_manager, every_chunks: int = 1, keep: int = 3):
+        if isinstance(directory_or_manager, CheckpointManager):
+            self.manager = directory_or_manager
+        else:
+            self.manager = CheckpointManager(str(directory_or_manager), keep=keep)
+        self.every_chunks = max(1, every_chunks)
+        self._spec_saved = False
+        self._last_sweep: int | None = None
+
+    def _save(self, session, state: EngineState):
+        if not self._spec_saved:
+            self.manager.save_spec(session.spec.to_json())
+            self._spec_saved = True
+        sweep = int(state.pt.t.reshape(-1)[0].item())
+        if sweep == self._last_sweep:
+            return
+        self._last_sweep = sweep
+        # the f64 ladder, never 1/f32(betas): a resumed retune must see the
+        # numbers the uninterrupted host loop saw
+        temps = session.engine._temps
+        if temps is None:
+            temps = 1.0 / state.betas.cpu().numpy().astype(np.float64)
+        meta = {"temps": np.asarray(temps, np.float64).tolist(),
+                "adapt_rounds": session.engine._adapt_rounds}
+        if session.engine._adapt_state is not None:
+            meta.update(session.engine._adapt_state.to_meta())
+        self.manager.save(sweep, state, meta=meta)
+        session.dispatch("on_checkpoint", sweep)
+
+    def on_chunk(self, session, info):
+        if info.index % self.every_chunks == 0:
+            self._save(session, info.state)
+
+    def on_phase_end(self, session, phase, result):
+        self._save(session, session.state)
+
+
+class EarlyStopCallback(Callback):
+    """Stop the run when ``predicate(ChunkInfo)`` is truthy."""
+
+    def __init__(self, predicate):
+        self.predicate = predicate
+
+    def on_chunk(self, session, info):
+        return self.predicate(info)
+
+
+class TraceWriterCallback(Callback):
+    """Each chunk's trace to ``<dir>/trace_<phase>_<chunk>.npz`` (needs
+    ``record_trace``); it consumes the trace, so none is kept in memory."""
+
+    consumes_trace = True
+
+    def __init__(self, directory: str):
+        self.directory = str(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def on_chunk(self, session, info):
+        if info.trace is None:
+            return
+        path = os.path.join(self.directory,
+                            f"trace_{session.current_phase.name}_{info.index:06d}.npz")
+        np.savez(path, **info.trace)
 
 
 @dataclasses.dataclass
@@ -135,6 +224,7 @@ class Session:
         )
         self.state: EngineState | None = None
         self.current_phase: PhaseSpec | None = None
+        self._restored_sweeps = 0
 
     def dispatch(self, hook: str, *args):
         stop = False
@@ -146,22 +236,65 @@ class Session:
     def init_state(self) -> EngineState:
         return self.engine.init(keys.key(self.spec.seed), self.temps)
 
+    @classmethod
+    def from_checkpoint(cls, directory: str, callbacks: Sequence[Callback] = (),
+                        device="cuda") -> "Session":
+        """A Session from ``(spec.json, newest checkpoint)`` in ``directory``
+        (written by either package), state on ``device``; its ``run()``
+        continues the schedule.  A `CheckpointCallback` on the same directory
+        is appended unless ``callbacks`` has one."""
+        manager = CheckpointManager(directory)
+        data = manager.load_spec()
+        if data is None:
+            raise FileNotFoundError(f"no spec.json in {directory!r}")
+        session = cls(RunSpec.from_json(data), callbacks=callbacks, device=device)
+        out = session.engine.restore(manager)
+        if out is None:
+            raise FileNotFoundError(f"no restorable checkpoint in {directory!r}")
+        state, meta = out
+        session.state = state
+        session._restored_sweeps = int(state.pt.t.reshape(-1)[0].item())
+        session.engine._adapt_rounds = int(meta.get("adapt_rounds", 0))
+        if "temps" in meta:
+            session.engine._temps = np.asarray(meta["temps"], np.float64)
+        restored_adapt = AdaptState.from_meta(meta, rounds=session.engine._adapt_rounds)
+        if restored_adapt is not None:
+            session.engine._adapt_state = restored_adapt
+        if not any(isinstance(cb, CheckpointCallback) for cb in session.callbacks):
+            session.callbacks.append(CheckpointCallback(manager))
+        return session
+
+    @property
+    def remaining_sweeps(self) -> int:
+        """Schedule sweeps still to run (0 when a resumed run is complete)."""
+        return max(0, self.spec.schedule.total_sweeps - self._restored_sweeps)
+
     def run(self) -> SessionResult:
-        """Execute the schedule from a fresh state (or ``self.state`` if set)."""
+        """Execute the schedule from a fresh state, or its remainder after
+        `from_checkpoint`."""
         if self.state is None:
             self.state = self.init_state()
+        skip = self._restored_sweeps
+        self._restored_sweeps = 0
         results: dict[str, RunResult] = {}
         stopped = False
+        keep_trace = not any(cb.consumes_trace for cb in self.callbacks)
         for phase in self.spec.schedule.phases:
+            if skip >= phase.n_sweeps:
+                skip -= phase.n_sweeps  # finished before the checkpoint
+                continue
+            budget, fresh_phase, skip = phase.n_sweeps - skip, skip == 0, 0
             self.current_phase = phase
             self.dispatch("on_phase_start", phase)
-            if phase.reset_stats:
+            # mid-phase, the checkpointed accumulators already had their reset
+            if phase.reset_stats and fresh_phase:
                 self.state = self.engine.reset_stats(self.state)
             self.engine.adapt = self._adapt if phase.adapt else None
             self.state, result = self.engine.run(
-                self.state, phase.n_sweeps,
+                self.state, budget,
                 on_chunk=lambda info: self.dispatch("on_chunk", info),
                 on_adapt=lambda info: self.dispatch("on_adapt", info),
+                keep_trace=keep_trace,
             )
             results[phase.name] = result
             self.dispatch("on_phase_end", phase, result)
@@ -169,5 +302,10 @@ class Session:
                 stopped = True
                 break
         self.current_phase = None
+        if not results:
+            raise RuntimeError(
+                "nothing to run: the checkpointed sweep counter already "
+                "covers the whole schedule"
+            )
         return SessionResult(spec=self.spec, phases=results, state=self.state,
                              stopped_early=stopped)

@@ -2,9 +2,9 @@
 
 ``spec_version`` 1, strict keys, lists canonicalized to tuples so
 ``RunSpec.from_json(spec.to_json()) == spec``.  What the port cannot run
-yet (other systems, meshes, state-mode swaps, other strategies, the flow
-adapt mode, single-flip updates) parses here and is refused by name with
-`NotImplementedError` when a `Session` is built from it.
+yet (other systems, meshes, single-flip updates) parses here and is
+refused by name with `NotImplementedError` when a `Session` is built from
+it.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from repro_torch.core import ladder as ladder_lib
 from repro_torch.core import systems as systems_lib
 from repro_torch.engine import AdaptConfig, EngineConfig
 from repro_torch.engine.adapt import ADAPT_MODES
-from repro_torch.exchange import make_strategy
+from repro_torch.exchange import available_strategies, make_strategy
 
 __all__ = [
     "SPEC_VERSION",
@@ -34,8 +34,6 @@ __all__ = [
 ]
 
 SPEC_VERSION = 1
-# every strategy name the JAX package accepts (the port runs a subset)
-STRATEGY_NAMES = ("deo", "seo", "vmpt", "windowed")
 
 
 def _freeze(value):
@@ -176,16 +174,17 @@ class ExchangeSpec:
     window: int = 4
 
     def __post_init__(self):
-        if self.strategy not in STRATEGY_NAMES:
+        if self.strategy not in available_strategies():
             raise ValueError(
                 f"unknown exchange strategy {self.strategy!r}; "
-                f"allowed: {list(STRATEGY_NAMES)}"
+                f"allowed: {available_strategies()}"
             )
         if self.window < 2:
             raise ValueError(f"exchange window must be >= 2, got {self.window}")
 
     def build(self):
-        return make_strategy(self.strategy)
+        params = {"window": self.window} if self.strategy == "windowed" else {}
+        return make_strategy(self.strategy, params)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,6 +18,9 @@ name                        JAX source
 ==========================  ===============================================
 
 With ``betas`` present the result is an `EngineState`, else a `PTState`.
+`from_checkpoint_arrays` does the same for the arrays of an engine
+checkpoint (``arrays_p0.npz`` of either package), named by the checkpoint
+manager's one table (`repro_torch.checkpoint.engine_leaves`).
 An ensemble state (``n_chains = C > 1``) carries a leading chain axis on
 every array but ``betas``: ``states`` (C, R, ...), ``key`` (C, 2), ``t``
 and ``phase`` (C,), ``stats.*`` (C, R) and ``stats.n_records`` (C,).
@@ -41,7 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.driver import EngineState
 from repro_torch.engine.stats import OnlineStats
 
-__all__ = ["from_reference", "lm_params_from_reference"]
+__all__ = ["from_reference", "from_checkpoint_arrays", "lm_params_from_reference"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -80,6 +83,14 @@ def from_reference(arrays: dict[str, np.ndarray], device):
         pt=pt, stats=OnlineStats(**fields),
         betas=_t(arrays["betas"], torch.float32, device),
     )
+
+
+def from_checkpoint_arrays(arrays: dict[str, np.ndarray], device):
+    """The port's `EngineState` from a checkpoint's arrays (JAX ``keystr``
+    names)."""
+    from repro_torch.checkpoint.manager import from_arrays
+
+    return from_arrays(arrays, resolve_device(device))
 
 
 def _leaves(tree, prefix=""):

@@ -18,7 +18,11 @@ word on torch tensors:
   ``argmax(gumbel(key, logits.shape) + logits)`` (first index on ties);
 * ``randint(key, shape, lo, hi)``: int32 ``randint``: two bit draws from
   ``split(key)`` reduced modulo the span with JAX's ``2^32 mod span``
-  multiplier.
+  multiplier;
+* ``permutation(key, n)``: ``jax.random.permutation(key, n)``, JAX's
+  ``_shuffle``: ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each splitting the
+  key and stably sorting ``arange(n)`` by 32-bit ``random_bits`` of the
+  second half (`shuffle_rows` does a batch of padded rows at once).
 
 A key is a (2,) int64 tensor holding the two uint32 words (JAX's
 ``jax.random.key_data``); a batch of keys is (..., 2).  Counters above
@@ -28,12 +32,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.prng import MASK, threefry2x32
 
 __all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint", "gumbel",
-           "categorical"]
+           "categorical", "shuffle_rounds", "shuffle_rows", "permutation"]
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -76,7 +81,7 @@ def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
     k0, k1 = _pair(k)
     lo = torch.arange(size, dtype=torch.int64, device=k.device)
     b0, b1 = threefry2x32(k0[..., None], k1[..., None], 0, lo)
-    return (b0 ^ b1).reshape(*k.shape[:-1], *shape)
+    return (b0 ^ b1).reshape((*k.shape[:-1], *shape))
 
 
 def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
@@ -120,3 +125,40 @@ def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     if logits.dtype != torch.float32:
         raise TypeError(f"categorical takes f32 logits, got {logits.dtype}")
     return torch.argmax(gumbel(k, logits.shape) + logits, dim=-1)
+
+
+def shuffle_rounds(n: int) -> int:
+    """Sort rounds of JAX's ``_shuffle`` for ``n`` elements (1 up to n = 1625)."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def shuffle_rows(k: torch.Tensor, pad: torch.Tensor, rounds) -> torch.Tensor:
+    """``(B, W)`` int64 rows: row ``b`` starts with ``permutation(k[b], s_b)``,
+    where ``s_b`` counts the False entries of ``pad[b]`` (which lead the
+    row), and ends with ``s_b, ..., W - 1``.
+
+    ``k`` is a ``(B, 2)`` key batch, ``pad`` a ``(B, W)`` bool tensor on its
+    device and ``rounds`` the host list of each row's `shuffle_rounds`.  The
+    padding's sort keys lie above every 32-bit key, so a stable sort leaves
+    it last; each element's bits depend only on its index (partitionable
+    Threefry), so a padded row draws the bits an unpadded one would.
+    """
+    b, width = pad.shape
+    x = torch.arange(width, dtype=torch.int64, device=k.device).expand(b, width)
+    for r in range(max(rounds, default=0)):
+        ks = split(k)
+        k, sub = ks[..., 0, :], ks[..., 1, :]
+        sort_keys = torch.where(pad, 1 << 32, random_bits(sub, (width,)))
+        moved = torch.gather(x, 1, torch.sort(sort_keys, dim=1, stable=True).indices)
+        if all(n > r for n in rounds):
+            x = moved
+        else:  # rows that need fewer rounds keep their order (n > 1625 only)
+            live = torch.tensor([n > r for n in rounds], device=k.device)
+            x = torch.where(live[:, None], moved, x)
+    return x
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64 ``jax.random.permutation(key, n)`` for a (2,) key."""
+    pad = torch.zeros((1, n), dtype=torch.bool, device=k.device)
+    return shuffle_rows(k[None], pad, [shuffle_rounds(n)])[0]

@@ -8,12 +8,19 @@ the chunked host loop of `repro.engine.Engine`:
   whose last block runs the temp-mode exchange drawn from the counter swap
   stream at ``phase``;
 * **fused** — ``batched_mcmc_interval`` for the sweeps (kernel A or #5),
-  then the DEO strategy's swap phase in torch on ``uniform(fold_in(key,
-  2t+1), (R,))``, the JAX engine's draw;
+  then the exchange strategy's swap phase in torch (`repro_torch.exchange`:
+  DEO, SEO, windowed or VMPT) keyed on ``fold_in(key, 2t+1)``, the JAX
+  engine's key;
 * **per sweep** (the default) — S calls of ``batched_mcmc_step``, each one
   ``jax.random`` draw and one sweep (kernel #1 or #4), with the energy
   advanced after every sweep as JAX's scan advances it, then the same swap
   phase as the fused branch.
+
+The swap phase moves rungs (``swap_mode="temp"``) or, in ``"state"`` mode,
+gathers the lattices and energies into a fresh tensor with one
+``index_select`` while rungs stay the identity.  A waste-recycling
+strategy (VMPT, ``n_virtual = 2``) records both outcomes of every pair
+before the swap, stacked ``(2, R)``, with its ``est_weight`` row.
 
 PyTorch runs eagerly, so a "chunk" is ``chunk_intervals`` intervals issued
 back to back; ``t`` and ``phase`` are device scalars advanced on the device,
@@ -27,9 +34,9 @@ chains, the engine runs each chain's chunk in turn on its slice of the
 stacked state (a host loop: C launches of each kernel per interval, still
 with no host sync) and stacks the results at the chunk's end.
 
-Not ported yet, and refused with `NotImplementedError`: ``mesh``,
-``swap_mode="state"``, and the SEO / windowed / VMPT strategies on the
-strategy path (the fused and per-sweep branches).
+`Engine.restore` reads the newest checkpoint of a
+`repro_torch.checkpoint.CheckpointManager` onto the engine's device.  Not
+ported yet, and refused with `NotImplementedError`: ``mesh``.
 """
 from __future__ import annotations
 
@@ -97,20 +104,28 @@ def _observe(observables, st: PTState) -> dict[str, torch.Tensor]:
     return out
 
 
-def _swap_phase(spec: StepSpec, betas, st: PTState):
-    """One strategy-path swap iteration (temp mode); returns (state, diag)."""
-    r = spec.n_replicas
+def _swap_decision(spec: StepSpec, betas, st: PTState):
+    """Propose + accept this iteration's exchanges; ``(partner, perm, diag)``
+    with ``perm`` the accepted permutation in rung space."""
     k_swap = keys.fold_in(st.key, 2 * st.t + 1)
     e_rung = st.energy[_inverse(st.rung)]
-    partner = spec.exchange.propose_pairs(st.phase, r)
+    partner = spec.exchange.propose_pairs(k_swap, st.phase, spec.n_replicas)
     perm, accept, prob, attempt = spec.exchange.accept(
-        partner, betas, e_rung, spec.criterion,
-        uniforms=keys.uniform(k_swap, (r,)),
-    )
-    st = dataclasses.replace(
-        st, rung=perm[st.rung.long()].to(torch.int32), phase=st.phase + 1
-    )
-    return st, {"swap_accept": accept, "swap_prob": prob, "swap_attempt": attempt}
+        k_swap, partner, betas, e_rung, spec.criterion)
+    return partner, perm, {"swap_accept": accept, "swap_prob": prob,
+                           "swap_attempt": attempt}
+
+
+def _apply_swap(spec: StepSpec, st: PTState, perm) -> PTState:
+    """Apply an accepted rung permutation and advance the phase counter."""
+    if spec.swap_mode == "temp":
+        # slot s held rung[s]; it now holds perm[rung[s]]
+        st = dataclasses.replace(st, rung=perm[st.rung.long()].to(torch.int32))
+    else:
+        # rung == slot: move the lattices themselves, into a fresh tensor
+        st = dataclasses.replace(st, states=torch.index_select(st.states, 0, perm),
+                                 energy=st.energy[perm])
+    return dataclasses.replace(st, phase=st.phase + 1)
 
 
 def _round_interval(system, spec: StepSpec):
@@ -119,12 +134,12 @@ def _round_interval(system, spec: StepSpec):
         return None
     pairing = spec.exchange.name
     if not (spec.do_swap and spec.swap_mode == "temp"
-            and pairing in kernel_exchange.PAIRINGS):
+            and pairing in kernel_exchange.PAIRINGS and spec.exchange.n_virtual == 1):
         raise ValueError(
             "use_fused_round=True folds the exchange into the kernel and "
             "supports only temp-mode DEO/SEO with swaps on; got "
             f"do_swap={spec.do_swap}, swap_mode={spec.swap_mode!r}, "
-            f"exchange={pairing!r}"
+            f"exchange={pairing!r} (n_virtual={spec.exchange.n_virtual})"
         )
     return system.batched_mcmc_round
 
@@ -134,16 +149,13 @@ def make_interval_step(system, spec: StepSpec, observables=None):
 
     ``record`` holds per-rung ``energy``, each observable, and
     ``swap_accept``/``swap_prob``/``swap_attempt`` at the lower rung of
-    each attempted pair.
+    each attempted pair.  With a waste-recycling strategy the series are
+    the pre-swap values of both outcomes, ``(2, R)``, beside ``est_weight``.
     """
     observables = dict(observables or {})
     fused_round = _round_interval(system, spec)
     fused = getattr(system, "use_fused", False)
-    if fused_round is None and spec.do_swap and spec.exchange.name != "deo":
-        raise NotImplementedError(
-            f"not yet ported: exchange strategy {spec.exchange.name!r} on the "
-            "strategy path (the fused and per-sweep paths)"
-        )
+    recycle = spec.do_swap and spec.exchange.n_virtual > 1
     spi = spec.sweeps_per_interval
 
     def sweeps(st: PTState, betas: torch.Tensor) -> PTState:
@@ -179,12 +191,21 @@ def make_interval_step(system, spec: StepSpec, observables=None):
             rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
             return st, rec
         st = sweeps(st, betas)
-        if spec.do_swap:
-            st, diag = _swap_phase(spec, betas, st)
+        if recycle:
+            # both outcomes of every attempted pair, pre-swap, in rung order
+            partner, perm, diag = _swap_decision(spec, betas, st)
+            pre = _observe(observables, st)
+            rec = {k: torch.stack([v, v[partner]]) for k, v in pre.items()}
+            rec["est_weight"] = spec.exchange.estimator_weights(partner, diag["swap_prob"])
+            st = _apply_swap(spec, st, perm)
         else:
-            z = torch.zeros(spec.n_replicas, device=st.energy.device)
-            diag = {"swap_accept": z.bool(), "swap_prob": z, "swap_attempt": z.bool()}
-        rec = _observe(observables, st)
+            if spec.do_swap:
+                _, perm, diag = _swap_decision(spec, betas, st)
+                st = _apply_swap(spec, st, perm)
+            else:
+                z = torch.zeros(spec.n_replicas, device=st.energy.device)
+                diag = {"swap_accept": z.bool(), "swap_prob": z, "swap_attempt": z.bool()}
+            rec = _observe(observables, st)
         rec.update(diag)
         return st, rec
 
@@ -219,9 +240,7 @@ class EngineConfig:
             raise ValueError("n_chains must be >= 1")
         if self.mesh is not None:
             raise NotImplementedError("not yet ported: mesh (multi-device engine)")
-        if self.swap_mode == "state":
-            raise NotImplementedError("not yet ported: swap_mode='state'")
-        if self.swap_mode != "temp":
+        if self.swap_mode not in ("temp", "state"):
             raise ValueError(f"bad swap_mode {self.swap_mode!r}")
         object.__setattr__(self, "exchange", make_strategy(self.exchange))
 
@@ -280,11 +299,14 @@ class AdaptInfo:
 
 
 def _counters(state: EngineState) -> dict[str, np.ndarray]:
-    """Cumulative swap counters on the host, pooled over the ensemble axis
-    (one sync per chunk)."""
+    """Cumulative swap (``attempts``, ``accepts``) and flow (``up``,
+    ``labeled``) counters on the host, pooled over the ensemble axis (one
+    sync per chunk)."""
     out = {}
     for name, leaf in (("attempts", state.stats.swap_attempts),
-                       ("accepts", state.stats.swap_accepts)):
+                       ("accepts", state.stats.swap_accepts),
+                       ("up", state.stats.up_visits),
+                       ("labeled", state.stats.labeled_visits)):
         arr = leaf.cpu().numpy().astype(np.float64)
         out[name] = arr.sum(axis=0) if arr.ndim == 2 else arr
     return out
@@ -326,6 +348,12 @@ class Engine:
                 "adaptive ladders need the online swap counters: "
                 "EngineConfig(track_stats=True) is required with adapt"
             )
+        if adapt is not None and adapt.mode == "flow" and config.swap_mode != "temp":
+            raise ValueError(
+                "flow-optimized ladders consume the rung-flow diagnostic, "
+                "which only exists in swap_mode='temp' (in 'state' mode "
+                "rungs are pinned to slots)"
+            )
         self.system = system
         self.config = config
         self.observables = dict(observables or {})
@@ -356,15 +384,27 @@ class Engine:
             )
         self._temps = temps.copy()
         self._adapt_state = None
-        key = key.to(self.device)
+        return self._fresh_state(key.to(self.device), temps, self.device)
+
+    def _fresh_state(self, key, temps, device) -> EngineState:
         r, c = self.config.n_replicas, self.config.n_chains
         if c == 1:
             pt = init_replicas(self.system, r, key)
         else:
             pt = stack_leaves([init_replicas(self.system, r, keys.fold_in(key, i))
                                for i in range(c)])
-        stats = stats_lib.init_stats(r, self._names, self.device, self._chain_axis())
-        return EngineState(pt=pt, stats=stats, betas=_betas(temps, self.device))
+        stats = stats_lib.init_stats(r, self._names, device, self._chain_axis())
+        return EngineState(pt=pt, stats=stats, betas=_betas(temps, device))
+
+    def restore(self, checkpoint):
+        """``(EngineState, meta)`` of the newest restorable step of a
+        `repro_torch.checkpoint.CheckpointManager` on the engine's device, or
+        None when it holds no step.  The shape template is built on the
+        ``meta`` device: no system init runs."""
+        meta_dev = torch.device("meta")
+        template = self._fresh_state(keys.key(0, device=meta_dev),
+                                     np.ones(self.config.n_replicas), meta_dev)
+        return checkpoint.restore_latest(template, device=self.device)
 
     def _require_on_device(self, state: EngineState) -> None:
         """Raise unless every tensor of ``state`` is on the engine's device.
@@ -443,9 +483,10 @@ class Engine:
         """Advance ``n_sweeps`` sweeps (per chain) in chunks of
         ``chunk_intervals`` intervals.
 
-        Between chunks the host feeds measured swap acceptance to the ladder
+        Between chunks the host feeds the measured counters to the ladder
         feedback when ``adapt`` is set, and calls ``on_chunk`` (truthy return
-        stops the run).  ``n_sweeps`` must be a multiple of the interval.
+        stops the run; `repro_torch.api.CheckpointCallback` saves there).
+        ``n_sweeps`` must be a multiple of the interval.
         """
         self._require_on_device(state)
         cfg = self.config

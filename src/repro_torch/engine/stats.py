@@ -6,8 +6,10 @@ labels per slot.  Leaves are ``(R,)`` for one chain and ``(C, R)`` with the
 ensemble axis; `update_stats` folds one chain's record (the engine runs it
 per chain), `chain_slice` / `chain_block` carve chains back out and
 `combine_chains` pools them.  Updates run on the device inside the interval
-loop; `summarize` and `combine_chains` are host-side numpy.  The
-estimator-weight channel (VMPT) is not ported.
+loop; `summarize` and `combine_chains` are host-side numpy.  A record that
+carries ``est_weight`` (``(V, R)``, its series stacked ``(V, R)``: VMPT's
+waste recycling) updates the moments by West's weighted Welford, one
+virtual outcome at a time, in the JAX twin's op order.
 """
 from __future__ import annotations
 
@@ -72,18 +74,38 @@ def update_stats(stats: OnlineStats, rec: dict, rung: torch.Tensor) -> OnlineSta
     (device-side).
 
     ``rec`` holds the per-rung series named in ``stats.mean`` plus
-    ``swap_accept``/``swap_attempt``; ``rung`` is the post-interval slot→rung
-    map.  Same op sequence as the JAX twin's unweighted path.
+    ``swap_accept``/``swap_attempt`` (and optionally ``est_weight``);
+    ``rung`` is the post-interval slot→rung map.  Same op sequence as the
+    JAX twin.
     """
     n = stats.n_records + 1
-    cnt = n.to(torch.float32)
     mean, m2 = {}, {}
-    for k in stats.mean:
-        x = rec[k].to(torch.float32)
-        d = x - stats.mean[k]
-        m = stats.mean[k] + d / cnt
-        mean[k] = m
-        m2[k] = stats.m2[k] + d * (x - m)
+    w_rec = rec.get("est_weight")
+    if w_rec is None:
+        cnt = n.to(torch.float32)
+        for k in stats.mean:
+            x = rec[k].to(torch.float32)
+            d = x - stats.mean[k]
+            m = stats.mean[k] + d / cnt
+            mean[k] = m
+            m2[k] = stats.m2[k] + d * (x - m)
+        weight_sum = stats.weight_sum + 1.0
+    else:
+        # a zero weight (an unpaired rung) leaves the accumulators untouched
+        for k in stats.mean:
+            m_k, m2_k = stats.mean[k], stats.m2[k]
+            w_run = stats.weight_sum
+            for v in range(w_rec.shape[0]):
+                w = w_rec[v].to(torch.float32)
+                x = rec[k][v].to(torch.float32)
+                w_new = w_run + w
+                d = x - m_k
+                frac = torch.where(w_new > 0, w / torch.clamp_min(w_new, 1e-30), 0.0)
+                m_k = m_k + d * frac
+                m2_k = m2_k + w * d * (x - m_k)
+                w_run = w_new
+            mean[k], m2[k] = m_k, m2_k
+        weight_sum = stats.weight_sum + w_rec.sum(dim=0).to(torch.float32)
     r = stats.direction.shape[-1]
     at_bottom = rung == 0
     at_top = rung == r - 1
@@ -97,7 +119,7 @@ def update_stats(stats: OnlineStats, rec: dict, rung: torch.Tensor) -> OnlineSta
     ridx = rung.long()
     return OnlineStats(
         n_records=n,
-        weight_sum=stats.weight_sum + 1.0,
+        weight_sum=weight_sum,
         mean=mean,
         m2=m2,
         swap_attempts=stats.swap_attempts + rec["swap_attempt"].to(torch.float32),

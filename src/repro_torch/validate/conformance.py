@@ -3,9 +3,11 @@
 `run_conformance` compiles one `repro_torch.core.systems.REGISTRY` entry to
 a `RunSpec` (`entry_runspec`) and runs it through the port's production
 path: `repro_torch.api.Session` over the chunked engine, adaptive ladder on,
-ensemble axis on, on the card unless ``device="cpu"``.  Then it compares the
-energy and every registered observable at every rung with the exact
-reference at the final adapted ladder.
+ensemble axis on, with any registered exchange strategy (``exchange``: a
+name or an `ExchangeSpec`; VMPT's means are its weighted ones), on the card
+unless ``device="cpu"``.  Then it compares the energy and every registered
+observable at every rung with the exact reference at the final adapted
+ladder.
 
 Schedule: a burn-in phase with ``adapt=True`` (all retunes fire there), then
 ``n_batches`` measurement phases of ``sweeps_per_batch`` sweeps, each with

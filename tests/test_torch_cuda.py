@@ -7,8 +7,10 @@ held against kernel A: spins, counts and ΔE bit for bit, at every group
 width and on the walk's edge shapes), #1 and #4 (one Ising / Potts sweep on passed-in
 uniforms), #5 (fused Potts sweeps), the per-sweep ``jax.random`` draw and
 #7 (the RWKV-6 recurrence); the Session paths on the card against the CPU,
-with one chain and with two; the interval loop of every path with host
-syncs made errors; the reduced rwkv6-7b on the card against the CPU.
+with one chain and with two, and with the SEO, windowed and VMPT strategies
+and state mode; the interval loop of every path with host syncs made
+errors; a run checkpointed and resumed on the card against its
+uninterrupted run; the reduced rwkv6-7b on the card against the CPU.
 
 These need a card and import no JAX, so they run wherever only PyTorch is
 installed; without a card they skip with a reason.  Run them on the card with
@@ -279,6 +281,72 @@ def _small_spec(path, system="ising"):
         d["observables"] = ["pmag"]
     d["system"]["params"].update(use_fused=path != "sweep", use_fused_round=path == "round")
     return RunSpec.from_json(d)
+
+
+STRATEGY_EDITS = {
+    "seo": {"exchange": {"strategy": "seo"}},
+    "windowed": {"exchange": {"strategy": "windowed", "window": 3}},
+    "vmpt": {"exchange": {"strategy": "vmpt"}},
+    "state": {"engine": {"swap_interval": 10, "chunk_intervals": 10, "swap_mode": "state"}},
+}
+
+
+def _strategy_spec(path, case):
+    d = json.loads(_small_spec(path).to_json())
+    return RunSpec.from_json({**d, **STRATEGY_EDITS[case]})
+
+
+@pytest.mark.parametrize("case", sorted(STRATEGY_EDITS))
+@pytest.mark.parametrize("path", ["sweep", "fused"])
+def test_strategy_session_on_cuda_equals_cpu(dev, path, case):
+    """Counters and the final state exact; VMPT's mean energy (weighted by
+    swap probabilities, CUDA's sigmoid against the CPU's) within 1e-6."""
+    spec = _strategy_spec(path, case)
+    on_card = Session(spec, device="cuda").run().manifest()
+    on_cpu = Session(spec, device="cpu").run().manifest()
+    assert on_card["final"] == on_cpu["final"]
+    for name in on_cpu["phases"]:
+        got, want = on_card["phases"][name]["summary"], on_cpu["phases"][name]["summary"]
+        for k in ("swap_attempts", "swap_acceptance", "round_trips"):
+            assert got[k] == want[k]
+        np.testing.assert_allclose(got["mean_energy"], want["mean_energy"],
+                                   rtol=1e-6 if case == "vmpt" else 0, atol=0)
+
+
+@pytest.mark.parametrize("case", sorted(STRATEGY_EDITS))
+def test_strategy_interval_loop_never_syncs_the_host(dev, case):
+    session = Session(_strategy_spec("fused", case), device="cuda")
+    eng = session.engine
+    step = make_interval_step(eng.system, eng.config.spec, eng.observables)
+    state = session.init_state()
+    pt, stats = step(state.pt, state.betas)[0], state.stats
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            pt, rec = step(pt, state.betas)
+            stats = update_stats(stats, rec, pt.rung)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(stats.n_records.item()) == 3
+
+
+@pytest.mark.parametrize("path", ["sweep", "fused", "round"])
+def test_resume_on_cuda_equals_the_uninterrupted_run(dev, path, tmp_path):
+    from repro_torch.api import CheckpointCallback, EarlyStopCallback
+    from repro_torch.checkpoint import to_arrays
+
+    spec = _small_spec(path)
+    full = Session(spec, device="cuda").run()
+    Session(spec, device="cuda", callbacks=[
+        CheckpointCallback(str(tmp_path)),
+        EarlyStopCallback(lambda i: int(i.state.pt.t.item()) >= 600)]).run()
+    resumed = Session.from_checkpoint(str(tmp_path), device="cuda")
+    assert resumed.state.pt.states.device.type == "cuda"
+    got, want = to_arrays(resumed.run().state), to_arrays(full.state)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert not build.dirty_tickets()
 
 
 def test_cuda_engine_refuses_a_cpu_state(dev):

@@ -6,8 +6,9 @@
 * ``python -m repro_torch run ... --device cpu`` writes a manifest,
   ``python -m repro_torch validate ising --device cpu`` passes, and
   ``--device cuda`` without a card fails instead of running on the CPU;
-* specs the slice cannot run are refused with `NotImplementedError` naming
-  the missing piece, and specs an earlier slice refused now run;
+* specs the port cannot run (``mesh``, ``single_flip``, other systems) are
+  refused with `NotImplementedError` naming the missing piece, and specs an
+  earlier slice refused now run;
 * a state on another device than its engine's, or a carried state asked
   for on a missing card, is refused instead of running elsewhere;
 * kernels build inside the source checkout (or where
@@ -155,12 +156,7 @@ def _spec(**edits):
 
 @pytest.mark.parametrize("edits,missing", [
     ({"engine__mesh": {"ensemble": 1, "replica": 2}}, "mesh"),
-    ({"engine__swap_mode": "state"}, "swap_mode='state'"),
-    ({"exchange__strategy": "windowed"}, "'windowed'"),
-    ({"exchange__strategy": "vmpt"}, "'vmpt'"),
-    ({"exchange__strategy": "seo"}, "'seo' on the strategy path"),
     ({"system__params__update": "single_flip"}, "single_flip"),
-    ({"adapt__mode": "flow"}, "'flow'"),
 ])
 def test_unported_specs_are_refused_by_name(edits, missing):
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
@@ -175,11 +171,20 @@ def test_unported_specs_are_refused_by_name(edits, missing):
     {"system__params__use_fused": False, "system__params__pack_bits": True},
     {"engine__n_chains": 2},
     {"system__params__pack_bits": True},
-], ids=["per-sweep", "potts", "per-sweep-pack_bits", "n_chains=2", "fused-pack_bits"])
+    {"engine__swap_mode": "state"},
+    {"exchange__strategy": "windowed"},
+    {"exchange__strategy": "vmpt"},
+    {"exchange__strategy": "seo"},
+    {"adapt__mode": "flow"},
+], ids=["per-sweep", "potts", "per-sweep-pack_bits", "n_chains=2", "fused-pack_bits",
+        "swap_mode=state", "windowed", "vmpt", "seo-strategy-path", "adapt-flow"])
 def test_specs_refused_before_now_run(edits):
     """The per-sweep default path and Potts, then ``pack_bits`` (ignored on
-    the per-sweep path) and the ensemble axis were refused by name; they now
-    build and run a few sweeps on the CPU."""
+    the per-sweep path) and the ensemble axis, then state-mode swaps, the
+    SEO, windowed and VMPT strategies on the strategy path (this spec's
+    interval-fused path) and flow adaptation were refused by name; they now
+    build and run a few sweeps on the CPU (in state mode the rung map is the
+    identity, a permutation too)."""
     session = Session(_spec(**edits), device="cpu")
     state, result = session.engine.run(session.init_state(), 20)
     chains = session.spec.engine.n_chains
@@ -193,8 +198,7 @@ def test_specs_refused_before_now_run(edits):
 def test_tpu_knobs_are_accepted_and_ignored():
     a = IsingSystem(length=4, use_fused=True, use_pallas=True, r_blk=3)
     assert a.use_pallas and a.r_blk == 3
-    with pytest.raises(NotImplementedError):
-        AdaptConfig(mode="flow")
+    assert AdaptConfig(mode="flow").mode == "flow"  # ported: no longer refused
 
 
 @pytest.mark.parametrize("method", ["run", "reset_stats"])
