@@ -112,7 +112,18 @@ Phases, one line each or more (any failure raises and exits non-zero):
 19. card == CPU on L=8 R=8 specs: SEO, windowed, VMPT, state mode (fused
     and per-sweep) and flow adaptation (which must retune), and the phase 5
     round spec resumed on the card from a checkpoint at sweep 600;
-20. a JSON line per kernel (launches, error, times, bound), the card line,
+20. the rest of the system zoo: both kernels of ``csrc/serial_chain.cu``
+    (HP moves, Ising single_flip) against their plain versions bit for bit
+    (12 cases: N from 3 to 20, odd L, 1 / 7 / 300 flips, both rules) and
+    timed beside them at full width; through ``Session`` at R=1500, S=100:
+    the EA spin glass at 300x300 on the per-sweep path in temp and state
+    mode (one ``jax_uniform`` a sweep, kernel #1 never), HP on the 20-mer
+    of ``benchmarks/systems_bench.py`` (one kernel launch a sweep), Ising
+    single_flip at L=300 with 300 flips a step and the Gaussian mixture,
+    ms per interval, EA and HP once more under the profiler; the zoo's EA,
+    Gaussian and HP conformance entries at full schedule; small specs of the
+    four paths on the card against the CPU;
+21. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 After every phase each round launch's ticket must read 0 again (one that
@@ -1031,6 +1042,328 @@ def rwkv_phases(torch, np, build, ref, device, card: str) -> dict:
             "decode_launches": counts_gen["wkv6"]}
 
 
+# 72 instructions a Threefry block (THREEFRY_OPS), ~4 cycles each in one
+# thread's dependent chain (Hopper's integer ALU latency) at 1.98 GHz: the
+# latency floor of a serial chain, whatever the issue rate
+CHAIN_CYCLES_PER_INSTRUCTION = 4
+CLOCK_HZ = 1.98e9
+# instructions a monomer costs the HP contact scan (loads, the occupancy
+# test and two Manhattan tests), and a flip its site arithmetic
+HP_SCAN_OPS = 12
+FLIP_SITE_OPS = 20
+
+
+def bound_hp(work: dict, moves: int, n: int) -> tuple[float, str, float]:
+    """Least time of ``hp_moves_kernel`` for the work its data needs: 6
+    Threefry blocks a move (next key, site key, randint's two keys and two
+    words), 5 more an end move (direction), 2 more a tested move (the
+    uniform) and the chain scan of a move to a new site, at the issue rate;
+    the bytes (chains in and out) are negligible.  Also returns the latency
+    floor of one chain (ms): its blocks in series at
+    ``CHAIN_CYCLES_PER_INSTRUCTION``, taking each replica as the average."""
+    blocks = 6 * moves + 5 * work["ends"] + 2 * work["tested"]
+    ops = blocks * THREEFRY_OPS + HP_SCAN_OPS * n * work["evaluated"]
+    r = work["replicas"]
+    chain = (blocks / r) * THREEFRY_OPS * CHAIN_CYCLES_PER_INSTRUCTION / CLOCK_HZ
+    return 1e3 * ops / INT32_OPS_PER_S, "operations", 1e3 * chain
+
+
+def bound_flips(r: int, flips: int) -> tuple[float, str, float]:
+    """Least time of ``single_flip_kernel``: 10 Threefry blocks a flip (next
+    key, site key, randint's two keys and four words, uniform key and word)
+    and its site arithmetic, at the issue rate, against the lattice copy
+    (read and written once, L^2 bytes a replica, counted by the caller);
+    and one chain's latency floor (ms)."""
+    ops = r * flips * (10 * THREEFRY_OPS + FLIP_SITE_OPS)
+    chain = flips * 10 * THREEFRY_OPS * CHAIN_CYCLES_PER_INSTRUCTION / CLOCK_HZ
+    return 1e3 * ops / INT32_OPS_PER_S, "operations", 1e3 * chain
+
+
+def check_serial_chains(torch, np, sc, keys, device):
+    """Phase 20: both serial-chain kernels == their plain versions on the
+    card, bit for bit (states, ΔE, counts), over several launches each
+    continuing the last; returns the number of cases."""
+    from repro_torch.core.hp import HPChain
+
+    rng = np.random.default_rng(200)
+    n_cases = 0
+    hp_cases = (("HPH", 13, 1.0), ("HHPPHPH", 64, 0.7), ("HPHPPHHPHH", 13, 1.0),
+                ("HPHPPHHPHHPHPHHPPHPH", 1500, 1.0), ("HPHPPHHPHHPHPHHPPHPH", 7, 1.3))
+    for seq, r, eps in hp_cases:
+        chain = HPChain(seq, eps=eps)
+        pos = chain.init_state_batched(keys.split(keys.key(int(rng.integers(1 << 30)),
+                                                           device=device), r))
+        betas = torch.from_numpy(rng.uniform(0.2, 3.0, r).astype(np.float32)).to(device)
+        key = keys.key(int(rng.integers(1 << 30)), device=device)
+        t = torch.tensor(int(rng.integers(1 << 20)), device=device)
+        hmask = torch.tensor([c == "H" for c in seq], device=device)
+        for _ in range(4):  # later launches start from folded chains
+            got = sc.hp_moves_kernel(pos, key, t, betas, hmask=hmask, eps=eps, n_moves=len(seq))
+            want = sc.hp_moves_plain(pos, key, t, betas, hmask=hmask, eps=eps,
+                                     n_moves=len(seq))
+            for g, w, what in zip(got, want, ("positions", "ΔE", "nacc")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"hp_moves N={len(seq)} R={r}: {what} != plain")
+            pos, t = got[0], t + 1
+        n_cases += 1
+    flip_cases = ((5, 13, 1, "metropolis", 1.0, 0.0), (5, 13, 7, "glauber", 0.7, 0.3),
+                  (7, 13, 300, "metropolis", 1.0, 0.3), (6, 64, 300, "glauber", 1.0, 0.0),
+                  (301, 64, 300, "glauber", 1.0, 0.0), (300, 1500, 300, "glauber", 1.0, 0.0),
+                  (300, 1500, 7, "metropolis", 0.7, 0.3))
+    for length, r, flips, rule, j, b in flip_cases:
+        spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8),
+                                            size=(r, length, length))).to(device)
+        betas = torch.from_numpy(rng.uniform(0.2, 2.0, r).astype(np.float32)).to(device)
+        key = keys.key(int(rng.integers(1 << 30)), device=device)
+        t = torch.tensor(int(rng.integers(1 << 20)), device=device)
+        for _ in range(2):
+            kw = dict(j=j, b=b, rule=rule, flips=flips)
+            got = sc.single_flip_kernel(spins, key, t, betas, **kw)
+            want = sc.single_flip_plain(spins, key, t, betas, **kw)
+            for g, w, what in zip(got, want, ("spins", "ΔE", "nacc")):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"single_flip L={length} R={r} flips={flips} "
+                                         f"{rule}: {what} != plain")
+            spins, t = got[0], t + 1
+        n_cases += 1
+    torch.cuda.synchronize()
+    return n_cases, len(hp_cases), len(flip_cases)
+
+
+def time_serial_chains(torch, np, sc, keys, device, seq: str):
+    """Each serial-chain kernel at its path's full width beside its plain
+    version (CUDA events): HP ``seq`` at R=1500 (N moves), single_flip at
+    L=300 R=1500, 300 flips."""
+    from repro_torch.core.hp import HPChain
+
+    r = 1500
+    out = {}
+    chain = HPChain(seq)
+    pos = chain.init_state_batched(keys.split(keys.key(7, device=device), r))
+    betas = torch.linspace(1 / 0.6, 1 / 3.4, r, device=device)
+    key, t = keys.key(3, device=device), torch.tensor(5, device=device)
+    hmask = torch.tensor([c == "H" for c in seq], device=device)
+    n = len(seq)
+    for _ in range(20):  # fold the rods first: the work of a chain in its run
+        pos = sc.hp_moves_kernel(pos, key, t, betas, hmask=hmask, eps=1.0, n_moves=n)[0]
+        t = t + 1
+    kw = dict(hmask=hmask, eps=1.0, n_moves=n)
+    work = {"replicas": r}
+    sc.hp_moves_plain(pos, key, t, betas, work=work, **kw)
+    work = {k: int(v) for k, v in work.items()}
+    ms = cuda_ms(torch, lambda: sc.hp_moves_kernel(pos, key, t, betas, **kw), 50, 3)
+    dev_ms, _ = profiler_ms(torch, lambda: sc.hp_moves_kernel(pos, key, t, betas, **kw), 20,
+                            "hp_moves_kernel")
+    plain = cuda_ms(torch, lambda: sc.hp_moves_plain(pos, key, t, betas, **kw), 2)
+    bound, by, floor = bound_hp(work, r * n, n)
+    out["hp_moves"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound": (bound, by),
+                       "latency_floor": floor, "work": work}
+    length, flips = 300, 300
+    spins = torch.from_numpy(np.random.default_rng(9).choice(
+        np.array([-1, 1], np.int8), size=(r, length, length))).to(device)
+    kw = dict(j=1.0, b=0.0, rule="glauber", flips=flips)
+    ms = cuda_ms(torch, lambda: sc.single_flip_kernel(spins, key, t, betas, **kw), 20, 2)
+    dev_ms, _ = profiler_ms(torch, lambda: sc.single_flip_kernel(spins, key, t, betas, **kw),
+                            10, "single_flip_kernel")
+    plain = cuda_ms(torch, lambda: sc.single_flip_plain(spins, key, t, betas, **kw), 1)
+    bound, by, floor = bound_flips(r, flips)
+    t_bytes = 2.0 * r * length * length / HBM_BYTES_PER_S * 1e3
+    if t_bytes > bound:
+        bound, by = t_bytes, "bytes"
+    out["single_flip"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                          "bound": (bound, by), "latency_floor": floor}
+    return out
+
+
+def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
+    """Phase 20: the rest of the system zoo on the card.
+
+    The two serial-chain kernels against their plain versions; the EA spin
+    glass (the paper's widths, 300x300 R=1500, per-sweep path, temp and
+    state mode), HP on the 20-mer of ``benchmarks/systems_bench.py`` at
+    R=1500, Ising ``single_flip`` at L=300 R=1500 (300 flips a step) and the
+    Gaussian mixture at R=1500 through ``Session``, each with its launches
+    counted from 0 just before its run; the zoo's EA, Gaussian and HP
+    conformance entries at their full schedules; small specs of the four
+    paths on the card against the CPU.  Returns the kernel rows' numbers.
+    """
+    from repro_torch.core.systems import REGISTRY
+    from repro_torch.validate import assert_conforms, run_conformance
+
+    AdaptSpec, EngineSpec, LadderSpec = api.AdaptSpec, api.EngineSpec, api.LadderSpec
+    PhaseSpec, RunSpec, ScheduleSpec = api.PhaseSpec, api.RunSpec, api.ScheduleSpec
+    Session, SystemSpec = api.Session, api.SystemSpec
+    build.reset_launches()
+    n_cases, n_hp, n_flip = check_serial_chains(torch, np, sc, keys, device)
+    expect_launches(counts_now(build), "phase 20 kernel checks", hp_moves=4 * n_hp,
+                    single_flip=2 * n_flip)
+    print(f"phase 20 serial chains: {n_cases} cases equal to plain bit for bit (positions / "
+          f"spins, ΔE, nacc): hp_moves at N = 3, 7, 10, 20 (R up to 1500, eps 0.7-1.3, 4 "
+          f"launches each from folded chains), single_flip at L = 5, 6, 7, 300, 301 (R up "
+          f"to 1500; 1, 7 and 300 flips; metropolis and glauber; j=0.7 b=0.3 too)")
+    seq20 = "HPHPPHHPHHPHPHHPPHPH"  # benchmarks/systems_bench.py
+    times = time_serial_chains(torch, np, sc, keys, device, seq20)
+    for name, tm in times.items():
+        print(f"phase 20 times [{card}]: {name} {tm['ms']:.4f} ms by CUDA events (the "
+              f"wrapper's host time included), {tm['device_ms']:.4f} ms device time "
+              f"(profiler), vs plain "
+              f"{tm['plain_ms']:.4f} ms (bound {tm['bound'][0]:.5f} ms, {tm['bound'][1]}; one "
+              f"chain's latency floor {tm['latency_floor']:.4f} ms)"
+              + (f", work {tm['work']}" if "work" in tm else ""))
+
+    n_rep, interval = 1500, 100
+    ladder = LadderSpec(kind="paper", n_replicas=n_rep, t_min=1.0, t_max=4.0)
+
+    def run_path(what, system, observables, n_sweeps, want, swap_mode="temp",
+                 ladder_spec=ladder):
+        spec = RunSpec(system=system, ladder=ladder_spec,
+                       engine=EngineSpec(swap_interval=interval, chunk_intervals=1,
+                                         swap_mode=swap_mode),
+                       schedule=ScheduleSpec(phases=(PhaseSpec(name="run",
+                                                               n_sweeps=n_sweeps),)),
+                       observables=observables, seed=0)
+        session = Session(spec, device="cuda")
+        session.state = session.init_state()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t = time.perf_counter()
+        result = session.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = counts_now(build)
+        expect_launches(counts, what, **want)
+        st = result.state.pt
+        n_int = n_sweeps // interval
+        energy = session.engine.system.batched_energy(st.states)
+        exact = system.name != "gaussian"  # integer energies: exact sums
+        if exact and not torch.equal(st.energy, energy):
+            raise AssertionError(f"{what}: incremental energy != recomputed energy")
+        if not exact and not torch.allclose(st.energy, energy, rtol=1e-4, atol=1e-3):
+            raise AssertionError(f"{what}: incremental energy drifted")
+        if sorted(st.rung.cpu().tolist()) != list(range(n_rep)) or int(st.t) != n_sweeps:
+            raise AssertionError(f"{what}: bad rung map or sweep counter")
+        if swap_mode == "state" and st.rung.cpu().tolist() != list(range(n_rep)):
+            raise AssertionError(f"{what}: rungs moved in state mode")
+        for k, v in result.phases["run"].summary.items():
+            if not np.all(np.isfinite(v)):
+                raise AssertionError(f"{what}: non-finite summary {k}")
+        acc = float(np.mean(result.phases["run"].summary["swap_acceptance"]))
+        return {"ms": 1e3 * wall / n_int, "counts": counts, "n_int": n_int, "acc": acc,
+                "session": session}
+
+    ea = SystemSpec("ea_spin_glass", {"shape": (300, 300), "disorder_seed": 1,
+                                      "accept_rule": "glauber"})
+    paths = {}
+    for mode in ("temp", "state"):
+        paths[f"EA {mode}"] = run_path(f"EA 300x300 {mode} mode", ea, ("absmag",), 200,
+                                       {"jax_uniform": 200}, swap_mode=mode)
+    paths["HP"] = run_path("HP 20-mer", SystemSpec("hp_protein", {"sequence": seq20}),
+                           ("rg2",), 200, {"hp_moves": 200},
+                           ladder_spec=LadderSpec(kind="geometric", n_replicas=n_rep, t_min=0.3,
+                                            t_max=3.4))
+    paths["single_flip"] = run_path(
+        "Ising single_flip L=300", SystemSpec("ising", {
+            "length": 300, "update": "single_flip", "flips_per_step": 300,
+            "accept_rule": "glauber"}), ("absmag",), 100, {"single_flip": 100})
+    paths["Gaussian"] = run_path(
+        "Gaussian mixture", SystemSpec("gaussian", dict(REGISTRY["gaussian"].params)),
+        ("absx", "x"), 200, {}, ladder_spec=LadderSpec(kind="geometric", n_replicas=n_rep,
+                                                       t_min=1.0, t_max=10.0))
+    print(f"phase 20 zoo at full width [{card}]: Session R=1500, S=100, ms/interval (first "
+          "run in this process, Session.run, host clock): " + "; ".join(
+              f"{k} {v['ms']:.2f} ({v['n_int']} intervals, launches "
+              f"{ {n: c for n, c in v['counts'].items() if c} }, mean swap acceptance "
+              f"{v['acc']:.4f})" for k, v in paths.items())
+          + "; EA 300x300 (135 MB of spins, 1.08 GB of coupling planes, 1.08 GB of uniforms "
+          "a sweep): kernel #1 launched 0 times, jax_uniform once a sweep; every incremental "
+          "energy == its recomputed energy (the Gaussian's within 1e-4)")
+    for what, sub, key in (("EA temp", None, "jax_uniform"), ("HP", "hp_moves_kernel",
+                                                               "hp_moves")):
+        session = paths[what]["session"]
+        kernels = ({"jax_uniform": ("jax_uniform_kernel", "jax_uniform")} if sub is None
+                   else {"hp_moves": (sub, key)})
+        for _ in range(2):  # once more if the profiler lost a launch
+            session.state = session.init_state()
+            torch.cuda.synchronize()
+            line = profile_breakdown(torch, build, session.run, paths[what]["n_int"], card,
+                                     f"phase 20 {what}", kernels)
+            if "not measured" not in line:
+                break
+        print(line)
+    for v in paths.values():
+        del v["session"]
+    torch.cuda.empty_cache()
+
+    conf = {}
+    for name in ("ea_spin_glass", "gaussian", "hp_protein"):
+        entry = REGISTRY[name]
+        build.reset_launches()
+        t = time.perf_counter()
+        report = run_conformance(entry, seed=0, device="cuda")
+        wall_c = time.perf_counter() - t
+        counts = counts_now(build)
+        sweeps = entry.n_chains * (entry.burn_sweeps + entry.n_batches * entry.sweeps_per_batch)
+        want = {"ea_spin_glass": {"jax_uniform": sweeps}, "gaussian": {},
+                "hp_protein": {"hp_moves": sweeps}}[name]
+        expect_launches(counts, f"conformance {name}", **want)
+        assert_conforms(report, z_max=4.0, geweke_max=4.0)
+        if report.n_retunes != entry.adapt_rounds:
+            raise AssertionError(f"conformance {name}: {report.n_retunes} retunes")
+        conf[name] = (report, wall_c, counts)
+    print(f"phase 20 conformance [{card}]: the zoo's entries at full schedule on the card, "
+          "assert_conforms(z_max=4, geweke_max=4): " + "; ".join(
+              f"{name} in {w:.2f} s, {r.n_batches} batch means, {r.n_retunes} retunes, worst "
+              f"|z| {r.worst()[1]:.3f} ({r.worst()[0]}), max |geweke| "
+              f"{max(float(np.abs(g).max()) for g in r.geweke.values()):.3f}, launches "
+              f"{ {k: v for k, v in c.items() if v} }" for name, (r, w, c) in conf.items()))
+
+    small = {
+        "EA": (SystemSpec("ea_spin_glass", {"shape": (4, 6), "disorder_seed": 2,
+                                            "accept_rule": "glauber"}), ("absmag",), "temp"),
+        "EA state mode": (SystemSpec("ea_spin_glass", {"shape": (4, 4), "disorder_seed": 1}),
+                          ("absmag",), "state"),
+        "HP": (SystemSpec("hp_protein", {"sequence": "HPHPPHHPHH"}), ("rg2",), "temp"),
+        "single_flip": (SystemSpec("ising", {"length": 5, "update": "single_flip",
+                                             "flips_per_step": 7,
+                                             "accept_rule": "glauber"}), ("absmag",), "temp"),
+        "Gaussian": (SystemSpec("gaussian", dict(REGISTRY["gaussian"].params)), ("absx",),
+                     "temp"),
+    }
+    for what, (system, obs, mode) in small.items():
+        spec = RunSpec(
+            system=system, ladder=LadderSpec(kind="geometric", n_replicas=6, t_min=0.8,
+                                             t_max=4.0),
+            engine=EngineSpec(swap_interval=5, chunk_intervals=4, swap_mode=mode),
+            adapt=AdaptSpec(target=0.3, min_attempts_per_pair=3, max_rounds=2),
+            schedule=ScheduleSpec(phases=(PhaseSpec(name="burn", n_sweeps=100, adapt=True),
+                                          PhaseSpec(name="measure", n_sweeps=100,
+                                                    reset_stats=True))),
+            observables=obs, seed=3)
+        on_card = Session(spec, device="cuda").run().manifest()
+        on_cpu = Session(spec, device="cpu").run().manifest()
+        if what == "Gaussian":  # exp/log on the card and the CPU differ in ulps
+            for name in on_card["phases"]:
+                got = on_card["phases"][name]["summary"]
+                want = on_cpu["phases"][name]["summary"]
+                for key in ("swap_attempts", "swap_acceptance", "round_trips"):
+                    if got[key] != want[key]:
+                        raise AssertionError(f"small Gaussian spec: card != CPU in {key}")
+                if not np.allclose(got["mean_energy"], want["mean_energy"], rtol=1e-5,
+                                   atol=1e-5):
+                    raise AssertionError("small Gaussian spec: mean energy card != CPU")
+            if not np.allclose(on_card["final"]["energy"], on_cpu["final"]["energy"],
+                               rtol=1e-5, atol=1e-5):
+                raise AssertionError("small Gaussian spec: final energies card != CPU")
+        else:
+            manifests_equal(on_card, on_cpu, f"small {what} spec")
+    print(f"phase 20 card == CPU [{card}]: R=6 specs of EA 4x6 (and 4x4 in state mode), HP "
+          "N=10, Ising single_flip L=5 (7 flips) and the Gaussian, 100 burn (adapt) + 100 "
+          "measure sweeps: equal manifests (the Gaussian's energies within 1e-5: the card's "
+          "and the CPU's exp and log differ in ulps)")
+    return {"times": times, "paths": paths,
+            "conformance_launches": conf["hp_protein"][2]["hp_moves"]}
+
+
 def main() -> int:
     import torch
 
@@ -1061,6 +1394,7 @@ def main() -> int:
     from repro_torch.kernels import ising_sweep as isk
     from repro_torch.kernels import jax_uniform as ju
     from repro_torch.kernels import potts_sweep as pk
+    from repro_torch.kernels import serial_chain as sc
     from repro_torch.launch import fused_probe
 
     t_start = time.perf_counter()
@@ -1728,7 +2062,11 @@ def main() -> int:
           "(fused and per-sweep) and flow adaptation (retuned), and the round spec stopped "
           "at sweep 600 and resumed on the card: equal manifests")
 
-    # -- phase 20: kernel summary ---------------------------------------------
+    # -- phase 20: the rest of the system zoo ----------------------------------
+    zoo = zoo_phases(torch, np, build, keys, sc, api, device, card)
+    check_tickets(build, "phase 20")
+
+    # -- phase 21: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1816,7 +2154,23 @@ def main() -> int:
          "prefill_bound_by": rw["times"]["prefill"]["bound"][1],
          "prefill_shape": "BH=256 T=512 dk=dv=64", "prefill_launches": rw["prefill_launches"]},
     ]
-    print(f"phase 20 done in {time.perf_counter() - t_start:.1f} s")
+    zt = zoo["times"]
+    for name, line, path, shape in (
+            ("hp_moves", "src/repro/core/hp.py:154", "HP", "N=20 R=1500, 20 moves"),
+            ("single_flip", "src/repro/core/ising.py:184", "single_flip",
+             "L=300 R=1500, 300 flips")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/serial_chain.cu",
+            "replaces": f"none: XLA's lax.fori_loop ({line})",
+            "launches": zoo["paths"][path]["counts"][name], "max_abs_err": 0.0,
+            "ms": zt[name]["ms"], "plain_ms": zt[name]["plain_ms"],
+            "bound_ms": zt[name]["bound"][0], "bound_by": zt[name]["bound"][1],
+            "library_ms": None, "shape": shape,
+            "latency_floor_ms": zt[name]["latency_floor"], "device_ms": zt[name]["device_ms"],
+            "path_ms_per_interval": zoo["paths"][path]["ms"]})
+    kernels[-2]["conformance_launches"] = zoo["conformance_launches"]
+    print(f"phase 21 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

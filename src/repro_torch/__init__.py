@@ -6,8 +6,11 @@ obvious twin, and is held bit-exact against it from the same seed on the
 ported path: 2-D Ising and q-state Potts checkerboard sweeps plus temp-mode
 replica exchange on the per-sweep, interval-fused (``use_fused``) and
 whole-round (``use_fused_round``) paths, Ising multispin coding
-(``pack_bits``), and the ensemble axis (``n_chains``); `validate` holds the
-chains against exact answers.  Those kernels are hand-written CUDA for Hopper
+(``pack_bits``), and the ensemble axis (``n_chains``); the rest of the
+system zoo (the EA spin glass, the Gaussian mixture, the HP lattice protein,
+Ising ``single_flip``) on the per-sweep path, the serial chains of HP and
+``single_flip`` in one kernel; `validate` holds the chains against exact
+answers.  Those kernels are hand-written CUDA for Hopper
 (`repro_torch.kernels.csrc`); every one has a plain PyTorch version beside
 it, which is what runs for tensors on the CPU.
 

@@ -2,9 +2,8 @@
 
 ``spec_version`` 1, strict keys, lists canonicalized to tuples so
 ``RunSpec.from_json(spec.to_json()) == spec``.  What the port cannot run
-yet (other systems, meshes, single-flip updates) parses here and is
-refused by name with `NotImplementedError` when a `Session` is built from
-it.
+yet (meshes) parses here and is refused by name with
+`NotImplementedError` when a `Session` is built from it.
 """
 from __future__ import annotations
 

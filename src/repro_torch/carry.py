@@ -8,7 +8,9 @@ packages can be started from one state:
 ==========================  ===============================================
 name                        JAX source
 ==========================  ===============================================
-``states``                  ``pt.states`` (R, L, L) int8
+``states``                  ``pt.states`` (R, ...) in its own dtype (int8
+                            lattices, HP's int32 chains, the Gaussian's
+                            f32), or a dict of such arrays (EA)
 ``energy`` / ``rung``       ``pt.energy`` (R,) f32 / ``pt.rung`` (R,) int32
 ``key``                     ``jax.random.key_data(pt.key)`` (2,) uint32
 ``t`` / ``phase``           ``pt.t`` / ``pt.phase`` scalars (per chain)
@@ -55,8 +57,14 @@ def from_reference(arrays: dict[str, np.ndarray], device):
     """Port state from a JAX state dumped to numpy (see the module table)."""
     device = resolve_device(device)
     chains = np.shape(arrays["energy"])[:-1]  # () or (C,)
+
+    def state_leaf(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    states = arrays["states"]
     pt = PTState(
-        states=_t(arrays["states"], torch.int8, device),
+        states=({k: state_leaf(v) for k, v in states.items()} if isinstance(states, dict)
+                else state_leaf(states)),
         energy=_t(arrays["energy"], torch.float32, device),
         rung=_t(arrays["rung"], torch.int32, device),
         key=_t(np.asarray(arrays["key"], np.uint32).astype(np.int64), torch.int64, device),

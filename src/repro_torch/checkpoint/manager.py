@@ -11,6 +11,11 @@ Layout: ``<dir>/step_<N:010d>/arrays_p<proc>.npz`` + ``meta.json``, staged in
 * the stored dtypes are JAX's: the key as its two ``key_data`` words
   (``(2,)`` or ``(C, 2)`` uint32), ``t`` and ``phase`` int32 (the port holds
   them in int64), the rest as the port holds them;
+* the system's state is one leaf ``.pt.states`` in its own dtype (Ising and
+  Potts int8 lattices, HP's ``(R, N, 2)`` int32 chains, the Gaussian's
+  ``(R,)`` f32) or, for a dict state, one leaf per key in sorted order
+  (EA: ``.pt.states['jd']``, ``['jr']`` f32 and ``['spins']`` int8), as
+  JAX flattens its pytree;
 * every staged file's sha256 and byte count land in the step's
   ``meta.json`` (``integrity``) and are checked on restore
   (`CheckpointCorrupt`);
@@ -59,8 +64,8 @@ def _dir_lock(directory: str) -> threading.Lock:
         return _DIR_LOCKS.setdefault(key, threading.Lock())
 
 
-# (field, stored dtype, the port's dtype); states keep their own int8
-_PT = (("states", np.int8, torch.int8), ("energy", np.float32, torch.float32),
+# (field, stored dtype, the port's dtype); the states (first) keep their own
+_PT = (("energy", np.float32, torch.float32),
        ("rung", np.int32, torch.int32), ("key", np.uint32, torch.int64),
        ("phase", np.int32, torch.int64), ("t", np.int32, torch.int64))
 _STATS = (("n_records", np.int32, torch.int32), ("weight_sum", np.float32, torch.float32),
@@ -72,11 +77,40 @@ _STATS = (("n_records", np.int32, torch.int32), ("weight_sum", np.float32, torch
           ("labeled_visits", np.float32, torch.float32))
 
 
-def engine_leaves(series):
+def _torch_dtype(np_dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np_dtype)).dtype
+
+
+def states_layout(states):
+    """A state's leaf dtypes as numpy dtypes: one for a tensor, ``{key:
+    dtype}`` for a dict of tensors (the form `engine_leaves` takes)."""
+    def np_dtype(x):
+        return torch.empty(0, dtype=x.dtype).numpy().dtype
+    if isinstance(states, dict):
+        return {k: np_dtype(v) for k, v in states.items()}
+    return np_dtype(states)
+
+
+def _arrays_layout(arrays):
+    """`states_layout` of the state stored in checkpoint ``arrays``."""
+    if ".pt.states" in arrays:
+        return np.asarray(arrays[".pt.states"]).dtype
+    prefix = ".pt.states['"
+    return {n[len(prefix):-2]: np.asarray(a).dtype for n, a in arrays.items()
+            if n.startswith(prefix)}
+
+
+def engine_leaves(series, states):
     """``(name, attribute path, stored numpy dtype, torch dtype)`` of every
-    leaf of an ``EngineState`` whose moments track ``series``, in JAX's
-    flatten order (dataclass fields in order, dict keys sorted)."""
-    out = [(f".pt.{f}", ("pt", f), nd, td) for f, nd, td in _PT]
+    leaf of an ``EngineState`` whose moments track ``series`` and whose
+    state has the leaves ``states`` (`states_layout`), in JAX's flatten
+    order (dataclass fields in order, dict keys sorted)."""
+    if isinstance(states, dict):
+        out = [(f".pt.states[{k!r}]", ("pt", "states", k), states[k],
+                _torch_dtype(states[k])) for k in sorted(states)]
+    else:
+        out = [(".pt.states", ("pt", "states"), states, _torch_dtype(states))]
+    out += [(f".pt.{f}", ("pt", f), nd, td) for f, nd, td in _PT]
     for f, nd, td in _STATS:
         if f in ("mean", "m2"):
             out += [(f".stats.{f}[{k!r}]", ("stats", f, k), nd, td) for k in sorted(series)]
@@ -95,7 +129,8 @@ def _get(tree, path):
 def to_arrays(tree) -> dict[str, np.ndarray]:
     """Host numpy copies of every leaf under its checkpoint name and dtype."""
     return {name: _get(tree, path).detach().cpu().numpy().astype(nd)
-            for name, path, nd, _ in engine_leaves(tree.stats.mean)}
+            for name, path, nd, _ in engine_leaves(tree.stats.mean,
+                                                   states_layout(tree.pt.states))}
 
 
 def _series(arrays) -> list[str]:
@@ -113,7 +148,10 @@ def from_arrays(arrays: dict[str, np.ndarray], device, like=None):
     from repro_torch.engine.driver import EngineState
     from repro_torch.engine.stats import OnlineStats
 
-    leaves = engine_leaves(_series(arrays) if like is None else like.stats.mean)
+    if like is None:
+        leaves = engine_leaves(_series(arrays), _arrays_layout(arrays))
+    else:
+        leaves = engine_leaves(like.stats.mean, states_layout(like.pt.states))
     values = {}
     for name, path, _, td in leaves:
         if name not in arrays:

@@ -1,7 +1,11 @@
 """2-D Ising model (twin of `repro.core.ising`), paper Eq. (3) with PBC.
 
 ``E(σ) = B Σ_i σ_i − J Σ_<ij> σ_i σ_j``; spins are int8 in {−1, +1} and a
-replica batch is ``(R, L, L)``.  The checkerboard update runs on three
+replica batch is ``(R, L, L)``.  ``update="single_flip"`` (the paper's
+per-iteration update, any L) runs ``flips_per_step`` serial single-spin
+flips a step, one launch of ``csrc/serial_chain.cu`` on the card (the
+plain torch loop on the CPU), on the per-sweep path only.  The
+checkerboard update (even L) runs on three
 paths: per sweep (the default: ``jax.random`` uniforms, kernel #1), per
 interval (``use_fused``: S sweeps per launch of kernel A, torch exchange)
 or per round (``use_fused_round``: one launch of kernel A whose last block
@@ -39,8 +43,7 @@ class IsingSystem:
     Attributes follow `repro.core.ising.IsingSystem`.  ``use_pallas`` and
     ``r_blk`` are TPU knobs: they are accepted and ignored, and on CUDA the
     hand-written kernel always runs.  ``pack_bits`` acts on the fused paths
-    only, as in the JAX package.  ``update="single_flip"`` is not ported yet
-    and raises `NotImplementedError`.
+    only, as in the JAX package.
     """
 
     length: int
@@ -57,13 +60,17 @@ class IsingSystem:
     r_blk: int = 8
 
     def __post_init__(self):
-        if self.update == "single_flip":
-            raise NotImplementedError("not yet ported: update='single_flip'")
-        if self.update != "checkerboard":
+        if self.update not in ("checkerboard", "single_flip"):
             raise ValueError(f"unknown update mode {self.update!r}")
-        if self.length % 2 != 0:
+        if self.update == "checkerboard" and self.length % 2 != 0:
             raise ValueError(
-                f"checkerboard update needs even L under PBC, got L={self.length}"
+                f"checkerboard update needs even L under PBC, got L={self.length}; "
+                "use update='single_flip' for odd lattices"
+            )
+        if self.use_fused and self.update != "checkerboard":
+            raise ValueError(
+                "use_fused=True needs update='checkerboard' (the fused "
+                "kernel is an interval of checkerboard sweeps)"
             )
         if self.use_fused_round and not self.use_fused:
             raise ValueError("use_fused_round=True needs use_fused=True")
@@ -94,9 +101,15 @@ class IsingSystem:
         (2, L, L))``: the JAX engine derives these per-replica keys before
         calling its ``batched_mcmc_step(keys, ...)``; here they are derived
         with the draw (`ops.jax_uniform`, one launch on CUDA), from the run
-        key and the () sweep counter ``t``.  Then kernel #1 sweeps.
+        key and the () sweep counter ``t``.  Then kernel #1 sweeps.  With
+        ``update="single_flip"``, ``flips_per_step`` serial flips from the
+        same replica keys instead (`ops.single_flip`, one launch on CUDA).
         """
         from repro_torch.kernels import ops
+
+        if self.update == "single_flip":
+            return ops.single_flip(spins, key, t, betas, j=self.j, b=self.b,
+                                   rule=self.accept_rule, flips=self.flips_per_step)
 
         u = ops.jax_uniform(key, t, spins.shape[0], (2, self.length, self.length))
         return ops.ising_sweep(spins, u, betas, j=self.j, b=self.b,

@@ -19,6 +19,15 @@ word on torch tensors:
 * ``randint(key, shape, lo, hi)``: int32 ``randint``: two bit draws from
   ``split(key)`` reduced modulo the span with JAX's ``2^32 mod span``
   multiplier;
+* ``normal(key, shape)``: jax's ``_normal_real``, ``sqrt(2) *
+  erf_inv(uniform(minval=nextafter(-1, 0), maxval=1))``; `erf_inv` is
+  XLA's f32 form (Giles' single-precision polynomial on ``w =
+  -log1p(-x*x)``, the ``w < 5`` and ``sqrt(w) - 3`` branches, Horner with
+  a fused multiply-add), within 2 ulps of XLA's (its ``log1p`` is another
+  approximation than torch's); ``normal`` is bit-equal to JAX's on ~99%
+  of draws and within 3 ulps on all;
+* ``replica_keys(key, t, ids)``: the JAX engine's per-sweep replica keys
+  ``fold_in(fold_in(key, 2t), r)``;
 * ``permutation(key, n)``: ``jax.random.permutation(key, n)``, JAX's
   ``_shuffle``: ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each splitting the
   key and stably sorting ``arange(n)`` by 32-bit ``random_bits`` of the
@@ -30,6 +39,7 @@ A key is a (2,) int64 tensor holding the two uint32 words (JAX's
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -37,7 +47,8 @@ import torch
 
 from repro_torch.kernels.prng import MASK, threefry2x32
 
-__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "randint", "gumbel",
+__all__ = ["key", "split", "fold_in", "random_bits", "uniform", "uniform_from_bits",
+           "randint", "erf_inv", "normal", "normal_from_bits", "replica_keys", "gumbel",
            "categorical", "shuffle_rounds", "shuffle_rows", "permutation"]
 
 
@@ -87,7 +98,13 @@ def random_bits(k: torch.Tensor, shape) -> torch.Tensor:
 def uniform(k: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """f32 ``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``
     (batched like `random_bits`; bounds are Python floats)."""
-    bits = random_bits(k, shape)
+    return uniform_from_bits(random_bits(k, shape), minval, maxval)
+
+
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """`uniform` of already drawn `random_bits` (so draws from several keys
+    can share one Threefry evaluation)."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     if (minval, maxval) == (0.0, 1.0):
         return torch.clamp_min(f, 0.0)
@@ -111,6 +128,60 @@ def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     mult = (mult * mult) % span
     offset = ((((hi % span) * mult) & MASK) + lo % span) & MASK
     return (int(minval) + offset % span).to(torch.int32)
+
+
+# XLA's f32 ErfInv: Giles' coefficients for w < 5 and for w >= 5, highest first
+_ERF_INV = (
+    (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+     -0.00125372503, -0.00417768164, 0.246640727, 1.50140941),
+    (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+     -0.0076224613, 0.00943887047, 1.00167406, 2.83297682),
+)
+
+
+@functools.lru_cache(maxsize=8)
+def _erf_inv_coef(device: torch.device) -> torch.Tensor:
+    """`_ERF_INV` on ``device``, copied once (no host copy per call)."""
+    return torch.tensor(_ERF_INV, dtype=torch.float32, device=device)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``lax.erf_inv`` on (-1, 1) as XLA computes it (see the module
+    docstring for the bound); +-1 give +-inf."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    # the f32 square root through f64 (correctly rounded either way): torch
+    # 2.13's f32 sqrt of a large CPU tensor returned a few elements off by
+    # ~2e-4 in some processes
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0).double()
+    coef = _erf_inv_coef(x.device)
+    p = torch.where(lt, coef[0, 0], coef[1, 0])
+    for i in range(1, coef.shape[1]):
+        # c + p * w with one rounding, as XLA's fused multiply-add: the f32
+        # product is exact in f64
+        p = (torch.where(lt, coef[0, i], coef[1, i]).double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_NEXT_BELOW_ONE = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(k: torch.Tensor, shape) -> torch.Tensor:
+    """f32 ``jax.random.normal(key, shape)`` (batched like `random_bits`)."""
+    return normal_from_bits(random_bits(k, shape))
+
+
+def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """`normal` of already drawn `random_bits`."""
+    return _SQRT2_F32 * erf_inv(uniform_from_bits(bits, _NEXT_BELOW_ONE, 1.0))
+
+
+def replica_keys(k: torch.Tensor, t, ids: torch.Tensor) -> torch.Tensor:
+    """(len(ids), 2) keys ``fold_in(fold_in(k, 2t), r)`` for the replica ids
+    ``ids``: the keys of the JAX engine's per-sweep step (``_sweep_once``);
+    ``t`` is the sweep counter (an int or a () tensor)."""
+    return fold_in(fold_in(k, 2 * t), ids)
 
 
 def gumbel(k: torch.Tensor, shape) -> torch.Tensor:

@@ -1,19 +1,25 @@
 """System constructor + named-observable registry and the validation zoo
 (twin of `repro.core.systems`).
 
-The port registers the Ising and q-state Potts models.  Observables are batched: each
-factory takes the system and returns a function ``(R, ...) -> (R,)``.
-`REGISTRY` holds the zoo entries of those two systems with the JAX
-package's params, ladders and schedules; the other zoo systems are refused
-by name.
+The port registers the JAX package's five systems: the Ising and q-state
+Potts models, the Gaussian mixture, the EA spin glass and the HP lattice
+protein.  Observables are batched: each factory takes the system and
+returns a function ``(R, ...) -> (R,)`` (for EA the state is a dict of
+``(R, H, W)`` leaves).  `REGISTRY` holds the zoo entries of all five with
+the JAX package's params, ladders and schedules.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Mapping, Sequence
 
+import torch
+
+from repro_torch.core.gaussian import GaussianMixture
+from repro_torch.core.hp import HPChain, radius_of_gyration_sq
 from repro_torch.core.ising import IsingSystem, lattice_energy, magnetization
 from repro_torch.core.potts import PottsSystem, potts_magnetization
+from repro_torch.core.spin_glass import EASpinGlass
 
 __all__ = [
     "SystemEntry",
@@ -24,10 +30,6 @@ __all__ = [
     "REGISTRY",
     "registered",
 ]
-
-# systems of the JAX package that this port does not run yet
-NOT_PORTED = ("gaussian", "ea_spin_glass", "hp_protein")
-
 
 @dataclasses.dataclass(frozen=True)
 class SystemEntry:
@@ -48,6 +50,14 @@ CONSTRUCTORS: dict[str, SystemEntry] = {
             ),
         },
     ),
+    "gaussian": SystemEntry(
+        name="gaussian",
+        build=GaussianMixture,
+        observables={
+            "x": lambda s: (lambda x: x),
+            "absx": lambda s: torch.abs,
+        },
+    ),
     "potts": SystemEntry(
         name="potts",
         build=PottsSystem,
@@ -55,13 +65,27 @@ CONSTRUCTORS: dict[str, SystemEntry] = {
             "pmag": lambda s: (lambda x: potts_magnetization(x, s.q)),
         },
     ),
+    "ea_spin_glass": SystemEntry(
+        name="ea_spin_glass",
+        build=EASpinGlass,
+        observables={
+            "absmag": lambda s: (
+                lambda x: x["spins"].to(torch.float32).mean(dim=(-2, -1)).abs()
+            ),
+        },
+    ),
+    "hp_protein": SystemEntry(
+        name="hp_protein",
+        build=HPChain,
+        observables={
+            "rg2": lambda s: radius_of_gyration_sq,
+        },
+    ),
 }
 
 
 def make_system(name: str, params: Mapping[str, Any] | None = None):
     """Instantiate a registered system from JSON-able params."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"not yet ported: system {name!r}")
     if name not in CONSTRUCTORS:
         raise KeyError(f"unknown system {name!r}; registered: {sorted(CONSTRUCTORS)}")
     return CONSTRUCTORS[name].build(**dict(params or {}))
@@ -127,6 +151,13 @@ REGISTRY: dict[str, RegisteredSystem] = {
         observable_names=("absmag",),
         temps=(1.5, 2.0, 2.6, 3.4, 4.4),
     ),
+    "gaussian": RegisteredSystem(
+        name="gaussian",
+        params={"mus": (-3.0, 3.0), "sigmas": (0.8, 0.8),
+                "weights": (0.5, 0.5), "step_size": 1.0},
+        observable_names=("absx",),
+        temps=(1.0, 1.8, 3.2, 5.6, 10.0),
+    ),
     "potts": RegisteredSystem(
         name="potts",
         params={"shape": (4, 4), "q": 3, "accept_rule": "glauber",
@@ -135,14 +166,27 @@ REGISTRY: dict[str, RegisteredSystem] = {
         temps=(0.7, 1.0, 1.4, 2.0, 2.9),
         slow=True,  # exact reference enumerates 3^16 ~ 43M states (~20 s)
     ),
+    "ea_spin_glass": RegisteredSystem(
+        name="ea_spin_glass",
+        params={"shape": (4, 4), "disorder_seed": 1, "accept_rule": "glauber"},
+        observable_names=("absmag",),
+        temps=(0.8, 1.2, 1.8, 2.7, 4.0),
+    ),
+    "hp_protein": RegisteredSystem(
+        name="hp_protein",
+        params={"sequence": "HPHPPHHPHH"},
+        observable_names=("rg2",),
+        temps=(0.6, 0.9, 1.4, 2.2, 3.4),
+        # chain moves are serial: a lighter measurement window than the
+        # lattice systems' (the JAX zoo's schedule)
+        sweeps_per_batch=300,
+        burn_sweeps=900,
+    ),
 }
 
 
 def registered(name: str) -> RegisteredSystem:
-    """The zoo entry ``name``; zoo systems of the JAX package that the port
-    does not run yet raise `NotImplementedError` by name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"not yet ported: system {name!r}")
+    """The zoo entry ``name`` (`KeyError` for a name the zoo lacks)."""
     if name not in REGISTRY:
         raise KeyError(f"unknown system {name!r}; registered: {sorted(REGISTRY)}")
     return REGISTRY[name]

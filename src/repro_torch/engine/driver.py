@@ -11,14 +11,21 @@ the chunked host loop of `repro.engine.Engine`:
   then the exchange strategy's swap phase in torch (`repro_torch.exchange`:
   DEO, SEO, windowed or VMPT) keyed on ``fold_in(key, 2t+1)``, the JAX
   engine's key;
-* **per sweep** (the default) — S calls of ``batched_mcmc_step``, each one
-  ``jax.random`` draw and one sweep (kernel #1 or #4), with the energy
-  advanced after every sweep as JAX's scan advances it, then the same swap
-  phase as the fused branch.
+* **per sweep** (the default, and the only path of the systems without a
+  fused kernel: EA, the Gaussian mixture, HP, Ising ``single_flip``) — S
+  calls of the system's ``batched_mcmc_step(key, t, states, betas)``, which
+  draws replica r's randomness from ``fold_in(fold_in(key, 2t), r)`` as
+  JAX's ``_sweep_once`` keys its ``vmap`` (one ``jax.random`` draw and one
+  sweep of kernel #1 or #4; the EA sweep in torch on the same draw; one
+  launch of ``csrc/serial_chain.cu`` for HP's moves and ``single_flip``'s
+  flips), with the energy advanced after every sweep as JAX's scan
+  advances it, then the same swap phase as the fused branch.
 
-The swap phase moves rungs (``swap_mode="temp"``) or, in ``"state"`` mode,
-gathers the lattices and energies into a fresh tensor with one
-``index_select`` while rungs stay the identity.  A waste-recycling
+A state is a tensor or a dict of tensors (``{"spins", "jr", "jd"}`` for
+EA), each with a leading replica axis.  The swap phase moves rungs
+(``swap_mode="temp"``) or, in ``"state"`` mode, gathers every leaf of the
+states and the energies into fresh tensors with ``index_select`` while
+rungs stay the identity.  A waste-recycling
 strategy (VMPT, ``n_virtual = 2``) records both outcomes of every pair
 before the swap, stacked ``(2, R)``, with its ``est_weight`` row.
 
@@ -47,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import keys
-from repro_torch.core.pt import PTState, init_replicas
+from repro_torch.core.pt import PTState, init_replicas, map_states
 from repro_torch.device import resolve_device
 from repro_torch.engine import stats as stats_lib
 from repro_torch.engine.adapt import AdaptConfig, AdaptState, maybe_adapt
@@ -122,9 +129,10 @@ def _apply_swap(spec: StepSpec, st: PTState, perm) -> PTState:
         # slot s held rung[s]; it now holds perm[rung[s]]
         st = dataclasses.replace(st, rung=perm[st.rung.long()].to(torch.int32))
     else:
-        # rung == slot: move the lattices themselves, into a fresh tensor
-        st = dataclasses.replace(st, states=torch.index_select(st.states, 0, perm),
-                                 energy=st.energy[perm])
+        # rung == slot: move the states themselves (every leaf), into fresh tensors
+        st = dataclasses.replace(
+            st, states=map_states(st.states, lambda x: torch.index_select(x, 0, perm)),
+            energy=st.energy[perm])
     return dataclasses.replace(st, phase=st.phase + 1)
 
 
@@ -315,7 +323,10 @@ def _counters(state: EngineState) -> dict[str, np.ndarray]:
 def _state_tensors(state: EngineState):
     """(name, tensor) for every tensor of an engine state."""
     for f in dataclasses.fields(state.pt):
-        yield f"pt.{f.name}", getattr(state.pt, f.name)
+        v = getattr(state.pt, f.name)
+        items = v.items() if isinstance(v, dict) else [("", v)]
+        for k, x in items:
+            yield f"pt.{f.name}" + (f".{k}" if k else ""), x
     for f in dataclasses.fields(state.stats):
         v = getattr(state.stats, f.name)
         items = v.items() if isinstance(v, dict) else [("", v)]

@@ -11,8 +11,8 @@ Nothing here runs at import time.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC``, never fast math.  The sweep kernels (``ising_fused.cu``,
-``ising_packed.cu``, ``sweep.cu``, ``potts_fused.cu``) and
-``jax_uniform.cu`` add ``-fmad=false``
+``ising_packed.cu``, ``sweep.cu``, ``potts_fused.cu``), ``jax_uniform.cu``
+and ``serial_chain.cu`` add ``-fmad=false``
 so no float product is contracted into an FMA (the round exchange that
 kernels A, #2p and #5 run, ``exchange.cuh``, has no product followed by a
 sum, and its exp/sigmoid are libdevice's as in PyTorch's own kernels);
@@ -59,6 +59,7 @@ SOURCES = {
     "sweep": ["-fmad=false"],
     "potts_fused": ["-fmad=false"],
     "jax_uniform": ["-fmad=false"],
+    "serial_chain": ["-fmad=false"],
     "wkv6": [],
 }
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -67,11 +68,11 @@ MAX_SMEM_BYTES = 232448
 _P = ctypes.c_void_p
 
 # kernel name -> launches since the last reset (kernel A, kernel #2p,
-# kernels #1 and #4 of sweep.cu, kernel #5, the jax.random helper, the
-# RWKV-6 recurrence #7)
+# kernels #1 and #4 of sweep.cu, kernel #5, the jax.random helper, the two
+# serial chains of serial_chain.cu, the RWKV-6 recurrence #7)
 launches = dict.fromkeys(
     ("ising_fused", "ising_packed", "ising_sweep", "potts_sweep", "potts_fused",
-     "jax_uniform", "wkv6"), 0,
+     "jax_uniform", "hp_moves", "single_flip", "wkv6"), 0,
 )
 # round exchanges run at the end of a launch of kernel A, #2p or #5 since the
 # last reset (no launch of their own)

@@ -34,8 +34,7 @@ def _lib() -> ctypes.CDLL:
 
 def jax_uniform_plain(key, t, replica_ids, shape) -> torch.Tensor:
     """(len(replica_ids), *shape) f32: ``uniform(fold_in(fold_in(key, 2t), r), shape)``."""
-    k_r = keys.fold_in(keys.fold_in(key, 2 * t), replica_ids)
-    return keys.uniform(k_r, shape)
+    return keys.uniform(keys.replica_keys(key, t, replica_ids), shape)
 
 
 def jax_uniform_kernel(key, t, n_replicas: int, shape) -> torch.Tensor:

@@ -6,8 +6,10 @@ the hand-written kernel (and raises if it cannot), anything else raises.
 ``use_pallas``, ``r_blk`` and ``chunk`` are TPU knobs, accepted and ignored.
 
 Besides the JAX package's ops, `jax_uniform` draws the per-sweep
-``jax.random`` uniforms that `ising_sweep` and `potts_sweep` consume on the
-engine's default path.
+``jax.random`` uniforms that `ising_sweep`, `potts_sweep` and the EA sweep
+consume on the engine's default path, and `hp_moves` / `single_flip` run
+the serial chains that the JAX package leaves to XLA's ``fori_loop``
+(``csrc/serial_chain.cu`` on the card).
 """
 from __future__ import annotations
 
@@ -20,10 +22,13 @@ from repro_torch.kernels import jax_uniform as _ju
 from repro_torch.kernels import potts_sweep as _pk
 from repro_torch.kernels import prng as _prng
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import serial_chain as _sc
 from repro_torch.kernels import wkv6 as _wkv6
 
 __all__ = [
     "jax_uniform",
+    "hp_moves",
+    "single_flip",
     "ising_sweep",
     "potts_sweep",
     "ising_sweep_fused",
@@ -68,6 +73,28 @@ def jax_uniform(key: torch.Tensor, t, n_replicas: int, shape) -> torch.Tensor:
         ids = torch.arange(n_replicas, dtype=torch.int64)
         return _ju.jax_uniform_plain(key, t, ids, shape)
     return _ju.jax_uniform_kernel(key, t, n_replicas, shape)
+
+
+def hp_moves(pos: torch.Tensor, key: torch.Tensor, t, betas: torch.Tensor, *,
+             hmask: torch.Tensor, eps: float, n_moves: int):
+    """``n_moves`` HP end/corner moves of every replica's chain, replica r
+    keyed by ``fold_in(fold_in(key, 2t), r)``; see
+    `serial_chain.hp_moves_plain` for the contract.  One launch on CUDA."""
+    kind = _device_kind(pos, "serial-chain kernel")
+    fn = _sc.hp_moves_plain if kind == "cpu" else _sc.hp_moves_kernel
+    return fn(pos, key, _counter(t, pos.device), betas.to(torch.float32),
+              hmask=hmask.to(pos.device), eps=eps, n_moves=n_moves)
+
+
+def single_flip(spins: torch.Tensor, key: torch.Tensor, t, betas: torch.Tensor, *,
+                j: float = 1.0, b: float = 0.0, rule: str = "metropolis", flips: int = 1):
+    """``flips`` serial single-spin flips of every replica's lattice, replica
+    r keyed by ``fold_in(fold_in(key, 2t), r)``; see
+    `serial_chain.single_flip_plain` for the contract.  One launch on CUDA."""
+    kind = _device_kind(spins, "serial-chain kernel")
+    fn = _sc.single_flip_plain if kind == "cpu" else _sc.single_flip_kernel
+    return fn(spins, key, _counter(t, spins.device), betas.to(torch.float32),
+              j=j, b=b, rule=rule, flips=flips)
 
 
 def ising_sweep(

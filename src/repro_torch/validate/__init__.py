@@ -1,7 +1,9 @@
 """Statistical validation of the port (twin of `repro.validate`).
 
-* `repro_torch.validate.exact`: exact enumeration of ⟨E⟩ and the order
-  parameter for the 4x4 Ising and Potts zoo entries;
+* `repro_torch.validate.exact`: exact ⟨E⟩ and the order parameter of every
+  zoo entry (enumeration for Ising, Potts, EA and the HP chain's
+  self-avoiding walks; quadrature for the Gaussian mixture) and the HP
+  move-graph check;
 * `repro_torch.validate.mcse`: batch-means MCSE, ESS and a Geweke drift
   score over the engine's Welford accumulators;
 * `repro_torch.validate.conformance`: drives the port's `Session` (adaptive

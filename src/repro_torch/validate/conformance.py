@@ -52,7 +52,10 @@ __all__ = [
 # Registry name -> exact-reference function (system, temps) -> {series: (R,)}.
 EXACT = {
     "ising": exact_lib.ising_exact,
+    "gaussian": exact_lib.gaussian_exact,
     "potts": exact_lib.potts_exact,
+    "ea_spin_glass": exact_lib.ea_exact,
+    "hp_protein": exact_lib.hp_exact,
 }
 
 

@@ -59,10 +59,18 @@ SPECS = Path(__file__).resolve().parents[1] / "examples" / "specs"
 OBS = ("absmag", "energy_per_site")
 
 
+ZOO_OBS = {"ising": OBS, "potts": ("pmag",), "ea_spin_glass": ("absmag",),
+           "hp_protein": ("rg2",), "gaussian": ("absx", "x")}
+LEAF_PARAMS = {"ising": None, "potts": {"shape": (4, 6), "q": 3, "use_fused": True},
+               "ea_spin_glass": {"shape": (4, 6), "disorder_seed": 2},
+               "hp_protein": {"sequence": "HPHPPHH"},
+               "gaussian": {"mus": (-3.0, 3.0)}}
+
+
 def _engines(n_chains, system="ising", params=None):
     params = params or {"length": 4, "use_fused": True}
     js, ts = jsystems.make_system(system, params), tsystems.make_system(system, params)
-    obs = OBS if system == "ising" else ("pmag",)
+    obs = ZOO_OBS[system]
     cfg = dict(n_replicas=3, swap_interval=2, n_chains=n_chains)
     jeng = JEngine(js, JEngineConfig(donate=False, **cfg),
                    observables=jsystems.named_observables(system, js, obs))
@@ -71,18 +79,25 @@ def _engines(n_chains, system="ising", params=None):
     return jeng, teng
 
 
-@pytest.mark.parametrize("system", ["ising", "potts"])
+@pytest.mark.parametrize("system", ["ising", "potts", "ea_spin_glass", "hp_protein",
+                                    "gaussian"])
 @pytest.mark.parametrize("n_chains", [1, 2])
 def test_leaf_table_matches_jax_flatten(n_chains, system):
-    params = None if system == "ising" else {"shape": (4, 6), "q": 3, "use_fused": True}
-    jeng, teng = _engines(n_chains, system, params)
+    """Names (a dict state's leaves as ``.pt.states['jd']`` ...), dtypes
+    (HP's int32 chains, the Gaussian's f32 scalars) and shapes; the values
+    too, but the Gaussian's f32 start, which is within `keys.normal`'s
+    bound of JAX's (test_torch_zoo)."""
+    jeng, teng = _engines(n_chains, system, LEAF_PARAMS[system])
     temps = np.linspace(1.0, 2.0, 3)
     want = _flatten(jeng.init(jax.random.key(5), temps))
     got = to_arrays(teng.init(tkeys.key(5), temps))
     assert list(got) == list(want)  # names, in JAX's order
     for k in want:
         assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        if system == "gaussian" and k in (".pt.states", ".pt.energy"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def _state(seed=1):
@@ -328,3 +343,66 @@ def test_cli_run_checkpoints_and_resume_continues(tmp_path):
         EarlyStopCallback(lambda i: i.sweeps_done >= STOP)]).run()
     assert tcli.main(["resume", str(tmp_path / "c"), "--device", "cpu", "--quiet"]) == 0
     assert json.loads((tmp_path / "c" / "manifest.json").read_text())["final"] == first["final"]
+
+
+# -- the zoo's dict and chain states across packages ------------------------------
+
+ZOO_SPECS = {
+    "ea_spin_glass": ({"shape": (4, 4), "disorder_seed": 1, "accept_rule": "glauber"},
+                      "absmag"),
+    "hp_protein": ({"sequence": "HPHPPHHPHH"}, "rg2"),
+}
+
+
+def _zoo_spec_dict(system):
+    params, obs = ZOO_SPECS[system]
+    d = _spec_dict("sweep")
+    d["system"] = {"name": system, "params": params}
+    d["observables"] = [obs]
+    return d
+
+
+def _zoo_np(res, jax_side):
+    """(manifest, the final state as flat numpy arrays, states leaf by leaf)."""
+    pt, stats = res.state.pt, res.state.stats
+    conv = np.asarray if jax_side else (lambda x: x.numpy())
+    states = pt.states if isinstance(pt.states, dict) else {"": pt.states}
+    out = {f"states{k}": conv(v) for k, v in states.items()}
+    out.update({k: conv(getattr(pt, k)) for k in ("rung", "energy", "t", "phase")})
+    out["key"] = (np.asarray(jax.random.key_data(pt.key)) if jax_side else pt.key.numpy())
+    for k in ("swap_attempts", "swap_accepts", "round_trips", "up_visits", "n_records"):
+        out[k] = conv(getattr(stats, k))
+    return res.manifest(), out
+
+
+def _assert_zoo_resumed_equal(full, resumed, obs):
+    (fm, fs), (rm, rs) = full, resumed
+    assert fm["final"] == rm["final"]  # sweep, the f64 meta ladder, energies
+    assert sorted(fs) == sorted(rs)
+    for k in fs:
+        np.testing.assert_array_equal(rs[k], fs[k].astype(rs[k].dtype), err_msg=k)
+    for k in ("mean_energy", f"mean_{obs}"):
+        np.testing.assert_allclose(rm["phases"]["measure"]["summary"][k],
+                                   fm["phases"]["measure"]["summary"][k], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("system", sorted(ZOO_SPECS))
+def test_zoo_checkpoints_resume_across_packages(tmp_path, system):
+    """An EA run (dict state: spins and both coupling planes) and an HP run
+    ((R, N, 2) int32 chains), checkpointed mid-burn by either package and
+    resumed by the other, equal the uninterrupted run: every state leaf,
+    rungs, counters, key words and the f64 ladder."""
+    d, obs = _zoo_spec_dict(system), ZOO_SPECS[system][1]
+    jfull = _zoo_np(JSession(JRunSpec.from_json(d)).run(), True)
+    tfull = _zoo_np(TSession(TRunSpec.from_json(d), device="cpu").run(), False)
+    _assert_zoo_resumed_equal(jfull, tfull, obs)  # the packages agree
+    JSession(JRunSpec.from_json(d), callbacks=[
+        JCheckpointCallback(str(tmp_path / "jax")),
+        JEarlyStop(lambda i: i.sweeps_done >= STOP)]).run()
+    resumed = TSession.from_checkpoint(str(tmp_path / "jax"), device="cpu").run()
+    _assert_zoo_resumed_equal(jfull, _zoo_np(resumed, False), obs)
+    TSession(TRunSpec.from_json(d), device="cpu", callbacks=[
+        CheckpointCallback(str(tmp_path / "port")),
+        EarlyStopCallback(lambda i: i.sweeps_done >= STOP)]).run()
+    resumed = JSession.from_checkpoint(str(tmp_path / "port")).run()
+    _assert_zoo_resumed_equal(tfull, _zoo_np(resumed, True), obs)

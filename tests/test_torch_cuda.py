@@ -10,7 +10,10 @@ uniforms), #5 (fused Potts sweeps), the per-sweep ``jax.random`` draw and
 with one chain and with two, and with the SEO, windowed and VMPT strategies
 and state mode; the interval loop of every path with host syncs made
 errors; a run checkpointed and resumed on the card against its
-uninterrupted run; the reduced rwkv6-7b on the card against the CPU.
+uninterrupted run; the reduced rwkv6-7b on the card against the CPU; both
+serial-chain kernels (HP moves, Ising single_flip) against their plain
+versions, and the zoo's per-sweep paths (EA, HP, single_flip, the Gaussian)
+on the card against the CPU and with host syncs made errors.
 
 These need a card and import no JAX, so they run wherever only PyTorch is
 installed; without a card they skip with a reason.  Run them on the card with
@@ -43,6 +46,7 @@ from repro_torch.kernels import ising_sweep as isk  # noqa: E402
 from repro_torch.kernels import jax_uniform as ju  # noqa: E402
 from repro_torch.kernels import ops, prng, ref  # noqa: E402
 from repro_torch.kernels import potts_sweep as pk  # noqa: E402
+from repro_torch.kernels import serial_chain as sc  # noqa: E402
 
 F32_EPS = 2.0 ** -23
 
@@ -666,3 +670,124 @@ def test_reduced_rwkv_on_cuda_equals_cpu(dev, dtype):
         seq_card = serve_lm.generate(on_card, cfg, 4, 8, dev)
         assert build.launches["wkv6"] == 8 * cfg.n_layers
         assert torch.equal(seq_card.cpu(), serve_lm.generate(on_cpu, cfg, 4, 8, "cpu"))
+
+
+# -- the serial chains (csrc/serial_chain.cu) and the rest of the zoo -------------
+
+
+@pytest.mark.parametrize("sequence,r,eps", [
+    ("HPH", 5, 1.0), ("HHPPHPH", 33, 0.7), ("HPHPPHHPHH", 13, 1.0),
+    ("HPHPPHHPHHPHPHHPPHPH", 130, 1.3),
+])
+def test_hp_moves_kernel_matches_plain(dev, sequence, r, eps):
+    """Positions, ΔE and counts bit for bit over 4 launches, each from the
+    last one's (folded) chains."""
+    from repro_torch.core.hp import HPChain
+
+    rng = np.random.default_rng(len(sequence) + r)
+    pos = HPChain(sequence).init_state_batched(keys.split(keys.key(4, device=dev), r))
+    betas = torch.from_numpy(rng.uniform(0.2, 3.0, r).astype(np.float32)).to(dev)
+    key, t = keys.key(9, device=dev), torch.tensor(11, device=dev)
+    hmask = torch.tensor([c == "H" for c in sequence], device=dev)
+    build.reset_launches()
+    for _ in range(4):
+        kw = dict(hmask=hmask, eps=eps, n_moves=len(sequence))
+        got = sc.hp_moves_kernel(pos, key, t, betas, **kw)
+        want = sc.hp_moves_plain(pos, key, t, betas, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        pos, t = got[0], t + 1
+    assert build.launches["hp_moves"] == 4
+
+
+@pytest.mark.parametrize("flips", [1, 7, 300])
+@pytest.mark.parametrize("length,rule,j,b", [
+    (5, "metropolis", 1.0, 0.0), (6, "glauber", 1.0, 0.0), (7, "glauber", 0.7, 0.3),
+    (33, "metropolis", 1.0, 0.3),
+])
+def test_single_flip_kernel_matches_plain(dev, length, rule, j, b, flips):
+    spins = _lattice(length + flips, 9, length, dev)[0]
+    betas = torch.linspace(0.2, 1.5, 9, device=dev)
+    key, t = keys.key(2, device=dev), torch.tensor(5, device=dev)
+    build.reset_launches()
+    for _ in range(2):
+        kw = dict(j=j, b=b, rule=rule, flips=flips)
+        got = sc.single_flip_kernel(spins, key, t, betas, **kw)
+        want = sc.single_flip_plain(spins, key, t, betas, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        spins, t = got[0], t + 1
+    assert build.launches["single_flip"] == 2
+
+
+def test_serial_chain_ops_dispatch_to_the_kernels(dev):
+    from repro_torch.core.hp import HPChain
+
+    build.reset_launches()
+    pos = HPChain("HPHPH").init_state_batched(keys.split(keys.key(1, device=dev), 3))
+    ops.hp_moves(pos, keys.key(2, device=dev), 0, torch.ones(3, device=dev),
+                 hmask=torch.ones(5, dtype=torch.bool, device=dev), eps=1.0, n_moves=5)
+    ops.single_flip(_lattice(1, 3, 5, dev)[0], keys.key(2, device=dev), 0,
+                    torch.ones(3, device=dev), flips=4)
+    assert build.launches["hp_moves"] == 1 and build.launches["single_flip"] == 1
+
+
+ZOO_SPECS = {
+    "ea": ({"name": "ea_spin_glass", "params": {"shape": [4, 6], "disorder_seed": 2,
+                                                "accept_rule": "glauber"}}, ["absmag"]),
+    "hp": ({"name": "hp_protein", "params": {"sequence": "HPHPPHHPHH"}}, ["rg2"]),
+    "single_flip": ({"name": "ising", "params": {"length": 5, "update": "single_flip",
+                                                  "flips_per_step": 7}}, ["absmag"]),
+    "gaussian": ({"name": "gaussian", "params": {"mus": [-3.0, 3.0]}}, ["absx"]),
+}
+
+
+def _zoo_spec(case, swap_mode="temp"):
+    d = json.loads(_small_spec("sweep").to_json())
+    d["system"], d["observables"] = ZOO_SPECS[case]
+    d["engine"] = {"swap_interval": 5, "chunk_intervals": 4, "swap_mode": swap_mode}
+    return RunSpec.from_json(d)
+
+
+@pytest.mark.parametrize("swap_mode", ["temp", "state"])
+@pytest.mark.parametrize("case", sorted(ZOO_SPECS))
+def test_zoo_session_on_cuda_equals_cpu(dev, case, swap_mode):
+    """The zoo's per-sweep paths: counters and the final state equal on the
+    card and the CPU (the Gaussian's energies within 1e-5: the card's and
+    the CPU's exp and log differ in ulps)."""
+    spec = _zoo_spec(case, swap_mode)
+    build.reset_launches()
+    on_card = Session(spec, device="cuda").run().manifest()
+    want = {"ea": "jax_uniform", "hp": "hp_moves", "single_flip": "single_flip"}.get(case)
+    assert {k for k, v in build.launches.items() if v} == ({want} if want else set())
+    on_cpu = Session(spec, device="cpu").run().manifest()
+    for name in on_cpu["phases"]:
+        got, ref_ = on_card["phases"][name]["summary"], on_cpu["phases"][name]["summary"]
+        for k in ("swap_attempts", "swap_acceptance", "round_trips"):
+            assert got[k] == ref_[k]
+        np.testing.assert_allclose(got["mean_energy"], ref_["mean_energy"],
+                                   rtol=0 if case != "gaussian" else 1e-5)
+    if case == "gaussian":
+        assert on_card["final"]["sweep"] == on_cpu["final"]["sweep"]
+        np.testing.assert_allclose(on_card["final"]["energy"], on_cpu["final"]["energy"],
+                                   rtol=1e-5, atol=1e-5)
+    else:
+        assert on_card["final"] == on_cpu["final"]
+
+
+@pytest.mark.parametrize("case", sorted(ZOO_SPECS))
+def test_zoo_interval_loop_never_syncs_the_host(dev, case):
+    session = Session(_zoo_spec(case), device="cuda")
+    eng = session.engine
+    step = make_interval_step(eng.system, eng.config.spec, eng.observables)
+    state = session.init_state()
+    pt, stats = step(state.pt, state.betas)[0], state.stats
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            pt, rec = step(pt, state.betas)
+            stats = update_stats(stats, rec, pt.rung)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(stats.n_records.item()) == 3

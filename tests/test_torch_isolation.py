@@ -6,8 +6,8 @@
 * ``python -m repro_torch run ... --device cpu`` writes a manifest,
   ``python -m repro_torch validate ising --device cpu`` passes, and
   ``--device cuda`` without a card fails instead of running on the CPU;
-* specs the port cannot run (``mesh``, ``single_flip``, other systems) are
-  refused with `NotImplementedError` naming the missing piece, and specs an
+* specs the port cannot run (``mesh``) are refused with
+  `NotImplementedError` naming the missing piece, and specs an
   earlier slice refused now run;
 * a state on another device than its engine's, or a carried state asked
   for on a missing card, is refused instead of running elsewhere;
@@ -104,7 +104,8 @@ def test_cli_run_on_cpu_writes_manifest(tmp_path):
 def test_cli_validate_on_cpu_passes_and_refuses_unported_systems(tmp_path):
     """``python -m repro_torch validate ising --device cpu`` runs the zoo's
     Ising entry (per-sweep path) against its exact answers and exits 0; a
-    zoo system the port lacks is refused by name with exit code 2."""
+    system the zoo lacks is refused by name with exit code 2 (the port now
+    runs all five of the JAX zoo's systems)."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch", "validate", "ising", "--device", "cpu",
          "--out", str(tmp_path)],
@@ -115,17 +116,19 @@ def test_cli_validate_on_cpu_passes_and_refuses_unported_systems(tmp_path):
     report = json.loads((tmp_path / "validate_ising.json").read_text())
     assert report["device"] == "cpu" and len(report["temps"]) == 5
     refused = subprocess.run(
-        [sys.executable, "-m", "repro_torch", "validate", "gaussian", "--device", "cpu"],
+        [sys.executable, "-m", "repro_torch", "validate", "nonesuch", "--device", "cpu"],
         env=_env(), capture_output=True, text=True, timeout=120,
     )
     assert refused.returncode == 2
-    assert "not yet ported: system 'gaussian'" in refused.stderr
+    assert "unknown system 'nonesuch'" in refused.stderr
 
 
 def test_cli_list_systems():
     out = subprocess.run([sys.executable, "-m", "repro_torch", "list-systems"],
                          env=_env(), capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0 and "ising" in out.stdout
+    assert out.returncode == 0
+    for name in ("ising", "gaussian", "potts", "ea_spin_glass", "hp_protein"):
+        assert f"{name}: observables" in out.stdout
 
 
 def test_cuda_without_a_card_raises(tmp_path):
@@ -156,7 +159,6 @@ def _spec(**edits):
 
 @pytest.mark.parametrize("edits,missing", [
     ({"engine__mesh": {"ensemble": 1, "replica": 2}}, "mesh"),
-    ({"system__params__update": "single_flip"}, "single_flip"),
 ])
 def test_unported_specs_are_refused_by_name(edits, missing):
     with pytest.raises(NotImplementedError, match="not yet ported") as err:
@@ -176,15 +178,18 @@ def test_unported_specs_are_refused_by_name(edits, missing):
     {"exchange__strategy": "vmpt"},
     {"exchange__strategy": "seo"},
     {"adapt__mode": "flow"},
+    {"system__params__update": "single_flip", "system__params__use_fused": False},
 ], ids=["per-sweep", "potts", "per-sweep-pack_bits", "n_chains=2", "fused-pack_bits",
-        "swap_mode=state", "windowed", "vmpt", "seo-strategy-path", "adapt-flow"])
+        "swap_mode=state", "windowed", "vmpt", "seo-strategy-path", "adapt-flow",
+        "single_flip"])
 def test_specs_refused_before_now_run(edits):
     """The per-sweep default path and Potts, then ``pack_bits`` (ignored on
     the per-sweep path) and the ensemble axis, then state-mode swaps, the
     SEO, windowed and VMPT strategies on the strategy path (this spec's
-    interval-fused path) and flow adaptation were refused by name; they now
-    build and run a few sweeps on the CPU (in state mode the rung map is the
-    identity, a permutation too)."""
+    interval-fused path) and flow adaptation, then ``update="single_flip"``
+    (per-sweep path: the fused kernels sweep checkerboards) were refused by
+    name; they now build and run a few sweeps on the CPU (in state mode the
+    rung map is the identity, a permutation too)."""
     session = Session(_spec(**edits), device="cpu")
     state, result = session.engine.run(session.init_state(), 20)
     chains = session.spec.engine.n_chains

@@ -38,15 +38,15 @@ SHORT = dict(burn_sweeps=150, n_batches=4, sweeps_per_batch=100)
 
 
 def test_registry_holds_the_ported_zoo_entries():
-    assert set(tsystems.REGISTRY) == {"ising", "potts"}
+    # every entry of the JAX zoo, field for field: the port runs all five
+    assert set(tsystems.REGISTRY) == set(jsystems.REGISTRY)
     for name, entry in tsystems.REGISTRY.items():
         jentry = jsystems.REGISTRY[name]
         assert dataclasses.asdict(entry) == dataclasses.asdict(jentry)
         assert entry.n_chains > 1 and entry.adapt_rounds > 0
-    for name in tsystems.NOT_PORTED:
-        assert name in jsystems.REGISTRY
-        with pytest.raises(NotImplementedError, match=f"not yet ported: system '{name}'"):
-            tsystems.registered(name)
+        assert tsystems.registered(name) is entry
+    with pytest.raises(KeyError, match="unknown system"):
+        tsystems.registered("nonesuch")
 
 
 def test_ising_exact_matches_jax():
