@@ -65,9 +65,10 @@ Phases, one line each or more (any failure raises and exits non-zero):
     phase 4 and 5 specs with ``pack_bits``): manifests equal to the unpacked
     runs', sweeps/s, ms/interval, launch counts, and the round path once
     more under ``torch.profiler``;
-12. ``n_chains=2`` at full width on the packed round path: each chain equal
-    to its solo run from ``fold_in(key, c)``, no host sync in 3 intervals,
-    and a small two-chain spec equal on the card and the CPU;
+12. ``n_chains=2`` at full width on the packed round path (one launch a
+    round for both chains, two exchanges): each chain equal to its solo run
+    from ``fold_in(key, c)``, no host sync in 3 intervals, and a small
+    two-chain spec equal on the card and the CPU;
 13. the Ising conformance entry (4x4, 5 rungs, 2 chains) on the round path
     with ``pack_bits`` on the card: |z| <= 4 and Geweke <= 4; the same on
     the interval-fused path; and a shortened entry whose report equals the
@@ -123,8 +124,32 @@ Phases, one line each or more (any failure raises and exits non-zero):
     ms per interval, EA and HP once more under the profiler; the zoo's EA,
     Gaussian and HP conformance entries at full schedule; small specs of the
     four paths on the card against the CPU;
-21. a JSON line per kernel (launches, error, times, bound), the card line,
+22. the chain axis and the serve layer: one launch of kernels A, #2p and
+    #5 over C chains (sweeps alone and a whole round) against C launches of
+    one chain, bit for bit, at C in {1, 2, 5}, L in {8, 32, 300}, R in {8,
+    1500}, S in {1, 100}, one launch and C exchanges counted, tickets 0; each
+    kernel's round launch timed at L=300 R=1500 S=100 at C=1 and C=8; then
+    `repro_torch.serve.Scheduler` on the card: a bucket of 8 tenants of the
+    paper's round spec (L=300 R=1500 S=100, 4 intervals), the same with
+    ``pack_bits`` (#2p), and 4 Potts 300x300 q=3 round tenants, each
+    tenant's results, streamed energies, final spins and rungs equal to its
+    solo ``Session`` run, round launches equal to the intervals (not 8x),
+    obs on and off (equal launches, no host sync between chunk boundaries,
+    the timeline through ``check_trace``, the engine and serve series in
+    the Prometheus text), ms per interval, replica-sweeps/s and jobs/s; a
+    burst of 32 tenants of ``examples/specs/ising_serve.json`` on the round
+    path and as it is (per-sweep), equal to 32 solo runs, jobs/s and p50 /
+    p99 latency, the one-chunk ``torch.profiler`` window's trace; seeded
+    fault plans over the burst (every job done bit-equal or failed typed,
+    checkpoints verify or are caught corrupt), and an injected
+    ``engine.compile`` fault degrading a round spec to the per-sweep path on
+    the card (bit-equal to a never-fused run), fatal with ``strict_kernels``;
+23. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
+
+Every ``Session`` runs with ``strict_kernels=True`` but phase 22's injected
+fault: a fused or round path that cannot prepare or launch its kernels
+fails instead of degrading to the per-sweep path.
 
 After every phase each round launch's ticket must read 0 again (one that
 faulted would leave its ticket set).  It imports nothing of JAX or of the
@@ -142,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1364,6 +1390,459 @@ def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
             "conformance_launches": conf["hp_protein"][2]["hp_moves"]}
 
 
+# -- phase 22: the chain axis, and serving on the card -------------------------
+
+# (C, L, R, S) of the chain-axis checks: every C in {1, 2, 5}, L in {8, 32,
+# 300}, R in {8, 1500} and S in {1, 100} appears
+CHAIN_CASES = ((1, 8, 8, 100), (2, 32, 1500, 1), (5, 8, 1500, 1), (5, 32, 8, 100),
+               (2, 300, 1500, 1), (2, 300, 8, 100), (1, 300, 1500, 1))
+
+
+def chain_inputs(torch, np, keys, kernel, c, length, r, seed, device):
+    """Random (C, R, L, L) states, a shared (R,) ladder, per-chain rung
+    permutations, energies, keys and counters for a chain-axis launch."""
+    rng = np.random.default_rng(seed)
+    # the lattices are drawn on the card: numpy takes seconds for a 1e9-site ensemble
+    gen = torch.Generator(device=device).manual_seed(seed)
+    st = torch.randint(0, 3 if kernel == "potts_fused" else 2, (c, r, length, length),
+                       generator=gen, device=device, dtype=torch.int8)
+    if kernel != "potts_fused":
+        st = 2 * st - 1
+    betas = (1.0 / np.geomspace(1.0, 4.0, r)).astype(np.float32)
+    rung = np.stack([rng.permutation(r) for _ in range(c)]).astype(np.int32)
+    energy = -rng.integers(0, 2 * length * length, (c, r)).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    words = torch.stack([keys.key(seed + i, device=device) for i in range(c)])
+    t0 = to(rng.integers(0, 1000, c).astype(np.int64))
+    ph0 = to(rng.integers(0, 1000, c).astype(np.int64))
+    return st, to(betas), to(rung), to(energy), words, t0, ph0
+
+
+def chain_launchers(isk, pk, kernel):
+    """``(sweeps, round)`` wrappers of one kernel, same keywords each."""
+    if kernel == "potts_fused":
+        return (lambda *a, **k: pk.potts_sweep_fused_kernel(*a, q=3, **k),
+                lambda *a, **k: pk.potts_round_kernel(*a, q=3, **k))
+    packed = kernel == "ising_packed"
+    sweeps = isk.ising_sweep_packed_kernel if packed else isk.ising_sweep_fused_kernel
+    return sweeps, lambda *a, **k: isk.ising_round_kernel(*a, pack_bits=packed, **k)
+
+
+def check_chain_axis(torch, np, isk, pk, keys, build) -> int:
+    """Phase 22a: one launch over C chains equals C launches of one chain
+    each, bit for bit, for the sweeps and the round launches of kernels A,
+    #2p and #5 (spins, ΔE, counts; rung', energy', accept, prob and attempt
+    rows), with one launch (and C exchanges) counted and every ticket 0
+    after it; returns the cases run."""
+    device = torch.device("cuda")
+    n = 0
+    for kernel in ("ising_fused", "ising_packed", "potts_fused"):
+        sweeps, one_round = chain_launchers(isk, pk, kernel)
+        for c, length, r, s in CHAIN_CASES:
+            st, betas, rung, energy, words, t0, ph0 = chain_inputs(
+                torch, np, keys, kernel, c, length, r, 7 + n, device)
+            kw = dict(n_sweeps=s, rule="glauber")
+            xw = dict(pairing="seo" if n % 2 else "deo", criterion="logistic")
+            what = f"phase 22 {kernel} C={c} L={length} R={r} S={s}"
+            build.reset_launches()
+            got = sweeps(st, words, t0, betas, rung, **kw)
+            expect_launches(counts_now(build), what + " sweeps", **{kernel: 1})
+            got_round = one_round(st, words, t0, ph0, betas, rung, energy, **kw, **xw)
+            expect_launches(counts_now(build), what + " round", **{kernel: 2}, exchange=c)
+            check_tickets(build, what)
+            for i in range(c):
+                want = sweeps(st[i], words[i], t0[i], betas, rung[i], **kw)
+                want_round = one_round(st[i], words[i], t0[i], ph0[i], betas, rung[i],
+                                       energy[i], **kw, **xw)
+                for x, y in zip((*got, *got_round), (*want, *want_round)):
+                    if not torch.equal(x[i], y):
+                        raise AssertionError(f"{what}: chain {i} != its own launch")
+            check_tickets(build, what + " per chain")
+            n += 1
+        del st, got, got_round
+        torch.cuda.empty_cache()
+    return n
+
+
+def time_chain_axis(torch, np, isk, pk, keys) -> dict:
+    """Phase 22a times: each kernel's round launch at L=300 R=1500 S=100, at
+    C=1 and at C=8 chains (CUDA events)."""
+    device = torch.device("cuda")
+    out = {}
+    for kernel in ("ising_fused", "ising_packed", "potts_fused"):
+        _, one_round = chain_launchers(isk, pk, kernel)
+        for c, reps in ((1, 3), (8, 1)):
+            st, betas, rung, energy, words, t0, ph0 = chain_inputs(
+                torch, np, keys, kernel, c, 300, 1500, 3, device)
+            if c == 1:
+                st, rung, energy, words, t0, ph0 = st[0], rung[0], energy[0], words[0], t0[0], ph0[0]
+            out[kernel, c] = cuda_ms(torch, lambda: one_round(
+                st, words, t0, ph0, betas, rung, energy, n_sweeps=100, rule="glauber",
+                pairing="deo", criterion="logistic"), reps)
+            del st
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_bucket(torch, build, api, serve, specs, obs=None, faults=None, ckdir=None,
+               strict=True, on_update=None, **kw):
+    """Serve ``specs`` (one tenant each) through one `Scheduler` on the card
+    with the launches counted from 0 just before; returns ``(scheduler, jobs,
+    buckets, counts, wall seconds, {job id: seconds from submit to its
+    last update})``."""
+    sched = serve.Scheduler(device="cuda", obs=obs, faults=faults, checkpoint_dir=ckdir,
+                            strict_kernels=strict, **kw)
+    made = []
+    make = sched._make_bucket
+    sched._make_bucket = lambda digest, staged: made.append(make(digest, staged)) or made[-1]
+    done_at = {}
+
+    def note(job, update):
+        done_at[job.id] = time.monotonic() - job.submitted_at
+        if on_update is not None:
+            on_update(job, update)
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t_sub = time.perf_counter()
+    jobs = [sched.submit(spec, on_update=note, job_id=f"s{spec.seed}") for spec in specs]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_sub
+    return sched, jobs, made, counts_now(build), wall, done_at
+
+
+def solo_runs(torch, api, specs, device="cuda"):
+    """Each spec alone through `Session`: its result and its rung-ordered
+    energies after every chunk."""
+    out = {}
+    for spec in specs:
+        seen = []
+
+        class Energies(api.Callback):
+            def on_chunk(self, session, info):
+                e = info.state.pt.energy.cpu().numpy()
+                seen.append(e[info.state.pt.rung.cpu().numpy().argsort()])
+
+        res = api.Session(spec, callbacks=[Energies()], device=device,
+                          strict_kernels=True).run()
+        out[spec.seed] = (res, seen)
+    return out
+
+
+def bucket_equals_solo(np, jobs, buckets, solo, updates, what: str, states=True) -> None:
+    """Every tenant's `JobResult` (summaries, final energies), its streamed
+    energies and (with ``states``) its chain's final spins and rung map
+    equal its solo run's bit for bit."""
+    for job in jobs:
+        res = job.result(timeout=0)
+        ref, seen = solo[job.seed]
+        if not np.array_equal(res.final_energy, ref.final_energies()):
+            raise AssertionError(f"{what}: {job.id} final energies != solo")
+        for name, summary in res.phases.items():
+            for k, v in summary.items():
+                if not np.array_equal(np.asarray(v), np.asarray(ref.phases[name].summary[k])):
+                    raise AssertionError(f"{what}: {job.id} {name}.{k} != solo")
+        got = updates[job.id]
+        if len(got) != len(seen) or not all(np.array_equal(a, b) for a, b in zip(got, seen)):
+            raise AssertionError(f"{what}: {job.id} streamed energies != solo chunk energies")
+        if states:
+            (bucket,) = buckets
+            c = bucket.jobs.index(job)
+            st = bucket.state.pt
+            if not (bool((st.states[c] == ref.state.pt.states).all())
+                    and bool((st.rung[c] == ref.state.pt.rung).all())):
+                raise AssertionError(f"{what}: {job.id} final spins or rungs != solo")
+
+
+def serve_phases(torch, np, build, keys, isk, pk, api, device, card) -> dict:
+    """Phase 22: the chain axis of kernels A, #2p and #5, and the serve
+    layer on the card (see the module docstring); returns the kernel rows'
+    numbers."""
+    from repro_torch import obs as obs_lib
+    from repro_torch import serve
+    from repro_torch.checkpoint import CheckpointCorrupt, CheckpointManager
+    from repro_torch.engine import Engine
+    from repro_torch.obs.check_trace import validate_trace
+    from repro_torch.resilience import (
+        BucketQuarantined, FaultPlan, InjectedCrash, InjectedFault, WatchdogTimeout,
+    )
+
+    EngineSpec, LadderSpec, PhaseSpec = api.EngineSpec, api.LadderSpec, api.PhaseSpec
+    RunSpec, ScheduleSpec, SystemSpec = api.RunSpec, api.ScheduleSpec, api.SystemSpec
+    t22 = time.perf_counter()
+    n_cases = check_chain_axis(torch, np, isk, pk, keys, build)
+    print(f"phase 22 chain axis: {n_cases} cases (A, #2p, #5 x {len(CHAIN_CASES)}: C in 1, 2, "
+          "5; L in 8, 32, 300; R in 8, 1500; S in 1, 100), the sweeps and the round launch "
+          "over C chains equal to C launches of one chain bit for bit (spins, ΔE, nacc, "
+          "rung', energy', accept, prob, attempt), one launch and C exchanges counted, "
+          "tickets 0")
+    chain_ms = time_chain_axis(torch, np, isk, pk, keys)
+    print(f"phase 22 chain-axis times [{card}]: round launch at L=300 R=1500 S=100 (Potts "
+          "300x300 q=3), CUDA events: " + "; ".join(
+              f"{k} C=1 {chain_ms[k, 1]:.3f} ms, C=8 {chain_ms[k, 8]:.3f} ms "
+              f"({chain_ms[k, 8] / 8:.3f} ms a chain)"
+              for k in ("ising_fused", "ising_packed", "potts_fused")))
+
+    # -- full-width buckets: 8 (4 Potts) tenants of the paper's round spec ----------
+    two = ScheduleSpec(phases=(PhaseSpec(name="burn", n_sweeps=200),
+                               PhaseSpec(name="measure", n_sweeps=200, reset_stats=True)))
+    paper = dict(ladder=LadderSpec(kind="paper", n_replicas=1500, t_min=1.0, t_max=4.0),
+                 engine=EngineSpec(swap_interval=100, chunk_intervals=1), schedule=two,
+                 observables=("absmag", "energy_per_site"))
+    ising = {"length": 300, "accept_rule": "glauber", "use_fused": True,
+             "use_fused_round": True}
+    buckets = {
+        "A": [RunSpec(system=SystemSpec("ising", ising), seed=s, **paper) for s in range(8)],
+        "#2p": [RunSpec(system=SystemSpec("ising", {**ising, "pack_bits": True}), seed=s,
+                        **paper) for s in range(8)],
+        "#5": [RunSpec(system=SystemSpec("potts", {"shape": (300, 300), "q": 3,
+                                                   "accept_rule": "glauber", "use_fused": True,
+                                                   "use_fused_round": True}),
+                       seed=s, **{**paper, "observables": ("pmag",),
+                                  "ladder": LadderSpec(kind="geometric", n_replicas=1500,
+                                                       t_min=0.7, t_max=2.9)})
+               for s in range(4)],
+    }
+    kname = {"A": "ising_fused", "#2p": "ising_packed", "#5": "potts_fused"}
+    out = {"chain_ms": {f"{k}/C={c}": v for (k, c), v in chain_ms.items()}, "buckets": {}}
+    for what, specs in buckets.items():
+        updates = {f"s{s.seed}": [] for s in specs}
+        record = lambda job, u: updates[job.id].append(u.energy)  # noqa: E731
+        sched, jobs, made, counts, wall, _ = run_bucket(torch, build, api, serve, specs,
+                                                        on_update=record)
+        n_int = 4
+        expect_launches(counts, f"phase 22 bucket {what}", **{kname[what]: n_int},
+                        exchange=n_int * len(specs))
+        check_tickets(build, f"phase 22 bucket {what}")
+        if sched.stats()["n_compiles"] != 1 or len(made) != 1:
+            raise AssertionError(f"phase 22 bucket {what}: {sched.stats()}")
+        # obs on: the same bucket, equal launches and results, one chunk a span
+        ob = obs_lib.Observability.create(timeline=True)
+        updates_on = {f"s{s.seed}": [] for s in specs}
+        sched_on, jobs_on, made_on, counts_on, wall_on, _ = run_bucket(
+            torch, build, api, serve, specs, obs=ob,
+            on_update=lambda job, u: updates_on[job.id].append(u.energy))
+        if counts_on != counts:
+            raise AssertionError(f"phase 22 bucket {what}: launches obs on {counts_on} != "
+                                 f"off {counts}")
+        chunk = ob.metrics.snapshot()["engine_chunk_seconds"]["samples"][0]
+        ms_int = 1e3 * chunk["sum"] / chunk["count"]
+        # the obs-off engine between two chunk boundaries: no host sync
+        eng = made[0].engine
+        st0 = made[0].state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.advance(st0, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        del st0
+        solo = solo_runs(torch, api, specs)
+        bucket_equals_solo(np, jobs, made, solo, updates, f"phase 22 bucket {what}")
+        bucket_equals_solo(np, jobs_on, made_on, solo, updates_on,
+                           f"phase 22 bucket {what} obs on")
+        r_sw = len(specs) * 1500 * 400
+        out["buckets"][what] = {"launches": counts[kname[what]], "wall_s": wall,
+                                "ms_per_interval": ms_int, "jobs_per_s": len(specs) / wall,
+                                "replica_sweeps_per_s": r_sw / (chunk["sum"])}
+        print(f"phase 22 bucket {what} [{card}]: {len(specs)} tenants of the paper's round "
+              f"spec ({'300x300 q=3 Potts' if what == '#5' else 'L=300'} R=1500 S=100, 200 "
+              f"burn + 200 measure, 4 intervals) in one bucket: every JobResult (summaries, "
+              f"final energies), the streamed energies after every chunk and each chain's "
+              f"final spins and rungs equal to its solo Session run, obs on and off; "
+              f"launches {kname[what]}={counts[kname[what]]} (4 intervals, not "
+              f"{4 * len(specs)}), exchanges {counts['exchange']}; one preparation; "
+              f"{ms_int:.2f} ms per interval (obs-on chunk spans, synchronised), "
+              f"{r_sw / chunk['sum']:.4g} replica-sweeps/s, {len(specs) / wall:.3f} jobs/s "
+              f"({wall:.2f} s obs off incl. init, {wall_on:.2f} s obs on)")
+        del sched, jobs, made, sched_on, jobs_on, made_on, solo, eng
+        torch.cuda.empty_cache()
+        if what == "A":
+            # the timeline and the Prometheus text of an obs-on bucket
+            summary = validate_trace(ob.timeline.to_dict(),
+                                     require_spans=["compile", "chunk", "device_wait",
+                                                    "quantum"])
+            prom = obs_lib.to_prometheus(ob.metrics.snapshot())
+            for series in ("engine_chunks_total", "engine_device_seconds_total",
+                           "serve_quanta_total", "serve_jobs_packed_per_compile",
+                           "pt_swap_acceptance"):
+                if series not in prom:
+                    raise AssertionError(f"phase 22: {series} missing from the metrics")
+            print(f"phase 22 obs [{card}]: the obs-on bucket's timeline passes check_trace "
+                  f"({summary['n_events']} events, spans {sorted(summary['span_names'])}); "
+                  f"the Prometheus text holds the engine and serve series; the obs-off "
+                  f"engine's interval under set_sync_debug_mode('error') made no host sync")
+
+    # -- a burst of 32 small tenants ---------------------------------------------
+    base = RunSpec.from_json((ROOT / "examples" / "specs" / "ising_serve.json").read_text())
+    small = dict(base.system.params)
+    bursts = {"round": [dataclasses.replace(base, seed=s, system=SystemSpec(
+                  "ising", {**small, "use_fused": True, "use_fused_round": True}))
+                        for s in range(32)],
+              "per-sweep": [dataclasses.replace(base, seed=s) for s in range(32)]}
+    out["bursts"] = {}
+    for what, specs in bursts.items():
+        updates = {f"s{s.seed}": [] for s in specs}
+        sched, jobs, made, counts, wall, done_at = run_bucket(
+            torch, build, api, serve, specs,
+            on_update=lambda job, u: updates[job.id].append(u.energy))
+        n_int = base.schedule.total_sweeps // base.engine.swap_interval
+        n_sw = base.schedule.total_sweeps
+        if what == "round":
+            expect_launches(counts, f"phase 22 burst {what}", ising_fused=n_int,
+                            exchange=32 * n_int)
+        else:
+            expect_launches(counts, f"phase 22 burst {what}", jax_uniform=32 * n_sw,
+                            ising_sweep=32 * n_sw)
+        # the one-chunk torch.profiler window, once (its start costs seconds)
+        prof_dir = ROOT / "build" / "phase22_profile" if what == "round" else None
+        ob = obs_lib.Observability.create(
+            timeline=True, torch_profile_dir=None if prof_dir is None else str(prof_dir))
+        updates_on = {f"s{s.seed}": [] for s in specs}
+        _, jobs_on, made_on, counts_on, wall_on, _ = run_bucket(
+            torch, build, api, serve, specs, obs=ob,
+            on_update=lambda job, u: updates_on[job.id].append(u.energy))
+        if counts_on != counts:
+            raise AssertionError(f"phase 22 burst {what}: launches obs on {counts_on} != off")
+        if prof_dir is not None and not (prof_dir / obs_lib.PROFILE_NAME).is_file():
+            raise AssertionError(f"phase 22 burst {what}: no torch.profiler trace in {prof_dir}")
+        validate_trace(ob.timeline.to_dict(), require_spans=["chunk", "quantum"])
+        eng, st0 = made[0].engine, made[0].state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.advance(st0, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        solo = solo_runs(torch, api, specs)
+        bucket_equals_solo(np, jobs, made, solo, updates, f"phase 22 burst {what}")
+        bucket_equals_solo(np, jobs_on, made_on, solo, updates_on, f"phase 22 burst {what} obs on")
+        lat = np.array(sorted(done_at.values()))
+        p50, p99 = np.percentile(lat, 50), np.percentile(lat, 99)
+        per_round = (counts["ising_fused"] / n_int if what == "round"
+                     else counts["ising_sweep"] / n_sw)
+        out["bursts"][what] = {"jobs_per_s": 32 / wall, "p50_s": p50, "p99_s": p99,
+                               "launches": counts, "launches_per_round": per_round}
+        print(f"phase 22 burst {what} [{card}]: 32 tenants of examples/specs/ising_serve.json"
+              f"{' with use_fused_round' if what == 'round' else ''} (L=8 R=8, "
+              f"{n_sw} sweeps) in one bucket, every tenant equal to its solo Session run "
+              f"(obs on and off; timeline passes check_trace; "
+              + ("the one-chunk torch.profiler window wrote its trace; " if prof_dir else "")
+              + f"no host sync between chunk boundaries); "
+              f"{32 / wall:.2f} jobs/s, latency p50 {p50:.3f} s p99 {p99:.3f} s ({wall:.2f} s "
+              f"in all, obs on {wall_on:.2f} s); launches {counts} = {per_round:g} "
+              f"{'launch a round' if what == 'round' else 'sweep launches a sweep'} for the "
+              "32 tenants")
+        del sched, jobs, made, jobs_on, made_on, eng, st0
+
+    # -- faults on the card ---------------------------------------------------------
+    specs = bursts["round"]
+    _, base_jobs, _, _, _, _ = run_bucket(torch, build, api, serve, specs)
+    baseline = {j.id: j.result(timeout=0) for j in base_jobs}
+    typed = (InjectedFault, InjectedCrash, BucketQuarantined, FloatingPointError,
+             WatchdogTimeout)
+    fired = []
+    for seed in (0, 1, 2):
+        plan = FaultPlan.from_seed(seed, n_faults=4)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as ck:
+            _, fjobs, _, _, _, _ = run_bucket(torch, build, api, serve, specs, faults=plan,
+                                             ckdir=ck, checkpoint_every_quanta=1,
+                                             retry_backoff_s=0.001)
+            n_done = 0
+            for j in fjobs:
+                if j.state is serve.JobState.DONE:
+                    ref, got = baseline[j.id], j.result(timeout=0)
+                    if not np.array_equal(got.final_energy, ref.final_energy) or any(
+                            not np.array_equal(np.asarray(v), np.asarray(ref.phases[p][k]))
+                            for p in ref.phases for k, v in got.phases[p].items()):
+                        raise AssertionError(f"phase 22 faults seed {seed}: {j.id} != fault-free")
+                    n_done += 1
+                elif not isinstance(j.error, typed):
+                    raise AssertionError(f"phase 22 faults seed {seed}: {j.id} {j.error!r}")
+            for sub in Path(ck).iterdir():
+                if sub.is_dir():
+                    m = CheckpointManager(str(sub))
+                    for step in m.steps():
+                        try:
+                            m._verify(step)
+                        except CheckpointCorrupt:  # a torn or flipped write, caught typed
+                            pass
+            fired.append((seed, plan.log, n_done))
+    check_tickets(build, "phase 22 faults")
+    # an injected engine.compile fault on a round spec: the per-sweep path on the card
+    spec = bursts["round"][0]
+
+    def engine_run(system, **kw):
+        eng = Engine(system, spec.engine.build(spec.ladder.n_replicas,
+                                               exchange=spec.exchange.build()),
+                     observables=spec.system.observables(system, spec.observables),
+                     device="cuda", **kw)
+        state = eng.init(keys.key(spec.seed, device=device), spec.ladder.build())
+        return eng.run(state, spec.schedule.total_sweeps)
+
+    system = spec.system.build()
+    ref_state, ref = engine_run(dataclasses.replace(
+        system, use_fused=False, use_fused_round=False), strict_kernels=True)
+    ob = obs_lib.Observability.create(timeline=False)
+    build.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got_state, got = engine_run(system, obs=ob,
+                                    faults=FaultPlan([{"site": "engine.compile"}]))
+    degraded = ob.metrics.snapshot()["pt_degraded_kernel"]["samples"][0]["value"]
+    if degraded != 1 or not any("degrading" in str(w.message) for w in caught):
+        raise AssertionError(f"phase 22 degrade: pt_degraded_kernel {degraded}")
+    counts = counts_now(build)
+    expect_launches(counts, "phase 22 degrade", jax_uniform=spec.schedule.total_sweeps,
+                    ising_sweep=spec.schedule.total_sweeps)
+    if got_state.pt.states.device.type != "cuda" or not all(
+            torch.equal(a, b) for a, b in zip(
+                (got_state.pt.states, got_state.pt.rung, got_state.pt.energy),
+                (ref_state.pt.states, ref_state.pt.rung, ref_state.pt.energy))) or any(
+            not np.array_equal(v, ref.summary[k]) for k, v in got.summary.items()):
+        raise AssertionError("phase 22 degrade: not equal to the never-fused run on the card")
+    try:
+        engine_run(system, strict_kernels=True, faults=FaultPlan([{"site": "engine.compile"}]))
+    except InjectedFault:
+        pass
+    else:
+        raise AssertionError("phase 22: strict_kernels did not raise on the compile fault")
+    print(f"phase 22 faults [{card}]: FaultPlan.from_seed 0, 1, 2 (4 faults each) over the "
+          f"32-tenant round burst with checkpoints every quantum: every job done equal to "
+          f"its fault-free run or failed typed, every checkpoint verifies or is caught "
+          f"corrupt (fired, done: {[(s, log, d) for s, log, d in fired]}); an injected "
+          f"engine.compile fault on the round spec degraded its Engine to the per-sweep path "
+          f"on the card (pt_degraded_kernel 1, launches {counts}), its final state and "
+          f"summary equal to the never-fused run's; with strict_kernels it raised")
+    out["seconds"] = time.perf_counter() - t22
+    print(f"phase 22 done in {out['seconds']:.1f} s")
+    return out
+
+
+def strict_api(api):
+    """``api`` with its `Session` replaced by one whose ``strict_kernels``
+    defaults to True (also in `Session.from_checkpoint`): every phase but
+    phase 22's injected ``engine.compile`` fault runs strict, so a fused or
+    round path that cannot prepare or launch its kernels fails here instead
+    of degrading to the per-sweep path."""
+    import types
+
+    class Session(api.Session):
+        def __init__(self, spec, callbacks=(), device="cuda", strict_kernels=True):
+            super().__init__(spec, callbacks=callbacks, device=device,
+                             strict_kernels=strict_kernels)
+
+        @classmethod
+        def from_checkpoint(cls, directory, callbacks=(), device="cuda", strict_kernels=True):
+            return super().from_checkpoint(directory, callbacks=callbacks, device=device,
+                                           strict_kernels=strict_kernels)
+
+    ns = types.SimpleNamespace(**{k: getattr(api, k) for k in dir(api) if not k.startswith("__")})
+    ns.Session = Session
+    return ns
+
+
 def main() -> int:
     import torch
 
@@ -1382,8 +1861,13 @@ def main() -> int:
     from repro_torch import checkpoint as ckpt
     from repro_torch.api import (
         AdaptSpec, EngineSpec, ExchangeSpec, LadderSpec, PhaseSpec, RunSpec, ScheduleSpec,
-        Session, SystemSpec,
+        SystemSpec,
     )
+
+    api = strict_api(api)
+    Session = api.Session
+    # the conformance runs build their own Sessions: a degradation there fails too
+    warnings.filterwarnings("error", message="kernel preparation or launch failed")
     from repro_torch.exchange import make_strategy
     from repro_torch.core import keys
     from repro_torch.core.systems import REGISTRY
@@ -1827,7 +2311,8 @@ def main() -> int:
     wall_c = time.perf_counter() - t
     counts_chains = counts_now(build)
     n_int_c = spec_chains.schedule.total_sweeps // interval
-    expect_launches(counts_chains, "two-chain path", ising_packed=2 * n_int_c,
+    # one launch a round for both chains (the grid's chain axis), two exchanges
+    expect_launches(counts_chains, "two-chain path", ising_packed=n_int_c,
                     exchange=2 * n_int_c)
     est = ens.state
     if tuple(est.pt.states.shape) != (2, n_rep, length, length):
@@ -1869,7 +2354,8 @@ def main() -> int:
           f"{sw_c} sweeps per chain in {wall_c:.3f} s = {sw_c / wall_c:.2f} sweeps/s per chain "
           f"({2 * sw_c * n_rep / wall_c:.1f} replica-sweeps/s over both), "
           f"{1e3 * wall_c / n_int_c:.2f} ms/interval, launches "
-          f"{ {k: v for k, v in counts_chains.items() if v} } (host loop over chains); each "
+          f"{ {k: v for k, v in counts_chains.items() if v} } (one launch a round for both "
+          "chains); each "
           "chain == its solo run from fold_in(key, c); no host sync in 3 intervals; small "
           "two-chain spec equal on card and CPU")
 
@@ -1882,10 +2368,11 @@ def main() -> int:
     report = run_conformance(entry, seed=0, system_params=round_packed, device="cuda")
     wall_v = time.perf_counter() - t
     counts_conf = counts_now(build)
-    # one launch of #2p a round, per chain, each running the round's exchange
-    conf_rounds = entry.n_chains * (entry.burn_sweeps + entry.n_batches
-                                    * entry.sweeps_per_batch) // entry.swap_interval
-    expect_launches(counts_conf, "conformance", ising_packed=conf_rounds, exchange=conf_rounds)
+    # one launch of #2p a round for both chains, running each chain's exchange
+    conf_rounds = (entry.burn_sweeps + entry.n_batches
+                   * entry.sweeps_per_batch) // entry.swap_interval
+    expect_launches(counts_conf, "conformance", ising_packed=conf_rounds,
+                    exchange=entry.n_chains * conf_rounds)
     assert_conforms(report, z_max=4.0, geweke_max=4.0)
     if report.n_retunes != entry.adapt_rounds:
         raise AssertionError(f"conformance: {report.n_retunes} retunes")
@@ -2066,7 +2553,11 @@ def main() -> int:
     zoo = zoo_phases(torch, np, build, keys, sc, api, device, card)
     check_tickets(build, "phase 20")
 
-    # -- phase 21: kernel summary ---------------------------------------------
+    # -- phase 22: the chain axis of A, #2p and #5, and serving on the card -------
+    srv = serve_phases(torch, np, build, keys, isk, pk, api, device, card)
+    check_tickets(build, "phase 22")
+
+    # -- phase 23: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2086,7 +2577,12 @@ def main() -> int:
          "fused_path_launches": counts_fused["ising_fused"],
          "resume_launches": resume_main["counts"]["ising_fused"],
          "strategy_path_launches": {what: c["ising_fused"] for what, c in
-                                    counts_strategy.items() if "per-sweep" not in what}},
+                                    counts_strategy.items() if "per-sweep" not in what},
+         "chain_axis_round_ms": {"C=1": srv["chain_ms"]["ising_fused/C=1"],
+                                 "C=8": srv["chain_ms"]["ising_fused/C=8"]},
+         "serve_bucket_launches": srv["buckets"]["A"]["launches"],
+         "serve_bucket_ms_per_interval": srv["buckets"]["A"]["ms_per_interval"],
+         "serve_burst_launches": srv["bursts"]["round"]["launches"]["ising_fused"]},
         {"name": "ising_packed", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ising_packed.cu",
          "replaces": "src/repro/kernels/ising_sweep.py:269",
@@ -2103,7 +2599,11 @@ def main() -> int:
          "fused_path_launches": counts_pfused_i["ising_packed"],
          "two_chain_launches": counts_chains["ising_packed"],
          "conformance_launches": counts_conf["ising_packed"],
-         "resume_launches": resume_packed["counts"]["ising_packed"]},
+         "resume_launches": resume_packed["counts"]["ising_packed"],
+         "chain_axis_round_ms": {"C=1": srv["chain_ms"]["ising_packed/C=1"],
+                                 "C=8": srv["chain_ms"]["ising_packed/C=8"]},
+         "serve_bucket_launches": srv["buckets"]["#2p"]["launches"],
+         "serve_bucket_ms_per_interval": srv["buckets"]["#2p"]["ms_per_interval"]},
         # the round exchange runs inside the round launches of A, #2p and #5:
         # "launches" counts the exchanges run, "ms" is its tail (a round launch
         # less the same launch without it, profiler device time) at L=32 S=1
@@ -2131,7 +2631,11 @@ def main() -> int:
             main_ms=times["potts_fused"]["main_ms"],
             main_bound_ms=times["potts_fused"]["main_bound"][0],
             main_shape="300x300 q=3 R=1500 S=100",
-            also_replaces="src/repro/kernels/potts_sweep.py:372 (with the exchange)"),
+            also_replaces="src/repro/kernels/potts_sweep.py:372 (with the exchange)",
+            chain_axis_round_ms={"C=1": srv["chain_ms"]["potts_fused/C=1"],
+                                 "C=8": srv["chain_ms"]["potts_fused/C=8"]},
+            serve_bucket_launches=srv["buckets"]["#5"]["launches"],
+            serve_bucket_ms_per_interval=srv["buckets"]["#5"]["ms_per_interval"]),
         row("jax_uniform", "jax_uniform.cu",
             "none: XLA's jax.random.uniform (src/repro/engine/driver.py:171)",
             counts_sweep["jax_uniform"], shape="R=1500 x (2,300,300)",
@@ -2170,7 +2674,7 @@ def main() -> int:
             "latency_floor_ms": zt[name]["latency_floor"], "device_ms": zt[name]["device_ms"],
             "path_ms_per_interval": zoo["paths"][path]["ms"]})
     kernels[-2]["conformance_launches"] = zoo["conformance_launches"]
-    print(f"phase 21 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 23 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

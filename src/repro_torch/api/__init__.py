@@ -3,6 +3,7 @@ from repro_torch.api.session import (
     Callback,
     CheckpointCallback,
     EarlyStopCallback,
+    ObsCallback,
     ProgressCallback,
     Session,
     SessionResult,
@@ -30,6 +31,7 @@ __all__ = [
     "EngineSpec",
     "ExchangeSpec",
     "LadderSpec",
+    "ObsCallback",
     "PhaseSpec",
     "ProgressCallback",
     "RunSpec",

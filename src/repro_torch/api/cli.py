@@ -3,9 +3,15 @@
 Subcommands:
 
   run SPEC.json [--out DIR] [--device cuda|cpu] [--checkpoint-every N]
+                  [--timeline OUT.trace.json] [--metrics-out OUT.prom]
+                  [--torch-profile DIR] [--strict-kernels]
                   execute the spec end to end and write ``DIR/manifest.json``
                   (default device: cuda; cpu runs the plain PyTorch versions),
-                  checkpointing into ``DIR/checkpoints`` every N chunks
+                  checkpointing into ``DIR/checkpoints`` every N chunks; the
+                  obs flags write a Perfetto timeline, the Prometheus
+                  metrics and a one-chunk torch.profiler trace;
+                  --strict-kernels fails where a fused or round path would
+                  degrade to the per-sweep path
   resume DIR [--device cuda|cpu]
                   continue a ``run`` output directory (of either package)
                   from ``DIR/checkpoints``; writes ``DIR/manifest.json``
@@ -16,10 +22,17 @@ Subcommands:
                   against its exact reference; exit 1 on failure, 2 for an
                   unknown system or strategy; ``--fused`` runs the
                   interval-fused kernel path (Ising and Potts)
+  serve SPEC.json... [--jobs N] [--seed0 S] [--out DIR] [--device cuda|cpu]
+                  [--quantum-chunks N] [--pack-window SEC]
+                  [--checkpoint-dir DIR] [--checkpoint-every N]
+                  [--metrics-every N] [--metrics-out OUT.prom]
+                  [--timeline OUT.trace.json] [--max-attempts N]
+                  [--watchdog-s SEC] [--queue-depth N]
+                  pack N seed variants of each spec into shared buckets
+                  (`repro_torch.serve.Scheduler`) and write
+                  ``DIR/serve_results.json``; exit 1 if any job failed
   list-systems    registered systems and their observables
   list-strategies registered replica-exchange strategies
-
-``serve`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,7 +44,12 @@ import sys
 
 import numpy as np
 
-from repro_torch.api.session import CheckpointCallback, ProgressCallback, Session
+from repro_torch.api.session import (
+    CheckpointCallback,
+    ObsCallback,
+    ProgressCallback,
+    Session,
+)
 from repro_torch.api.spec import RunSpec
 
 __all__ = ["main"]
@@ -47,8 +65,18 @@ def _cmd_run(args) -> int:
     callbacks = [] if args.quiet else [ProgressCallback(every=args.progress_every)]
     callbacks.append(CheckpointCallback(os.path.join(out, "checkpoints"),
                                         every_chunks=args.checkpoint_every))
-    result = Session(spec, callbacks=callbacks, device=args.device).run()
+    obs_cb = None
+    if args.timeline or args.metrics_out or args.torch_profile:
+        obs_cb = ObsCallback(timeline_path=args.timeline, metrics_path=args.metrics_out,
+                             torch_profile_dir=args.torch_profile)
+        callbacks.append(obs_cb)
+    result = Session(spec, callbacks=callbacks, device=args.device,
+                     strict_kernels=args.strict_kernels).run()
     path = result.write_manifest(os.path.join(out, "manifest.json"))
+    if obs_cb is not None:
+        for kind, p in sorted(obs_cb.write().items()):
+            if not args.quiet:
+                print(f"{kind}: {p}", file=sys.stderr)
     if not args.quiet:
         temps = 1.0 / result.state.betas.cpu().numpy().astype(np.float64)
         print(f"final ladder: {np.round(temps, 4).tolist()}", file=sys.stderr)
@@ -124,6 +152,68 @@ def _cmd_validate(args) -> int:
     return 0
 
 
+def _cmd_serve(args) -> int:
+    # the serve layer builds on the api layer: imported here, not at the top
+    from repro_torch.serve import JobFailedError, Scheduler
+
+    out = args.out or "runs/serve"
+    obs = None
+    if args.timeline:
+        from repro_torch.obs import Observability
+
+        obs = Observability.create(timeline=True)
+    metrics_path = args.metrics_out or os.path.join(out, "metrics.prom")
+    sched = Scheduler(
+        checkpoint_dir=args.checkpoint_dir,
+        quantum_chunks=args.quantum_chunks,
+        pack_window=args.pack_window,
+        checkpoint_every_quanta=args.checkpoint_every,
+        obs=obs,
+        metrics_every=args.metrics_every,
+        metrics_path=metrics_path if args.metrics_every else None,
+        max_attempts=args.max_attempts,
+        watchdog_s=args.watchdog_s,
+        queue_depth=args.queue_depth,
+        device=args.device,
+    )
+    handles = []
+    for path in args.specs:
+        with open(path) as f:
+            spec = RunSpec.from_json(f.read())
+        stem = os.path.splitext(os.path.basename(path))[0]
+        for i in range(args.jobs):
+            tenant = dataclasses.replace(spec, seed=args.seed0 + i)
+            handles.append(sched.submit(tenant, job_id=f"{stem}-seed{args.seed0 + i}"))
+    sched.run_until_idle()
+    stats = sched.stats()
+    results, failed = {}, {}
+    for job in handles:
+        try:
+            results[job.id] = sched.result(job, timeout=0).manifest()
+        except JobFailedError as e:
+            failed[job.id] = repr(e)
+    os.makedirs(out, exist_ok=True)
+    sched.write_metrics(metrics_path)
+    if obs is not None:
+        obs.timeline.write(args.timeline)
+        if not args.quiet:
+            print(f"timeline: {args.timeline}", file=sys.stderr)
+    if not args.quiet:
+        print(f"metrics: {metrics_path}", file=sys.stderr)
+    path = os.path.join(out, "serve_results.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"scheduler": stats, "results": results, "failed": failed},
+                  f, indent=2, sort_keys=True)
+    os.replace(tmp, path)
+    if not args.quiet:
+        print(f"{stats['n_jobs']} jobs, {stats['n_engines']} packed engine(s), "
+              f"{stats['n_compiles']} compile(s), {stats['n_quanta']} quanta",
+              file=sys.stderr)
+    print(path)
+    return 1 if failed else 0
+
+
 def _cmd_list_systems(args) -> int:
     from repro_torch.core.systems import CONSTRUCTORS
 
@@ -152,6 +242,18 @@ def main(argv=None) -> int:
                      help="chunks between checkpoints")
     run.add_argument("--progress-every", type=int, default=10,
                      help="chunks between progress lines")
+    run.add_argument("--timeline", default=None, metavar="OUT.trace.json",
+                     help="record a Perfetto/Chrome trace of the run (compile, "
+                          "chunk, device_wait, adapt, checkpoint spans)")
+    run.add_argument("--metrics-out", default=None, metavar="OUT.prom",
+                     help="write the run's metrics (Prometheus text format)")
+    run.add_argument("--torch-profile", default=None, metavar="DIR",
+                     help="wrap one engine chunk in torch.profiler and write "
+                          "its Chrome trace under DIR")
+    run.add_argument("--strict-kernels", action="store_true",
+                     help="fail if a fused or round path's kernels cannot be "
+                          "prepared or launched, instead of degrading to the "
+                          "per-sweep path on the same device")
     run.add_argument("--quiet", action="store_true")
     run.set_defaults(fn=_cmd_run)
     res = sub.add_parser("resume", help="continue a checkpointed run directory")
@@ -173,6 +275,43 @@ def main(argv=None) -> int:
     val.add_argument("--out", default=None, help="also write the report JSON here")
     val.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     val.set_defaults(fn=_cmd_validate)
+    srv = sub.add_parser("serve", help="pack seed-variant jobs of each spec into "
+                                       "shared buckets (repro_torch.serve)")
+    srv.add_argument("specs", nargs="+", help="spec JSONs; same-shaped specs share "
+                                              "one packed engine")
+    srv.add_argument("--jobs", type=int, default=4,
+                     help="seed variants submitted per spec (default 4)")
+    srv.add_argument("--seed0", type=int, default=0, help="first tenant seed")
+    srv.add_argument("--out", default=None,
+                     help="output dir for serve_results.json (default runs/serve)")
+    srv.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    srv.add_argument("--quantum-chunks", type=int, default=1,
+                     help="engine chunks per scheduler time-slice")
+    srv.add_argument("--pack-window", type=float, default=0.0,
+                     help="seconds to hold a new shape open for bucket-mates")
+    srv.add_argument("--checkpoint-dir", default=None,
+                     help="enable preemption persistence under this root")
+    srv.add_argument("--checkpoint-every", type=int, default=0,
+                     help="quanta between bucket checkpoints (0 = seal/finish only)")
+    srv.add_argument("--metrics-every", type=int, default=0, metavar="N",
+                     help="rewrite the Prometheus metrics file every N quanta "
+                          "(0 = only once at the end)")
+    srv.add_argument("--metrics-out", default=None, metavar="OUT.prom",
+                     help="metrics destination (default <out>/metrics.prom)")
+    srv.add_argument("--timeline", default=None, metavar="OUT.trace.json",
+                     help="record a Perfetto trace of the scheduler (quantum "
+                          "lanes, job flows, engine spans)")
+    srv.add_argument("--max-attempts", type=int, default=3,
+                     help="supervised retries per quantum before the bucket "
+                          "is quarantined")
+    srv.add_argument("--watchdog-s", type=float, default=0.0,
+                     help="wall-clock budget per quantum and first chunk "
+                          "preparation; 0 disables the watchdog threads")
+    srv.add_argument("--queue-depth", type=int, default=0,
+                     help="bound the intake queue (QueueFull backpressure); "
+                          "0 = unbounded")
+    srv.add_argument("--quiet", action="store_true")
+    srv.set_defaults(fn=_cmd_serve)
     ls = sub.add_parser("list-systems", help="registered systems")
     ls.set_defaults(fn=_cmd_list_systems)
     lst = sub.add_parser("list-strategies", help="registered replica-exchange strategies")

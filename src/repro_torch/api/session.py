@@ -11,8 +11,11 @@ Resume: `CheckpointCallback` saves ``spec.json`` once and the
 meta, in the JAX package's checkpoint format; `Session.from_checkpoint`
 rebuilds the Session from the directory alone and ``run()`` replays the
 remaining sweeps of the schedule, bit-equal to the uninterrupted run.
-Either package resumes the other's checkpoints.  ``ObsCallback`` waits for
-the port's telemetry layer.
+Either package resumes the other's checkpoints.  `ObsCallback` attaches a
+`repro_torch.obs.Observability` to the engine and writes its timeline and
+metrics after every phase; ``strict_kernels`` makes a failed kernel
+preparation or launch on a fused or round path an error instead of a
+degradation to the per-sweep path on the card.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 from typing import Sequence
 
 import numpy as np
@@ -30,8 +34,8 @@ from repro_torch.core import keys
 from repro_torch.engine import AdaptInfo, ChunkInfo, Engine, EngineState, RunResult
 from repro_torch.engine.adapt import AdaptState
 
-__all__ = ["Callback", "CheckpointCallback", "EarlyStopCallback", "ProgressCallback",
-           "TraceWriterCallback", "Session", "SessionResult"]
+__all__ = ["Callback", "CheckpointCallback", "EarlyStopCallback", "ObsCallback",
+           "ProgressCallback", "TraceWriterCallback", "Session", "SessionResult"]
 
 
 class Callback:
@@ -110,7 +114,12 @@ class CheckpointCallback(Callback):
                 "adapt_rounds": session.engine._adapt_rounds}
         if session.engine._adapt_state is not None:
             meta.update(session.engine._adapt_state.to_meta())
-        self.manager.save(sweep, state, meta=meta)
+        obs = session.engine.obs
+        if obs is not None:
+            with obs.timeline.span("checkpoint", cat="session", sweep=sweep):
+                self.manager.save(sweep, state, meta=meta)
+        else:
+            self.manager.save(sweep, state, meta=meta)
         session.dispatch("on_checkpoint", sweep)
 
     def on_chunk(self, session, info):
@@ -147,6 +156,64 @@ class TraceWriterCallback(Callback):
         path = os.path.join(self.directory,
                             f"trace_{session.current_phase.name}_{info.index:06d}.npz")
         np.savez(path, **info.trace)
+
+
+class ObsCallback(Callback):
+    """Attach a `repro_torch.obs.Observability` to the run and export it.
+
+    On phase start the bundle is attached to the Session's engine (the
+    per-chunk spans and metrics of its host loop), phases land as spans on a
+    ``session`` track, and after every phase the timeline and metrics files
+    are (re)written atomically, so a run that dies mid-schedule still leaves
+    loadable files.
+
+    Args:
+      obs: an existing `Observability` to ride on; built fresh when None.
+      timeline_path: where `write()` puts the Chrome-trace JSON (skipped
+        when None or when the bundle records no timeline).
+      metrics_path: where `write()` puts the Prometheus text exposition.
+      torch_profile_dir: arm the one-chunk `torch.profiler` window around
+        the first engine chunk (only when ``obs`` is built here).
+    """
+
+    def __init__(self, obs=None, timeline_path: str | None = None,
+                 metrics_path: str | None = None, torch_profile_dir: str | None = None):
+        if obs is None:
+            from repro_torch.obs import Observability
+
+            obs = Observability.create(timeline=timeline_path is not None,
+                                       torch_profile_dir=torch_profile_dir)
+        self.obs = obs
+        self.timeline_path = timeline_path
+        self.metrics_path = metrics_path
+        self._phase_t0: dict[str, float] = {}
+
+    def on_phase_start(self, session, phase):
+        if session.engine.obs is not self.obs:
+            session.engine.obs = self.obs
+        self._phase_t0[phase.name] = time.perf_counter()
+
+    def on_phase_end(self, session, phase, result):
+        t0 = self._phase_t0.pop(phase.name, None)
+        if t0 is not None:
+            self.obs.timeline.complete(
+                f"phase:{phase.name}", t0, time.perf_counter() - t0,
+                cat="session", track="session",
+                args={"n_sweeps": int(result.n_sweeps),
+                      "stopped_early": bool(result.stopped_early)},
+            )
+        self.write()
+
+    def write(self) -> dict:
+        """Write the requested files (atomic); returns ``{kind: path}``."""
+        out = {}
+        if self.timeline_path and getattr(self.obs.timeline, "enabled", False):
+            out["timeline"] = self.obs.timeline.write(self.timeline_path)
+        if self.metrics_path:
+            from repro_torch.obs import write_prometheus
+
+            out["metrics"] = write_prometheus(self.obs.metrics, self.metrics_path)
+        return out
 
 
 @dataclasses.dataclass
@@ -205,10 +272,14 @@ class SessionResult:
 
 
 class Session:
-    """Compiled form of a `RunSpec` on one device (``cuda`` by default)."""
+    """Compiled form of a `RunSpec` on one device (``cuda`` by default).
+
+    ``strict_kernels`` makes a failed kernel preparation or launch on a
+    fused or round path an error; without it the engine degrades to the
+    per-sweep path on the same device, with a warning."""
 
     def __init__(self, spec: RunSpec, callbacks: Sequence[Callback] = (),
-                 device="cuda"):
+                 device="cuda", strict_kernels: bool = False):
         self.spec = spec
         self.callbacks = list(callbacks)
         self.system = spec.system.build()
@@ -221,6 +292,7 @@ class Session:
             observables=self.observables,
             adapt=self._adapt,
             device=device,
+            strict_kernels=strict_kernels,
         )
         self.state: EngineState | None = None
         self.current_phase: PhaseSpec | None = None
@@ -238,7 +310,7 @@ class Session:
 
     @classmethod
     def from_checkpoint(cls, directory: str, callbacks: Sequence[Callback] = (),
-                        device="cuda") -> "Session":
+                        device="cuda", strict_kernels: bool = False) -> "Session":
         """A Session from ``(spec.json, newest checkpoint)`` in ``directory``
         (written by either package), state on ``device``; its ``run()``
         continues the schedule.  A `CheckpointCallback` on the same directory
@@ -247,7 +319,8 @@ class Session:
         data = manager.load_spec()
         if data is None:
             raise FileNotFoundError(f"no spec.json in {directory!r}")
-        session = cls(RunSpec.from_json(data), callbacks=callbacks, device=device)
+        session = cls(RunSpec.from_json(data), callbacks=callbacks, device=device,
+                      strict_kernels=strict_kernels)
         out = session.engine.restore(manager)
         if out is None:
             raise FileNotFoundError(f"no restorable checkpoint in {directory!r}")

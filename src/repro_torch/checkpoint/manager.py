@@ -26,7 +26,9 @@ Layout: ``<dir>/step_<N:010d>/arrays_p<proc>.npz`` + ``meta.json``, staged in
   directory, so managers in one process never clobber each other; `child`
   roots a manager in a subdirectory;
 * ``save(..., blocking=False)`` copies the tensors to the host first, then
-  writes on a thread (one outstanding write; `wait` joins it).
+  writes on a thread (one outstanding write; `wait` joins it);
+* a `repro_torch.resilience.FaultPlan` given as ``faults`` tears, corrupts
+  or crashes a write at the JAX manager's seams.
 
 A tree is the port's ``EngineState``.
 """
@@ -178,10 +180,20 @@ def from_arrays(arrays: dict[str, np.ndarray], device, like=None):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, process_index: int = 0):
+    """Checkpoints of one run (or one serve bucket) in ``directory``.
+
+    ``faults`` (a `repro_torch.resilience.FaultPlan`, None in production)
+    arms the write seams ``checkpoint.write.torn``, ``.corrupt``,
+    ``.crash_before_rename`` and ``.crash_after_rename``, each one ``is
+    None`` test when off; `child` managers share it.
+    """
+
+    def __init__(self, directory: str, keep: int = 3, process_index: int = 0,
+                 faults=None):
         self.dir = directory
         self.keep = keep
         self.proc = process_index
+        self._faults = faults
         os.makedirs(directory, exist_ok=True)
         self._writer: threading.Thread | None = None
         # generations skipped by the last `restore_latest` (0: the newest was intact)
@@ -198,7 +210,7 @@ class CheckpointManager:
     def child(self, name: str) -> "CheckpointManager":
         """A manager rooted in the subdirectory ``name`` (same retention)."""
         return CheckpointManager(os.path.join(self.dir, name), keep=self.keep,
-                                 process_index=self.proc)
+                                 process_index=self.proc, faults=self._faults)
 
     def steps(self) -> list[int]:
         out = []
@@ -299,18 +311,44 @@ class CheckpointManager:
             arrays_name = self._arrays_name()
             arrays_path = os.path.join(tmp, arrays_name)
             np.savez(arrays_path, **arrays)
+            # the digest of the staged bytes before any injected damage
+            # below: a torn or flipped file no longer matches it on restore
             meta["integrity"] = {arrays_name: {
                 "sha256": self._sha256(arrays_path),
                 "bytes": os.path.getsize(arrays_path),
             }}
+            if self._faults is not None:
+                if self._faults.check("checkpoint.write.torn") is not None:
+                    size = os.path.getsize(arrays_path)
+                    with open(arrays_path, "r+b") as f:
+                        f.truncate(size // 2)
+                if self._faults.check("checkpoint.write.corrupt") is not None:
+                    size = os.path.getsize(arrays_path)
+                    with open(arrays_path, "r+b") as f:
+                        f.seek(size // 2)
+                        byte = f.read(1)
+                        f.seek(size // 2)
+                        f.write(bytes([byte[0] ^ 0xFF]))
             with open(os.path.join(tmp, "meta.json"), "w") as f:
                 json.dump(meta, f)
+            if self._faults is not None and self._faults.check(
+                "checkpoint.write.crash_before_rename"
+            ) is not None:
+                from repro_torch.resilience.faults import InjectedCrash
+
+                raise InjectedCrash(f"killed before renaming {tmp} (staging dir left behind)")
             final = self._step_dir(step)
             with _dir_lock(self.dir):
                 if os.path.exists(final):
                     shutil.rmtree(final)
                 os.replace(tmp, final)
                 self._gc()
+            if self._faults is not None and self._faults.check(
+                "checkpoint.write.crash_after_rename"
+            ) is not None:
+                from repro_torch.resilience.faults import InjectedCrash
+
+                raise InjectedCrash(f"killed after renaming {final} (step dir is whole)")
 
         if blocking:
             write()

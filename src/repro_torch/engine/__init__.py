@@ -9,6 +9,7 @@ from repro_torch.engine.driver import (
     EngineState,
     RunResult,
     StepSpec,
+    make_ensemble_step,
     make_interval_step,
 )
 
@@ -22,5 +23,6 @@ __all__ = [
     "EngineState",
     "RunResult",
     "StepSpec",
+    "make_ensemble_step",
     "make_interval_step",
 ]

@@ -35,11 +35,28 @@ so the interval loop never waits for the card.  The host reads the O(R)
 counters once per chunk, for the ladder feedback.
 
 The ensemble axis (``n_chains = C > 1``) stacks C independent chains
-``(C, R, ...)``; chain ``c`` is seeded from ``fold_in(key, c)``, so its
-trajectory does not depend on C.  Where JAX ``vmap``s the chunk over the
-chains, the engine runs each chain's chunk in turn on its slice of the
-stacked state (a host loop: C launches of each kernel per interval, still
-with no host sync) and stacks the results at the chunk's end.
+``(C, R, ...)``; chain ``c`` is seeded from ``fold_in(key, c)`` (`init`),
+or from a key of its own (`init_ensemble`, the serve layer's packing hook),
+so its trajectory does not depend on C.  Where JAX ``vmap``s the chunk over
+the chains, the round and fused paths pass the whole stacked state to one
+kernel call per interval (`make_ensemble_step`): one launch a round (or an
+interval) for every chain on CUDA, its grid's second dimension the chain.
+The exchange strategy's swap phase (fused path) and the observables then
+run chain by chain on their slices, so each chain's reductions are those of
+a solo run, and the accumulators update once for all chains.  The
+per-sweep path (and a recycling strategy, VMPT) runs each chain's chunk in
+turn on its slice of the stacked state (a host loop: C launches of each
+kernel per sweep) and stacks the results at the chunk's end.  No path
+waits for the card between chunk boundaries.
+
+Observability and faults (`repro_torch.obs`, `repro_torch.resilience`)
+hook the host loop as in the JAX engine: every site is one ``is None``
+test when off, and the kernel launches are the same with them on or off.
+A chunk is *prepared* once per chunk length (the path's kernel libraries
+built and loaded: the JAX engine's compile, counted in ``n_compiles``).  A
+failed preparation or a refused launch on a fused or round path degrades
+the engine to the per-sweep path on the card (``strict_kernels`` makes it
+an error); nothing falls back to the CPU or to a plain version.
 
 `Engine.restore` reads the newest checkpoint of a
 `repro_torch.checkpoint.CheckpointManager` onto the engine's device.  Not
@@ -48,18 +65,21 @@ ported yet, and refused with `NotImplementedError`: ``mesh``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping
+import time
+import warnings
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import keys
-from repro_torch.core.pt import PTState, init_replicas, map_states
+from repro_torch.core.pt import PTState, init_replicas, map_states, stack_states
 from repro_torch.device import resolve_device
 from repro_torch.engine import stats as stats_lib
 from repro_torch.engine.adapt import AdaptConfig, AdaptState, maybe_adapt
 from repro_torch.engine.stats import map_leaves, stack_leaves
 from repro_torch.exchange import DEO, ExchangeStrategy, make_strategy
+from repro_torch.kernels import build
 from repro_torch.kernels import exchange as kernel_exchange
 
 __all__ = [
@@ -71,6 +91,7 @@ __all__ = [
     "AdaptInfo",
     "Engine",
     "make_interval_step",
+    "make_ensemble_step",
 ]
 
 
@@ -109,6 +130,16 @@ def _observe(observables, st: PTState) -> dict[str, torch.Tensor]:
     for name, fn in observables.items():
         out[name] = fn(st.states)[inv]
     return out
+
+
+def _chain(st: PTState, c: int) -> PTState:
+    """Chain ``c`` of a stacked state: views of its slices, no copy."""
+    return PTState(states=map_states(st.states, lambda x: x[c]), energy=st.energy[c],
+                   rung=st.rung[c], key=st.key[c], phase=st.phase[c], t=st.t[c])
+
+
+def _stack_records(recs: list[dict]) -> dict[str, torch.Tensor]:
+    return {k: torch.stack([r[k] for r in recs]) for k in recs[0]}
 
 
 def _swap_decision(spec: StepSpec, betas, st: PTState):
@@ -152,16 +183,10 @@ def _round_interval(system, spec: StepSpec):
     return system.batched_mcmc_round
 
 
-def make_interval_step(system, spec: StepSpec, observables=None):
-    """Build ``(PTState, betas) -> (PTState, record)`` for one interval.
-
-    ``record`` holds per-rung ``energy``, each observable, and
-    ``swap_accept``/``swap_prob``/``swap_attempt`` at the lower rung of
-    each attempted pair.  With a waste-recycling strategy the series are
-    the pre-swap values of both outcomes, ``(2, R)``, beside ``est_weight``.
-    """
-    observables = dict(observables or {})
-    fused_round = _round_interval(system, spec)
+def _interval_parts(system, spec: StepSpec, observables):
+    """``(sweeps, exchange)``: an interval's S sweeps without the exchange,
+    and its swap phase and record after them, on the per-sweep or the
+    interval-fused path (``sweeps`` also takes stacked chains there)."""
     fused = getattr(system, "use_fused", False)
     recycle = spec.do_swap and spec.exchange.n_virtual > 1
     spi = spec.sweeps_per_interval
@@ -184,21 +209,8 @@ def make_interval_step(system, spec: StepSpec, observables=None):
             )
         return st
 
-    def interval_step(st: PTState, betas: torch.Tensor):
-        if fused_round is not None:
-            states, rung, energy, _, acc, prob, att = fused_round(
-                st.key, st.t, st.phase, st.states, st.rung, st.energy, betas,
-                n_sweeps=spi, criterion=spec.criterion,
-                pairing=spec.exchange.name,
-            )
-            st = dataclasses.replace(
-                st, states=states, rung=rung, energy=energy,
-                t=st.t + spi, phase=st.phase + 1,
-            )
-            rec = _observe(observables, st)
-            rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
-            return st, rec
-        st = sweeps(st, betas)
+    def exchange(st: PTState, betas: torch.Tensor):
+        """The interval's swap phase and record, after its sweeps."""
         if recycle:
             # both outcomes of every attempted pair, pre-swap, in rung order
             partner, perm, diag = _swap_decision(spec, betas, st)
@@ -217,7 +229,86 @@ def make_interval_step(system, spec: StepSpec, observables=None):
         rec.update(diag)
         return st, rec
 
+    return sweeps, exchange
+
+
+def make_interval_step(system, spec: StepSpec, observables=None):
+    """Build ``(PTState, betas) -> (PTState, record)`` for one interval.
+
+    ``record`` holds per-rung ``energy``, each observable, and
+    ``swap_accept``/``swap_prob``/``swap_attempt`` at the lower rung of
+    each attempted pair.  With a waste-recycling strategy the series are
+    the pre-swap values of both outcomes, ``(2, R)``, beside ``est_weight``.
+    """
+    observables = dict(observables or {})
+    fused_round = _round_interval(system, spec)
+    sweeps, exchange = _interval_parts(system, spec, observables)
+    spi = spec.sweeps_per_interval
+
+    def interval_step(st: PTState, betas: torch.Tensor):
+        if fused_round is not None:
+            states, rung, energy, _, acc, prob, att = fused_round(
+                st.key, st.t, st.phase, st.states, st.rung, st.energy, betas,
+                n_sweeps=spi, criterion=spec.criterion,
+                pairing=spec.exchange.name,
+            )
+            st = dataclasses.replace(
+                st, states=states, rung=rung, energy=energy,
+                t=st.t + spi, phase=st.phase + 1,
+            )
+            rec = _observe(observables, st)
+            rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
+            return st, rec
+        return exchange(sweeps(st, betas), betas)
+
     return interval_step
+
+
+def make_ensemble_step(system, spec: StepSpec, observables=None):
+    """``(PTState, betas) -> (PTState, record)`` for one interval of C
+    stacked chains, on the paths whose kernels take a chain axis: the whole
+    round (one kernel call for every chain, one launch a round on CUDA) and
+    the interval-fused sweeps (one call for every chain, then each chain's
+    swap phase on its slice).  The observables reduce chain by chain on
+    their slices, so every chain's record is its solo run's.  Records are
+    ``(C, R)``.  None for the paths that run chain by chain (per sweep, and
+    a recycling strategy)."""
+    observables = dict(observables or {})
+    fused_round = _round_interval(system, spec)
+    if fused_round is None and not getattr(system, "use_fused", False):
+        return None
+    if spec.do_swap and spec.exchange.n_virtual > 1:
+        return None
+    spi = spec.sweeps_per_interval
+    sweeps, exchange = _interval_parts(system, spec, observables)
+
+    def observe(st: PTState):
+        return _stack_records([_observe(observables, _chain(st, c))
+                               for c in range(st.rung.shape[0])])
+
+    def ensemble_step(st: PTState, betas: torch.Tensor):
+        if fused_round is not None:
+            states, rung, energy, _, acc, prob, att = fused_round(
+                st.key, st.t, st.phase, st.states, st.rung, st.energy, betas,
+                n_sweeps=spi, criterion=spec.criterion, pairing=spec.exchange.name,
+            )
+            st = dataclasses.replace(st, states=states, rung=rung, energy=energy,
+                                     t=st.t + spi, phase=st.phase + 1)
+            rec = observe(st)
+            rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
+            return st, rec
+        st = sweeps(st, betas)
+        outs = [exchange(_chain(st, c), betas) for c in range(st.rung.shape[0])]
+        chains = [o[0] for o in outs]
+        # temp mode moves no state: the stacked lattices stand as they are
+        states = (st.states if spec.swap_mode == "temp"
+                  else stack_states([c.states for c in chains]))
+        st = PTState(states=states,
+                     **{f: torch.stack([getattr(c, f) for c in chains])
+                        for f in ("energy", "rung", "key", "phase", "t")})
+        return st, _stack_records([o[1] for o in outs])
+
+    return ensemble_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,11 +430,144 @@ def _betas(temps: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy((1.0 / np.asarray(temps, np.float64)).astype(np.float32)).to(device)
 
 
+# -- observability (obs-on runs only; see repro_torch.obs) ----------------------
+
+
+def _lattice_cells(system) -> int | None:
+    """Sites of one lattice (Ising ``length``², Potts ``shape``), else None."""
+    length = getattr(system, "length", None)
+    if length is not None:
+        return int(length) * int(length)
+    shape = getattr(system, "shape", None)
+    if isinstance(shape, tuple) and len(shape) == 2:
+        return int(shape[0]) * int(shape[1])
+    return None
+
+
+class _EngineObs:
+    """Pre-resolved metric handles + timeline for an instrumented engine.
+
+    Built once when an `repro_torch.obs.Observability` is attached
+    (``engine.obs = obs``), never on the obs-off path.  Every series comes
+    from what the engine holds on the host anyway (the O(R) pooled counters,
+    wall-clock timestamps, preparation bookkeeping); the only device
+    interaction is the one synchronisation a chunk that ``device_seconds``
+    needs.  The metric names and help strings are the JAX engine's.
+    """
+
+    __slots__ = (
+        "obs", "timeline", "compiles", "compile_seconds", "chunks", "sweeps",
+        "chunk_seconds", "device_seconds", "host_seconds", "sweeps_per_sec",
+        "swap_acc", "flow_up", "adapt_rounds", "checkpoints", "hbm_bytes",
+        "degraded_kernel", "_last_counters",
+    )
+
+    def __init__(self, obs, system, config):
+        self.obs = obs
+        self.timeline = obs.timeline
+        m = obs.metrics
+        self.compiles = m.counter(
+            "engine_compiles_total", "mega-step AOT compiles")
+        self.compile_seconds = m.counter(
+            "engine_compile_seconds_total", "wall seconds spent in AOT compile")
+        self.chunks = m.counter(
+            "engine_chunks_total", "compiled chunks executed")
+        self.sweeps = m.counter(
+            "engine_sweeps_total", "sweeps advanced (per chain)")
+        self.chunk_seconds = m.histogram(
+            "engine_chunk_seconds", "wall time per compiled chunk")
+        self.device_seconds = m.counter(
+            "engine_device_seconds_total",
+            "wall seconds waiting on device inside chunks")
+        self.host_seconds = m.counter(
+            "engine_host_seconds_total",
+            "host-side overhead between device launches (adapt, trace drain, "
+            "checkpoint, callbacks)")
+        self.sweeps_per_sec = m.gauge(
+            "engine_sweeps_per_sec", "throughput of the last chunk")
+        self.adapt_rounds = m.counter(
+            "engine_adapt_rounds_total", "ladder retunes performed")
+        self.checkpoints = m.counter(
+            "engine_checkpoints_total", "engine-loop checkpoint saves")
+        self.degraded_kernel = m.counter(
+            "pt_degraded_kernel",
+            "fused/Pallas compile failures degraded to the per-sweep path")
+        acc = m.gauge("pt_swap_acceptance",
+                      "live swap acceptance per rung pair", labels=("pair",))
+        flow = m.gauge("pt_flow_up_fraction",
+                       "live up-flow fraction f(k) per rung", labels=("rung",))
+        self.swap_acc = [acc.labels(str(k)) for k in range(config.n_replicas - 1)]
+        self.flow_up = [flow.labels(str(k)) for k in range(config.n_replicas)]
+        # window deltas for the acceptance gauges
+        self._last_counters = None
+        self.hbm_bytes = self._modeled_hbm_bytes(system, config)
+
+    @staticmethod
+    def _modeled_hbm_bytes(system, config) -> float | None:
+        """Modeled device-memory bytes of one chunk of the port's kernels.
+
+        The round and fused paths (kernels A, #2p, #5) draw their uniforms
+        in the kernel: a launch reads and writes each int8 lattice once,
+        2 B a site, one launch an interval.  The per-sweep path writes its
+        uniform planes (``jax_uniform``: 2 f32 planes a site for Ising, 4
+        for Potts) and the sweep (#1, #4) reads them and reads and writes
+        the lattice, every sweep.  The O(R) rows are left out.  None for a
+        system without a lattice (nothing rather than a wrong number).
+        """
+        cells = _lattice_cells(system)
+        if cells is None:
+            return None
+        per_site = 2.0 if getattr(system, "use_fused", False) else None
+        launches = config.chunk_intervals
+        if per_site is None:
+            planes = 4 if hasattr(system, "q") else 2
+            per_site = 2 * 4.0 * planes + 2.0
+            launches *= config.spec.sweeps_per_interval
+        return per_site * cells * launches * config.n_replicas * config.n_chains
+
+    def record_chunk(self, *, intervals, spi, device_s, wall_s) -> None:
+        """Per-chunk series: throughput and durations."""
+        sweeps = intervals * spi
+        self.chunks.inc()
+        self.sweeps.inc(sweeps)
+        self.chunk_seconds.observe(wall_s)
+        self.device_seconds.inc(device_s)
+        self.host_seconds.inc(max(wall_s - device_s, 0.0))
+        if wall_s > 0:
+            self.sweeps_per_sec.set(sweeps / wall_s)
+
+    def record_rungs(self, counters: dict[str, np.ndarray]) -> None:
+        """Refresh the per-rung gauges from this chunk's counter deltas."""
+        last = self._last_counters
+        self._last_counters = counters
+        if last is not None:
+            att = counters["attempts"] - last["attempts"]
+            acc = counters["accepts"] - last["accepts"]
+        else:
+            att, acc = counters["attempts"], counters["accepts"]
+        for k, g in enumerate(self.swap_acc):
+            if att[k] > 0:
+                g.set(acc[k] / att[k])
+        lab = counters["labeled"]
+        up = counters["up"]
+        for k, g in enumerate(self.flow_up):
+            if lab[k] > 0:
+                g.set(up[k] / lab[k])
+
+
+# the kernel flags whose paths degrade to the per-sweep path
+_KERNEL_FLAGS = ("use_fused_round", "use_fused", "pack_bits")
+
+
 class Engine:
     """Chunked PT driver over a `System` on one device.
 
     ``device`` defaults to ``cuda``; pass ``"cpu"`` to run the plain
-    PyTorch versions of the kernels.
+    PyTorch versions of the kernels.  ``obs`` (`repro_torch.obs.
+    Observability`) and ``faults`` (`repro_torch.resilience.FaultPlan`)
+    instrument the host loop; ``strict_kernels`` makes a failed kernel
+    preparation or launch on a fused or round path an error instead of a
+    degradation to the per-sweep path (which calls ``on_degrade``).
     """
 
     def __init__(
@@ -353,6 +577,10 @@ class Engine:
         observables: Mapping[str, Callable] | None = None,
         adapt: AdaptConfig | None = None,
         device="cuda",
+        obs=None,
+        faults=None,
+        strict_kernels: bool = False,
+        on_degrade: Callable[[], Any] | None = None,
     ):
         if adapt is not None and not config.track_stats:
             raise ValueError(
@@ -370,24 +598,49 @@ class Engine:
         self.observables = dict(observables or {})
         self.adapt = adapt
         self.device = resolve_device(device)
-        self._step = make_interval_step(system, config.spec, self.observables)
+        self._build_steps()
         self._names = ["energy"] + sorted(self.observables)
         self._adapt_rounds = 0
         self._adapt_state: AdaptState | None = None
         # the authoritative f64 ladder behind the f32 betas
         self._temps: np.ndarray | None = None
+        # chunk lengths prepared (the path's kernels built and loaded), and
+        # how many preparations this engine made: the serve layer's "one
+        # engine per bucket shape" is pinned on this count
+        self._prepared: set[int] = set()
+        self.n_compiles = 0
+        # observability handle: None keeps every site one `is None` test
+        self._eobs: _EngineObs | None = None
+        if obs is not None:
+            self.obs = obs
+        # fault-injection handle: the same zero-cost-off contract
+        self._faults = faults
+        self.strict_kernels = strict_kernels
+        self._on_degrade = on_degrade
+        self._degraded = False
+
+    def _build_steps(self) -> None:
+        spec = self.config.spec
+        self._step = make_interval_step(self.system, spec, self.observables)
+        self._ensemble_step = (make_ensemble_step(self.system, spec, self.observables)
+                               if self.config.n_chains > 1 else None)
+
+    @property
+    def obs(self):
+        """The attached `repro_torch.obs.Observability`, or None (obs off)."""
+        return self._eobs.obs if self._eobs is not None else None
+
+    @obs.setter
+    def obs(self, value):
+        # metric handles resolve once here, not per chunk
+        self._eobs = None if value is None else _EngineObs(value, self.system, self.config)
 
     def _chain_axis(self) -> int:
         """``n_chains`` for `stats.init_stats`: 0 means no ensemble axis."""
         c = self.config.n_chains
         return 0 if c == 1 else c
 
-    def init(self, key: torch.Tensor, temps) -> EngineState:
-        """Fresh state on the given ladder from a (2,) key.
-
-        One chain starts from ``key`` itself; with an ensemble, chain ``c``
-        starts from ``fold_in(key, c)``.
-        """
+    def _check_ladder(self, temps) -> np.ndarray:
         temps = np.asarray(temps, np.float64)
         if temps.shape != (self.config.n_replicas,):
             raise ValueError(
@@ -395,7 +648,35 @@ class Engine:
             )
         self._temps = temps.copy()
         self._adapt_state = None
+        return temps
+
+    def init(self, key: torch.Tensor, temps) -> EngineState:
+        """Fresh state on the given ladder from a (2,) key.
+
+        One chain starts from ``key`` itself; with an ensemble, chain ``c``
+        starts from ``fold_in(key, c)``.
+        """
+        temps = self._check_ladder(temps)
         return self._fresh_state(key.to(self.device), temps, self.device)
+
+    def init_ensemble(self, keys_: Sequence[torch.Tensor], temps) -> EngineState:
+        """Fresh state where chain ``c`` starts from ``keys_[c]`` verbatim.
+
+        The packing hook of `repro_torch.serve`: a bucket hands each chain
+        the key its solo ``n_chains=1`` run starts from (``keys.key(seed)``),
+        so every packed chain's trajectory is its solo run's.  The chains'
+        states are built one at a time and stacked, each exactly as `init`
+        builds one chain.  ``len(keys_)`` must equal ``config.n_chains``.
+        """
+        c = self.config.n_chains
+        if len(keys_) != c:
+            raise ValueError(f"init_ensemble got {len(keys_)} keys != n_chains={c}")
+        temps = self._check_ladder(temps)
+        r = self.config.n_replicas
+        per_chain = [init_replicas(self.system, r, k.to(self.device)) for k in keys_]
+        pt = per_chain[0] if c == 1 else stack_leaves(per_chain)
+        stats = stats_lib.init_stats(r, self._names, self.device, self._chain_axis())
+        return EngineState(pt=pt, stats=stats, betas=_betas(temps, self.device))
 
     def _fresh_state(self, key, temps, device) -> EngineState:
         r, c = self.config.n_replicas, self.config.n_chains
@@ -443,6 +724,71 @@ class Engine:
             self._adapt_state.zero()
         return dataclasses.replace(state, stats=stats)
 
+    # -- chunk preparation and kernel degradation --------------------------------
+    def ensure_compiled(self, chunk_len: int) -> None:
+        """Prepare a chunk of ``chunk_len`` intervals, once per length: on
+        CUDA, build and load the kernel libraries the path launches (the JAX
+        engine's AOT compile, counted in ``n_compiles``).  A failure there,
+        or an injected ``engine.compile`` fault, degrades a fused or round
+        path (`_degrade`)."""
+        if chunk_len in self._prepared:
+            return
+        eo = self._eobs
+        t0 = time.perf_counter() if eo is not None else 0.0
+        try:
+            if self._faults is not None:
+                self._faults.fire("engine.compile")
+            if self.device.type == "cuda":
+                build.load_all()
+        except Exception as err:
+            self._degrade(err)
+            return self.ensure_compiled(chunk_len)
+        self._prepared.add(chunk_len)
+        self.n_compiles += 1
+        if eo is not None:
+            dt = time.perf_counter() - t0
+            eo.compiles.inc()
+            eo.compile_seconds.inc(dt)
+            eo.timeline.complete(
+                "compile", t0, dt, cat="compile",
+                args={"chunk_intervals": chunk_len,
+                      "n_replicas": self.config.n_replicas,
+                      "n_chains": self.config.n_chains},
+            )
+
+    def _degrade(self, err: Exception) -> None:
+        """Graceful kernel degradation: the per-sweep path, on the card.
+
+        A failed kernel build, a refused launch on a fused or round path, or
+        an injected ``engine.compile`` fault turns the system's kernel flags
+        off: the engine then runs kernels #1/#4 and ``jax_uniform`` on the
+        same device, bit-equal to a never-fused run of the same spec from
+        the same state (the fused counter stream is not the per-sweep one).
+        ``strict_kernels`` makes it an error, and so does a system with no
+        kernel flag set (the serve Supervisor retries those).  Never falls
+        back to the CPU or to a plain version.
+        """
+        flags = [f for f in _KERNEL_FLAGS if getattr(self.system, f, False)]
+        if self.strict_kernels or not flags or self._degraded:
+            raise err
+        self._degraded = True
+        warnings.warn(
+            f"kernel preparation or launch failed with {', '.join(flags)} "
+            f"enabled ({err!r}); degrading to the per-sweep path on "
+            f"{self.device} (statistically identical, not bit-equal to the "
+            "fused stream).  Pass strict_kernels to make this fatal.",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+        self.system = dataclasses.replace(self.system, **{f: False for f in flags})
+        self._build_steps()
+        self._prepared.clear()
+        if self._eobs is not None:
+            self._eobs.degraded_kernel.inc()
+        if self._on_degrade is not None:
+            self._on_degrade()
+
+    # -- the interval loop -------------------------------------------------------
     def _advance_chain(self, pt_st: PTState, stats, betas, n_intervals: int):
         """``n_intervals`` intervals of one chain; device work only."""
         cfg = self.config
@@ -456,18 +802,44 @@ class Engine:
         trace = {k: torch.stack([r[k] for r in recs]) for k in recs[0]} if recs else None
         return pt_st, stats, trace
 
+    def _advance_ensemble(self, state: EngineState, n_intervals: int):
+        """``n_intervals`` intervals of the stacked chains, one kernel call an
+        interval for all of them (`make_ensemble_step`)."""
+        cfg = self.config
+        pt_st, stats, recs = state.pt, state.stats, []
+        for _ in range(n_intervals):
+            pt_st, rec = self._ensemble_step(pt_st, state.betas)
+            if cfg.track_stats:
+                stats = stats_lib.update_stats(stats, rec, pt_st.rung)
+            if cfg.record_trace:
+                recs.append(rec)
+        trace = ({k: torch.stack([r[k] for r in recs], dim=1) for k in recs[0]}
+                 if recs else None)
+        return EngineState(pt=pt_st, stats=stats, betas=state.betas), trace
+
     def advance(self, state: EngineState, n_intervals: int):
         """``n_intervals`` intervals of every chain: what `run` issues between
         two chunk boundaries, with no host sync.
 
         Returns ``(state', trace)``; ``trace`` maps each record series to a
         ``(T, R)`` tensor (``(C, T, R)`` with an ensemble) when
-        ``record_trace`` is on, else None.
+        ``record_trace`` is on, else None.  A refused launch on a fused or
+        round path degrades the engine (`_degrade`) and the chunk is issued
+        again from ``state`` on the per-sweep path.
         """
+        try:
+            return self._issue(state, n_intervals)
+        except build.KernelError as err:
+            self._degrade(err)
+            return self._issue(state, n_intervals)
+
+    def _issue(self, state: EngineState, n_intervals: int):
         if self.config.n_chains == 1:
             pt_st, stats, trace = self._advance_chain(
                 state.pt, state.stats, state.betas, n_intervals)
             return EngineState(pt=pt_st, stats=stats, betas=state.betas), trace
+        if self._ensemble_step is not None:
+            return self._advance_ensemble(state, n_intervals)
         outs = [
             self._advance_chain(map_leaves(state.pt, lambda x: x[c]),
                                 map_leaves(state.stats, lambda x: x[c]),
@@ -481,6 +853,16 @@ class Engine:
                             stats=stack_leaves([o[1] for o in outs]),
                             betas=state.betas)
         return state, trace
+
+    def _poison_energy(self, state: EngineState, chain: int) -> EngineState:
+        """The ``engine.energy.nonfinite`` fault: one chain's energies NaN
+        on the device (every chain's without an ensemble axis)."""
+        e = state.pt.energy.clone()
+        if e.dim() == 2:
+            e[chain % e.shape[0]] = float("nan")
+        else:
+            e.fill_(float("nan"))
+        return dataclasses.replace(state, pt=dataclasses.replace(state.pt, energy=e))
 
     def run(
         self,
@@ -497,7 +879,9 @@ class Engine:
         Between chunks the host feeds the measured counters to the ladder
         feedback when ``adapt`` is set, and calls ``on_chunk`` (truthy return
         stops the run; `repro_torch.api.CheckpointCallback` saves there).
-        ``n_sweeps`` must be a multiple of the interval.
+        ``n_sweeps`` must be a multiple of the interval.  With ``obs``
+        attached, each chunk is a span, and the host waits for the card at
+        its end for an honest ``device_wait``.
         """
         self._require_on_device(state)
         cfg = self.config
@@ -524,17 +908,50 @@ class Engine:
         chunks: list[dict[str, np.ndarray]] = []
         done = chunk_idx = 0
         stopped = False
+        eo = self._eobs
         while done < n_intervals:
             this = min(cfg.chunk_intervals, n_intervals - done)
-            state, trace = self.advance(state, this)
+            if self._faults is not None:
+                f = self._faults.check("engine.chunk.stall")
+                if f is not None:
+                    time.sleep(f.duration)
+                self._faults.fire("engine.chunk.launch")
+            if eo is not None:
+                t_chunk0 = time.perf_counter()
+                self.ensure_compiled(this)
+                profiling = eo.obs.start_torch_profile()
+                t_launch = time.perf_counter()
+                state, trace = self.advance(state, this)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                device_s = time.perf_counter() - t_launch
+                if profiling:
+                    eo.obs.stop_torch_profile()
+            else:
+                self.ensure_compiled(this)
+                state, trace = self.advance(state, this)
+            if self._faults is not None:
+                f = self._faults.check("engine.energy.nonfinite")
+                if f is not None:
+                    state = self._poison_energy(state, f.chain)
             done += this
             chunk_idx += 1
+            if eo is not None:
+                eo.timeline.complete(
+                    "device_wait", t_launch, device_s, cat="engine",
+                    args={"chunk": chunk_idx, "intervals": this},
+                )
             chunk_np = None
             if trace is not None:
-                chunk_np = {k: v.cpu().numpy() for k, v in trace.items()}
+                if eo is not None:
+                    with eo.timeline.span("trace_drain", chunk=chunk_idx):
+                        chunk_np = {k: v.cpu().numpy() for k, v in trace.items()}
+                else:
+                    chunk_np = {k: v.cpu().numpy() for k, v in trace.items()}
                 if keep_trace:
                     chunks.append(chunk_np)
             if self.adapt is not None and done < n_intervals:
+                t_adapt0 = time.perf_counter() if eo is not None else 0.0
                 new_temps, acceptance = maybe_adapt(
                     temps, _counters(state), self.adapt, adapt_st
                 )
@@ -562,6 +979,25 @@ class Engine:
                             acceptance=np.asarray(acceptance, np.float64),
                             sweeps_done=done * spi,
                         ))
+                if eo is not None:
+                    eo.timeline.complete(
+                        "adapt", t_adapt0, time.perf_counter() - t_adapt0,
+                        cat="engine",
+                        args={"retuned": new_temps is not None,
+                              "round": adapt_st.rounds},
+                    )
+                    if new_temps is not None:
+                        eo.adapt_rounds.inc()
+            if eo is not None:
+                wall = time.perf_counter() - t_chunk0
+                args = {"chunk": chunk_idx, "intervals": this,
+                        "sweeps_done": done * spi}
+                if eo.hbm_bytes is not None:
+                    args["modeled_hbm_bytes"] = eo.hbm_bytes * this / cfg.chunk_intervals
+                eo.timeline.complete("chunk", t_chunk0, wall, cat="engine", args=args)
+                eo.record_chunk(intervals=this, spi=spi, device_s=device_s, wall_s=wall)
+                if cfg.track_stats:
+                    eo.record_rungs(_counters(state))
             if on_chunk is not None and on_chunk(ChunkInfo(
                 index=chunk_idx, sweeps_done=done * spi, n_sweeps=n_sweeps,
                 state=state, trace=chunk_np,

@@ -3,8 +3,8 @@
 Per-rung Welford moments of the energy and every observable, per-rung swap
 attempt/accept counters at the lower rung of each pair, and round-trip flow
 labels per slot.  Leaves are ``(R,)`` for one chain and ``(C, R)`` with the
-ensemble axis; `update_stats` folds one chain's record (the engine runs it
-per chain), `chain_slice` / `chain_block` carve chains back out and
+ensemble axis; `update_stats` folds one chain's record, or C chains' at
+once (the engine's chain-axis paths), `chain_slice` / `chain_block` carve chains back out and
 `combine_chains` pools them.  Updates run on the device inside the interval
 loop; `summarize` and `combine_chains` are host-side numpy.  A record that
 carries ``est_weight`` (``(V, R)``, its series stacked ``(V, R)``: VMPT's
@@ -71,18 +71,22 @@ def init_stats(n_replicas: int, names: Sequence[str], device,
 
 def update_stats(stats: OnlineStats, rec: dict, rung: torch.Tensor) -> OnlineStats:
     """Fold one chain's interval record into its ``(R,)`` accumulators
-    (device-side).
+    (device-side), or C chains' ``(C, R)`` records into ``(C, R)`` ones.
 
     ``rec`` holds the per-rung series named in ``stats.mean`` plus
-    ``swap_accept``/``swap_attempt`` (and optionally ``est_weight``);
-    ``rung`` is the post-interval slot→rung map.  Same op sequence as the
-    JAX twin.
+    ``swap_accept``/``swap_attempt`` (and optionally ``est_weight``, one
+    chain only); ``rung`` is the post-interval slot→rung map.  Same op
+    sequence as the JAX twin; every op is elementwise or adds one value to
+    each accumulator entry (``rung`` is a permutation), so a chain's leaves
+    are those of its solo update bit for bit.
     """
     n = stats.n_records + 1
     mean, m2 = {}, {}
     w_rec = rec.get("est_weight")
     if w_rec is None:
         cnt = n.to(torch.float32)
+        if cnt.dim():
+            cnt = cnt[:, None]  # one count a chain
         for k in stats.mean:
             x = rec[k].to(torch.float32)
             d = x - stats.mean[k]
@@ -117,6 +121,10 @@ def update_stats(stats: OnlineStats, rec: dict, rung: torch.Tensor) -> OnlineSta
     up = (direction == 1).to(torch.float32)
     labeled = (direction != 0).to(torch.float32)
     ridx = rung.long()
+    if ridx.dim() == 1:
+        visit = lambda acc, x: acc.index_add(0, ridx, x)  # noqa: E731
+    else:
+        visit = lambda acc, x: acc.scatter_add(1, ridx, x)  # noqa: E731
     return OnlineStats(
         n_records=n,
         weight_sum=weight_sum,
@@ -126,8 +134,8 @@ def update_stats(stats: OnlineStats, rec: dict, rung: torch.Tensor) -> OnlineSta
         swap_accepts=stats.swap_accepts + rec["swap_accept"].to(torch.float32),
         direction=direction,
         round_trips=stats.round_trips + completed.to(torch.int32),
-        up_visits=stats.up_visits.index_add(0, ridx, up),
-        labeled_visits=stats.labeled_visits.index_add(0, ridx, labeled),
+        up_visits=visit(stats.up_visits, up),
+        labeled_visits=visit(stats.labeled_visits, labeled),
     )
 
 

@@ -40,7 +40,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "CSRC", "SOURCES", "build_root", "nvcc_path", "build_all", "library",
+    "CSRC", "SOURCES", "build_root", "nvcc_path", "build_all", "library", "load_all",
+    "KernelError",
     "launches", "epilogues", "reset_launches", "MAX_SMEM_BYTES", "check",
     "check_smem", "check_round", "round_args", "scratch_bytes", "dirty_tickets",
     "ROUND_ARGTYPES", "NO_ROUND", "stream_of", "raise_if", "sweep_lib",
@@ -157,11 +158,17 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built on first use)."""
     lib = _LOADED.get(name)
     if lib is None:
-        paths = build_all()
-        for lib_name, path in paths.items():
-            _LOADED[lib_name] = ctypes.CDLL(str(path))
-        lib = _LOADED[name]
+        lib = load_all()[name]
     return lib
+
+
+def load_all() -> dict[str, ctypes.CDLL]:
+    """Every kernel library, built (`build_all`) and loaded on first use."""
+    if len(_LOADED) < len(SOURCES):
+        for lib_name, path in build_all().items():
+            if lib_name not in _LOADED:
+                _LOADED[lib_name] = ctypes.CDLL(str(path))
+    return dict(_LOADED)
 
 
 @functools.cache
@@ -202,25 +209,30 @@ def check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+class KernelError(RuntimeError):
+    """A kernel launch the card refused (a non-zero ``cudaGetLastError``)."""
+
+
 def raise_if(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} launch failed with cudaError {err}")
+        raise KernelError(f"{what} launch failed with cudaError {err}")
 
 
 # -- the round launches' exchange arguments (csrc/exchange.cuh) --------------
 
 # C types of a round launch's exchange arguments (rung_out, energy_in,
 # energy_out, betas, phase0, phase_add, seo, metropolis, the accept, prob and
-# attempt rows, scratch, ticket), between a sweep launch's own and its stream
+# attempt rows, scratch, tickets), between a sweep launch's own and its stream
 NO_ROUND = (None,) * 5 + (0, 0, 0) + (None,) * 5
 ROUND_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [_P] * 5
-# (device index, stream) -> the ticket of the round launches on that stream:
-# one uint32 that each block adds one to and the last block sets back to 0.
-# Launches on one stream run one after another, so they can share it; two
-# streams must not, since two round launches in flight at once would count
-# each other's blocks, and one would run its exchange before all of its own
-# blocks were done.  The scratch rows are per stream and size for the same reason.
-_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+# (device index, stream, chains) -> the tickets of the round launches on that
+# stream over that many chains: one uint32 a chain, which each block of the
+# chain adds one to and the chain's last block sets back to 0.  Launches on
+# one stream run one after another, so they can share them; two streams must
+# not, since two round launches in flight at once would count each other's
+# blocks, and one would run its exchange before all of its own blocks were
+# done.  The scratch rows are per stream and size for the same reason.
+_TICKETS: dict[tuple[int, int, int], torch.Tensor] = {}
 _SCRATCH: dict[tuple[int, int, int], torch.Tensor] = {}
 
 
@@ -234,47 +246,52 @@ def scratch_bytes(lib: ctypes.CDLL) -> int:
 
 
 def check_round(r: int, device, rung, energy, phase0, rows, *, pairing: str,
-                criterion: str):
+                criterion: str, chains: int | None = None):
     """Check a round launch's exchange arguments and its ``(rung', energy',
     accept, prob, attempt)`` rows (allocated where ``rows`` is None; ``rung'``
-    and ``energy'`` may be ``rung`` and ``energy`` themselves); returns the rows."""
+    and ``energy'`` may be ``rung`` and ``energy`` themselves); returns the rows.
+    With a chain axis (``chains = C``) every row is ``(C, r)`` and ``phase0``
+    is ``(C,)``."""
     from repro_torch.kernels import exchange
 
     if pairing not in exchange.PAIRINGS or criterion not in exchange.CRITERIA:
         raise ValueError(f"unsupported exchange {pairing!r}/{criterion!r}")
-    check(energy, "energy", torch.float32, (r,), device)
-    check(phase0, "phase0", torch.int64, (), device)
+    lead = () if chains is None else (chains,)
+    check(energy, "energy", torch.float32, (*lead, r), device)
+    check(phase0, "phase0", torch.int64, lead, device)
     if rows is None:
         rows = (torch.empty_like(rung), torch.empty_like(energy),
-                torch.empty(r, dtype=torch.bool, device=device),
-                torch.empty(r, dtype=torch.float32, device=device),
-                torch.empty(r, dtype=torch.bool, device=device))
+                torch.empty((*lead, r), dtype=torch.bool, device=device),
+                torch.empty((*lead, r), dtype=torch.float32, device=device),
+                torch.empty((*lead, r), dtype=torch.bool, device=device))
     if len(rows) != 5:
         raise ValueError(f"a round writes 5 exchange rows, got {len(rows)}")
     for x, name, dtype in zip(rows, ("rung out", "energy out", "accept row", "prob row",
                                      "attempt row"),
                               (torch.int32, torch.float32, torch.bool, torch.float32,
                                torch.bool)):
-        check(x, name, dtype, (r,), device)
+        check(x, name, dtype, (*lead, r), device)
     return tuple(rows)
 
 
-def round_args(lib: ctypes.CDLL, betas, xchg) -> tuple:
+def round_args(lib: ctypes.CDLL, betas, xchg, n_chains: int = 1) -> tuple:
     """A launch of ``lib``'s sweep kernel: its exchange arguments in
     `ROUND_ARGTYPES` order.  `NO_ROUND` where ``xchg`` is None (the sweeps
     alone), else those of the round ``xchg = (energy, phase0, rows, keywords
-    of the exchange)`` (rows checked by `check_round`), with the ticket of
-    the current stream and scratch rows for ``len(betas)`` replicas at
-    `scratch_bytes` (``lib``) a replica (both made on first use and kept)."""
+    of the exchange)`` (rows checked by `check_round`) over ``n_chains``
+    chains, with the current stream's ``n_chains`` tickets and scratch rows
+    for ``n_chains * len(betas)`` replicas at `scratch_bytes` (``lib``) a
+    replica (both made on first use and kept)."""
     if xchg is None:
         return NO_ROUND
     energy, phase0, rows, kw = xchg
     dev = betas.device
     key = (dev.index, stream_of(dev))
-    ticket = _TICKETS.get(key)
+    ticket = _TICKETS.get((*key, n_chains))
     if ticket is None:
-        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    n_bytes = scratch_bytes(lib) * betas.shape[0]
+        ticket = _TICKETS[(*key, n_chains)] = torch.zeros(n_chains, dtype=torch.int32,
+                                                          device=dev)
+    n_bytes = scratch_bytes(lib) * betas.shape[0] * n_chains
     scratch = _SCRATCH.get((*key, n_bytes))
     if scratch is None:
         scratch = _SCRATCH[(*key, n_bytes)] = torch.empty(n_bytes, dtype=torch.uint8,
@@ -286,10 +303,11 @@ def round_args(lib: ctypes.CDLL, betas, xchg) -> tuple:
             att.data_ptr(), scratch.data_ptr(), ticket.data_ptr())
 
 
-def dirty_tickets() -> dict[tuple[int, int], int]:
-    """The round tickets that are not 0, by (device index, stream).  A round
-    launch that ran to its end leaves its ticket at 0; one that faulted may
-    not, and the next round launch on that stream would then misfire, so a
-    caller that checks after a run fails on any.  Reads each from the card."""
-    values = {key: int(t.item()) for key, t in _TICKETS.items()}
-    return {key: v for key, v in values.items() if v != 0}
+def dirty_tickets() -> dict[tuple[int, int, int], list[int]]:
+    """The round tickets that are not all 0, by (device index, stream,
+    chains), with their values.  A round launch that ran to its end leaves
+    every chain's ticket at 0; one that faulted may not, and the next round
+    launch on that stream would then misfire, so a caller that checks after a
+    run fails on any.  Reads each from the card."""
+    values = {key: t.tolist() for key, t in _TICKETS.items()}
+    return {key: v for key, v in values.items() if any(v)}

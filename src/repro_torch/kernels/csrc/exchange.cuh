@@ -40,9 +40,19 @@
 // own host wrapper: ~5.5 µs of device time and ~30 µs of host time a round
 // for ~45 KB of rows.
 //
-// The ticket is one uint32 per device and stream, zero between launches;
-// the last block sets it back to 0 when its exchange is done, so a launch
-// that faults leaves it non-zero for the caller to see.
+// The ticket is one uint32 per chain, device and stream, zero between
+// launches; the last block sets it back to 0 when its exchange is done, so a
+// launch that faults leaves it non-zero for the caller to see.
+//
+// Chain axis.  A launch may carry C independent chains (an ensemble, or a
+// serve bucket of C tenants) as the grid's second dimension, gridDim.y = C,
+// each chain gridDim.x blocks over its own n slots.  Every per-chain row,
+// the phase counter, the scratch and the ticket sit at a fixed offset from
+// chain 0's (Round::chain); the betas row is shared, as the JAX engine's
+// EngineState.betas has no chain axis.  The last block *of each chain*
+// (its ticket counts that chain's gridDim.x blocks) runs that chain's
+// exchange, so one launch is one PT round of every chain, as one batched
+// pallas_call is under jax.vmap.
 //
 // Bound.  ~30 B read and written per rung (45 KB at R = 1,500) and R + 3
 // Threefry blocks: far below a microsecond of memory or ALU time.  What it
@@ -107,6 +117,17 @@ struct Round {
   bool* att_row;
   unsigned char* scratch;  // kScratchBytes * n bytes of global memory
   unsigned int* ticket;
+
+  // Chain c of a launch over a chain axis (gridDim.y = C chains of n slots):
+  // its rows, phase counter, scratch and ticket, each a fixed offset from
+  // chain 0's; the betas row is shared.  A null ticket stays null.
+  __device__ __forceinline__ Round chain(int c) const {
+    if (ticket == nullptr) return *this;
+    const size_t o = static_cast<size_t>(c) * n;
+    return {rung_in + o, rung_out + o, energy_in + o, energy_out + o, betas, phase0 + c,
+            phase_add, n, seo, metropolis, acc_row + o, prob_row + o, att_row + o,
+            scratch + o * kScratchBytes, ticket + c};
+  }
 };
 
 // The launchers' C arguments as a Round (n = the launch's replica count).
@@ -231,7 +252,9 @@ __device__ __forceinline__ void step(const Round& rd, const float* de,
 // (release: the block's ΔE before its ticket; acquire, in the last block:
 // every other block's ΔE); returns whether the block took the last ticket.
 // The release waits for this thread's own stores only (the block's lattice
-// store, which the exchange never reads, is not ordered before it).
+// store, which the exchange never reads, is not ordered before it).  `rd` is
+// the block's chain's (Round::chain): its ticket counts the gridDim.x blocks
+// of that chain alone.
 __device__ __forceinline__ bool take_ticket(const Round& rd) {
   unsigned old;
   asm volatile("atom.acq_rel.gpu.add.u32 %0, [%1], 1;"

@@ -53,7 +53,11 @@ constexpr int kHeaderBytes = kWarps * 8 + 10 * 8;
 
 // spins_in may alias spins_out: a block reads its whole lattice into shared
 // memory before it writes anything back.  `rung` may be round.rung_out: every
-// block reads its rung before the exchange writes the new map.
+// block reads its rung before the exchange writes the new map.  The grid is
+// (R slots, C chains); every per-chain array is (C, ...) with chain c at
+// c times chain 0's extent, and p_tab's rows are indexed by the rung values
+// as they are (the round path's shared rung-ordered rows, or the fused
+// path's per-chain slot rows with rung = c*R + slot).
 __global__ void __launch_bounds__(kThreads, 2)
 ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
                    float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
@@ -70,17 +74,27 @@ ising_fused_kernel(const int8_t* spins_in, int8_t* spins_out,
   checkerboard::Entry* tab = reinterpret_cast<checkerboard::Entry*>(smem + kWarps * 8);
   uint8_t* lat = smem + kHeaderBytes;
 
-  const int slot = blockIdx.x;
+  // chain blockIdx.y of gridDim.y: its rows, key words and counter sit at a
+  // fixed offset from chain 0's (the sweep loop below is one chain's)
+  const int slot = blockIdx.x, chain = blockIdx.y;
+  const size_t first = static_cast<size_t>(chain) * gridDim.x;
+  rung += first;
+  de_out += first;
+  nacc_out += first;
+  key_words += 2 * chain;
+  t0 += chain;
   if (threadIdx.x < 10) {
     tab[threadIdx.x] = {checkerboard::threshold(p_tab[rung[slot] * 10 + threadIdx.x]),
                         de_tab[threadIdx.x]};
   }
   const size_t cells = static_cast<size_t>(L) * L;
+  const size_t at = (first + slot) * cells;
+  const exchange::Round rd = round.chain(chain);
   checkerboard::sweeps<kThreads, kSites, 1>(
-      ising::Rule{tab}, lat, fred, ired, nullptr, spins_in + slot * cells,
-      spins_out + slot * cells, de_out, nacc_out, slot, key_words, t0, t_add,
-      static_cast<uint32_t>(slot) + replica_offset, L, L, n_sweeps, round);
-  if (round.ticket != nullptr) exchange::exchange_if_last(round, de_out, key_words, ired);
+      ising::Rule{tab}, lat, fred, ired, nullptr, spins_in + at, spins_out + at, de_out,
+      nacc_out, slot, key_words, t0, t_add, static_cast<uint32_t>(slot) + replica_offset,
+      L, L, n_sweeps, rd);
+  if (rd.ticket != nullptr) exchange::exchange_if_last(rd, de_out, key_words, ired);
 }
 
 }  // namespace
@@ -91,19 +105,24 @@ extern "C" {
 // round launch's scratch buffer from it.
 long long exchange_scratch_bytes() { return exchange::kScratchBytes; }
 
+// The launch takes a chain count (the grid's second dimension).
+int chain_axis() { return 1; }
+
 // Shared-memory bytes one launch needs at lattice side L.
 long long ising_fused_smem_bytes(int length) {
   return kHeaderBytes + checkerboard::lattice_bytes<kSites>(length, length);
 }
 
-// Launches kernel A on `stream`; returns cudaGetLastError() (0 = launched).
-// The arguments from rung_out on are the round's exchange (exchange.cuh);
-// a null ticket launches the sweeps alone.
+// Launches kernel A on `stream` over n_chains chains of n_replicas slots
+// (a grid of n_replicas x n_chains blocks); returns cudaGetLastError()
+// (0 = launched).  The arguments from rung_out on are the round's exchange
+// (exchange.cuh), with n_chains tickets and n_chains scratch regions; a null
+// ticket launches the sweeps alone.
 int ising_fused_launch(const void* spins_in, void* spins_out, void* de_out,
                        void* nacc_out, const void* rung, const void* p_tab,
                        const void* de_tab, const void* key_words, const void* t0,
                        long long t_add, unsigned int replica_offset,
-                       int n_replicas, int length, int n_sweeps, void* rung_out,
+                       int n_replicas, int n_chains, int length, int n_sweeps, void* rung_out,
                        const void* energy_in, void* energy_out, const void* betas,
                        const void* phase0, long long phase_add, int seo,
                        int metropolis, void* acc_row, void* prob_row, void* att_row,
@@ -112,7 +131,7 @@ int ising_fused_launch(const void* spins_in, void* spins_out, void* de_out,
   cudaError_t err = cudaFuncSetAttribute(
       ising_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ising_fused_kernel<<<n_replicas, kThreads, smem,
+  ising_fused_kernel<<<dim3(n_replicas, n_chains), kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins_in), static_cast<int8_t*>(spins_out),
       static_cast<float*>(de_out), static_cast<int32_t*>(nacc_out),

@@ -134,7 +134,8 @@ __device__ __forceinline__ void group_sweeps(
 
 // spins_in may alias spins_out: a block reads its group's lattices into
 // shared memory before it writes anything back, and touches no other group.
-// `rung` may be round.rung_out (see ising_fused.cu).
+// `rung` may be round.rung_out (see ising_fused.cu).  The grid is (groups,
+// C chains), the per-chain arrays laid out as in ising_fused.cu.
 __global__ void __launch_bounds__(kThreads, 2)
 ising_packed_kernel(const int8_t* spins_in, int8_t* spins_out,
                     float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
@@ -146,13 +147,25 @@ ising_packed_kernel(const int8_t* spins_in, int8_t* spins_out,
                     unsigned int replica_offset, int n_replicas, int group,
                     int L, int n_sweeps, const exchange::Round round) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // chain blockIdx.y: its slots, rows, key words and counter at a fixed
+  // offset from chain 0's; a group never straddles two chains
+  const int chain = blockIdx.y;
+  const size_t base = static_cast<size_t>(chain) * n_replicas;
+  spins_in += base * L * L;
+  spins_out += base * L * L;
+  rung += base;
+  de_out += base;
+  nacc_out += base;
+  key_words += 2 * chain;
+  t0 += chain;
+  const exchange::Round rd = round.chain(chain);
   const int first = blockIdx.x * group;
   const int bits = n_replicas - first < group ? n_replicas - first : group;
 #define REPRO_GROUP(K)                                                           \
   case K:                                                                        \
     group_sweeps<K>(smem, spins_in, spins_out, de_out, nacc_out, rung, p_tab,    \
                     de_tab, key_words, t0, t_add, replica_offset, first, L,      \
-                    n_sweeps, round);                                            \
+                    n_sweeps, rd);                                               \
     break;
   switch (bits) {  // uniform over the block: only the last group is partial
     REPRO_GROUP(1)
@@ -167,9 +180,9 @@ ising_packed_kernel(const int8_t* spins_in, int8_t* spins_out,
       break;
   }
 #undef REPRO_GROUP
-  if (round.ticket != nullptr) {  // one copy of the exchange for all group widths
+  if (rd.ticket != nullptr) {  // one copy of the exchange for all group widths
     const int* flag = reinterpret_cast<int*>(smem + kWarps * 4);  // group_sweeps' ired
-    exchange::exchange_if_last(round, de_out, key_words, flag);
+    exchange::exchange_if_last(rd, de_out, key_words, flag);
   }
 }
 
@@ -180,6 +193,9 @@ extern "C" {
 // Exchange scratch bytes a replica (exchange.cuh): the wrapper sizes the
 // round launch's scratch buffer from it.
 long long exchange_scratch_bytes() { return exchange::kScratchBytes; }
+
+// The launch takes a chain count (the grid's second dimension).
+int chain_axis() { return 1; }
 
 // Shared-memory bytes one launch needs at lattice side L.
 long long ising_packed_smem_bytes(int length) {
@@ -200,14 +216,14 @@ int ising_packed_blocks_per_sm(int length, int* blocks) {
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, ising_packed_kernel, kThreads, smem));
 }
 
-// Launches kernel #2p on `stream`, one block per `group` (1..8) replicas;
-// returns cudaGetLastError() (0 = launched).  The arguments from rung_out on
-// are the round's exchange, as for kernel A.
+// Launches kernel #2p on `stream`, one block per `group` (1..8) replicas of
+// each of n_chains chains; returns cudaGetLastError() (0 = launched).  The
+// arguments from rung_out on are the round's exchange, as for kernel A.
 int ising_packed_launch(const void* spins_in, void* spins_out, void* de_out,
                         void* nacc_out, const void* rung, const void* p_tab,
                         const void* de_tab, const void* key_words, const void* t0,
                         long long t_add, unsigned int replica_offset,
-                        int n_replicas, int length, int n_sweeps, int group,
+                        int n_replicas, int n_chains, int length, int n_sweeps, int group,
                         void* rung_out, const void* energy_in, void* energy_out,
                         const void* betas, const void* phase0, long long phase_add,
                         int seo, int metropolis, void* acc_row, void* prob_row,
@@ -217,7 +233,7 @@ int ising_packed_launch(const void* spins_in, void* spins_out, void* de_out,
   cudaError_t err = cudaFuncSetAttribute(
       ising_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ising_packed_kernel<<<(n_replicas + group - 1) / group, kThreads, smem,
+  ising_packed_kernel<<<dim3((n_replicas + group - 1) / group, n_chains), kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins_in), static_cast<int8_t*>(spins_out),
       static_cast<float*>(de_out), static_cast<int32_t*>(nacc_out),

@@ -112,7 +112,8 @@ struct PottsRule {
 };
 
 // states_in may alias states_out: a block reads its whole lattice first.
-// `rung` may be round.rung_out (see ising_fused.cu).
+// `rung` may be round.rung_out (see ising_fused.cu).  The grid is (R slots,
+// C chains), the per-chain arrays laid out as in ising_fused.cu.
 __global__ void __launch_bounds__(kThreads, 2)
 potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
                    float* __restrict__ de_out, int32_t* __restrict__ nacc_out,
@@ -128,18 +129,27 @@ potts_fused_kernel(const int8_t* states_in, int8_t* states_out,
   checkerboard::Entry* tab = reinterpret_cast<checkerboard::Entry*>(smem + kWarps * 8);
   uint8_t* lat = smem + kHeaderBytes;
 
-  const int slot = blockIdx.x;
+  // chain blockIdx.y, laid out as in ising_fused.cu
+  const int slot = blockIdx.x, chain = blockIdx.y;
+  const size_t first = static_cast<size_t>(chain) * gridDim.x;
+  rung += first;
+  de_out += first;
+  nacc_out += first;
+  key_words += 2 * chain;
+  t0 += chain;
   const float* p_row = p_tab + static_cast<size_t>(rung[slot]) * lattice::kPottsTable;
   for (int i = threadIdx.x; i < lattice::kPottsTable; i += kThreads) {
     tab[i] = {checkerboard::threshold(p_row[i]), de_tab[i]};
   }
   const size_t cells = static_cast<size_t>(H) * W;
+  const size_t at = (first + slot) * cells;
+  const exchange::Round rd = round.chain(chain);
   const PottsRule rule{tab, q, static_cast<float>(q - 1) * (1.0f / 16777216.0f)};
   checkerboard::sweeps<kThreads, kSites, 1>(
-      rule, lat, fred, ired, nullptr, states_in + slot * cells, states_out + slot * cells,
-      de_out, nacc_out, slot, key_words, t0, t_add,
-      static_cast<uint32_t>(slot) + replica_offset, H, W, n_sweeps, round);
-  if (round.ticket != nullptr) exchange::exchange_if_last(round, de_out, key_words, ired);
+      rule, lat, fred, ired, nullptr, states_in + at, states_out + at, de_out, nacc_out,
+      slot, key_words, t0, t_add, static_cast<uint32_t>(slot) + replica_offset, H, W,
+      n_sweeps, rd);
+  if (rd.ticket != nullptr) exchange::exchange_if_last(rd, de_out, key_words, ired);
 }
 
 }  // namespace
@@ -150,17 +160,22 @@ extern "C" {
 // round launch's scratch buffer from it.
 long long exchange_scratch_bytes() { return exchange::kScratchBytes; }
 
+// The launch takes a chain count (the grid's second dimension).
+int chain_axis() { return 1; }
+
 long long potts_fused_smem_bytes(int height, int width) {
   return kHeaderBytes + checkerboard::lattice_bytes<kSites>(height, width);
 }
 
-// Launches kernel #5 on `stream`; returns cudaGetLastError() (0 = launched).
-// The arguments from rung_out on are the round's exchange, as for kernel A.
+// Launches kernel #5 on `stream` over n_chains chains of n_replicas slots;
+// returns cudaGetLastError() (0 = launched).  The arguments from rung_out on
+// are the round's exchange, as for kernel A.
 int potts_fused_launch(const void* states_in, void* states_out, void* de_out,
                        void* nacc_out, const void* rung, const void* p_tab,
                        const void* de_tab, const void* key_words, const void* t0,
                        long long t_add, unsigned int replica_offset, int n_replicas,
-                       int height, int width, int q, int n_sweeps, void* rung_out,
+                       int n_chains, int height, int width, int q, int n_sweeps,
+                       void* rung_out,
                        const void* energy_in, void* energy_out, const void* betas,
                        const void* phase0, long long phase_add, int seo,
                        int metropolis, void* acc_row, void* prob_row, void* att_row,
@@ -169,7 +184,8 @@ int potts_fused_launch(const void* states_in, void* states_out, void* de_out,
   cudaError_t err = cudaFuncSetAttribute(
       potts_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  potts_fused_kernel<<<n_replicas, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  potts_fused_kernel<<<dim3(n_replicas, n_chains), kThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(states_in), static_cast<int8_t*>(states_out),
       static_cast<float*>(de_out), static_cast<int32_t*>(nacc_out),
       static_cast<const int32_t*>(rung), static_cast<const float*>(p_tab),

@@ -55,9 +55,10 @@ _P = ctypes.c_void_p
 def _libs() -> tuple[ctypes.CDLL, ctypes.CDLL]:
     """Kernels A and #2p, built on first use, with their C signatures."""
     lib_a, lib_p = build.library("ising_fused"), build.library("ising_packed")
-    # kernel #2p takes kernel A's arguments and its group width; both then
-    # take a round's exchange arguments (null for the sweeps alone)
-    args = [_P] * 9 + [ctypes.c_longlong, ctypes.c_uint] + [ctypes.c_int] * 3
+    # kernel #2p takes kernel A's arguments (replicas, chains, L, sweeps) and
+    # its group width; both then take a round's exchange arguments (null for
+    # the sweeps alone)
+    args = [_P] * 9 + [ctypes.c_longlong, ctypes.c_uint] + [ctypes.c_int] * 4
     lib_a.ising_fused_launch.argtypes = args + build.ROUND_ARGTYPES + [_P]
     lib_p.ising_packed_launch.argtypes = args + [ctypes.c_int] + build.ROUND_ARGTYPES + [_P]
     for lib, name in ((lib_a, "ising_fused"), (lib_p, "ising_packed")):
@@ -140,17 +141,32 @@ def _launch_sweeps(name, spins, words, t0, betas, rung, *, n_sweeps, j, b,
     (``ising_packed``, ``group`` replicas a block), which share one
     interface.  ``xchg`` is a round's ``(energy, phase0, rows, exchange
     keywords)`` with its rows checked (`build.check_round`): the launch then
-    runs the exchange too; without it, the sweeps alone."""
+    runs the exchange too; without it, the sweeps alone.
+
+    ``spins`` (R, L, L) is one chain; (C, R, L, L) is C chains in one launch
+    (the grid's second dimension), with ``words`` (C, 2), ``t0`` (C,),
+    ``rung`` (C, R) and the outputs (C, R): chain c's results are those of a
+    launch on its slice alone.  ``betas`` is 1-D, indexed by the values of
+    ``rung``: (R,) shared by the chains, or (C*R,) with chain c's ``rung``
+    in [c*R, (c+1)*R) (the interval path's per-slot rows)."""
     what = {"ising_fused": "kernel A", "ising_packed": "kernel #2p"}[name]
     dev = spins.device
-    r, length = spins.shape[0], spins.shape[-1]
-    check(spins, "spins", torch.int8, (r, length, length), dev)
-    check(words, "key words", torch.int64, (2,), dev)
-    check(t0, "t0", torch.int64, (), dev)
-    check(betas, "betas", torch.float32, (r,), dev)
-    check(rung, "rung", torch.int32, (r,), dev)
+    lead = tuple(spins.shape[:-3])
+    if len(lead) > 1 or spins.dim() < 3:
+        raise ValueError(f"{what} takes (R, L, L) or (C, R, L, L) spins, got "
+                         f"{tuple(spins.shape)}")
+    n_chains = lead[0] if lead else 1
+    r, length = spins.shape[-3], spins.shape[-1]
+    check(spins, "spins", torch.int8, (*lead, r, length, length), dev)
+    check(words, "key words", torch.int64, (*lead, 2), dev)
+    check(t0, "t0", torch.int64, lead, dev)
+    if betas.shape not in ((r,), (n_chains * r,)):
+        raise ValueError(f"betas has shape {tuple(betas.shape)}, expected ({r},) "
+                         f"or ({n_chains * r},)")
+    check(betas, "betas", torch.float32, betas.shape, dev)
+    check(rung, "rung", torch.int32, (*lead, r), dev)
     if out is not None:
-        check(out, "out", torch.int8, (r, length, length), dev)
+        check(out, "out", torch.int8, (*lead, r, length, length), dev)
     if length % 2:
         raise ValueError(f"checkerboard sweeps need even L, got {length}")
     if n_sweeps < 0:
@@ -170,21 +186,21 @@ def _launch_sweeps(name, spins, words, t0, betas, rung, *, n_sweeps, j, b,
     p_tab, de_tab = accept_tables(betas, j=j, b=b, rule=rule)
     if out is None:
         out = torch.empty_like(spins)
-    de = torch.empty(r, dtype=torch.float32, device=dev)
-    nacc = torch.empty(r, dtype=torch.int32, device=dev)
+    de = torch.empty((*lead, r), dtype=torch.float32, device=dev)
+    nacc = torch.empty((*lead, r), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        round_args = build.round_args(lib, betas, xchg)
+        round_args = build.round_args(lib, betas, xchg, n_chains)
         err = getattr(lib, f"{name}_launch")(
             spins.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(),
             rung.data_ptr(), p_tab.data_ptr(), de_tab.data_ptr(),
             words.data_ptr(), t0.data_ptr(), int(t_add),
-            int(replica_offset) & prng.MASK, r, length, int(n_sweeps), *extra,
+            int(replica_offset) & prng.MASK, r, n_chains, length, int(n_sweeps), *extra,
             *round_args, stream_of(dev),
         )
     raise_if(err, name)
     build.launches[name] += 1
     if xchg is not None:
-        build.epilogues["exchange"] += 1
+        build.epilogues["exchange"] += n_chains
     return out, de, nacc
 
 
@@ -202,6 +218,8 @@ def ising_sweep_fused_kernel(
       replica_offset: global index of slot 0 in the counter stream.
       t_add: added to ``t0`` on the device (round k of a multi-round call).
       out: optional (R, L, L) int8 output, may be ``spins`` itself.
+
+    A leading chain axis runs C chains in one launch (see `_launch_sweeps`).
 
     Returns ``(spins', delta_e (R,) f32, n_accepted (R,) int32)``.
     """
@@ -414,23 +432,31 @@ def ising_round_kernel(
     phase_add`` (``csrc/exchange.cuh``).
 
     Args:
-      spins: (R, L, L) int8 on CUDA, L even.
+      spins: (R, L, L) int8 on CUDA, L even; or (C, R, L, L): C chains in
+        the same launch, each chain's last block running its own exchange.
       words: (2,) int64 run-key words; t0, phase0: () int64 sweep and swap
         counters (device); ``t_add`` / ``phase_add`` are added on the device.
-      betas: (R,) f32 ladder in rung order; rung: (R,) int32 slot -> rung;
-        energy: (R,) f32 per slot.
+        With C chains: (C, 2), (C,) and (C,).
+      betas: (R,) f32 ladder in rung order, shared by the chains; rung: (R,)
+        int32 slot -> rung; energy: (R,) f32 per slot ((C, R) each with C
+        chains).
       out: optional ``(spins', rung', energy', accept, prob, attempt)``
         buffers; ``spins'``, ``rung'`` and ``energy'`` may be the inputs
         themselves (every block reads its slot's rung before the exchange
         writes ``rung'``).
 
     Returns ``(spins', rung', energy', n_accepted, accept, prob, attempt)``,
-    equal to the plain sweeps then `exchange_plain` on their ΔE.
+    equal to the plain sweeps then `exchange_plain` on their ΔE, chain by
+    chain.
     """
-    r = spins.shape[0]
+    r = spins.shape[-3]
+    chains = spins.shape[0] if spins.dim() == 4 else None
+    if betas.shape != (r,):
+        raise ValueError(f"a round's betas are the shared ({r},) ladder, got "
+                         f"{tuple(betas.shape)}")
     rows = build.check_round(r, spins.device, rung, energy, phase0,
                              None if out is None else out[1:], pairing=pairing,
-                             criterion=criterion)
+                             criterion=criterion, chains=chains)
     xkw = dict(phase_add=phase_add, pairing=pairing, criterion=criterion)
     spins_out, _, nacc = _launch_sweeps(
         "ising_packed" if pack_bits else "ising_fused", spins, words, t0, betas,

@@ -46,9 +46,32 @@ def _device_kind(x: torch.Tensor, what: str = "sweep kernel") -> str:
     return kind
 
 
-def _counter(value, device) -> torch.Tensor:
-    """() int64 device scalar from an int or a one-element tensor."""
-    return torch.as_tensor(value, dtype=torch.int64, device=device).reshape(())
+def _counter(value, device, chains: int | None = None) -> torch.Tensor:
+    """() int64 device scalar from an int or a one-element tensor; with a
+    chain axis, (C,) int64 (an int or a () tensor is every chain's)."""
+    x = torch.as_tensor(value, dtype=torch.int64, device=device)
+    if chains is None:
+        return x.reshape(())
+    return x.broadcast_to((chains,)).contiguous()
+
+
+def _chains(states: torch.Tensor, key) -> int | None:
+    """C when ``key`` is C keys, (C, 2), over (C, R, ...) states (a chain
+    axis, one launch for every chain on CUDA); None for one (2,) key."""
+    key = torch.as_tensor(key)
+    if key.dim() == 1:
+        return None
+    if key.dim() != 2 or key.shape[0] != states.shape[0]:
+        raise ValueError(f"keys of shape {tuple(key.shape)} for states of shape "
+                         f"{tuple(states.shape)}: expected (2,) or (C, 2) with C "
+                         "the states' leading axis")
+    return key.shape[0]
+
+
+def _chain_words(key: torch.Tensor, device) -> torch.Tensor:
+    """(C, 2) int64 words of C two-word keys: each row is `prng.key_words`
+    of its key (the words themselves, as uint32)."""
+    return key.to(device=device, dtype=torch.int64) & _prng.MASK
 
 
 def _ising_sweeps(pack_bits: bool):
@@ -134,9 +157,28 @@ def potts_sweep(
 
 
 def _fused(plain, kernel, states, key, t, betas, *, n_sweeps, replica_offset, **kw):
-    """Shared body of the interval-fused ops (identity rung, per-slot betas)."""
+    """Shared body of the interval-fused ops (identity rung, per-slot betas).
+
+    With a chain axis (``key`` (C, 2), ``t`` (C,), ``betas`` (C, R) over (C,
+    R, ...) states) CUDA makes one launch for every chain; the CPU runs the
+    plain version chain by chain."""
     kind = _device_kind(states)
     dev = states.device
+    c = _chains(states, key)
+    if c is not None:
+        t = _counter(t, dev, c)
+        if kind == "cpu":
+            outs = [_fused(plain, kernel, states[i], key[i], t[i], betas[i],
+                           n_sweeps=n_sweeps, replica_offset=replica_offset, **kw)
+                    for i in range(c)]
+            return tuple(torch.stack(x) for x in zip(*outs))
+        r = states.shape[1]
+        # chain i's slot s reads row i*R + s of the flattened per-slot betas
+        rows = torch.arange(c * r, dtype=torch.int32, device=dev).view(c, r)
+        return kernel(
+            states, _chain_words(key, dev), t, betas.to(torch.float32).reshape(-1), rows,
+            n_sweeps=n_sweeps, replica_offset=int(replica_offset), **kw,
+        )
     words = _prng.key_words(key).to(dev)
     identity = torch.arange(states.shape[0], dtype=torch.int32, device=dev)
     fn = plain if kind == "cpu" else kernel
@@ -167,7 +209,8 @@ def ising_sweep_fused(
     ``betas`` the per-slot (R,) inverse temperatures.  Returns ``(spins',
     delta_e, n_accepted)`` summed over the interval.  ``pack_bits`` runs
     kernel #2p (on the CPU its plain version), whose results are kernel A's
-    bit for bit.
+    bit for bit.  C keys ``(C, 2)``, ``t`` (C,) and ``betas`` (C, R) over
+    ``(C, R, L, L)`` spins run C chains, one launch on CUDA.
     """
     return _fused(
         *_ising_sweeps(pack_bits), spins, key, t, betas, n_sweeps=n_sweeps,
@@ -206,17 +249,35 @@ def _round_fused(plain, kernel, states, key, t, phase, rung, energy, betas, *,
     """Shared body of the whole-round ops: per round, S sweeps at
     ``betas[rung]`` then one exchange.  On the CPU the plain sweeps then
     `exchange_plain`; on CUDA one launch of the round ``kernel`` a round,
-    with nothing waiting for the card."""
+    with nothing waiting for the card.
+
+    With a chain axis (``key`` (C, 2), ``t`` and ``phase`` (C,), ``rung``
+    and ``energy`` (C, R) over (C, R, ...) states; ``betas`` (R,) shared)
+    CUDA makes one launch a round for every chain, and the diagnostics are
+    (n_rounds, C, R); the CPU runs the plain rounds chain by chain."""
     kind = _device_kind(states)
     dev = states.device
-    words = _prng.key_words(key).to(dev)
-    t0 = _counter(t, dev)
-    ph0 = _counter(phase, dev)
+    c = _chains(states, key)
+    if c is not None and kind == "cpu":
+        t, phase = _counter(t, dev, c), _counter(phase, dev, c)
+        outs = [_round_fused(plain, kernel, states[i], key[i], t[i], phase[i], rung[i],
+                             energy[i], betas, n_sweeps=n_sweeps, n_rounds=n_rounds,
+                             criterion=criterion, pairing=pairing, **kw)
+                for i in range(c)]
+        return tuple(torch.stack(x, dim=1 if n >= 4 else 0)
+                     for n, x in enumerate(zip(*outs)))
+    if c is None:
+        words = _prng.key_words(key).to(dev)
+    else:
+        words = _chain_words(key, dev)
+    t0 = _counter(t, dev, c)
+    ph0 = _counter(phase, dev, c)
     rung = rung.to(torch.int32)
     energy = energy.to(torch.float32)
     betas = betas.to(torch.float32)
-    r = states.shape[0]
-    na_total = torch.zeros(r, dtype=torch.int32, device=dev)
+    lead = () if c is None else (c,)
+    r = states.shape[len(lead)]
+    na_total = torch.zeros((*lead, r), dtype=torch.int32, device=dev)
     xw = dict(pairing=pairing, criterion=criterion)
     if kind == "cpu":
         rows = []
@@ -233,9 +294,9 @@ def _round_fused(plain, kernel, states, key, t, phase, rung, energy, betas, *,
         acc, prob, att = (torch.stack(x) for x in zip(*rows))
         return states, rung, energy, na_total, acc, prob, att
 
-    acc = torch.empty((n_rounds, r), dtype=torch.bool, device=dev)
-    prob = torch.empty((n_rounds, r), dtype=torch.float32, device=dev)
-    att = torch.empty((n_rounds, r), dtype=torch.bool, device=dev)
+    acc = torch.empty((n_rounds, *lead, r), dtype=torch.bool, device=dev)
+    prob = torch.empty((n_rounds, *lead, r), dtype=torch.float32, device=dev)
+    att = torch.empty((n_rounds, *lead, r), dtype=torch.bool, device=dev)
     out = torch.empty_like(states)
     rung_out, energy_out = torch.empty_like(rung), torch.empty_like(energy)
     for k in range(n_rounds):
@@ -273,10 +334,11 @@ def ising_round_fused(
 
     On CUDA each round is one launch of kernel A (kernel #2p with
     ``pack_bits``) whose last block runs the exchange, enqueued on the
-    current stream with no host sync.
+    current stream with no host sync; C keys ``(C, 2)`` over ``(C, R, L,
+    L)`` spins run C chains in the same launch (see `_round_fused`).
     Returns ``(spins', rung', energy', n_accepted, accept, prob, attempt)``
-    with (n_rounds, R) diagnostics in `repro.core.swap.accept_pairs`
-    conventions.
+    with (n_rounds, R) diagnostics ((n_rounds, C, R) with a chain axis) in
+    `repro.core.swap.accept_pairs` conventions.
     """
     return _round_fused(
         _ising_sweeps(pack_bits)[0],

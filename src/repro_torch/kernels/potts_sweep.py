@@ -41,8 +41,8 @@ def _fused_lib() -> ctypes.CDLL:
     lib = build.library("potts_fused")
     lib.potts_fused_launch.restype = ctypes.c_int
     lib.potts_fused_launch.argtypes = [_P] * 9 + [
-        ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, *build.ROUND_ARGTYPES, _P,
+        # replicas, chains, H, W, q, sweeps
+        ctypes.c_longlong, ctypes.c_uint, *[ctypes.c_int] * 6, *build.ROUND_ARGTYPES, _P,
     ]
     lib.potts_fused_smem_bytes.restype = ctypes.c_longlong
     lib.potts_fused_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -126,18 +126,27 @@ def _refuse_cpu(dev, what: str) -> None:
 
 def _launch_fused(states, words, t0, betas, rung, *, n_sweeps, q, j, rule,
                   replica_offset, t_add, out, xchg=None):
-    """Check, allocate and launch kernel #5; ``xchg`` as in
-    `ising_sweep._launch_sweeps` (a round's exchange, else the sweeps alone)."""
-    r, h, w = _shape(states, "kernel #5")
+    """Check, allocate and launch kernel #5; ``xchg`` and a leading chain
+    axis as in `ising_sweep._launch_sweeps` (a round's exchange, else the
+    sweeps alone; (C, R, H, W) colours for C chains in one launch)."""
+    lead = tuple(states.shape[:-3])
+    if len(lead) > 1:
+        raise ValueError(f"kernel #5 takes (R, H, W) or (C, R, H, W) colours, got "
+                         f"{tuple(states.shape)}")
+    n_chains = lead[0] if lead else 1
+    r, h, w = _shape(states[0] if lead else states, "kernel #5")
     _check_q(q)
     dev = states.device
-    check(states, "states", torch.int8, (r, h, w), dev)
-    check(words, "key words", torch.int64, (2,), dev)
-    check(t0, "t0", torch.int64, (), dev)
-    check(betas, "betas", torch.float32, (r,), dev)
-    check(rung, "rung", torch.int32, (r,), dev)
+    check(states, "states", torch.int8, (*lead, r, h, w), dev)
+    check(words, "key words", torch.int64, (*lead, 2), dev)
+    check(t0, "t0", torch.int64, lead, dev)
+    if betas.shape not in ((r,), (n_chains * r,)):
+        raise ValueError(f"betas has shape {tuple(betas.shape)}, expected ({r},) "
+                         f"or ({n_chains * r},)")
+    check(betas, "betas", torch.float32, betas.shape, dev)
+    check(rung, "rung", torch.int32, (*lead, r), dev)
     if out is not None:
-        check(out, "out", torch.int8, (r, h, w), dev)
+        check(out, "out", torch.int8, (*lead, r, h, w), dev)
     if n_sweeps < 0:
         raise ValueError(f"n_sweeps must be >= 0, got {n_sweeps}")
     _refuse_cpu(dev, "kernel #5")
@@ -146,21 +155,21 @@ def _launch_fused(states, words, t0, betas, rung, *, n_sweeps, q, j, rule,
     p_tab, de_tab = potts_tables(betas, j=j, rule=rule)
     if out is None:
         out = torch.empty_like(states)
-    de = torch.empty(r, dtype=torch.float32, device=dev)
-    nacc = torch.empty(r, dtype=torch.int32, device=dev)
+    de = torch.empty((*lead, r), dtype=torch.float32, device=dev)
+    nacc = torch.empty((*lead, r), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        round_args = build.round_args(lib, betas, xchg)
+        round_args = build.round_args(lib, betas, xchg, n_chains)
         err = lib.potts_fused_launch(
             states.data_ptr(), out.data_ptr(), de.data_ptr(), nacc.data_ptr(),
             rung.data_ptr(), p_tab.data_ptr(), de_tab.data_ptr(),
             words.data_ptr(), t0.data_ptr(), int(t_add),
-            int(replica_offset) & prng.MASK, r, h, w, q, int(n_sweeps),
+            int(replica_offset) & prng.MASK, r, n_chains, h, w, q, int(n_sweeps),
             *round_args, stream_of(dev),
         )
     raise_if(err, "potts_fused")
     build.launches["potts_fused"] += 1
     if xchg is not None:
-        build.epilogues["exchange"] += 1
+        build.epilogues["exchange"] += n_chains
     return out, de, nacc
 
 
@@ -187,10 +196,16 @@ def potts_round_kernel(
 ):
     """One whole Potts PT round in one launch of kernel #5, its last block
     running the exchange; arguments and results as
-    `ising_sweep.ising_round_kernel`, with (R, H, W) int8 colours and ``q``."""
-    rows = build.check_round(states.shape[0], states.device, rung, energy, phase0,
+    `ising_sweep.ising_round_kernel`, with (R, H, W) int8 colours and ``q``
+    ((C, R, H, W) for C chains in one launch)."""
+    r = states.shape[-3]
+    if betas.shape != (r,):
+        raise ValueError(f"a round's betas are the shared ({r},) ladder, got "
+                         f"{tuple(betas.shape)}")
+    rows = build.check_round(r, states.device, rung, energy, phase0,
                              None if out is None else out[1:], pairing=pairing,
-                             criterion=criterion)
+                             criterion=criterion,
+                             chains=states.shape[0] if states.dim() == 4 else None)
     xkw = dict(phase_add=phase_add, pairing=pairing, criterion=criterion)
     states_out, _, nacc = _launch_fused(
         states, words, t0, betas, rung, n_sweeps=n_sweeps, q=q, j=j, rule=rule,

@@ -194,8 +194,10 @@ def _load(lib_path: Path, name: str, split: bool = False) -> ctypes.CDLL:
     if name == "exchange":
         fn.argtypes = [p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [p] * 4
         return lib
+    # a csrc whose launches take a chain count after the replica count
+    lib.chained = hasattr(lib, "chain_axis")
     fn.argtypes = ([p] * 9 + [ctypes.c_longlong, ctypes.c_uint]
-                   + [ctypes.c_int] * N_INT_ARGS[name]
+                   + [ctypes.c_int] * (N_INT_ARGS[name] + lib.chained)
                    + ([] if split else build.ROUND_ARGTYPES) + [p])
     lib.split = split
     return lib
@@ -212,8 +214,9 @@ def _launcher(lib: ctypes.CDLL, name: str, inputs: dict, n_sweeps: int, group: i
     out = torch.empty_like(st)
     de = torch.empty(r, dtype=torch.float32, device=st.device)
     nacc = torch.empty(r, dtype=torch.int32, device=st.device)
-    dims = {"ising_fused": (r, h, n_sweeps), "potts_fused": (r, h, w, 3, n_sweeps),
-            "ising_packed": (r, h, n_sweeps, group)}[name]
+    dims = {"ising_fused": (h, n_sweeps), "potts_fused": (h, w, 3, n_sweeps),
+            "ising_packed": (h, n_sweeps, group)}[name]
+    dims = (r, 1, *dims) if lib.chained else (r, *dims)  # one chain
     round_args = () if lib.split else build.round_args(lib, inputs["betas"], xchg)
 
     def launch():

@@ -575,8 +575,8 @@ def test_ensemble_advance_never_syncs_the_host(dev, path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert state.stats.n_records.tolist() == [4, 4]
-    if path == "round":  # one launch and one exchange per chain and interval
-        assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 6}
+    if path == "round":  # one launch an interval for both chains, one exchange a chain
+        assert {k: v for k, v in build.launches.items() if v} == {"ising_packed": 3}
         assert build.epilogues == {"exchange": 6}
 
 
@@ -791,3 +791,148 @@ def test_zoo_interval_loop_never_syncs_the_host(dev, case):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(stats.n_records.item()) == 3
+
+
+# -- the chain axis of kernels A, #2p and #5, and serving on the card ---------------
+
+CHAIN_KERNELS = ("ising_fused", "ising_packed", "potts_fused")
+
+
+def _chain_launchers(kernel):
+    if kernel == "potts_fused":
+        return (functools.partial(pk.potts_sweep_fused_kernel, q=3),
+                functools.partial(pk.potts_round_kernel, q=3))
+    packed = kernel == "ising_packed"
+    return (isk.ising_sweep_packed_kernel if packed else isk.ising_sweep_fused_kernel,
+            functools.partial(isk.ising_round_kernel, pack_bits=packed))
+
+
+@pytest.mark.parametrize("kernel", CHAIN_KERNELS)
+@pytest.mark.parametrize("c,length,r,s", [(1, 8, 8, 3), (2, 32, 40, 1), (5, 8, 13, 4),
+                                          (3, 66, 7, 2)])
+def test_chain_axis_launch_equals_per_chain_launches(dev, kernel, c, length, r, s):
+    """One launch over C chains (sweeps alone, and a round) equals C launches
+    of one chain bit for bit, counts one launch and C exchanges, and leaves
+    every chain's ticket at 0."""
+    rng = np.random.default_rng(c * 100 + length)
+    hi = 3 if kernel == "potts_fused" else 2
+    st = torch.from_numpy(rng.integers(0, hi, (c, r, length, length)).astype(np.int8)).to(dev)
+    if kernel != "potts_fused":
+        st = 2 * st - 1
+    betas = torch.from_numpy((1.0 / np.geomspace(1.0, 4.0, r)).astype(np.float32)).to(dev)
+    rung = torch.from_numpy(np.stack([rng.permutation(r) for _ in range(c)]).astype(np.int32)).to(dev)
+    energy = torch.from_numpy(-rng.integers(0, 99, (c, r)).astype(np.float32)).to(dev)
+    words = torch.stack([keys.key(11 + i, device=dev) for i in range(c)])
+    t0 = torch.from_numpy(rng.integers(0, 50, c)).to(dev)
+    ph0 = torch.from_numpy(rng.integers(0, 50, c)).to(dev)
+    sweeps, one_round = _chain_launchers(kernel)
+    kw, xw = dict(n_sweeps=s, rule="glauber"), dict(pairing="seo", criterion="logistic")
+    build.reset_launches()
+    got = sweeps(st, words, t0, betas, rung, **kw)
+    got_round = one_round(st, words, t0, ph0, betas, rung, energy, **kw, **xw)
+    assert {n: v for n, v in build.launches.items() if v} == {kernel: 2}
+    assert build.epilogues == {"exchange": c}
+    for i in range(c):
+        want = sweeps(st[i], words[i], t0[i], betas, rung[i], **kw)
+        want_round = one_round(st[i], words[i], t0[i], ph0[i], betas, rung[i], energy[i],
+                               **kw, **xw)
+        for x, y in zip((*got, *got_round), (*want, *want_round)):
+            assert torch.equal(x[i], y)
+    assert build.dirty_tickets() == {}
+
+
+@pytest.mark.parametrize("kernel", ["A", "2p", "potts"])
+def test_chain_axis_ops_on_cuda_equal_cpu(dev, kernel):
+    """The chain-axis ops, one launch a round on the card, equal their plain
+    versions chain by chain on the CPU."""
+    rng = np.random.default_rng(3)
+    c, r, length = 3, 6, 8
+    hi = 3 if kernel == "potts" else 2
+    st = torch.from_numpy(rng.integers(0, hi, (c, r, length, length)).astype(np.int8))
+    if kernel != "potts":
+        st = 2 * st - 1
+    rung = torch.from_numpy(np.stack([rng.permutation(r) for _ in range(c)]).astype(np.int32))
+    energy = torch.from_numpy(-rng.integers(0, 99, (c, r)).astype(np.float32))
+    betas = torch.from_numpy((1.0 / np.geomspace(1.0, 4.0, r)).astype(np.float32))
+    key = torch.stack([keys.key(5 + i) for i in range(c)])
+    t, ph = torch.tensor([1, 7, 9]), torch.tensor([0, 3, 4])
+    if kernel == "potts":
+        op = functools.partial(ops.potts_round_fused, q=3)
+    else:
+        op = functools.partial(ops.ising_round_fused, pack_bits=kernel == "2p")
+    kw = dict(n_sweeps=2, n_rounds=3, rule="glauber", pairing="deo")
+    want = op(st, key, t, ph, rung, energy, betas, **kw)
+    build.reset_launches()
+    got = op(*(x.to(dev) for x in (st, key, t, ph, rung, energy, betas)), **kw)
+    name = {"A": "ising_fused", "2p": "ising_packed", "potts": "potts_fused"}[kernel]
+    assert build.launches[name] == 3 and build.epilogues["exchange"] == 3 * c
+    for n, (x, y) in enumerate(zip(got, want)):
+        if n == 5:  # prob: CUDA expf vs the CPU's vectorized exp, a few ulps
+            torch.testing.assert_close(x.cpu(), y, rtol=4 * F32_EPS, atol=0)
+        else:
+            assert torch.equal(x.cpu(), y), n
+
+
+@pytest.mark.parametrize("path", ["round", "fused", "sweep"])
+def test_serve_bucket_on_cuda_equals_solo_and_cpu(dev, path):
+    """4 tenants of ising_serve.json packed on the card: each equal to its
+    solo run on the card and to the CPU bucket; on the round path one launch
+    a round for the bucket."""
+    from repro_torch.serve import Scheduler
+
+    d = json.loads((Path(__file__).resolve().parents[1] / "examples" / "specs"
+                    / "ising_serve.json").read_text())
+    d["system"]["params"].update(use_fused=path != "sweep", use_fused_round=path == "round")
+    specs = [RunSpec.from_dict({**d, "seed": s}) for s in range(4)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        sched = Scheduler(device=device, strict_kernels=True)
+        jobs = [sched.submit(s) for s in specs]
+        build.reset_launches()
+        sched.run_until_idle()
+        out[device] = [j.result(timeout=0) for j in jobs]
+        if device == "cuda" and path == "round":
+            assert build.launches["ising_fused"] == 16 and build.epilogues["exchange"] == 64
+    for got, cpu, spec in zip(out["cuda"], out["cpu"], specs):
+        solo = Session(spec, device="cuda", strict_kernels=True).run()
+        assert np.array_equal(got.final_energy, solo.final_energies())
+        assert np.array_equal(got.final_energy, cpu.final_energy)
+        for name, res in solo.phases.items():
+            for k, v in res.summary.items():
+                assert np.array_equal(np.asarray(got.phases[name][k]), np.asarray(v)), k
+
+
+def test_degradation_stays_on_the_card(dev):
+    """An injected compile fault on the round path degrades to the per-sweep
+    path on the card: kernels #1 and jax_uniform, equal to a never-fused run."""
+    from repro_torch.resilience import Fault, FaultPlan
+
+    temps = np.geomspace(1.5, 3.5, 4)
+    cfg = EngineConfig(n_replicas=4, swap_interval=2, chunk_intervals=2, n_chains=2)
+    eng = Engine(IsingSystem(length=8, use_fused=True, use_fused_round=True), cfg,
+                 device="cuda", faults=FaultPlan([Fault("engine.compile")]))
+    build.reset_launches()
+    with pytest.warns(RuntimeWarning, match="per-sweep path on cuda"):
+        st, _ = eng.run(eng.init(keys.key(2, device=dev), temps), 8)
+    assert build.launches["ising_fused"] == 0 and build.launches["ising_sweep"] == 16
+    ref = Engine(IsingSystem(length=8), cfg, device="cuda")
+    st2, _ = ref.run(ref.init(keys.key(2, device=dev), temps), 8)
+    assert st.pt.states.is_cuda and torch.equal(st.pt.states, st2.pt.states)
+    assert torch.equal(st.pt.energy, st2.pt.energy)
+
+
+@pytest.mark.parametrize("path", ["fused", "round"])
+def test_ensemble_interval_loop_never_syncs_the_host(dev, path):
+    """`Engine.advance` over 4 stacked chains on the chain-axis paths issues
+    no host sync."""
+    cfg = EngineConfig(n_replicas=6, swap_interval=3, chunk_intervals=2, n_chains=4)
+    eng = Engine(IsingSystem(length=8, use_fused=True, use_fused_round=path == "round"), cfg,
+                 device="cuda", strict_kernels=True)
+    state = eng.init(keys.key(1, device=dev), np.geomspace(1.0, 3.0, 6))
+    eng.advance(state, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.advance(state, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
