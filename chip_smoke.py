@@ -144,7 +144,25 @@ Phases, one line each or more (any failure raises and exits non-zero):
     checkpoints verify or are caught corrupt), and an injected
     ``engine.compile`` fault degrading a round spec to the per-sweep path on
     the card (bit-equal to a never-fused run), fatal with ``strict_kernels``;
-23. a JSON line per kernel (launches, error, times, bound), the card line,
+23. the mesh over ``torch.distributed`` (``repro_torch.core.distributed``):
+    the standalone exchange launch (``csrc/exchange_step.cu``, the sharded
+    round path's exchange on the gathered rows) at R in {6, 1500}, C in {1,
+    3}, every pairing and criterion, equal to a round launch's exchange bit
+    for bit and to plain ``exchange_step``; ``jax_uniform`` and both serial
+    chains at replica offsets 0 and 750 equal to plain and to the unsharded
+    launch's rows; timed beside bounds; then the paper's round configuration
+    (L=300 R=1500 S=100, glauber, logistic DEO, 3 intervals) through
+    ``Session`` unsharded, on a one-rank NCCL group (``MeshSpec(1, 1)``) and
+    on two spawned ranks sharing the card over gloo (``MeshSpec(1, 2)`` and,
+    with two chains, ``(2, 1)``), each equal to the unsharded run (digests of
+    the final state and of the rung map after every interval, manifests),
+    one launch of A and one standalone exchange an interval on each rank
+    and no round launch, ms an interval and the bytes a rank all-gathers an
+    interval; a checkpoint saved on (1, 2) restored on one device, one saved
+    unsharded restored on (2, 1); the per-sweep, ``pack_bits`` fused, Potts
+    round, HP and ``single_flip`` paths on (1, 2), each equal to its
+    unsharded run.  No run here holds two GPUs;
+24. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 Every ``Session`` runs with ``strict_kernels=True`` but phase 22's injected
@@ -1820,6 +1838,486 @@ def serve_phases(torch, np, build, keys, isk, pk, api, device, card) -> dict:
     return out
 
 
+# -- phase 23: the mesh (torch.distributed) on the card --------------------------
+
+MESH_SEQ20 = "HPHPPHHPHHPHPHHPPHPH"  # benchmarks/systems_bench.py
+
+
+def mesh_spec_dicts() -> dict:
+    """name -> (RunSpec JSON, mesh (E, D)) of phase 23's runs at full width:
+    the paper's round configuration (L=300, R=1500 paper ladder, S=100,
+    glauber, logistic DEO) on (1, 2), and with two chains on (2, 1); then
+    the per-sweep, ``pack_bits`` fused and Potts round paths on (1, 2), and
+    HP and ``single_flip`` at phase 20's widths over fewer sweeps."""
+    paper = {"kind": "paper", "n_replicas": 1500, "t_min": 1.0, "t_max": 4.0}
+
+    def spec(system, params, n_sweeps, interval=100, ladder=paper, observables=(), **engine):
+        return {"spec_version": 1, "system": {"name": system, "params": params},
+                "ladder": ladder,
+                "engine": {"swap_interval": interval, "chunk_intervals": 1, **engine},
+                "schedule": {"phases": [{"name": "run", "n_sweeps": n_sweeps}]},
+                "observables": list(observables), "seed": 0}
+
+    ising = {"length": 300, "accept_rule": "glauber"}
+    rnd = {**ising, "use_fused": True, "use_fused_round": True}
+    return {
+        "paper": (spec("ising", rnd, 300, observables=("absmag", "energy_per_site")), (1, 2)),
+        "paper_chains": (spec("ising", rnd, 300, observables=("absmag",), n_chains=2), (2, 1)),
+        "per_sweep": (spec("ising", ising, 100, observables=("absmag",)), (1, 2)),
+        "packed_fused": (spec("ising", {**ising, "use_fused": True, "pack_bits": True}, 200,
+                              observables=("absmag",)), (1, 2)),
+        "potts_round": (spec("potts", {"shape": [300, 300], "q": 3, "accept_rule": "glauber",
+                                       "use_fused": True, "use_fused_round": True}, 100,
+                             ladder={"kind": "geometric", "n_replicas": 1500, "t_min": 0.7,
+                                     "t_max": 2.9}, observables=("pmag",)), (1, 2)),
+        "hp": (spec("hp_protein", {"sequence": MESH_SEQ20}, 40, interval=20,
+                    ladder={"kind": "geometric", "n_replicas": 1500, "t_min": 0.3,
+                            "t_max": 3.4}), (1, 2)),
+        "single_flip": (spec("ising", {"length": 300, "update": "single_flip",
+                                       "flips_per_step": 300, "accept_rule": "glauber"}, 10,
+                             interval=5, observables=("absmag",)), (1, 2)),
+    }
+
+
+# launches per rank (and of the unsharded run) of each phase 23 run, per interval
+MESH_LAUNCHES = {
+    "paper": ({"ising_fused": 1, "exchange_step": 1}, {"ising_fused": 1, "exchange": 1}),
+    "paper_chains": ({"ising_fused": 1, "exchange_step": 1}, {"ising_fused": 1, "exchange": 2}),
+    "per_sweep": ({"jax_uniform": 100, "ising_sweep": 100}, None),
+    "packed_fused": ({"ising_packed": 1}, None),
+    "potts_round": ({"potts_fused": 1, "exchange_step": 1}, {"potts_fused": 1, "exchange": 1}),
+    "hp": ({"hp_moves": 20}, None),
+    "single_flip": ({"single_flip": 5}, None),
+}
+
+
+def state_digest(state) -> str:
+    """sha256 of a whole engine state's chain leaves and swap counters."""
+    import hashlib
+
+    h = hashlib.sha256()
+    pt = state.pt
+    for x in (pt.states, pt.energy, pt.rung, pt.t, pt.phase, state.stats.swap_accepts,
+              state.stats.swap_attempts, state.stats.round_trips, state.betas):
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_session_run(name: str, data: dict, mesh, device: str, ckpt_dir: str | None = None,
+                     restore_dir: str | None = None) -> dict:
+    """Run phase 23's ``name`` (RunSpec JSON ``data``) through `Session` on ``mesh`` (E, D) or
+    unsharded (None), strict, with every launch count at 0 just before the
+    run; returns launch counts, ms an interval (the phase, host clock, the
+    card synchronised), the bytes each replica-axis all-gather of the run
+    returned (counted at the communicator, the layout's collective), digests
+    of the whole final state and of the rung map after every interval, and
+    the manifest.  ``ckpt_dir`` saves the final state there (gathered, rank 0
+    writes); ``restore_dir`` restores a checkpoint onto this mesh afterwards."""
+    import torch
+
+    from repro_torch.api import Callback, RunSpec, Session
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import build
+
+    if mesh is not None:
+        data = {**data, "engine": {**data["engine"],
+                                   "mesh": {"ensemble": mesh[0], "replica": mesh[1]}}}
+    spec = RunSpec.from_json(data)
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    class Watch(Callback):
+        """Times the phase and gathers the rung map after every chunk (not
+        counted); counts the bytes of the run's own gathers."""
+
+        def __init__(self):
+            self.bytes, self.rungs, self.counting, self.t0, self.wall = [], [], False, 0.0, 0.0
+
+        def wrap(self, layout):
+            fn = layout.gather_replicas
+
+            def counted(x, dim=-1):
+                out = fn(x, dim)
+                if self.counting:
+                    self.bytes.append(out.numel() * out.element_size())
+                return out
+
+            layout.gather_replicas = counted
+
+        def on_phase_start(self, session, phase):
+            sync()
+            self.t0, self.counting = time.perf_counter(), True
+
+        def on_chunk(self, session, info):
+            self.counting = False
+            rung = info.state.pt.rung
+            layout = session.engine.layout
+            if layout is not None:
+                rung = layout.gather_replicas(rung)
+                if rung.dim() == 2 and session.spec.engine.n_chains > 1:
+                    rung = layout.gather_chains(rung)
+            self.rungs.append(rung.cpu().numpy())
+            self.counting = True
+
+        def on_phase_end(self, session, phase, result):
+            sync()
+            self.counting, self.wall = False, time.perf_counter() - self.t0
+
+    # one untimed interval first: the process's first launches of each
+    # kernel and the group's first collective (NCCL makes its communicator
+    # there) stay out of the timed run
+    warm = {**data, "schedule": {"phases": [{"name": "run",
+                                             "n_sweeps": spec.engine.swap_interval}]}}
+    Session(RunSpec.from_json(warm), device=device, strict_kernels=True).run()
+    watch = Watch()
+    session = Session(spec, callbacks=[watch], device=device, strict_kernels=True)
+    if session.engine.layout is not None:
+        watch.wrap(session.engine.layout)
+    session.state = session.init_state()
+    sync()
+    build.reset_launches()
+    result = session.run()
+    counts = counts_now(build)
+    check_tickets(build, f"phase 23 {name}")
+    n_int = spec.schedule.total_sweeps // spec.engine.swap_interval
+    st = result.state.pt
+    if not bool(torch.isfinite(st.energy).all()):
+        raise AssertionError(f"phase 23 {name}: non-finite energies")
+    manifest = result.manifest()
+    manifest["spec"]["engine"]["mesh"] = None
+    out = {"counts": counts, "n_int": n_int, "ms": 1e3 * watch.wall / n_int,
+           "bytes": watch.bytes, "digest": state_digest(result.state),
+           "rungs": hashlib_of(watch.rungs), "manifest": manifest}
+    if ckpt_dir is not None:
+        meta = {"temps": [float(t) for t in session.engine._temps]}
+        t = time.perf_counter()
+        session.engine.save_checkpoint(CheckpointManager(ckpt_dir), session.state, meta)
+        out["save_s"] = time.perf_counter() - t
+    if restore_dir is not None:
+        for k in ("restore_s", "restore2_s"):  # the second read finds the page cache warm
+            t = time.perf_counter()
+            restored, _ = session.engine.restore(CheckpointManager(restore_dir))
+            sync()
+            out[k] = time.perf_counter() - t
+        out["restored_digest"] = state_digest(session.engine.gathered(restored))
+    return out
+
+
+def hashlib_of(arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(rank: int, world: int, outdir: str, jobs: list, device: str = "cuda:0") -> None:
+    """One of the spawned ranks sharing the card over gloo: every phase 23
+    job ``(name, spec JSON, mesh, ckpt_dir, restore_dir)`` on its mesh,
+    results to ``outdir/rank{rank}.json``."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(outdir, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    results = {}
+    for name, data, mesh, ckpt_dir, restore_dir in jobs:
+        results[name] = mesh_session_run(name, data, mesh, device, ckpt_dir, restore_dir)
+        if rank != 0:
+            del results[name]["manifest"]
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) -> dict:
+    """Phase 23 (a): the standalone exchange launch (``exchange_step.cu``)
+    over all pairings and criteria at R in {6, 1500}, C in {1, 3}: rows
+    equal bit for bit to a round launch's exchange (kernel A at S=0, chain
+    by chain) and to the plain ``exchange_step`` in rung and attempt, in
+    prob and accept but where u lies between the two p; ``jax_uniform``,
+    ``hp_moves`` and ``single_flip`` at replica offsets 0 and R/2 equal to
+    their plain versions and to the unsharded launch's rows; times (CUDA
+    events) beside bounds."""
+    rng = np.random.default_rng(23)
+    n_cases, max_err, n_prob_diff = 0, 0.0, 0
+    build.reset_launches()
+    for r in (6, 1500):
+        temps = 1.0 + np.arange(r) * 3.0 / r
+        betas = torch.from_numpy((1.0 / temps).astype(np.float32)).to(device)
+        for c in (1, 3):
+            for pairing in ("deo", "seo"):
+                for criterion in ("logistic", "metropolis"):
+                    rung = torch.from_numpy(np.stack([rng.permutation(r) for _ in range(c)])
+                                            .astype(np.int32)).to(device)
+                    by_rung = (-180000 + 100 * np.arange(r)
+                               + rng.integers(-400, 400, (c, r))).astype(np.float32)
+                    energy = torch.from_numpy(np.take_along_axis(
+                        by_rung, rung.cpu().numpy().astype(np.int64), 1)).to(device)
+                    phase = torch.from_numpy(rng.integers(0, 1 << 20, c)).to(device)
+                    words = torch.stack([keys.key(int(rng.integers(1 << 30)), device=device)
+                                         for _ in range(c)])
+                    what = f"R={r} C={c} {pairing}/{criterion}"
+                    got = xk.exchange_step_kernel(rung, energy, betas, phase, words,
+                                                  pairing=pairing, criterion=criterion)
+                    for i in range(c):
+                        spins = torch.ones((r, 2, 2), dtype=torch.int8, device=device)
+                        zero = torch.zeros((), dtype=torch.int64, device=device)
+                        rd = isk.ising_round_kernel(
+                            spins, words[i], zero, phase[i], betas, rung[i], energy[i],
+                            n_sweeps=0, pairing=pairing, criterion=criterion)
+                        rows = (rd[1], rd[4], rd[5], rd[6])
+                        if not all(torch.equal(g[i], w) for g, w in zip(got, rows)):
+                            raise AssertionError(f"phase 23 exchange {what} chain {i}: "
+                                                 "!= the round launch's exchange")
+                        want = xk.exchange_step(rung[i], energy[i], betas, phase[i], words[i],
+                                                pairing=pairing, criterion=criterion)
+                        u = prng.swap_uniforms(words[i], phase[i], r)
+                        lo = torch.minimum(got[2][i], want[2])
+                        hi = torch.maximum(got[2][i], want[2])
+                        in_gap = (u >= lo) & (u < hi)
+                        prob_diff = got[2][i] != want[2]
+                        acc_diff = got[1][i] != want[1]
+                        if bool((prob_diff & ~in_gap).any()) or bool((acc_diff & ~in_gap).any()):
+                            raise AssertionError(f"phase 23 exchange {what}: prob/accept "
+                                                 "differ from plain outside the u gap")
+                        if not torch.equal(got[3][i], want[3]) or (
+                                not bool(acc_diff.any()) and not torch.equal(got[0][i], want[0])):
+                            raise AssertionError(f"phase 23 exchange {what}: rung/attempt "
+                                                 "!= plain")
+                        n_prob_diff += int(prob_diff.sum().item())
+                        max_err = max(max_err, (got[2][i] - want[2]).abs().max().item())
+                    n_cases += 1
+    n_x = n_cases
+    counts = counts_now(build)
+    if counts["exchange_step"] != n_x:
+        raise AssertionError(f"phase 23: {counts['exchange_step']} exchange launches != {n_x}")
+    # the offsets: a shard's draws are the unsharded launch's rows [off, off + r)
+    r, shape = 1500, (2, 300, 300)
+    key, t = keys.key(21, device=device), torch.tensor(2**31 + 5, device=device)
+    whole = ju.jax_uniform_kernel(key, t, r, shape)
+    for off in (0, r // 2):
+        part = ju.jax_uniform_kernel(key, t, r // 2, shape, off)
+        if not torch.equal(part, whole[off:off + r // 2]):
+            raise AssertionError(f"phase 23 jax_uniform offset {off} != unsharded rows")
+        ids = torch.tensor([0, 1, 377, r // 2 - 1], device=device)
+        if not torch.equal(part[ids], ju.jax_uniform_plain(key, t, ids + off, shape)):
+            raise AssertionError(f"phase 23 jax_uniform offset {off} != plain")
+        n_cases += 1
+    from repro_torch.core.hp import HPChain
+
+    chain = HPChain(MESH_SEQ20)
+    n = len(MESH_SEQ20)
+    pos = chain.init_state_batched(keys.split(keys.key(7, device=device), r))
+    hb = torch.linspace(1 / 0.6, 1 / 3.4, r, device=device)
+    hmask = torch.tensor([ch == "H" for ch in MESH_SEQ20], device=device)
+    hkw = dict(hmask=hmask, eps=1.0, n_moves=n)
+    full_hp = sc.hp_moves_kernel(pos, key, t, hb, **hkw)
+    spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8),
+                                        size=(r, 300, 300))).to(device)
+    fkw = dict(j=1.0, b=0.0, rule="glauber", flips=30)
+    full_flip = sc.single_flip_kernel(spins, key, t, hb, **fkw)
+    for off in (0, r // 2):
+        blk = slice(off, off + r // 2)
+        for fn_k, fn_p, x, kw, full, what in (
+                (sc.hp_moves_kernel, sc.hp_moves_plain, pos, hkw, full_hp, "hp_moves"),
+                (sc.single_flip_kernel, sc.single_flip_plain, spins, fkw, full_flip,
+                 "single_flip")):
+            got = fn_k(x[blk], key, t, hb[blk], replica_offset=off, **kw)
+            want = fn_p(x[blk], key, t, hb[blk], replica_offset=off, **kw)
+            for g, w, f in zip(got, want, full):
+                if not torch.equal(g, w) or not torch.equal(g, f[blk]):
+                    raise AssertionError(f"phase 23 {what} offset {off} != plain / unsharded")
+            n_cases += 1
+    torch.cuda.synchronize()
+    # times at the sharded paper path's shapes (R=1500 gathered rows, one chain)
+    rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)[None]
+    energy = torch.from_numpy((-180000 + 100 * rng.permutation(r)).astype(np.float32)
+                              ).to(device)[None]
+    betas = torch.from_numpy((1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)
+                             ).to(device)
+    phase = torch.zeros(1, dtype=torch.int64, device=device)
+    words = keys.key(3, device=device)[None]
+    xkw = dict(pairing="deo", criterion="logistic")
+    x_ms = cuda_ms(torch, lambda: xk.exchange_step_kernel(rung, energy, betas, phase, words,
+                                                          **xkw), 200, 5)
+    x_plain = cuda_ms(torch, lambda: xk.exchange_step(rung[0], energy[0], betas, phase[0],
+                                                      words[0], **xkw), 50, 2)
+    x_bound = bound_threefry(r + 3, 30.0 * r)
+    half = r // 2
+    u_ms = cuda_ms(torch, lambda: ju.jax_uniform_kernel(key, t, half, shape, half), 20)
+    u_plain = cuda_ms(torch, lambda: ju.jax_uniform_plain(
+        key, t, half + torch.arange(half, device=device), shape), 1)
+    u_bound = bound_threefry(half * 2 * 300 * 300, 4.0 * half * 2 * 300 * 300)
+    # #2p's round tail at L=32 R=1500 S=1 (a round launch less the same
+    # launch without the exchange, profiler device time, in turns): the
+    # device time of a launch is the mean over the launches the profiler
+    # saw, whose count this run may not equal the 200 made (it is printed)
+    spins32 = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8),
+                                          size=(r, 32, 32))).to(device)
+    t0 = torch.zeros((), dtype=torch.int64, device=device)
+    pkw = dict(n_sweeps=1, rule="glauber")
+    fns = {"sweeps": lambda: isk.ising_sweep_packed_kernel(spins32, words[0], t0, betas,
+                                                          rung[0], **pkw),
+           "round": lambda: isk.ising_round_kernel(spins32, words[0], t0, phase[0], betas,
+                                                   rung[0], energy[0], pack_bits=True,
+                                                   **xkw, **pkw)}
+    reads = {"sweeps": [], "round": []}
+    seen = {"sweeps": [], "round": []}
+    for what in ("sweeps", "round", "round", "sweeps", "sweeps", "round"):
+        ms, n = profiler_ms(torch, fns[what], 200, "ising_packed_kernel")
+        reads[what].append(ms)
+        seen[what].append(n)
+    packed_tail = (min(reads["round"]), min(reads["sweeps"]))
+    return {"n_cases": n_cases, "packed_tail": packed_tail, "packed_seen": seen, "n_exchange": n_x, "max_err": max_err,
+            "n_prob_diff": n_prob_diff,
+            "times": {"exchange_step": {"ms": x_ms, "plain_ms": x_plain, "bound": x_bound},
+                      "jax_uniform_offset": {"ms": u_ms, "plain_ms": u_plain,
+                                             "bound": u_bound}}}
+
+
+def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
+    """Phase 23: the mesh on the card.  (a) `check_mesh_kernels`; (b) the
+    paper's round configuration through `Session` unsharded, on a one-rank
+    NCCL group (`MeshSpec(1, 1)`, this process) and on two ranks sharing the
+    card over gloo, spawned (`MeshSpec(1, 2)`: slot offsets 0 and 750; and
+    `MeshSpec(2, 1)` with two chains), each equal to the unsharded run from
+    the same seed (digests of the whole final state and of the rung map
+    after every interval, manifests), with one launch of A and one
+    standalone exchange an interval on each rank and no round launch; a
+    checkpoint saved on (1, 2) restored on one device, and one saved
+    unsharded restored on (2, 1); (c) the per-sweep, ``pack_bits`` fused,
+    Potts round, HP and ``single_flip`` paths on (1, 2), each equal to its
+    unsharded run."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels import exchange as xk
+    from repro_torch.kernels import ising_sweep as isk
+    from repro_torch.kernels import jax_uniform as ju
+    from repro_torch.kernels import serial_chain as sc
+
+    t_phase = time.perf_counter()
+    kern = check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device)
+    print(f"phase 23 kernels: {kern['n_exchange']} standalone exchange launches (R in 6, "
+          f"1500; C in 1, 3; DEO/SEO x logistic/metropolis) equal to the round launch's "
+          f"exchange bit for bit and to plain (rung, attempt; accept and prob but inside the "
+          f"u gap: {kern['n_prob_diff']} prob differences, max |dp| {kern['max_err']}); "
+          f"jax_uniform, hp_moves and single_flip at replica offsets 0 and 750 equal to plain "
+          f"and to the unsharded launch's rows; {kern['n_cases']} cases")
+    tm = kern["times"]
+    print(f"phase 23 kernel times [{card}]: standalone exchange R=1500 C=1 "
+          f"{tm['exchange_step']['ms']:.5f} ms vs plain {tm['exchange_step']['plain_ms']:.4f} ms "
+          f"(bound {tm['exchange_step']['bound'][0]:.6f} ms by {tm['exchange_step']['bound'][1]});"
+          f" jax_uniform 750 replicas at offset 750, (2,300,300): "
+          f"{tm['jax_uniform_offset']['ms']:.4f} ms vs plain "
+          f"{tm['jax_uniform_offset']['plain_ms']:.2f} ms (bound "
+          f"{tm['jax_uniform_offset']['bound'][0]:.4f} ms); #2p round tail at L=32 R=1500 "
+          f"S=1: round launch {kern['packed_tail'][0]:.5f} ms, sweeps alone "
+          f"{kern['packed_tail'][1]:.5f} ms, tail "
+          f"{kern['packed_tail'][0] - kern['packed_tail'][1]:.5f} ms (profiler device time a "
+          f"launch, the lowest of 3 turns each; launches the profiler saw of the 200 made: "
+          f"round {kern['packed_seen']['round']}, sweeps {kern['packed_seen']['sweeps']}); "
+          f"library_ms: none")
+
+    work = Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+    specs = mesh_spec_dicts()
+    ref = {}
+    for name in specs:
+        ckpt = str(work / "ckpt_ref_chains") if name == "paper_chains" else None
+        ref[name] = mesh_session_run(name, specs[name][0], None, "cuda", ckpt_dir=ckpt)
+        want = MESH_LAUNCHES[name][1] or MESH_LAUNCHES[name][0]
+        expect_launches(ref[name]["counts"], f"phase 23 unsharded {name}",
+                        **{k: v * ref[name]["n_int"] for k, v in want.items()})
+    # (1, 1) on a one-rank NCCL group in this process
+    one = mesh_session_run("paper", specs["paper"][0], (1, 1), "cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"phase 23: the one-rank group is {dist.get_backend()}, not nccl")
+    dist.destroy_process_group()
+    # two ranks sharing the card over gloo (spawned, not forked)
+    jobs = [("paper", specs["paper"][0], (1, 2), str(work / "ckpt_mesh"), None),
+            ("paper_chains", specs["paper_chains"][0], (2, 1), None,
+             str(work / "ckpt_ref_chains"))]
+    jobs += [(name, data, mesh, None, None) for name, (data, mesh) in specs.items()
+             if name not in ("paper", "paper_chains")]
+    t = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(2, str(work), jobs), nprocs=2, start_method="spawn")
+    spawn_s = time.perf_counter() - t
+    ranks = [json.loads((work / f"rank{k}.json").read_text()) for k in range(2)]
+
+    def same(got: dict, name: str, what: str):
+        want = ref[name]
+        for k in ("digest", "rungs"):
+            if got[k] != want[k]:
+                raise AssertionError(f"phase 23 {name} {what}: {k} != the unsharded run's")
+        if "manifest" in got and got["manifest"] != want["manifest"]:
+            raise AssertionError(f"phase 23 {name} {what}: manifest != the unsharded run's")
+
+    same(one, "paper", "MeshSpec(1, 1) nccl")
+    expect_launches(one["counts"], "phase 23 (1, 1)",
+                    **{k: v * one["n_int"] for k, v in MESH_LAUNCHES["paper"][0].items()})
+    lines = []
+    for name, _, mesh, *_ in jobs:
+        for k, res in enumerate(ranks):
+            got = res[name]
+            same(got, name, f"{mesh} rank {k}")
+            expect_launches(got["counts"], f"phase 23 {name} {mesh} rank {k}",
+                            **{kk: v * got["n_int"] for kk, v in MESH_LAUNCHES[name][0].items()})
+        g = ranks[0][name]
+        lines.append(f"{name} {tuple(mesh)} {g['ms']:.2f} ms/interval (unsharded "
+                     f"{ref[name]['ms']:.2f}), {sum(g['bytes']) // g['n_int']} B gathered a "
+                     f"rank and interval")
+    restored = ranks[0]["paper_chains"]["restored_digest"]
+    if restored != ref["paper_chains"]["digest"]:
+        raise AssertionError("phase 23: the unsharded checkpoint restored on (2, 1) differs")
+    from repro_torch.api import RunSpec, Session
+
+    eng = Session(RunSpec.from_json(specs["paper"][0]), device="cuda").engine
+    restore_s = []
+    for _ in range(2):  # the second read finds the page cache warm
+        t = time.perf_counter()
+        back, _ = eng.restore(CheckpointManager(str(work / "ckpt_mesh")))
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t)
+    if state_digest(back) != ref["paper"]["digest"]:
+        raise AssertionError("phase 23: the (1, 2) checkpoint restored on one device differs")
+    check_tickets(build, "phase 23")
+    pb = ranks[0]["paper"]
+    print(f"phase 23 paper round path [{card}]: L=300 R=1500 S=100, 3 intervals, equal to the "
+          f"unsharded run (final state, rung map after every interval, manifest): unsharded "
+          f"{ref['paper']['ms']:.2f} ms/interval; MeshSpec(1, 1) on one NCCL rank "
+          f"{one['ms']:.2f} ms/interval, {sum(one['bytes']) // one['n_int']} B gathered an "
+          f"interval; MeshSpec(1, 2) two gloo ranks on the one card (offsets 0, 750) "
+          f"{pb['ms']:.2f} ms/interval, {sum(pb['bytes']) // pb['n_int']} B gathered a rank "
+          f"and interval (energy, rung and 2 observable rows of 1500 x 4 B, staged through "
+          f"host memory by gloo); each rank 1 launch of A and 1 standalone exchange an "
+          f"interval, no round launch; save on (1, 2) {pb['save_s']:.3f} s, restored on one "
+          f"device in {restore_s[0]:.3f} s (again {restore_s[1]:.3f} s), equal; the unsharded "
+          f"two-chain checkpoint restored on (2, 1) in "
+          f"{ranks[0]['paper_chains']['restore_s']:.3f} s (again "
+          f"{ranks[0]['paper_chains']['restore2_s']:.3f} s), equal")
+    print(f"phase 23 all layouts [{card}]: " + "; ".join(lines)
+          + f"; the two ranks' run {spawn_s:.1f} s with their start; no run held two GPUs")
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 23 done in {time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": kern, "one": one, "ranks": ranks, "ref": ref, "restore_s": restore_s,
+            "spawn_s": spawn_s}
+
+
 def strict_api(api):
     """``api`` with its `Session` replaced by one whose ``strict_kernels``
     defaults to True (also in `Session.from_checkpoint`): every phase but
@@ -2557,7 +3055,10 @@ def main() -> int:
     srv = serve_phases(torch, np, build, keys, isk, pk, api, device, card)
     check_tickets(build, "phase 22")
 
-    # -- phase 23: kernel summary ---------------------------------------------
+    # -- phase 23: the mesh over torch.distributed --------------------------------
+    mesh = mesh_phases(torch, np, build, keys, prng, device, card)
+
+    # -- phase 24: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2637,7 +3138,8 @@ def main() -> int:
             serve_bucket_launches=srv["buckets"]["#5"]["launches"],
             serve_bucket_ms_per_interval=srv["buckets"]["#5"]["ms_per_interval"]),
         row("jax_uniform", "jax_uniform.cu",
-            "none: XLA's jax.random.uniform (src/repro/engine/driver.py:171)",
+            "none: XLA's jax.random.uniform (src/repro/core/ising.py:210, "
+            "src/repro/core/potts.py:144, src/repro/core/spin_glass.py:109)",
             counts_sweep["jax_uniform"], shape="R=1500 x (2,300,300)",
             potts_path_launches=counts_psweep["jax_uniform"],
             potts_ms=times["jax_uniform"]["potts_ms"],
@@ -2674,7 +3176,32 @@ def main() -> int:
             "latency_floor_ms": zt[name]["latency_floor"], "device_ms": zt[name]["device_ms"],
             "path_ms_per_interval": zoo["paths"][path]["ms"]})
     kernels[-2]["conformance_launches"] = zoo["conformance_launches"]
-    print(f"phase 23 done in {time.perf_counter() - t_start:.1f} s")
+    mk = mesh["kernels"]["times"]
+    kernels.append({
+        "name": "exchange_step", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/exchange_step.cu",
+        "replaces": "src/repro/kernels/exchange.py:120 (run alone by the sharded round path, "
+                    "src/repro/engine/driver.py:479)",
+        "launches": mesh["one"]["counts"]["exchange_step"], "max_abs_err": mesh["kernels"]["max_err"],
+        "ms": mk["exchange_step"]["ms"], "plain_ms": mk["exchange_step"]["plain_ms"],
+        "bound_ms": mk["exchange_step"]["bound"][0], "bound_by": mk["exchange_step"]["bound"][1],
+        "library_ms": None, "shape": "C=1 R=1500 gathered rows",
+        "launches_per_rank": {f"{name} {tuple(m)}": mesh["ranks"][0][name]["counts"]["exchange_step"]
+                              for name, m in (("paper", (1, 2)), ("paper_chains", (2, 1)),
+                                              ("potts_round", (1, 2)))}})
+    for k in kernels:
+        if k["name"] == "exchange":
+            rd, sw = mesh["kernels"]["packed_tail"]
+            k["packed_round_launch_ms"] = {"L=32 R=1500 S=1": rd}
+            k["packed_tail_ms"] = {"L=32 R=1500 S=1": rd - sw}
+        if k["name"] == "jax_uniform":
+            k["offset_ms"] = mk["jax_uniform_offset"]["ms"]
+            k["offset_shape"] = "750 replicas at offset 750 x (2,300,300)"
+            k["mesh_launches_per_rank"] = mesh["ranks"][0]["per_sweep"]["counts"]["jax_uniform"]
+        if k["name"] in ("hp_moves", "single_flip"):
+            key = {"hp_moves": "hp", "single_flip": "single_flip"}[k["name"]]
+            k["mesh_launches_per_rank"] = mesh["ranks"][0][key]["counts"][k["name"]]
+    print(f"phase 24 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
 Subcommands:
 
   run SPEC.json [--out DIR] [--device cuda|cpu] [--checkpoint-every N]
+                  [--mesh-chains E] [--mesh-replicas D]
                   [--timeline OUT.trace.json] [--metrics-out OUT.prom]
                   [--torch-profile DIR] [--strict-kernels]
                   execute the spec end to end and write ``DIR/manifest.json``
@@ -11,10 +12,16 @@ Subcommands:
                   obs flags write a Perfetto timeline, the Prometheus
                   metrics and a one-chunk torch.profiler trace;
                   --strict-kernels fails where a fused or round path would
-                  degrade to the per-sweep path
-  resume DIR [--device cuda|cpu]
-                  continue a ``run`` output directory (of either package)
-                  from ``DIR/checkpoints``; writes ``DIR/manifest.json``
+                  degrade to the per-sweep path; the mesh flags run the spec
+                  on an E x D mesh (overriding ``engine.mesh``), one process
+                  a rank: ``torchrun --nproc-per-node E*D -m repro_torch run
+                  ...`` (RANK / WORLD_SIZE / LOCAL_RANK bring up the process
+                  group: NCCL on cuda, gloo on cpu; rank 0 writes the
+                  checkpoints and the manifest)
+  resume DIR [--device cuda|cpu] [--mesh-chains E] [--mesh-replicas D]
+                  continue a ``run`` output directory (of either package,
+                  from any mesh) from ``DIR/checkpoints``; writes
+                  ``DIR/manifest.json``
   validate SYSTEM [--seed N] [--exchange NAME] [--fused] [--out DIR]
                   [--device cuda|cpu]
                   conformance-run a system-zoo entry (``ising``,
@@ -55,9 +62,39 @@ from repro_torch.api.spec import RunSpec
 __all__ = ["main"]
 
 
+def _with_mesh(spec: RunSpec, args) -> RunSpec:
+    """``spec`` with the command line's mesh (``--mesh-chains`` /
+    ``--mesh-replicas``, 0 = keep the spec's) in ``engine.mesh``."""
+    if args.mesh_chains > 0 or args.mesh_replicas > 0:
+        from repro_torch.core.distributed import MeshSpec
+
+        mesh = MeshSpec(ensemble=max(args.mesh_chains, 1), replica=max(args.mesh_replicas, 1))
+        spec = dataclasses.replace(spec, engine=dataclasses.replace(spec.engine, mesh=mesh))
+    return spec
+
+
+def _bring_up_ranks(spec: RunSpec, device: str) -> bool:
+    """Under a launcher that sets ``WORLD_SIZE`` (torchrun), initialize the
+    process group a mesh spec runs on, from ``RANK`` / ``WORLD_SIZE`` /
+    ``MASTER_ADDR`` / ``MASTER_PORT`` (NCCL for cuda, gloo for cpu, the
+    rank's card ``cuda:{LOCAL_RANK}``).  Returns whether this process
+    writes results: rank 0, or the only process."""
+    import torch
+    import torch.distributed as dist
+
+    if spec.engine.mesh is None or "WORLD_SIZE" not in os.environ:
+        return True
+    if not dist.is_initialized():
+        if device == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method="env://")
+    return dist.get_rank() == 0
+
+
 def _cmd_run(args) -> int:
     with open(args.spec) as f:
-        spec = RunSpec.from_json(f.read())
+        spec = _with_mesh(RunSpec.from_json(f.read()), args)
+    writer = _bring_up_ranks(spec, args.device)
     out = args.out or os.path.join(
         "runs", os.path.splitext(os.path.basename(args.spec))[0]
     )
@@ -72,6 +109,8 @@ def _cmd_run(args) -> int:
         callbacks.append(obs_cb)
     result = Session(spec, callbacks=callbacks, device=args.device,
                      strict_kernels=args.strict_kernels).run()
+    if not writer:
+        return 0
     path = result.write_manifest(os.path.join(out, "manifest.json"))
     if obs_cb is not None:
         for kind, p in sorted(obs_cb.write().items()):
@@ -88,13 +127,22 @@ def _cmd_resume(args) -> int:
     ckdir = os.path.join(args.dir, "checkpoints")
     callbacks = [] if args.quiet else [ProgressCallback(every=args.progress_every)]
     callbacks.append(CheckpointCallback(ckdir, every_chunks=args.checkpoint_every))
-    session = Session.from_checkpoint(ckdir, callbacks=callbacks, device=args.device)
+    from repro_torch.checkpoint import CheckpointManager
+
+    data = CheckpointManager(ckdir).load_spec()
+    if data is None:
+        raise FileNotFoundError(f"no spec.json in {ckdir!r}")
+    spec = _with_mesh(RunSpec.from_json(data), args)
+    writer = _bring_up_ranks(spec, args.device)
+    session = Session.from_checkpoint(ckdir, callbacks=callbacks, device=args.device,
+                                      mesh=spec.engine.mesh)
     if session.remaining_sweeps == 0:
         print(f"nothing to resume: the checkpointed run already covers all "
               f"{session.spec.schedule.total_sweeps} scheduled sweeps", file=sys.stderr)
         return 0
     result = session.run()
-    print(result.write_manifest(os.path.join(args.dir, "manifest.json")))
+    if writer:
+        print(result.write_manifest(os.path.join(args.dir, "manifest.json")))
     return 0
 
 
@@ -231,6 +279,15 @@ def _cmd_list_strategies(args) -> int:
     return 0
 
 
+def _mesh_flags(p) -> None:
+    p.add_argument("--mesh-chains", type=int, default=0, metavar="E",
+                   help="shard whole chains over E ranks (MeshSpec ensemble axis; "
+                        "overrides the spec's engine.mesh)")
+    p.add_argument("--mesh-replicas", type=int, default=0, metavar="D",
+                   help="shard the replica axis over D ranks (MeshSpec replica axis; "
+                        "overrides the spec's engine.mesh)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m repro_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -242,6 +299,7 @@ def main(argv=None) -> int:
                      help="chunks between checkpoints")
     run.add_argument("--progress-every", type=int, default=10,
                      help="chunks between progress lines")
+    _mesh_flags(run)
     run.add_argument("--timeline", default=None, metavar="OUT.trace.json",
                      help="record a Perfetto/Chrome trace of the run (compile, "
                           "chunk, device_wait, adapt, checkpoint spans)")
@@ -262,6 +320,7 @@ def main(argv=None) -> int:
     res.add_argument("--checkpoint-every", type=int, default=10,
                      help="chunks between checkpoints")
     res.add_argument("--progress-every", type=int, default=10)
+    _mesh_flags(res)
     res.add_argument("--quiet", action="store_true")
     res.set_defaults(fn=_cmd_resume)
     val = sub.add_parser("validate",

@@ -11,7 +11,8 @@ Resume: `CheckpointCallback` saves ``spec.json`` once and the
 meta, in the JAX package's checkpoint format; `Session.from_checkpoint`
 rebuilds the Session from the directory alone and ``run()`` replays the
 remaining sweeps of the schedule, bit-equal to the uninterrupted run.
-Either package resumes the other's checkpoints.  `ObsCallback` attaches a
+Either package resumes the other's checkpoints, and any mesh resumes a
+checkpoint that any mesh wrote.  `ObsCallback` attaches a
 `repro_torch.obs.Observability` to the engine and writes its timeline and
 metrics after every phase; ``strict_kernels`` makes a failed kernel
 preparation or launch on a fused or round path an error instead of a
@@ -36,6 +37,8 @@ from repro_torch.engine.adapt import AdaptState
 
 __all__ = ["Callback", "CheckpointCallback", "EarlyStopCallback", "ObsCallback",
            "ProgressCallback", "TraceWriterCallback", "Session", "SessionResult"]
+
+_KEEP = object()  # from_checkpoint: keep the checkpointed spec's mesh
 
 
 class Callback:
@@ -98,8 +101,10 @@ class CheckpointCallback(Callback):
         self._last_sweep: int | None = None
 
     def _save(self, session, state: EngineState):
+        """Every rank of a mesh calls this (the state is gathered); rank 0 writes."""
         if not self._spec_saved:
-            self.manager.save_spec(session.spec.to_json())
+            if session.engine.is_writer:
+                self.manager.save_spec(session.spec.to_json())
             self._spec_saved = True
         sweep = int(state.pt.t.reshape(-1)[0].item())
         if sweep == self._last_sweep:
@@ -117,9 +122,9 @@ class CheckpointCallback(Callback):
         obs = session.engine.obs
         if obs is not None:
             with obs.timeline.span("checkpoint", cat="session", sweep=sweep):
-                self.manager.save(sweep, state, meta=meta)
+                session.engine.save_checkpoint(self.manager, state, meta)
         else:
-            self.manager.save(sweep, state, meta=meta)
+            session.engine.save_checkpoint(self.manager, state, meta)
         session.dispatch("on_checkpoint", sweep)
 
     def on_chunk(self, session, info):
@@ -218,7 +223,8 @@ class ObsCallback(Callback):
 
 @dataclasses.dataclass
 class SessionResult:
-    """Per-phase results + the final engine state."""
+    """Per-phase results + the final engine state (the whole state on a
+    mesh, equal on every rank)."""
 
     spec: RunSpec
     phases: dict[str, RunResult]
@@ -272,7 +278,10 @@ class SessionResult:
 
 
 class Session:
-    """Compiled form of a `RunSpec` on one device (``cuda`` by default).
+    """Compiled form of a `RunSpec` on one device (``cuda`` by default), or
+    on one rank of a mesh when ``spec.engine.mesh`` is set (every rank of
+    the process group builds its Session from the same spec and runs it;
+    `CheckpointCallback` gathers and rank 0 writes).
 
     ``strict_kernels`` makes a failed kernel preparation or launch on a
     fused or round path an error; without it the engine degrades to the
@@ -310,16 +319,22 @@ class Session:
 
     @classmethod
     def from_checkpoint(cls, directory: str, callbacks: Sequence[Callback] = (),
-                        device="cuda", strict_kernels: bool = False) -> "Session":
+                        device="cuda", strict_kernels: bool = False,
+                        mesh=_KEEP) -> "Session":
         """A Session from ``(spec.json, newest checkpoint)`` in ``directory``
-        (written by either package), state on ``device``; its ``run()``
-        continues the schedule.  A `CheckpointCallback` on the same directory
-        is appended unless ``callbacks`` has one."""
+        (written by either package, on any mesh), state on ``device``; its
+        ``run()`` continues the schedule.  ``mesh`` (a `MeshSpec` or None)
+        replaces the spec's ``engine.mesh``: a checkpoint resumes on any
+        mesh.  A `CheckpointCallback` on the same directory is appended
+        unless ``callbacks`` has one."""
         manager = CheckpointManager(directory)
         data = manager.load_spec()
         if data is None:
             raise FileNotFoundError(f"no spec.json in {directory!r}")
-        session = cls(RunSpec.from_json(data), callbacks=callbacks, device=device,
+        spec = RunSpec.from_json(data)
+        if mesh is not _KEEP:
+            spec = dataclasses.replace(spec, engine=dataclasses.replace(spec.engine, mesh=mesh))
+        session = cls(spec, callbacks=callbacks, device=device,
                       strict_kernels=strict_kernels)
         out = session.engine.restore(manager)
         if out is None:
@@ -380,5 +395,5 @@ class Session:
                 "nothing to run: the checkpointed sweep counter already "
                 "covers the whole schedule"
             )
-        return SessionResult(spec=self.spec, phases=results, state=self.state,
-                             stopped_early=stopped)
+        return SessionResult(spec=self.spec, phases=results,
+                             state=self.engine.gathered(self.state), stopped_early=stopped)

@@ -1,20 +1,20 @@
 """The `RunSpec` tree (twin of `repro.api.spec`): reads the same JSON files.
 
 ``spec_version`` 1, strict keys, lists canonicalized to tuples so
-``RunSpec.from_json(spec.to_json()) == spec``.  What the port cannot run
-yet (meshes) parses here and is refused by name with
-`NotImplementedError` when a `Session` is built from it.
+``RunSpec.from_json(spec.to_json()) == spec``.  ``engine.mesh`` parses into
+a `repro_torch.core.distributed.MeshSpec`.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Mapping
+from typing import Mapping
 
 import numpy as np
 
 from repro_torch.core import ladder as ladder_lib
 from repro_torch.core import systems as systems_lib
+from repro_torch.core.distributed import MeshSpec
 from repro_torch.engine import AdaptConfig, EngineConfig
 from repro_torch.engine.adapt import ADAPT_MODES
 from repro_torch.exchange import available_strategies, make_strategy
@@ -135,7 +135,9 @@ class LadderSpec:
 class EngineSpec:
     """Execution knobs (mirror of `EngineConfig` minus n_replicas/exchange).
 
-    ``mesh`` is carried as its JSON object; the port refuses it.
+    ``mesh`` (optional) runs the engine as one rank of an (ensemble x
+    replica) mesh: a nested `MeshSpec`, serialized as ``{"ensemble": E,
+    "replica": D}``; null keeps the single-device path.
     """
 
     swap_interval: int = 100
@@ -147,7 +149,7 @@ class EngineSpec:
     track_stats: bool = True
     measure_interval: int = 100
     donate: bool = True
-    mesh: Any = None
+    mesh: MeshSpec | None = None
 
     def __post_init__(self):
         if self.criterion not in ("logistic", "metropolis"):
@@ -158,8 +160,11 @@ class EngineSpec:
             raise ValueError(
                 f"unknown swap_mode {self.swap_mode!r}; allowed: ['state', 'temp']"
             )
+        if self.mesh is not None and not isinstance(self.mesh, MeshSpec):
+            object.__setattr__(self, "mesh", _from_dict(MeshSpec, self.mesh, "engine.mesh"))
 
     def build(self, n_replicas: int, exchange=None) -> EngineConfig:
+        # asdict flattens the nested MeshSpec; EngineConfig takes the dict form
         return EngineConfig(
             n_replicas=n_replicas, exchange=exchange, **dataclasses.asdict(self)
         )

@@ -64,10 +64,12 @@ class GaussianMixture:
         amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
         return -(torch.log(torch.exp(logp - amax[..., None]).sum(dim=-1)) + amax)
 
-    def batched_mcmc_step(self, key, t, x: torch.Tensor, betas: torch.Tensor):
-        """One Metropolis step of every replica; returns ``(x', delta_e (R,)
-        f32, n_accepted (R,) int32)``."""
-        ids = torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
+    def batched_mcmc_step(self, key, t, x: torch.Tensor, betas: torch.Tensor,
+                          replica_offset=0):
+        """One Metropolis step of every replica (replica r keyed as slot
+        ``replica_offset + r``); returns ``(x', delta_e (R,) f32, n_accepted
+        (R,) int32)``."""
+        ids = replica_offset + torch.arange(x.shape[0], dtype=torch.int64, device=x.device)
         # k_prop, k_u = split(key); one Threefry evaluation draws both words
         bits = keys.random_bits(keys.split(keys.replica_keys(key, t, ids)), ())  # (R, 2)
         trial = x + self.step_size * keys.normal_from_bits(bits[:, 0])

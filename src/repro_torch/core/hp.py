@@ -90,10 +90,13 @@ class HPChain:
     def batched_energy(self, pos: torch.Tensor) -> torch.Tensor:
         return hp_energy(pos, _hmask(self.sequence, pos.device), self.eps)
 
-    def batched_mcmc_step(self, key, t, pos: torch.Tensor, betas: torch.Tensor):
-        """``moves_per_step`` (default N) moves of every replica's chain;
-        returns ``(pos', delta_e (R,) f32, n_accepted (R,) int32)``."""
+    def batched_mcmc_step(self, key, t, pos: torch.Tensor, betas: torch.Tensor,
+                          replica_offset=0):
+        """``moves_per_step`` (default N) moves of every replica's chain
+        (replica r keyed as slot ``replica_offset + r``); returns ``(pos',
+        delta_e (R,) f32, n_accepted (R,) int32)``."""
         from repro_torch.kernels import ops
 
         return ops.hp_moves(pos, key, t, betas, hmask=_hmask(self.sequence, pos.device),
-                            eps=self.eps, n_moves=self._n_moves())
+                            eps=self.eps, n_moves=self._n_moves(),
+                            replica_offset=replica_offset)

@@ -94,7 +94,7 @@ class IsingSystem:
     def batched_energy(self, spins: torch.Tensor) -> torch.Tensor:
         return lattice_energy(spins, self.j, self.b)
 
-    def batched_mcmc_step(self, key, t, spins, betas):
+    def batched_mcmc_step(self, key, t, spins, betas, replica_offset=0):
         """One sweep of every replica at its per-slot beta (the default path).
 
         Replica r's uniforms are ``uniform(fold_in(fold_in(key, 2t), r),
@@ -104,14 +104,18 @@ class IsingSystem:
         key and the () sweep counter ``t``.  Then kernel #1 sweeps.  With
         ``update="single_flip"``, ``flips_per_step`` serial flips from the
         same replica keys instead (`ops.single_flip`, one launch on CUDA).
+        A replica shard passes its first global slot as ``replica_offset``:
+        its replica r draws slot ``replica_offset + r``'s keys.
         """
         from repro_torch.kernels import ops
 
         if self.update == "single_flip":
             return ops.single_flip(spins, key, t, betas, j=self.j, b=self.b,
-                                   rule=self.accept_rule, flips=self.flips_per_step)
+                                   rule=self.accept_rule, flips=self.flips_per_step,
+                                   replica_offset=replica_offset)
 
-        u = ops.jax_uniform(key, t, spins.shape[0], (2, self.length, self.length))
+        u = ops.jax_uniform(key, t, spins.shape[0], (2, self.length, self.length),
+                            replica_offset)
         return ops.ising_sweep(spins, u, betas, j=self.j, b=self.b,
                                rule=self.accept_rule)
 

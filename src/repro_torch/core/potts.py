@@ -84,13 +84,13 @@ class PottsSystem:
     def batched_energy(self, states: torch.Tensor) -> torch.Tensor:
         return potts_energy(states, self.q, self.j)
 
-    def batched_mcmc_step(self, key, t, states, betas):
+    def batched_mcmc_step(self, key, t, states, betas, replica_offset=0):
         """One sweep of every replica (the default path); the uniforms are
-        ``uniform(fold_in(fold_in(key, 2t), r), (2, 2, H, W))`` as in
-        `IsingSystem.batched_mcmc_step`, then kernel #4 sweeps."""
+        ``uniform(fold_in(fold_in(key, 2t), replica_offset + r), (2, 2, H,
+        W))`` as in `IsingSystem.batched_mcmc_step`, then kernel #4 sweeps."""
         from repro_torch.kernels import ops
 
-        u = ops.jax_uniform(key, t, states.shape[0], (2, 2, *self.shape))
+        u = ops.jax_uniform(key, t, states.shape[0], (2, 2, *self.shape), replica_offset)
         return ops.potts_sweep(states, u, betas, q=self.q, j=self.j,
                                rule=self.accept_rule)
 

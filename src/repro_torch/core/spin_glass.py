@@ -84,15 +84,17 @@ class EASpinGlass:
     def batched_energy(self, states: dict) -> torch.Tensor:
         return ea_energy(states)
 
-    def batched_mcmc_step(self, key, t, states: dict, betas: torch.Tensor):
+    def batched_mcmc_step(self, key, t, states: dict, betas: torch.Tensor,
+                          replica_offset=0):
         """One checkerboard sweep (colour 0, then 1) of every replica at its
-        per-slot beta; returns ``(states', delta_e (R,) f32, n_accepted (R,)
+        per-slot beta, replica r drawing slot ``replica_offset + r``'s
+        uniforms; returns ``(states', delta_e (R,) f32, n_accepted (R,)
         int32)``."""
         from repro_torch.kernels import ops
 
         h, w = self.shape
         r = betas.shape[0]
-        u = ops.jax_uniform(key, t, r, (2, h, w))
+        u = ops.jax_uniform(key, t, r, (2, h, w), replica_offset)
         s = states["spins"].to(torch.float32)
         jr, jd = states["jr"], states["jd"]
         # the rolled planes do not change within the sweep

@@ -1,19 +1,30 @@
-"""System constructor + named-observable registry and the validation zoo
-(twin of `repro.core.systems`).
+"""The `System` interface, the constructor + named-observable registry and
+the validation zoo (twin of `repro.core.systems`).
+
+A system is what PT samples.  The port's interface is batched over the
+replica axis (the JAX package ``vmap``s per-replica methods instead): see
+`System`.  `batched_init` / `batched_energy` build a batch from a key and
+price it, falling back to per-replica ``init_state`` / ``energy`` for a
+system that has only those.
 
 The port registers the JAX package's five systems: the Ising and q-state
 Potts models, the Gaussian mixture, the EA spin glass and the HP lattice
 protein.  Observables are batched: each factory takes the system and
 returns a function ``(R, ...) -> (R,)`` (for EA the state is a dict of
 ``(R, H, W)`` leaves).  `REGISTRY` holds the zoo entries of all five with
-the JAX package's params, ladders and schedules.
+the JAX package's params, ladders and schedules; `register_constructor` and
+`register` add a user's own system to both, after which `repro_torch.api.
+RunSpec` names it and `repro_torch.validate` conformance-tests it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, Protocol, Sequence, runtime_checkable
 
 import torch
+
+from repro_torch.core import keys
+from repro_torch.core.pt import map_states, stack_states
 
 from repro_torch.core.gaussian import GaussianMixture
 from repro_torch.core.hp import HPChain, radius_of_gyration_sq
@@ -22,14 +33,73 @@ from repro_torch.core.potts import PottsSystem, potts_magnetization
 from repro_torch.core.spin_glass import EASpinGlass
 
 __all__ = [
+    "System",
+    "batched_init",
+    "batched_energy",
     "SystemEntry",
     "CONSTRUCTORS",
+    "register_constructor",
     "make_system",
     "named_observables",
     "RegisteredSystem",
     "REGISTRY",
+    "register",
     "registered",
 ]
+
+State = Any  # a tensor with a leading replica axis, or a dict of them
+
+
+@runtime_checkable
+class System(Protocol):
+    """What a system exposes to be PT-sampled by the port, batched over R
+    replicas (a state is a tensor or a dict of tensors, each ``(R, ...)``).
+
+    ``batched_mcmc_step`` draws replica r's randomness from the JAX
+    engine's per-sweep key ``fold_in(fold_in(key, 2t), replica_offset +
+    r)`` (`core.keys.replica_keys`); ``replica_offset`` is the first global
+    slot of a replica shard on a mesh, 0 on one device.  A system may have
+    only per-replica ``init_state(key)`` / ``energy(state)`` instead of the
+    batched pair: `batched_init` / `batched_energy` stack them.
+    """
+
+    def init_state_batched(self, keys_: torch.Tensor) -> State:
+        """R states, replica r from key ``keys_[r]`` (``keys_`` is (R, 2))."""
+        ...
+
+    def batched_energy(self, states: State) -> torch.Tensor:
+        """(R,) f32 energies; the target density is exp(-beta * E)."""
+        ...
+
+    def batched_mcmc_step(self, key: torch.Tensor, t, states: State, betas: torch.Tensor,
+                          replica_offset: int = 0):
+        """One MH step of every replica at its beta; returns ``(states',
+        delta_e (R,) f32, n_accepted (R,) int32)`` with ``delta_e`` the
+        exact energy change (the engine tracks energies incrementally)."""
+        ...
+
+
+def batched_init(system, key: torch.Tensor, n_replicas: int) -> State:
+    """``n_replicas`` initial states from one key: replica r from
+    ``split(key, R)[r]``, through ``init_state_batched`` where the system
+    has it, else its per-replica ``init_state`` stacked (JAX's ``vmap`` over
+    the same keys)."""
+    replica_keys = keys.split(key, n_replicas)
+    fast = getattr(system, "init_state_batched", None)
+    if fast is not None:
+        return fast(replica_keys)
+    return stack_states([system.init_state(k) for k in replica_keys])
+
+
+def batched_energy(system, states: State) -> torch.Tensor:
+    """(R,) energies: ``system.batched_energy``, else per-replica ``energy``."""
+    fast = getattr(system, "batched_energy", None)
+    if fast is not None:
+        return fast(states)
+    n = (next(iter(states.values())) if isinstance(states, dict) else states).shape[0]
+    return torch.stack([system.energy(map_states(states, lambda x, i=i: x[i]))
+                        for i in range(n)])
+
 
 @dataclasses.dataclass(frozen=True)
 class SystemEntry:
@@ -82,6 +152,21 @@ CONSTRUCTORS: dict[str, SystemEntry] = {
         },
     ),
 }
+
+
+def register_constructor(
+    name: str,
+    build: Callable[..., Any],
+    observables: Mapping[str, Callable[[Any], Callable]] | None = None,
+) -> SystemEntry:
+    """Make a system family nameable: ``build(**params)`` constructs it and
+    each observable factory maps an instance to a batched ``(R, ...) ->
+    (R,)`` function.  A name can be registered once."""
+    if name in CONSTRUCTORS:
+        raise ValueError(f"system constructor {name!r} already registered")
+    entry = SystemEntry(name=name, build=build, observables=dict(observables or {}))
+    CONSTRUCTORS[name] = entry
+    return entry
 
 
 def make_system(name: str, params: Mapping[str, Any] | None = None):
@@ -183,6 +268,16 @@ REGISTRY: dict[str, RegisteredSystem] = {
         burn_sweeps=900,
     ),
 }
+
+
+def register(entry: RegisteredSystem) -> RegisteredSystem:
+    """Add a zoo entry (its name must be a registered constructor, with an
+    exact reference in `repro_torch.validate.conformance.EXACT` for the
+    conformance gate).  A name can be registered once."""
+    if entry.name in REGISTRY:
+        raise ValueError(f"system {entry.name!r} already registered")
+    REGISTRY[entry.name] = entry
+    return entry
 
 
 def registered(name: str) -> RegisteredSystem:

@@ -59,8 +59,25 @@ the engine to the per-sweep path on the card (``strict_kernels`` makes it
 an error); nothing falls back to the CPU or to a plain version.
 
 `Engine.restore` reads the newest checkpoint of a
-`repro_torch.checkpoint.CheckpointManager` onto the engine's device.  Not
-ported yet, and refused with `NotImplementedError`: ``mesh``.
+`repro_torch.checkpoint.CheckpointManager` onto the engine's device, and
+``Engine.run(checkpoint=, checkpoint_every_chunks=)`` saves one every N
+chunks in the JAX package's format.
+
+On a mesh (``EngineConfig.mesh``, a `repro_torch.core.distributed.MeshSpec`)
+the engine is one rank of a `torch.distributed` process group and holds its
+block of the state (`core.distributed.local_block`).  Each interval runs
+`make_sharded_interval_step`, the twin of the JAX engine's ``shard_map``
+body: the rank's block sweeps with global slot ids (``replica_offset``
+into the fused kernels' counter streams and into the per-sweep keys), the
+(R,) energy and rung rows are all-gathered over the replica subgroup, the
+full-ladder exchange is computed on every rank from identical rows (on the
+round path by the standalone exchange launch, `kernels.exchange.
+exchange_rows`, from the round kernel's own swap stream), each rank keeps
+its block of the new rungs, and the observables are evaluated on the local
+lattices and gathered as O(R) rows.  Lattices never cross ranks in temp
+mode.  Records, accumulators and `RunResult` are whole rows, equal on every
+rank; checkpoints gather the whole state to rank 0, which writes it, and
+any mesh restores any checkpoint.
 """
 from __future__ import annotations
 
@@ -72,7 +89,9 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist_lib
 from repro_torch.core import keys
+from repro_torch.core.distributed import MeshSpec
 from repro_torch.core.pt import PTState, init_replicas, map_states, stack_states
 from repro_torch.device import resolve_device
 from repro_torch.engine import stats as stats_lib
@@ -92,6 +111,7 @@ __all__ = [
     "Engine",
     "make_interval_step",
     "make_ensemble_step",
+    "make_sharded_interval_step",
 ]
 
 
@@ -264,6 +284,15 @@ def make_interval_step(system, spec: StepSpec, observables=None):
     return interval_step
 
 
+def _stacks_chains(system, spec: StepSpec) -> bool:
+    """Whether an interval of C stacked chains is one kernel call: the round
+    and interval-fused paths (their kernels take a chain axis), unless the
+    strategy recycles (VMPT's record is one chain's)."""
+    if _round_interval(system, spec) is None and not getattr(system, "use_fused", False):
+        return False
+    return not (spec.do_swap and spec.exchange.n_virtual > 1)
+
+
 def make_ensemble_step(system, spec: StepSpec, observables=None):
     """``(PTState, betas) -> (PTState, record)`` for one interval of C
     stacked chains, on the paths whose kernels take a chain axis: the whole
@@ -274,11 +303,9 @@ def make_ensemble_step(system, spec: StepSpec, observables=None):
     ``(C, R)``.  None for the paths that run chain by chain (per sweep, and
     a recycling strategy)."""
     observables = dict(observables or {})
+    if not _stacks_chains(system, spec):
+        return None
     fused_round = _round_interval(system, spec)
-    if fused_round is None and not getattr(system, "use_fused", False):
-        return None
-    if spec.do_swap and spec.exchange.n_virtual > 1:
-        return None
     spi = spec.sweeps_per_interval
     sweeps, exchange = _interval_parts(system, spec, observables)
 
@@ -311,12 +338,152 @@ def make_ensemble_step(system, spec: StepSpec, observables=None):
     return ensemble_step
 
 
+# -- sharded interval step: one rank's block of a mesh --------------------------
+
+
+def _observe_full(observables, local: PTState, energy_full, rung_full, gather):
+    """`_observe` on a rank's block of one chain: ``energy_full`` and
+    ``rung_full`` are the gathered (R,) rows; each observable is evaluated
+    on the local lattices and its (R_local,) row all-gathered (``gather``),
+    so lattices never cross ranks."""
+    inv = _inverse(rung_full)
+    out = {"energy": energy_full[inv]}
+    for name, fn in observables.items():
+        out[name] = gather(fn(local.states))[inv]
+    return out
+
+
+def make_sharded_interval_step(system, spec: StepSpec, observables, layout):
+    """``step(st_local, betas) -> (st_local, record, rung_full)`` for one
+    interval of a rank's block (twin of the JAX engine's
+    ``make_sharded_interval_step``).
+
+    ``st_local`` is one chain's block (``(R/D, ...)`` leaves) or, on the
+    round and interval-fused paths, the rank's chains stacked (``(C/E,
+    R/D, ...)``, one kernel call an interval for all of them).  Same record
+    contract and PRNG streams as `make_interval_step`:
+
+    * **sweeps**: the block's slots carry their global ids, ``offset =
+      d * R/D`` (``replica_offset`` into the fused kernels' counter stream;
+      the per-sweep step's keys ``fold_in(fold_in(key, 2t), offset + r)``);
+    * **exchange**: one all-gather each of the energy and rung rows over
+      the replica subgroup (`MeshLayout.gather_replicas`), then the
+      full-ladder decision on every rank from the same rows; the round
+      path runs it as one standalone launch over the rank's chains
+      (`kernels.exchange.exchange_rows`) from the round kernel's counter
+      swap stream, so a sharded round run equals the single-device round
+      launch; the other paths run the exchange strategy (DEO, SEO,
+      windowed, VMPT's recycling) keyed on ``fold_in(key, 2t+1)``.  Each
+      rank keeps its block of the new rungs; in state mode (one slot
+      block) the lattices move within the rank.
+
+    ``record`` holds whole (R,) rows in rung order (``(C/E, R)`` stacked)
+    and ``rung_full`` is the post-swap slot→rung map the stats update keys
+    on.
+    """
+    observables = dict(observables or {})
+    fused_round = _round_interval(system, spec) is not None
+    fused = getattr(system, "use_fused", False)
+    recycle = spec.do_swap and spec.exchange.n_virtual > 1
+    spi = spec.sweeps_per_interval
+
+    def gather(x):
+        # looked up at each call: a caller may wrap the layout's collective
+        return layout.gather_replicas(x)
+
+    def sweeps(st: PTState, betas, offset: int) -> PTState:
+        betas_slot = betas[st.rung.long()]
+        if fused:
+            states, de, _ = system.batched_mcmc_interval(
+                st.key, st.t, st.states, betas_slot, n_sweeps=spi, replica_offset=offset)
+            return dataclasses.replace(st, states=states, energy=st.energy + de,
+                                       t=st.t + spi)
+        for _ in range(spi):
+            states, de, _ = system.batched_mcmc_step(st.key, st.t, st.states, betas_slot,
+                                                     replica_offset=offset)
+            st = dataclasses.replace(st, states=states, energy=st.energy + de, t=st.t + 1)
+        return st
+
+    def chain_exchange(local: PTState, energy_full, rung_full, betas):
+        """One chain's swap phase on its gathered rows: ``(local', record,
+        rung_full')``."""
+        full = dataclasses.replace(local, energy=energy_full, rung=rung_full)
+        if spec.swap_mode == "state":
+            # one slot block (EngineConfig's guard): the rows are the rank's own
+            full = dataclasses.replace(full, states=local.states)
+        start = layout.slot_block(spec.n_replicas)[0]
+        stop = start + local.energy.shape[0]
+
+        def pull_back(after: PTState) -> PTState:
+            out = dataclasses.replace(local, rung=after.rung[start:stop].contiguous(),
+                                      phase=after.phase)
+            if spec.swap_mode == "state":
+                out = dataclasses.replace(out, states=after.states, energy=after.energy)
+            return out
+
+        if recycle:
+            partner, perm, diag = _swap_decision(spec, betas, full)
+            pre = _observe_full(observables, local, energy_full, rung_full, gather)
+            rec = {k: torch.stack([v, v[partner]]) for k, v in pre.items()}
+            rec["est_weight"] = spec.exchange.estimator_weights(partner, diag["swap_prob"])
+            full = _apply_swap(spec, full, perm)
+            local = pull_back(full)
+        else:
+            if spec.do_swap:
+                _, perm, diag = _swap_decision(spec, betas, full)
+                full = _apply_swap(spec, full, perm)
+                local = pull_back(full)
+            else:
+                z = torch.zeros(spec.n_replicas, device=local.energy.device)
+                diag = {"swap_accept": z.bool(), "swap_prob": z, "swap_attempt": z.bool()}
+            rec = _observe_full(observables, local, full.energy, full.rung, gather)
+        rec.update(diag)
+        return local, rec, full.rung
+
+    def step(st: PTState, betas: torch.Tensor):
+        stacked = st.key.dim() == 2
+        start, stop = layout.slot_block(spec.n_replicas)
+        st = sweeps(st, betas, start)
+        # the exchange's only traffic: the O(R) energy and rung rows
+        energy_full, rung_full = gather(st.energy), gather(st.rung)
+        if fused_round:
+            new_rung, acc, prob, att = kernel_exchange.exchange_rows(
+                rung_full, energy_full, betas, st.phase, st.key,
+                pairing=spec.exchange.name, criterion=spec.criterion)
+            st = dataclasses.replace(st, rung=new_rung[..., start:stop].contiguous(),
+                                     phase=st.phase + 1)
+            if stacked:
+                rec = _stack_records([
+                    _observe_full(observables, _chain(st, c), energy_full[c], new_rung[c],
+                                  gather) for c in range(st.key.shape[0])])
+            else:
+                rec = _observe_full(observables, st, energy_full, new_rung, gather)
+            rec.update(swap_accept=acc, swap_prob=prob, swap_attempt=att)
+            return st, rec, new_rung
+        if not stacked:
+            return chain_exchange(st, energy_full, rung_full, betas)
+        outs = [chain_exchange(_chain(st, c), energy_full[c], rung_full[c], betas)
+                for c in range(st.key.shape[0])]
+        chains = [o[0] for o in outs]
+        states = (st.states if spec.swap_mode == "temp"
+                  else stack_states([c.states for c in chains]))
+        st = PTState(states=states,
+                     **{f: torch.stack([getattr(c, f) for c in chains])
+                        for f in ("energy", "rung", "key", "phase", "t")})
+        return st, _stack_records([o[1] for o in outs]), torch.stack([o[2] for o in outs])
+
+    return step
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static engine configuration (see `repro.engine.EngineConfig`).
 
     ``donate`` is accepted for spec compatibility; PyTorch has no buffer
-    donation and the engine simply rebinds its state tensors.
+    donation and the engine simply rebinds its state tensors.  ``mesh`` (a
+    `MeshSpec` or its dict form) runs the engine as one rank of a mesh;
+    it must divide the run (``n_chains % ensemble == 0``, ``n_replicas %
+    replica == 0``), and a sharded replica axis needs ``swap_mode='temp'``.
     """
 
     n_replicas: int
@@ -337,11 +504,19 @@ class EngineConfig:
             raise ValueError("chunk_intervals must be >= 1")
         if self.n_chains < 1:
             raise ValueError("n_chains must be >= 1")
-        if self.mesh is not None:
-            raise NotImplementedError("not yet ported: mesh (multi-device engine)")
         if self.swap_mode not in ("temp", "state"):
             raise ValueError(f"bad swap_mode {self.swap_mode!r}")
         object.__setattr__(self, "exchange", make_strategy(self.exchange))
+        if isinstance(self.mesh, Mapping):
+            object.__setattr__(self, "mesh", MeshSpec(**self.mesh))
+        if self.mesh is not None:
+            self.mesh.validate(self.n_replicas, self.n_chains)
+            if self.mesh.replica > 1 and self.swap_mode != "temp":
+                raise ValueError(
+                    "swap_mode='state' exchanges O(R*L^2) lattice state and "
+                    "is not supported across a sharded replica axis; use "
+                    "swap_mode='temp' or mesh.replica=1"
+                )
 
     @property
     def spec(self) -> StepSpec:
@@ -560,14 +735,17 @@ _KERNEL_FLAGS = ("use_fused_round", "use_fused", "pack_bits")
 
 
 class Engine:
-    """Chunked PT driver over a `System` on one device.
+    """Chunked PT driver over a `System` on one device, or one rank of a mesh.
 
     ``device`` defaults to ``cuda``; pass ``"cpu"`` to run the plain
-    PyTorch versions of the kernels.  ``obs`` (`repro_torch.obs.
-    Observability`) and ``faults`` (`repro_torch.resilience.FaultPlan`)
-    instrument the host loop; ``strict_kernels`` makes a failed kernel
-    preparation or launch on a fused or round path an error instead of a
-    degradation to the per-sweep path (which calls ``on_degrade``).
+    PyTorch versions of the kernels.  On a mesh (``config.mesh``) the
+    engine binds to the running process group (`MeshSpec.build`): its
+    states are the rank's block, ``cuda`` means ``cuda:{LOCAL_RANK}``.
+    ``obs`` (`repro_torch.obs.Observability`) and ``faults``
+    (`repro_torch.resilience.FaultPlan`) instrument the host loop;
+    ``strict_kernels`` makes a failed kernel preparation or launch on a
+    fused or round path an error instead of a degradation to the per-sweep
+    path (which calls ``on_degrade``).
     """
 
     def __init__(
@@ -597,7 +775,10 @@ class Engine:
         self.config = config
         self.observables = dict(observables or {})
         self.adapt = adapt
-        self.device = resolve_device(device)
+        # the rank's place on the mesh is engine state, not config: MeshSpec
+        # is pure shape (serializable through RunSpec), build() binds ranks
+        self.layout = None if config.mesh is None else config.mesh.build(device)
+        self.device = resolve_device(device) if self.layout is None else self.layout.device
         self._build_steps()
         self._names = ["energy"] + sorted(self.observables)
         self._adapt_rounds = 0
@@ -620,10 +801,29 @@ class Engine:
         self._degraded = False
 
     def _build_steps(self) -> None:
+        """The interval steps, each ``(st, betas) -> (st, record, rung)``
+        with ``rung`` the whole post-swap slot→rung map the stats key on."""
         spec = self.config.spec
-        self._step = make_interval_step(self.system, spec, self.observables)
-        self._ensemble_step = (make_ensemble_step(self.system, spec, self.observables)
-                               if self.config.n_chains > 1 else None)
+        if self.layout is not None:
+            step = make_sharded_interval_step(self.system, spec, self.observables,
+                                              self.layout)
+            self._step = step
+            # the stacked chains take one kernel call an interval where the
+            # path's kernels have a chain axis; else chain by chain
+            stacked = self.config.n_chains > 1 and _stacks_chains(self.system, spec)
+            self._ensemble_step = step if stacked else None
+            return
+
+        def with_rung(fn):
+            def run(st, betas):
+                st, rec = fn(st, betas)
+                return st, rec, st.rung
+            return run
+
+        self._step = with_rung(make_interval_step(self.system, spec, self.observables))
+        ens = (make_ensemble_step(self.system, spec, self.observables)
+               if self.config.n_chains > 1 else None)
+        self._ensemble_step = None if ens is None else with_rung(ens)
 
     @property
     def obs(self):
@@ -636,9 +836,40 @@ class Engine:
         self._eobs = None if value is None else _EngineObs(value, self.system, self.config)
 
     def _chain_axis(self) -> int:
-        """``n_chains`` for `stats.init_stats`: 0 means no ensemble axis."""
+        """The chains this rank's accumulators hold, for `stats.init_stats`:
+        0 means no ensemble axis."""
         c = self.config.n_chains
-        return 0 if c == 1 else c
+        if c == 1:
+            return 0
+        return c if self.layout is None else c // self.layout.spec.ensemble
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and results (rank 0 of a
+        mesh; always off a mesh)."""
+        return self.layout is None or self.layout.is_writer
+
+    def gathered(self, state: EngineState) -> EngineState:
+        """The whole engine state (every rank's block gathered, on every
+        rank; `core.distributed.gather_state`); ``state`` itself off a
+        mesh.  A collective: every rank of the mesh calls it."""
+        if self.layout is None:
+            return state
+        return dist_lib.gather_state(state, self.layout)
+
+    def local(self, state: EngineState) -> EngineState:
+        """This rank's block of a whole engine state (``state`` itself off a
+        mesh)."""
+        if self.layout is None:
+            return state
+        return dist_lib.local_block(state, self.layout.spec, self.layout.coords)
+
+    def _full_stats(self, stats):
+        """The accumulators of every chain (gathered over the ensemble
+        subgroup on a mesh; rows are whole on every rank already)."""
+        if self.layout is None or self.config.n_chains == 1:
+            return stats
+        return map_leaves(stats, self.layout.gather_chains)
 
     def _check_ladder(self, temps) -> np.ndarray:
         temps = np.asarray(temps, np.float64)
@@ -657,7 +888,7 @@ class Engine:
         starts from ``fold_in(key, c)``.
         """
         temps = self._check_ladder(temps)
-        return self._fresh_state(key.to(self.device), temps, self.device)
+        return self.local(self._fresh_state(key.to(self.device), temps, self.device))
 
     def init_ensemble(self, keys_: Sequence[torch.Tensor], temps) -> EngineState:
         """Fresh state where chain ``c`` starts from ``keys_[c]`` verbatim.
@@ -675,8 +906,8 @@ class Engine:
         r = self.config.n_replicas
         per_chain = [init_replicas(self.system, r, k.to(self.device)) for k in keys_]
         pt = per_chain[0] if c == 1 else stack_leaves(per_chain)
-        stats = stats_lib.init_stats(r, self._names, self.device, self._chain_axis())
-        return EngineState(pt=pt, stats=stats, betas=_betas(temps, self.device))
+        stats = stats_lib.init_stats(r, self._names, self.device, 0 if c == 1 else c)
+        return self.local(EngineState(pt=pt, stats=stats, betas=_betas(temps, self.device)))
 
     def _fresh_state(self, key, temps, device) -> EngineState:
         r, c = self.config.n_replicas, self.config.n_chains
@@ -685,18 +916,24 @@ class Engine:
         else:
             pt = stack_leaves([init_replicas(self.system, r, keys.fold_in(key, i))
                                for i in range(c)])
-        stats = stats_lib.init_stats(r, self._names, device, self._chain_axis())
+        stats = stats_lib.init_stats(r, self._names, device, 0 if c == 1 else c)
         return EngineState(pt=pt, stats=stats, betas=_betas(temps, device))
 
     def restore(self, checkpoint):
         """``(EngineState, meta)`` of the newest restorable step of a
         `repro_torch.checkpoint.CheckpointManager` on the engine's device, or
         None when it holds no step.  The shape template is built on the
-        ``meta`` device: no system init runs."""
+        ``meta`` device: no system init runs.  Checkpoints hold the whole
+        state, so on a mesh every rank reads the file and keeps its block,
+        whatever mesh (or package) wrote it."""
         meta_dev = torch.device("meta")
         template = self._fresh_state(keys.key(0, device=meta_dev),
                                      np.ones(self.config.n_replicas), meta_dev)
-        return checkpoint.restore_latest(template, device=self.device)
+        out = checkpoint.restore_latest(template, device=self.device)
+        if out is None:
+            return None
+        state, meta = out
+        return self.local(state), meta
 
     def _require_on_device(self, state: EngineState) -> None:
         """Raise unless every tensor of ``state`` is on the engine's device.
@@ -794,9 +1031,9 @@ class Engine:
         cfg = self.config
         recs = []
         for _ in range(n_intervals):
-            pt_st, rec = self._step(pt_st, betas)
+            pt_st, rec, rung = self._step(pt_st, betas)
             if cfg.track_stats:
-                stats = stats_lib.update_stats(stats, rec, pt_st.rung)
+                stats = stats_lib.update_stats(stats, rec, rung)
             if cfg.record_trace:
                 recs.append(rec)
         trace = {k: torch.stack([r[k] for r in recs]) for k in recs[0]} if recs else None
@@ -808,9 +1045,9 @@ class Engine:
         cfg = self.config
         pt_st, stats, recs = state.pt, state.stats, []
         for _ in range(n_intervals):
-            pt_st, rec = self._ensemble_step(pt_st, state.betas)
+            pt_st, rec, rung = self._ensemble_step(pt_st, state.betas)
             if cfg.track_stats:
-                stats = stats_lib.update_stats(stats, rec, pt_st.rung)
+                stats = stats_lib.update_stats(stats, rec, rung)
             if cfg.record_trace:
                 recs.append(rec)
         trace = ({k: torch.stack([r[k] for r in recs], dim=1) for k in recs[0]}
@@ -844,7 +1081,7 @@ class Engine:
             self._advance_chain(map_leaves(state.pt, lambda x: x[c]),
                                 map_leaves(state.stats, lambda x: x[c]),
                                 state.betas, n_intervals)
-            for c in range(self.config.n_chains)
+            for c in range(state.pt.key.shape[0])
         ]
         trace = None
         if outs[0][2] is not None:
@@ -864,11 +1101,28 @@ class Engine:
             e.fill_(float("nan"))
         return dataclasses.replace(state, pt=dataclasses.replace(state.pt, energy=e))
 
+    def _pooled(self, state: EngineState) -> dict[str, np.ndarray]:
+        """`_counters` of every chain (gathered over the mesh's ensemble
+        subgroup), equal on every rank."""
+        return _counters(dataclasses.replace(state, stats=self._full_stats(state.stats)))
+
+    def save_checkpoint(self, checkpoint, state: EngineState, meta: dict) -> int:
+        """Save ``state`` (the whole state: gathered to every rank on a
+        mesh, then written by rank 0 alone) at its sweep counter, in the
+        JAX package's format; returns the sweep.  Every rank calls it."""
+        whole = self.gathered(state)
+        sweep = int(whole.pt.t.reshape(-1)[0].item())
+        if self.is_writer:
+            checkpoint.save(sweep, whole, meta=meta)
+        return sweep
+
     def run(
         self,
         state: EngineState,
         n_sweeps: int,
         *,
+        checkpoint=None,
+        checkpoint_every_chunks: int = 0,
         on_chunk: Callable[[ChunkInfo], Any] | None = None,
         on_adapt: Callable[[AdaptInfo], Any] | None = None,
         keep_trace: bool = True,
@@ -877,11 +1131,17 @@ class Engine:
         ``chunk_intervals`` intervals.
 
         Between chunks the host feeds the measured counters to the ladder
-        feedback when ``adapt`` is set, and calls ``on_chunk`` (truthy return
-        stops the run; `repro_torch.api.CheckpointCallback` saves there).
-        ``n_sweeps`` must be a multiple of the interval.  With ``obs``
-        attached, each chunk is a span, and the host waits for the card at
-        its end for an honest ``device_wait``.
+        feedback when ``adapt`` is set, saves the whole `EngineState` through
+        ``checkpoint`` (a `repro_torch.checkpoint.CheckpointManager`) every
+        ``checkpoint_every_chunks`` chunks and after the last (with the f64
+        ladder and the adaptation window in the meta, as
+        `repro_torch.api.CheckpointCallback` saves them), and calls
+        ``on_chunk`` (truthy return stops the run).  ``n_sweeps`` must be a
+        multiple of the interval.  With ``obs`` attached, each chunk is a
+        span, and the host waits for the card at its end for an honest
+        ``device_wait``.  On a mesh ``state`` is the rank's block and every
+        rank runs this loop; the records, the trace and the result are the
+        whole rows, equal on every rank.
         """
         self._require_on_device(state)
         cfg = self.config
@@ -901,7 +1161,7 @@ class Engine:
         if adapt_st is None:
             adapt_st = AdaptState.fresh(cfg.n_replicas)
             if self.adapt is not None:
-                adapt_st.rebase(_counters(state))
+                adapt_st.rebase(self._pooled(state))
         adapt_st.rounds = self._adapt_rounds
         if self.adapt is not None:
             self._adapt_state = adapt_st
@@ -943,6 +1203,8 @@ class Engine:
                 )
             chunk_np = None
             if trace is not None:
+                if self.layout is not None and cfg.n_chains > 1:
+                    trace = {k: self.layout.gather_chains(v) for k, v in trace.items()}
                 if eo is not None:
                     with eo.timeline.span("trace_drain", chunk=chunk_idx):
                         chunk_np = {k: v.cpu().numpy() for k, v in trace.items()}
@@ -953,7 +1215,7 @@ class Engine:
             if self.adapt is not None and done < n_intervals:
                 t_adapt0 = time.perf_counter() if eo is not None else 0.0
                 new_temps, acceptance = maybe_adapt(
-                    temps, _counters(state), self.adapt, adapt_st
+                    temps, self._pooled(state), self.adapt, adapt_st
                 )
                 if new_temps is not None:
                     temps = np.asarray(new_temps, np.float64)
@@ -988,6 +1250,22 @@ class Engine:
                     )
                     if new_temps is not None:
                         eo.adapt_rounds.inc()
+            if (checkpoint is not None and checkpoint_every_chunks > 0
+                    and (chunk_idx % checkpoint_every_chunks == 0 or done == n_intervals)):
+                # the meta of repro_torch.api.CheckpointCallback: the exact
+                # f64 ladder and the adaptation bookkeeping
+                meta = {"temps": [float(t) for t in temps],
+                        "adapt_rounds": self._adapt_rounds}
+                if self._adapt_state is not None:
+                    meta.update(self._adapt_state.to_meta())
+                if eo is not None:
+                    t_ck = time.perf_counter()
+                    sweep = self.save_checkpoint(checkpoint, state, meta)
+                    eo.timeline.complete("checkpoint", t_ck, time.perf_counter() - t_ck,
+                                         cat="engine", args={"sweep": sweep})
+                    eo.checkpoints.inc()
+                else:
+                    self.save_checkpoint(checkpoint, state, meta)
             if eo is not None:
                 wall = time.perf_counter() - t_chunk0
                 args = {"chunk": chunk_idx, "intervals": this,
@@ -997,7 +1275,7 @@ class Engine:
                 eo.timeline.complete("chunk", t_chunk0, wall, cat="engine", args=args)
                 eo.record_chunk(intervals=this, spi=spi, device_s=device_s, wall_s=wall)
                 if cfg.track_stats:
-                    eo.record_rungs(_counters(state))
+                    eo.record_rungs(self._pooled(state))
             if on_chunk is not None and on_chunk(ChunkInfo(
                 index=chunk_idx, sweeps_done=done * spi, n_sweeps=n_sweeps,
                 state=state, trace=chunk_np,
@@ -1010,7 +1288,7 @@ class Engine:
             trace_out = {k: np.concatenate([c[k] for c in chunks], axis=axis)
                          for k in chunks[0]}
         result = RunResult(
-            summary=stats_lib.summarize(state.stats),
+            summary=stats_lib.summarize(self._full_stats(state.stats)),
             trace=trace_out,
             ladder_history=np.stack(ladder_history),
             n_sweeps=done * spi,

@@ -11,8 +11,8 @@ Nothing here runs at import time.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC``, never fast math.  The sweep kernels (``ising_fused.cu``,
-``ising_packed.cu``, ``sweep.cu``, ``potts_fused.cu``), ``jax_uniform.cu``
-and ``serial_chain.cu`` add ``-fmad=false``
+``ising_packed.cu``, ``sweep.cu``, ``potts_fused.cu``), ``jax_uniform.cu``,
+``serial_chain.cu`` and ``exchange_step.cu`` add ``-fmad=false``
 so no float product is contracted into an FMA (the round exchange that
 kernels A, #2p and #5 run, ``exchange.cuh``, has no product followed by a
 sum, and its exp/sigmoid are libdevice's as in PyTorch's own kernels);
@@ -61,6 +61,7 @@ SOURCES = {
     "potts_fused": ["-fmad=false"],
     "jax_uniform": ["-fmad=false"],
     "serial_chain": ["-fmad=false"],
+    "exchange_step": ["-fmad=false"],
     "wkv6": [],
 }
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -70,10 +71,11 @@ _P = ctypes.c_void_p
 
 # kernel name -> launches since the last reset (kernel A, kernel #2p,
 # kernels #1 and #4 of sweep.cu, kernel #5, the jax.random helper, the two
-# serial chains of serial_chain.cu, the RWKV-6 recurrence #7)
+# serial chains of serial_chain.cu, the standalone exchange of the sharded
+# round path, the RWKV-6 recurrence #7)
 launches = dict.fromkeys(
     ("ising_fused", "ising_packed", "ising_sweep", "potts_sweep", "potts_fused",
-     "jax_uniform", "hp_moves", "single_flip", "wkv6"), 0,
+     "jax_uniform", "hp_moves", "single_flip", "exchange_step", "wkv6"), 0,
 )
 # round exchanges run at the end of a launch of kernel A, #2p or #5 since the
 # last reset (no launch of their own)
@@ -125,11 +127,26 @@ def build_all() -> dict[str, Path]:
     """Compile every source that is not built yet; returns name -> .so path.
 
     All ``nvcc`` processes start together and are all waited for; a failed
-    compile raises with the compiler's output.
+    compile raises with the compiler's output.  Processes that build at once
+    (the ranks of a mesh) take a file lock in the build directory in turn:
+    the first builds, the others find the libraries built.
     """
     out_dir = build_root() / _digest()
     out_dir.mkdir(parents=True, exist_ok=True)
     paths = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    if all(p.is_file() for p in paths.values()):
+        return paths
+    import fcntl
+
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing(paths)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing(paths: dict[str, Path]) -> dict[str, Path]:
     todo = {n: p for n, p in paths.items() if not p.is_file()}
     if not todo:
         return paths

@@ -122,11 +122,17 @@ struct Round {
   // its rows, phase counter, scratch and ticket, each a fixed offset from
   // chain 0's; the betas row is shared.  A null ticket stays null.
   __device__ __forceinline__ Round chain(int c) const {
-    if (ticket == nullptr) return *this;
+    return ticket == nullptr ? *this : at(c);
+  }
+
+  // Chain c's rows, whatever the ticket (the standalone launch has none; a
+  // null energy_out, ticket or row stays null at every chain).
+  __device__ __forceinline__ Round at(int c) const {
     const size_t o = static_cast<size_t>(c) * n;
-    return {rung_in + o, rung_out + o, energy_in + o, energy_out + o, betas, phase0 + c,
+    return {rung_in + o, rung_out + o, energy_in + o,
+            energy_out == nullptr ? nullptr : energy_out + o, betas, phase0 + c,
             phase_add, n, seo, metropolis, acc_row + o, prob_row + o, att_row + o,
-            scratch + o * kScratchBytes, ticket + c};
+            scratch + o * kScratchBytes, ticket == nullptr ? nullptr : ticket + c};
   }
 };
 
@@ -152,7 +158,10 @@ __device__ __forceinline__ int partner_of(int r, int parity, int n) {
 // separated by __syncthreads(); each stage walks the rows in passes of
 // kItems a thread.  `de` is the launch's ΔE row, written by every block; it
 // is read from L2 (__ldcg).  In place: a slot's rung and energy are read by
-// the thread that writes them, before it writes them.
+// the thread that writes them, before it writes them.  kDelta = false is
+// the standalone launch (exchange_step.cu): energy_in already holds the
+// interval's energies, nothing is added and energy_out is not written.
+template <bool kDelta = true>
 __device__ __forceinline__ void step(const Round& rd, const float* de,
                                      const int64_t* key_words) {
   const int n = rd.n, stride = blockDim.x;
@@ -168,7 +177,7 @@ __device__ __forceinline__ void step(const Round& rd, const float* de,
       const int i = base + k * stride;
       if (i < n) {
         r[k] = rd.rung_in[i];
-        e[k] = rd.energy_in[i] + __ldcg(de + i);
+        e[k] = kDelta ? rd.energy_in[i] + __ldcg(de + i) : rd.energy_in[i];
       }
     }
 #pragma unroll
@@ -176,7 +185,7 @@ __device__ __forceinline__ void step(const Round& rd, const float* de,
       const int i = base + k * stride;
       if (i < n) {
         e_rung[r[k]] = e[k];
-        rd.energy_out[i] = e[k];
+        if (kDelta) rd.energy_out[i] = e[k];
       }
     }
   }

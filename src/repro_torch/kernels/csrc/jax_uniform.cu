@@ -13,7 +13,9 @@
 // Its plain version is repro_torch/core/keys.py (fold_in + uniform).
 //
 // Design.  Grid (blocks per replica, R); thread 0 of each block derives the
-// replica's key (two Threefry blocks) into shared memory, then every thread
+// key of global slot offset + r (two Threefry blocks) into shared memory
+// (a shard of the replica axis draws its slots' streams, offset = its first
+// slot; 0 on one device), then every thread
 // hashes one block per element it writes, striding over the replica's n
 // elements.  t is read through a device pointer, so the engine's sweep
 // counter never crosses to the host.
@@ -40,7 +42,8 @@ constexpr int kPerThread = 8;  // elements per thread per block of the grid
 __global__ void __launch_bounds__(kThreads)
 jax_uniform_kernel(float* __restrict__ out,
                    const int64_t* __restrict__ key_words,
-                   const int64_t* __restrict__ t, long long n) {
+                   const int64_t* __restrict__ t, long long n,
+                   unsigned int offset) {
   __shared__ uint32_t key_r[2];
   const uint32_t rep = blockIdx.y;
   if (threadIdx.x == 0) {
@@ -48,7 +51,7 @@ jax_uniform_kernel(float* __restrict__ out,
     const uint32_t k1 = static_cast<uint32_t>(key_words[1]);
     const threefry::Pair kt =
         threefry::hash(k0, k1, 0u, static_cast<uint32_t>(2 * t[0]));
-    const threefry::Pair kr = threefry::hash(kt.x0, kt.x1, 0u, rep);
+    const threefry::Pair kr = threefry::hash(kt.x0, kt.x1, 0u, rep + offset);
     key_r[0] = kr.x0;
     key_r[1] = kr.x1;
   }
@@ -69,9 +72,10 @@ jax_uniform_kernel(float* __restrict__ out,
 
 extern "C" {
 
-// Launches on `stream`: out is (n_replicas, n) f32; returns cudaGetLastError().
+// Launches on `stream`: out is (n_replicas, n) f32, row r drawn for global
+// slot offset + r; returns cudaGetLastError().
 int jax_uniform_launch(void* out, const void* key_words, const void* t,
-                       int n_replicas, long long n, void* stream) {
+                       int n_replicas, long long n, unsigned int offset, void* stream) {
   long long blocks = (n + static_cast<long long>(kThreads) * kPerThread - 1) /
                      (static_cast<long long>(kThreads) * kPerThread);
   if (blocks < 1) blocks = 1;
@@ -79,7 +83,7 @@ int jax_uniform_launch(void* out, const void* key_words, const void* t,
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_replicas));
   jax_uniform_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), static_cast<const int64_t*>(key_words),
-      static_cast<const int64_t*>(t), n);
+      static_cast<const int64_t*>(t), n, offset);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,8 +11,9 @@
 // Each iteration draws its keys with jax.random (HP: split(key, 4), two
 // randints, one uniform; single_flip: split(key, 3), randint((2,)), one
 // uniform).  These kernels draw the same words from csrc/jax_random.cuh,
-// replica r starting from fold_in(fold_in(key, 2t), r) as the JAX engine's
-// per-sweep step keys its vmap; t is read through a device pointer.  Their
+// replica r starting from fold_in(fold_in(key, 2t), offset + r) as the JAX
+// engine's per-sweep step keys its vmap (offset is a replica shard's first
+// global slot, 0 on one device); t is read through a device pointer.  Their
 // plain versions are repro_torch/kernels/serial_chain.py (*_plain).
 //
 // Acceptance.  Each chain's ΔE takes few values: HP -eps*k for the contact
@@ -62,7 +63,8 @@ hp_moves_kernel(const int* __restrict__ pos_in, int* __restrict__ pos_out,
                 const uint8_t* __restrict__ hmask, const int64_t* __restrict__ key_words,
                 const int64_t* __restrict__ t, const float* __restrict__ p_tab,
                 const float* __restrict__ de_tab, float* __restrict__ de_out,
-                int* __restrict__ nacc_out, int n_replicas, int n, int n_moves) {
+                int* __restrict__ nacc_out, int n_replicas, int n, int n_moves,
+                unsigned int offset) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_replicas) return;
   const int* src = pos_in + static_cast<size_t>(r) * n * 2;
@@ -71,7 +73,8 @@ hp_moves_kernel(const int* __restrict__ pos_in, int* __restrict__ pos_out,
   const float* prow = p_tab + static_cast<size_t>(r) * kHpTable;
   const int dx[4] = {1, -1, 0, 0};
   const int dy[4] = {0, 0, 1, -1};
-  jax_random::Key key = jax_random::replica_key(key_words, t, static_cast<uint32_t>(r));
+  jax_random::Key key = jax_random::replica_key(key_words, t,
+                                                  static_cast<uint32_t>(r) + offset);
   float de_acc = 0.0f;
   int nacc = 0;
   for (int m = 0; m < n_moves; ++m) {
@@ -127,7 +130,7 @@ single_flip_kernel(const int8_t* __restrict__ spins_in, int8_t* __restrict__ spi
                    const int64_t* __restrict__ key_words, const int64_t* __restrict__ t,
                    const float* __restrict__ p_tab, const float* __restrict__ de_tab,
                    float* __restrict__ de_out, int* __restrict__ nacc_out, int length,
-                   int flips) {
+                   int flips, unsigned int offset) {
   const int r = blockIdx.x;
   const size_t cells = static_cast<size_t>(length) * length;
   const int8_t* src = spins_in + r * cells;
@@ -142,7 +145,8 @@ single_flip_kernel(const int8_t* __restrict__ spins_in, int8_t* __restrict__ spi
   __syncthreads();
   if (threadIdx.x != 0) return;
   const float* prow = p_tab + static_cast<size_t>(r) * kFlipTable;
-  jax_random::Key key = jax_random::replica_key(key_words, t, static_cast<uint32_t>(r));
+  jax_random::Key key = jax_random::replica_key(key_words, t,
+                                                  static_cast<uint32_t>(r) + offset);
   float de_acc = 0.0f;
   int nacc = 0;
   for (int f = 0; f < flips; ++f) {
@@ -176,32 +180,34 @@ single_flip_kernel(const int8_t* __restrict__ spins_in, int8_t* __restrict__ spi
 extern "C" {
 
 // Launches on `stream`: pos (R, N, 2) int32 in and out, hmask (N,) uint8,
-// p_tab (R, 7) and de_tab (7,) f32, de (R,) f32, nacc (R,) int32; returns
-// cudaGetLastError().
+// p_tab (R, 7) and de_tab (7,) f32, de (R,) f32, nacc (R,) int32; replica r
+// keyed as global slot offset + r; returns cudaGetLastError().
 int hp_moves_launch(const void* pos_in, void* pos_out, const void* hmask,
                     const void* key_words, const void* t, const void* p_tab,
                     const void* de_tab, void* de, void* nacc, int n_replicas, int n,
-                    int n_moves, void* stream) {
+                    int n_moves, unsigned int offset, void* stream) {
   const int blocks = (n_replicas + kHpThreads - 1) / kHpThreads;
   hp_moves_kernel<<<blocks, kHpThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(pos_in), static_cast<int*>(pos_out),
       static_cast<const uint8_t*>(hmask), static_cast<const int64_t*>(key_words),
       static_cast<const int64_t*>(t), static_cast<const float*>(p_tab),
       static_cast<const float*>(de_tab), static_cast<float*>(de), static_cast<int*>(nacc),
-      n_replicas, n, n_moves);
+      n_replicas, n, n_moves, offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches on `stream`: spins (R, L, L) int8 in and out, p_tab (R, 2, 5) and
-// de_tab (2, 5) f32, de (R,) f32, nacc (R,) int32; returns cudaGetLastError().
+// de_tab (2, 5) f32, de (R,) f32, nacc (R,) int32; replica r keyed as global
+// slot offset + r; returns cudaGetLastError().
 int single_flip_launch(const void* spins_in, void* spins_out, const void* key_words,
                        const void* t, const void* p_tab, const void* de_tab, void* de,
-                       void* nacc, int n_replicas, int length, int flips, void* stream) {
+                       void* nacc, int n_replicas, int length, int flips,
+                       unsigned int offset, void* stream) {
   single_flip_kernel<<<n_replicas, kFlipThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins_in), static_cast<int8_t*>(spins_out),
       static_cast<const int64_t*>(key_words), static_cast<const int64_t*>(t),
       static_cast<const float*>(p_tab), static_cast<const float*>(de_tab),
-      static_cast<float*>(de), static_cast<int*>(nacc), length, flips);
+      static_cast<float*>(de), static_cast<int*>(nacc), length, flips, offset);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,9 @@ Besides the JAX package's ops, `jax_uniform` draws the per-sweep
 ``jax.random`` uniforms that `ising_sweep`, `potts_sweep` and the EA sweep
 consume on the engine's default path, and `hp_moves` / `single_flip` run
 the serial chains that the JAX package leaves to XLA's ``fori_loop``
-(``csrc/serial_chain.cu`` on the card).
+(``csrc/serial_chain.cu`` on the card); each takes the ``replica_offset``
+of a replica shard.  The sharded round path's exchange alone is
+`repro_torch.kernels.exchange.exchange_rows`.
 """
 from __future__ import annotations
 
@@ -87,37 +89,41 @@ def _check_potts_pack_bits(pack_bits: bool, q: int) -> None:
         raise ValueError(f"pack_bits needs q <= 64 (int8 lanes), got q={q}")
 
 
-def jax_uniform(key: torch.Tensor, t, n_replicas: int, shape) -> torch.Tensor:
+def jax_uniform(key: torch.Tensor, t, n_replicas: int, shape,
+                replica_offset: int = 0) -> torch.Tensor:
     """(n_replicas, *shape) f32: replica r's ``uniform(fold_in(fold_in(key,
-    2t), r), shape)``, the JAX engine's per-sweep draw."""
+    2t), offset + r), shape)``, the JAX engine's per-sweep draw (``offset`` =
+    ``replica_offset``, a replica shard's first global slot)."""
     kind = _device_kind(key)
     t = _counter(t, key.device)
     if kind == "cpu":
-        ids = torch.arange(n_replicas, dtype=torch.int64)
+        ids = replica_offset + torch.arange(n_replicas, dtype=torch.int64)
         return _ju.jax_uniform_plain(key, t, ids, shape)
-    return _ju.jax_uniform_kernel(key, t, n_replicas, shape)
+    return _ju.jax_uniform_kernel(key, t, n_replicas, shape, replica_offset)
 
 
 def hp_moves(pos: torch.Tensor, key: torch.Tensor, t, betas: torch.Tensor, *,
-             hmask: torch.Tensor, eps: float, n_moves: int):
+             hmask: torch.Tensor, eps: float, n_moves: int, replica_offset: int = 0):
     """``n_moves`` HP end/corner moves of every replica's chain, replica r
-    keyed by ``fold_in(fold_in(key, 2t), r)``; see
+    keyed by ``fold_in(fold_in(key, 2t), replica_offset + r)``; see
     `serial_chain.hp_moves_plain` for the contract.  One launch on CUDA."""
     kind = _device_kind(pos, "serial-chain kernel")
     fn = _sc.hp_moves_plain if kind == "cpu" else _sc.hp_moves_kernel
     return fn(pos, key, _counter(t, pos.device), betas.to(torch.float32),
-              hmask=hmask.to(pos.device), eps=eps, n_moves=n_moves)
+              hmask=hmask.to(pos.device), eps=eps, n_moves=n_moves,
+              replica_offset=replica_offset)
 
 
 def single_flip(spins: torch.Tensor, key: torch.Tensor, t, betas: torch.Tensor, *,
-                j: float = 1.0, b: float = 0.0, rule: str = "metropolis", flips: int = 1):
+                j: float = 1.0, b: float = 0.0, rule: str = "metropolis", flips: int = 1,
+                replica_offset: int = 0):
     """``flips`` serial single-spin flips of every replica's lattice, replica
-    r keyed by ``fold_in(fold_in(key, 2t), r)``; see
+    r keyed by ``fold_in(fold_in(key, 2t), replica_offset + r)``; see
     `serial_chain.single_flip_plain` for the contract.  One launch on CUDA."""
     kind = _device_kind(spins, "serial-chain kernel")
     fn = _sc.single_flip_plain if kind == "cpu" else _sc.single_flip_kernel
     return fn(spins, key, _counter(t, spins.device), betas.to(torch.float32),
-              j=j, b=b, rule=rule, flips=flips)
+              j=j, b=b, rule=rule, flips=flips, replica_offset=replica_offset)
 
 
 def ising_sweep(

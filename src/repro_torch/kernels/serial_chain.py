@@ -11,7 +11,8 @@ kernel):
   (`repro.core.ising.IsingSystem._single_flip_steps`).
 
 Both start replica r from the JAX engine's per-sweep key
-``fold_in(fold_in(key, 2t), r)`` and draw every iteration's keys as
+``fold_in(fold_in(key, 2t), offset + r)`` (``offset`` = ``replica_offset``,
+the first global slot of a replica shard; 0 on one device) and draw every iteration's keys as
 ``jax.random`` does (`core.keys`); the kernels derive them on the card from
 the run key and the () sweep counter ``t``, with no host-side Threefry.
 Acceptance reads per-replica tables (`hp_tables`, `ising_sweep.accept_tables`)
@@ -50,9 +51,9 @@ HP_DIRECTIONS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 def _lib() -> ctypes.CDLL:
     lib = build.library("serial_chain")
     lib.hp_moves_launch.restype = ctypes.c_int
-    lib.hp_moves_launch.argtypes = [_P] * 9 + [ctypes.c_int] * 3 + [_P]
+    lib.hp_moves_launch.argtypes = [_P] * 9 + [ctypes.c_int] * 3 + [ctypes.c_uint, _P]
     lib.single_flip_launch.restype = ctypes.c_int
-    lib.single_flip_launch.argtypes = [_P] * 8 + [ctypes.c_int] * 3 + [_P]
+    lib.single_flip_launch.argtypes = [_P] * 8 + [ctypes.c_int] * 3 + [ctypes.c_uint, _P]
     return lib
 
 
@@ -75,13 +76,15 @@ def hp_tables(betas: torch.Tensor, eps: float):
     return p_tab.contiguous(), de_tab.contiguous()
 
 
-def hp_moves_plain(pos, key, t, betas, *, hmask, eps: float, n_moves: int, work=None):
+def hp_moves_plain(pos, key, t, betas, *, hmask, eps: float, n_moves: int,
+                   replica_offset: int = 0, work=None):
     """``n_moves`` end/corner moves of every replica's chain.
 
     Args:
       pos: (R, N, 2) int32 monomer coordinates; key: (2,) int64 run key;
       t: () int64 sweep counter; betas: (R,) f32 per replica;
       hmask: (N,) bool, True at H monomers;
+      replica_offset: the global slot of replica 0 (its keys' ``fold_in``);
       work: a dict to fill, if given, with what the data asked of the
         kernel, summed over replicas as () int64 tensors: ``ends`` (end
         moves, which draw a direction), ``evaluated`` (moves to a new site,
@@ -98,7 +101,7 @@ def hp_moves_plain(pos, key, t, betas, *, hmask, eps: float, n_moves: int, work=
     pos = pos.clone()
     if n_moves == 0:
         return pos, de_acc, n_acc
-    ks = _chain_keys(keys.replica_keys(key, t, ar), n_moves)
+    ks = _chain_keys(keys.replica_keys(key, t, ar + replica_offset), n_moves)
     site = keys.randint(keys.fold_in(ks, 1), (), 0, n).long()  # (R, M)
     dirs = torch.tensor(HP_DIRECTIONS, dtype=torch.int32, device=dev)
     end_step = dirs[keys.randint(keys.fold_in(ks, 2), (), 0, 4).long()]  # (R, M, 2)
@@ -140,7 +143,14 @@ def hp_moves_plain(pos, key, t, betas, *, hmask, eps: float, n_moves: int, work=
     return pos, de_acc, n_acc
 
 
-def hp_moves_kernel(pos, key, t, betas, *, hmask, eps: float, n_moves: int):
+def _offset(replica_offset: int) -> int:
+    if not 0 <= replica_offset < 1 << 32:
+        raise ValueError(f"replica_offset must fit 32 bits, got {replica_offset}")
+    return int(replica_offset)
+
+
+def hp_moves_kernel(pos, key, t, betas, *, hmask, eps: float, n_moves: int,
+                    replica_offset: int = 0):
     """One launch of ``hp_moves_kernel``; arguments and result as
     `hp_moves_plain`, all on one CUDA device."""
     dev = pos.device
@@ -162,18 +172,20 @@ def hp_moves_kernel(pos, key, t, betas, *, hmask, eps: float, n_moves: int):
         err = _lib().hp_moves_launch(
             pos.data_ptr(), out.data_ptr(), hmask.data_ptr(), key.data_ptr(), t.data_ptr(),
             p_tab.data_ptr(), de_tab.data_ptr(), de.data_ptr(), nacc.data_ptr(), r, n,
-            n_moves, stream_of(dev))
+            n_moves, _offset(replica_offset), stream_of(dev))
     raise_if(err, "hp_moves")
     build.launches["hp_moves"] += 1
     return out, de, nacc
 
 
-def single_flip_plain(spins, key, t, betas, *, j: float, b: float, rule: str, flips: int):
+def single_flip_plain(spins, key, t, betas, *, j: float, b: float, rule: str, flips: int,
+                      replica_offset: int = 0):
     """``flips`` single-spin Metropolis/Glauber flips of every replica.
 
     Args:
       spins: (R, L, L) int8 in {-1, +1}, any L; key: (2,) int64 run key;
-      t: () int64 sweep counter; betas: (R,) f32 per replica.
+      t: () int64 sweep counter; betas: (R,) f32 per replica;
+      replica_offset: the global slot of replica 0 (its keys' ``fold_in``).
 
     Returns ``(spins', delta_e (R,) f32, n_accepted (R,) int32)``.
     """
@@ -185,7 +197,7 @@ def single_flip_plain(spins, key, t, betas, *, j: float, b: float, rule: str, fl
     spins = spins.clone()
     if flips == 0:
         return spins, de_acc, n_acc
-    ks = _chain_keys(keys.replica_keys(key, t, ar), flips)
+    ks = _chain_keys(keys.replica_keys(key, t, ar + replica_offset), flips)
     site = keys.randint(keys.fold_in(ks, 1), (2,), 0, length).long()  # (R, F, 2)
     u = keys.uniform(keys.fold_in(ks, 2), ())  # (R, F)
     betas = betas.to(torch.float32)
@@ -202,7 +214,8 @@ def single_flip_plain(spins, key, t, betas, *, j: float, b: float, rule: str, fl
     return spins, de_acc, n_acc
 
 
-def single_flip_kernel(spins, key, t, betas, *, j: float, b: float, rule: str, flips: int):
+def single_flip_kernel(spins, key, t, betas, *, j: float, b: float, rule: str, flips: int,
+                       replica_offset: int = 0):
     """One launch of ``single_flip_kernel``; arguments and result as
     `single_flip_plain`, all on one CUDA device."""
     dev = spins.device
@@ -223,7 +236,7 @@ def single_flip_kernel(spins, key, t, betas, *, j: float, b: float, rule: str, f
         err = _lib().single_flip_launch(
             spins.data_ptr(), out.data_ptr(), key.data_ptr(), t.data_ptr(), p_tab.data_ptr(),
             de_tab.data_ptr(), de.data_ptr(), nacc.data_ptr(), r, length, flips,
-            stream_of(dev))
+            _offset(replica_offset), stream_of(dev))
     raise_if(err, "single_flip")
     build.launches["single_flip"] += 1
     return out, de, nacc

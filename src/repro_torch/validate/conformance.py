@@ -89,6 +89,7 @@ def entry_runspec(
     seed: int = 0,
     exchange: str | ExchangeSpec | None = None,
     system_params: dict | None = None,
+    mesh=None,
 ) -> RunSpec:
     """The `RunSpec` conformance executes for a zoo entry.
 
@@ -97,7 +98,9 @@ def entry_runspec(
     too-thin burn trips the frozen-ladder check instead of skewing the
     reference).  ``system_params`` overlays the entry's constructor params:
     how kernel options such as ``use_fused_round`` + ``pack_bits`` join the
-    gate.  ``python -m repro_torch run`` on its JSON runs the same simulation.
+    gate.  ``mesh`` (a `repro_torch.core.distributed.MeshSpec`) runs the same
+    simulation sharded over the ranks of a process group.  ``python -m
+    repro_torch run`` on its JSON runs the same simulation.
     """
     if exchange is None:
         exchange = ExchangeSpec()
@@ -120,6 +123,7 @@ def entry_runspec(
             swap_interval=entry.swap_interval,
             chunk_intervals=entry.chunk_intervals,
             n_chains=entry.n_chains,
+            mesh=mesh,
         ),
         exchange=exchange,
         adapt=AdaptSpec(target=0.3, min_attempts_per_pair=10, max_rounds=entry.adapt_rounds),
@@ -136,12 +140,14 @@ def run_conformance(
     exchange=None,
     system_params: dict | None = None,
     device="cuda",
+    mesh=None,
 ) -> ConformanceReport:
     """Run one zoo entry through the adaptive ensemble Session on ``device``
-    and compare it with its exact reference."""
+    (on every rank of a ``mesh``) and compare it with its exact reference."""
     if exact_fn is None:
         exact_fn = EXACT[entry.name]
-    spec = entry_runspec(entry, seed=seed, exchange=exchange, system_params=system_params)
+    spec = entry_runspec(entry, seed=seed, exchange=exchange, system_params=system_params,
+                         mesh=mesh)
     frozen: dict[str, np.ndarray] = {}
 
     class _FreezeLadder(Callback):

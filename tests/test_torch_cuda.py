@@ -936,3 +936,131 @@ def test_ensemble_interval_loop_never_syncs_the_host(dev, path):
         eng.advance(state, 3)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# -- the mesh's kernels: the standalone exchange and the replica offsets ----------
+
+
+@pytest.mark.parametrize("pairing", ["deo", "seo"])
+@pytest.mark.parametrize("criterion", ["logistic", "metropolis"])
+@pytest.mark.parametrize("r,c", [(6, 1), (6, 3), (1500, 1), (1500, 3)])
+def test_exchange_step_kernel_matches_round_launch_and_plain(dev, r, c, pairing, criterion):
+    """One standalone launch over C chains' gathered rows equals, chain by
+    chain, a round launch's exchange (kernel A at S=0) bit for bit, and the
+    plain ``exchange_step`` in rung and attempt, in accept and prob but where
+    u lies between the two p (the round exchange's own contract)."""
+    from repro_torch.kernels import exchange as xk
+
+    rng = np.random.default_rng(r + c)
+    betas = torch.from_numpy((1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)).to(dev)
+    rung = torch.from_numpy(np.stack([rng.permutation(r) for _ in range(c)]).astype(np.int32)
+                            ).to(dev)
+    energy = torch.from_numpy((-9000 + 50 * rng.permutation(r * c).reshape(c, r))
+                              .astype(np.float32)).to(dev)
+    phase = torch.from_numpy(rng.integers(0, 1 << 20, c)).to(dev)
+    words = torch.stack([keys.key(int(s), device=dev) for s in rng.integers(1 << 30, size=c)])
+    build.reset_launches()
+    got = xk.exchange_step_kernel(rung, energy, betas, phase, words, pairing=pairing,
+                                  criterion=criterion)
+    assert build.launches["exchange_step"] == 1
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(c):
+        rd = isk.ising_round_kernel(torch.ones((r, 2, 2), dtype=torch.int8, device=dev),
+                                    words[i], zero, phase[i], betas, rung[i], energy[i],
+                                    n_sweeps=0, pairing=pairing, criterion=criterion)
+        for g, w in zip(got, (rd[1], rd[4], rd[5], rd[6])):
+            assert torch.equal(g[i], w)
+        want = xk.exchange_step(rung[i], energy[i], betas, phase[i], words[i],
+                                pairing=pairing, criterion=criterion)
+        u = prng.swap_uniforms(words[i], phase[i], r)
+        in_gap = (u >= torch.minimum(got[2][i], want[2])) & (u < torch.maximum(got[2][i], want[2]))
+        assert not bool(((got[2][i] != want[2]) & ~in_gap).any())
+        assert not bool(((got[1][i] != want[1]) & ~in_gap).any())
+        assert torch.equal(got[3][i], want[3])
+        if torch.equal(got[1][i], want[1]):
+            assert torch.equal(got[0][i], want[0])
+
+
+def test_exchange_rows_dispatches_one_launch(dev):
+    from repro_torch.kernels import exchange as xk
+
+    rung = torch.stack([torch.randperm(8, device=dev) for _ in range(2)]).int()
+    energy = -torch.arange(16, dtype=torch.float32, device=dev).reshape(2, 8)
+    betas = torch.linspace(1.0, 0.3, 8, device=dev)
+    phase = torch.tensor([3, 4], device=dev)
+    key = torch.stack([keys.key(1, device=dev), keys.key(2, device=dev)])
+    build.reset_launches()
+    got = xk.exchange_rows(rung, energy, betas, phase, key, pairing="deo", criterion="logistic")
+    one = xk.exchange_rows(rung[1], energy[1], betas, phase[1], key[1], pairing="deo",
+                           criterion="logistic")
+    assert build.launches["exchange_step"] == 2
+    for g, o in zip(got, one):
+        assert torch.equal(g[1], o)
+    with pytest.raises(ValueError, match="CUDA"):
+        xk.exchange_step_kernel(rung.cpu(), energy.cpu(), betas.cpu(), phase.cpu(), key.cpu(),
+                                pairing="deo", criterion="logistic")
+
+
+@pytest.mark.parametrize("offset", [0, 20])
+def test_jax_uniform_offset_matches_plain_and_unsharded_rows(dev, offset):
+    key, t = keys.key(21, device=dev), torch.tensor(7, device=dev)
+    whole = ju.jax_uniform_kernel(key, t, 40, (2, 8, 8))
+    part = ju.jax_uniform_kernel(key, t, 20, (2, 8, 8), offset)
+    assert torch.equal(part, whole[offset:offset + 20])
+    ids = torch.arange(20, device=dev)
+    assert torch.equal(part, ju.jax_uniform_plain(key, t, ids + offset, (2, 8, 8)))
+
+
+@pytest.mark.parametrize("offset", [0, 65])
+def test_serial_chains_offset_match_plain_and_unsharded_rows(dev, offset):
+    from repro_torch.core.hp import HPChain
+
+    seq, r = "HPHPPHHPHH", 130
+    pos = HPChain(seq).init_state_batched(keys.split(keys.key(4, device=dev), r))
+    betas = torch.linspace(0.3, 2.5, r, device=dev)
+    key, t = keys.key(9, device=dev), torch.tensor(11, device=dev)
+    kw = dict(hmask=torch.tensor([ch == "H" for ch in seq], device=dev), eps=1.0,
+              n_moves=len(seq))
+    blk = slice(offset, offset + 65)
+    whole = sc.hp_moves_kernel(pos, key, t, betas, **kw)
+    got = sc.hp_moves_kernel(pos[blk], key, t, betas[blk], replica_offset=offset, **kw)
+    want = sc.hp_moves_plain(pos[blk], key, t, betas[blk], replica_offset=offset, **kw)
+    for g, w, f in zip(got, want, whole):
+        assert torch.equal(g, w) and torch.equal(g, f[blk])
+    spins = _lattice(3, r, 9, dev)[0]
+    fkw = dict(j=1.0, b=0.0, rule="glauber", flips=40)
+    whole = sc.single_flip_kernel(spins, key, t, betas, **fkw)
+    got = sc.single_flip_kernel(spins[blk], key, t, betas[blk], replica_offset=offset, **fkw)
+    want = sc.single_flip_plain(spins[blk], key, t, betas[blk], replica_offset=offset, **fkw)
+    for g, w, f in zip(got, want, whole):
+        assert torch.equal(g, w) and torch.equal(g, f[blk])
+
+
+@pytest.mark.parametrize("params", [
+    {"length": 8, "use_fused": True, "use_fused_round": True},
+    {"length": 8, "use_fused": True, "pack_bits": True},
+    {"length": 8},
+], ids=["round", "packed-fused", "per-sweep"])
+def test_single_rank_mesh_on_the_card_equals_unsharded(dev, params):
+    """``MeshSpec(1, 1)`` on the card (a one-rank NCCL group): the round path
+    runs A then one standalone exchange an interval, no round launch; every
+    path equals its unsharded run bit for bit."""
+    from repro_torch.core.distributed import MeshSpec
+
+    temps = np.geomspace(1.0, 3.0, 8)
+    out = []
+    for mesh in (None, MeshSpec(1, 1)):
+        eng = Engine(IsingSystem(**params), EngineConfig(n_replicas=8, swap_interval=4,
+                                                         mesh=mesh), device="cuda",
+                     strict_kernels=True)
+        build.reset_launches()
+        st, _ = eng.run(eng.init(keys.key(3, device=dev), temps), 16)
+        out.append((st, dict(build.launches), dict(build.epilogues)))
+    (a, la, ea), (b, lb, eb) = out
+    for f in ("states", "energy", "rung", "t", "phase"):
+        assert torch.equal(getattr(a.pt, f), getattr(b.pt, f)), f
+    if params.get("use_fused_round"):
+        assert (la["ising_fused"], ea["exchange"], la["exchange_step"]) == (4, 4, 0)
+        assert (lb["ising_fused"], eb["exchange"], lb["exchange_step"]) == (4, 0, 4)
+    else:
+        assert la == lb

@@ -1,14 +1,15 @@
 """The port stands alone, starts from the CLI, and refuses what it lacks.
 
-* no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports ``jax``
-  or the JAX package ``repro`` (AST scan);
+* no module of ``src/repro_torch``, not ``chip_smoke.py`` and not the mesh
+  tests' rank script ``tests/_torch_mesh_child.py`` imports ``jax`` or the
+  JAX package ``repro`` (AST scan);
 * importing the port initializes no CUDA state and builds nothing;
 * ``python -m repro_torch run ... --device cpu`` writes a manifest,
   ``python -m repro_torch validate ising --device cpu`` passes, and
   ``--device cuda`` without a card fails instead of running on the CPU;
-* specs the port cannot run (``mesh``) are refused with
-  `NotImplementedError` naming the missing piece, and specs an
-  earlier slice refused now run;
+* a ``mesh`` spec without the ranks it needs fails with the "needs N ranks"
+  `ValueError` naming the launcher, and specs an earlier slice refused now
+  run (a one-rank mesh among them);
 * a state on another device than its engine's, or a carried state asked
   for on a missing card, is refused instead of running elsewhere;
 * kernels build inside the source checkout (or where
@@ -63,7 +64,9 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_port_and_chip_smoke_import_no_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "_torch_mesh_child.py"]
+    assert {"distributed.py", "sample.py"} <= {f.name for f in files}
     assert len(files) > 15
     bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & set(FORBIDDEN))
            for f in files}
@@ -161,9 +164,13 @@ def _spec(**edits):
     ({"engine__mesh": {"ensemble": 1, "replica": 2}}, "mesh"),
 ])
 def test_unported_specs_are_refused_by_name(edits, missing):
-    with pytest.raises(NotImplementedError, match="not yet ported") as err:
+    """A mesh spec was refused as not ported until the multi-device slice;
+    now it runs, and in one process with no 2-rank group it fails naming
+    the ranks it needs and the launcher that starts them."""
+    with pytest.raises(ValueError, match="needs 2 ranks") as err:
         Session(_spec(**edits), device="cpu")
     assert missing in str(err.value)
+    assert "torchrun --nproc-per-node 2" in str(err.value)
 
 
 @pytest.mark.parametrize("edits", [
@@ -179,17 +186,19 @@ def test_unported_specs_are_refused_by_name(edits, missing):
     {"exchange__strategy": "seo"},
     {"adapt__mode": "flow"},
     {"system__params__update": "single_flip", "system__params__use_fused": False},
+    {"engine__mesh": {"ensemble": 1, "replica": 1}},
 ], ids=["per-sweep", "potts", "per-sweep-pack_bits", "n_chains=2", "fused-pack_bits",
         "swap_mode=state", "windowed", "vmpt", "seo-strategy-path", "adapt-flow",
-        "single_flip"])
+        "single_flip", "mesh-1x1"])
 def test_specs_refused_before_now_run(edits):
     """The per-sweep default path and Potts, then ``pack_bits`` (ignored on
     the per-sweep path) and the ensemble axis, then state-mode swaps, the
     SEO, windowed and VMPT strategies on the strategy path (this spec's
     interval-fused path) and flow adaptation, then ``update="single_flip"``
-    (per-sweep path: the fused kernels sweep checkerboards) were refused by
-    name; they now build and run a few sweeps on the CPU (in state mode the
-    rung map is the identity, a permutation too)."""
+    (per-sweep path: the fused kernels sweep checkerboards), then a mesh
+    were refused by name; they now build and run a few sweeps on the CPU (in
+    state mode the rung map is the identity, a permutation too; a one-rank
+    mesh on a one-rank gloo group)."""
     session = Session(_spec(**edits), device="cpu")
     state, result = session.engine.run(session.init_state(), 20)
     chains = session.spec.engine.n_chains
