@@ -247,9 +247,10 @@ def bound_sweep(cells: int, bytes_per_cell: int) -> tuple[float, str]:
 
 def bound_threefry(blocks: float, n_bytes: float) -> tuple[float, str]:
     """Least time of work that hashes ``blocks`` Threefry blocks and moves
-    ``n_bytes`` (kernels A, B, #5 and jax_uniform): A and #5 read and write
-    the lattice once (2 B per cell), B ~30 B per rung, jax_uniform writes
-    its f32 output."""
+    ``n_bytes`` (kernels A, B, #5, jax_uniform and the standalone exchange):
+    A and #5 read and write the lattice once (2 B per cell), B ~30 B per
+    rung, the standalone exchange 22 B per rung (no ΔE in, no energy out),
+    jax_uniform writes its f32 output."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = blocks * THREEFRY_OPS / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
@@ -897,25 +898,27 @@ def check_wkv6(torch, np, wk, ref, device) -> float:
 def profiler_ms(torch, fn, reps: int, name: str) -> tuple[float, int]:
     """Mean device time in ms of one launch of the kernels whose name holds
     ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler`` (no
-    host time in it), and how many launches the profiler saw."""
+    host time in it), and how many launches the profiler saw.  A window in
+    which the tracer saw none of them is read again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # one small op first, so that the tracer is running when fn starts
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
-    seen = sum(e.count for e in rows)
-    if seen == 0:
-        raise AssertionError(f"the profiler saw no {name} launch")
-    return sum(float(e.self_device_time_total) for e in rows) / seen / 1e3, seen
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # one small op first, so that the tracer is running when fn starts
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        seen = sum(e.count for e in rows)
+        if seen:
+            return sum(float(e.self_device_time_total) for e in rows) / seen / 1e3, seen
+    raise AssertionError(f"the profiler saw no {name} launch in three windows")
 
 
 def time_wkv6(torch, np, wk, ref, device) -> dict:
@@ -2154,12 +2157,32 @@ def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) ->
                                                           **xkw), 200, 5)
     x_plain = cuda_ms(torch, lambda: xk.exchange_step(rung[0], energy[0], betas, phase[0],
                                                       words[0], **xkw), 50, 2)
-    x_bound = bound_threefry(r + 3, 30.0 * r)
+    # the function's own traffic: rung, energy, beta in (12 B a rung); rung,
+    # accept, prob, attempt out (10 B); its scratch table is the kernel's own
+    x_bound = bound_threefry(r + 3, 22.0 * r)
     half = r // 2
     u_ms = cuda_ms(torch, lambda: ju.jax_uniform_kernel(key, t, half, shape, half), 20)
     u_plain = cuda_ms(torch, lambda: ju.jax_uniform_plain(
         key, t, half + torch.arange(half, device=device), shape), 1)
     u_bound = bound_threefry(half * 2 * 300 * 300, 4.0 * half * 2 * 300 * 300)
+    # the serial chains on the block at offset 750, at the offset check's widths
+    blk = slice(half, r)
+    hp_work = {"replicas": half}
+    sc.hp_moves_plain(pos[blk], key, t, hb[blk], replica_offset=half, work=hp_work, **hkw)
+    hp_work = {k: int(v) for k, v in hp_work.items()}
+    serial = {}
+    for name, fn_k, fn_p, x, kw, bound in (
+            ("hp_moves_offset", sc.hp_moves_kernel, sc.hp_moves_plain, pos, hkw,
+             bound_hp(hp_work, half * n, n)[:2]),
+            ("single_flip_offset", sc.single_flip_kernel, sc.single_flip_plain, spins, fkw,
+             max(bound_flips(half, fkw["flips"])[:2],
+                 (2e3 * half * 300 * 300 / HBM_BYTES_PER_S, "bytes")))):
+        serial[name] = {
+            "ms": cuda_ms(torch, lambda: fn_k(x[blk], key, t, hb[blk], replica_offset=half,
+                                              **kw), 20, 2),
+            "plain_ms": cuda_ms(torch, lambda: fn_p(x[blk], key, t, hb[blk],
+                                                    replica_offset=half, **kw), 1),
+            "bound": bound}
     # #2p's round tail at L=32 R=1500 S=1 (a round launch less the same
     # launch without the exchange, profiler device time, in turns): the
     # device time of a launch is the mean over the launches the profiler
@@ -2184,7 +2207,7 @@ def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) ->
             "n_prob_diff": n_prob_diff,
             "times": {"exchange_step": {"ms": x_ms, "plain_ms": x_plain, "bound": x_bound},
                       "jax_uniform_offset": {"ms": u_ms, "plain_ms": u_plain,
-                                             "bound": u_bound}}}
+                                             "bound": u_bound}, **serial}}
 
 
 def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
@@ -2224,7 +2247,12 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
           f" jax_uniform 750 replicas at offset 750, (2,300,300): "
           f"{tm['jax_uniform_offset']['ms']:.4f} ms vs plain "
           f"{tm['jax_uniform_offset']['plain_ms']:.2f} ms (bound "
-          f"{tm['jax_uniform_offset']['bound'][0]:.4f} ms); #2p round tail at L=32 R=1500 "
+          f"{tm['jax_uniform_offset']['bound'][0]:.4f} ms); "
+          + "".join(f"{name[:-7]} 750 replicas at offset 750 {tm[name]['ms']:.4f} ms vs plain "
+                    f"{tm[name]['plain_ms']:.2f} ms (bound {tm[name]['bound'][0]:.5f} ms by "
+                    f"{tm[name]['bound'][1]}); "
+                    for name in ("hp_moves_offset", "single_flip_offset"))
+          + f"#2p round tail at L=32 R=1500 "
           f"S=1: round launch {kern['packed_tail'][0]:.5f} ms, sweeps alone "
           f"{kern['packed_tail'][1]:.5f} ms, tail "
           f"{kern['packed_tail'][0] - kern['packed_tail'][1]:.5f} ms (profiler device time a "
@@ -3196,11 +3224,19 @@ def main() -> int:
             k["packed_tail_ms"] = {"L=32 R=1500 S=1": rd - sw}
         if k["name"] == "jax_uniform":
             k["offset_ms"] = mk["jax_uniform_offset"]["ms"]
+            k["offset_plain_ms"] = mk["jax_uniform_offset"]["plain_ms"]
+            k["offset_bound_ms"] = mk["jax_uniform_offset"]["bound"][0]
             k["offset_shape"] = "750 replicas at offset 750 x (2,300,300)"
             k["mesh_launches_per_rank"] = mesh["ranks"][0]["per_sweep"]["counts"]["jax_uniform"]
         if k["name"] in ("hp_moves", "single_flip"):
             key = {"hp_moves": "hp", "single_flip": "single_flip"}[k["name"]]
             k["mesh_launches_per_rank"] = mesh["ranks"][0][key]["counts"][k["name"]]
+            off = mk[k["name"] + "_offset"]
+            k["offset_ms"], k["offset_plain_ms"] = off["ms"], off["plain_ms"]
+            k["offset_bound_ms"], k["offset_bound_by"] = off["bound"]
+            k["offset_shape"] = ("750 replicas at offset 750, N=20, 20 moves"
+                                 if k["name"] == "hp_moves"
+                                 else "750 replicas at offset 750, L=300, 30 flips")
     print(f"phase 24 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -55,8 +55,9 @@ test when off, and the kernel launches are the same with them on or off.
 A chunk is *prepared* once per chunk length (the path's kernel libraries
 built and loaded: the JAX engine's compile, counted in ``n_compiles``).  A
 failed preparation or a refused launch on a fused or round path degrades
-the engine to the per-sweep path on the card (``strict_kernels`` makes it
-an error); nothing falls back to the CPU or to a plain version.
+the engine to the per-sweep path on the card (``strict_kernels`` and a
+mesh make it an error); nothing falls back to the CPU or to a plain
+version.
 
 `Engine.restore` reads the newest checkpoint of a
 `repro_torch.checkpoint.CheckpointManager` onto the engine's device, and
@@ -143,13 +144,23 @@ def _inverse(rung: torch.Tensor) -> torch.Tensor:
     return inv
 
 
-def _observe(observables, st: PTState) -> dict[str, torch.Tensor]:
-    """Per-rung series in rung order (cold→hot)."""
+def _observe(observables, st: PTState, gather=None) -> dict[str, torch.Tensor]:
+    """Per-rung series in rung order (cold→hot).  On a mesh ``st`` holds the
+    rank's block of lattices beside the whole (R,) energy and rung rows;
+    each observable is evaluated on the local lattices and its row
+    all-gathered (``gather``), so lattices never cross ranks."""
     inv = _inverse(st.rung)
     out = {"energy": st.energy[inv]}
     for name, fn in observables.items():
-        out[name] = fn(st.states)[inv]
+        v = fn(st.states)
+        out[name] = (v if gather is None else gather(v))[inv]
     return out
+
+
+def _observe_chains(observables, st: PTState, gather=None) -> dict[str, torch.Tensor]:
+    """`_observe` chain by chain on C stacked chains: ``(C, R)`` records."""
+    return _stack_records([_observe(observables, _chain(st, c), gather)
+                           for c in range(st.rung.shape[0])])
 
 
 def _chain(st: PTState, c: int) -> PTState:
@@ -203,53 +214,92 @@ def _round_interval(system, spec: StepSpec):
     return system.batched_mcmc_round
 
 
-def _interval_parts(system, spec: StepSpec, observables):
+def _interval_parts(system, spec: StepSpec, observables, layout=None):
     """``(sweeps, exchange)``: an interval's S sweeps without the exchange,
     and its swap phase and record after them, on the per-sweep or the
-    interval-fused path (``sweeps`` also takes stacked chains there)."""
+    interval-fused path (``sweeps`` also takes stacked chains there).
+
+    ``exchange(st, betas, rows=None)`` returns ``(st', record, rung)`` with
+    ``rung`` the whole post-swap slot→rung map.  On a mesh (``layout``)
+    ``st`` is the rank's block: the sweeps key its slots by their global
+    ids (``replica_offset = d * R/D``: the fused kernels' counter stream,
+    the per-sweep keys ``fold_in(fold_in(key, 2t), offset + r)``), and
+    ``rows`` are the gathered (R,) energy and rung rows, on which the
+    decision runs for the full ladder before the rank keeps its block."""
     fused = getattr(system, "use_fused", False)
     recycle = spec.do_swap and spec.exchange.n_virtual > 1
     spi = spec.sweeps_per_interval
+    kw, gather = {}, None
+    if layout is not None:
+        start, stop = layout.slot_block(spec.n_replicas)
+        kw = {"replica_offset": start}
+
+        def gather(x):
+            # looked up at each call: a caller may wrap the layout's collective
+            return layout.gather_replicas(x)
 
     def sweeps(st: PTState, betas: torch.Tensor) -> PTState:
         """The interval's S sweeps, without the exchange."""
         betas_slot = betas[st.rung.long()]
         if fused:
             states, de, _ = system.batched_mcmc_interval(
-                st.key, st.t, st.states, betas_slot, n_sweeps=spi
+                st.key, st.t, st.states, betas_slot, n_sweeps=spi, **kw
             )
             return dataclasses.replace(
                 st, states=states, energy=st.energy + de, t=st.t + spi
             )
         for _ in range(spi):
             # JAX's _sweep_once: energy and t advance after every sweep
-            states, de, _ = system.batched_mcmc_step(st.key, st.t, st.states, betas_slot)
+            states, de, _ = system.batched_mcmc_step(st.key, st.t, st.states, betas_slot, **kw)
             st = dataclasses.replace(
                 st, states=states, energy=st.energy + de, t=st.t + 1
             )
         return st
 
-    def exchange(st: PTState, betas: torch.Tensor):
+    def exchange(st: PTState, betas: torch.Tensor, rows=None):
         """The interval's swap phase and record, after its sweeps."""
+        # on a mesh: the local lattices beside the whole rows (in state mode
+        # the mesh has one slot block, EngineConfig's guard: the rank's own)
+        full = st if rows is None else dataclasses.replace(st, energy=rows[0], rung=rows[1])
         if recycle:
             # both outcomes of every attempted pair, pre-swap, in rung order
-            partner, perm, diag = _swap_decision(spec, betas, st)
-            pre = _observe(observables, st)
+            partner, perm, diag = _swap_decision(spec, betas, full)
+            pre = _observe(observables, full, gather)
             rec = {k: torch.stack([v, v[partner]]) for k, v in pre.items()}
             rec["est_weight"] = spec.exchange.estimator_weights(partner, diag["swap_prob"])
-            st = _apply_swap(spec, st, perm)
+            full = _apply_swap(spec, full, perm)
         else:
             if spec.do_swap:
-                _, perm, diag = _swap_decision(spec, betas, st)
-                st = _apply_swap(spec, st, perm)
+                _, perm, diag = _swap_decision(spec, betas, full)
+                full = _apply_swap(spec, full, perm)
             else:
                 z = torch.zeros(spec.n_replicas, device=st.energy.device)
                 diag = {"swap_accept": z.bool(), "swap_prob": z, "swap_attempt": z.bool()}
-            rec = _observe(observables, st)
+            rec = _observe(observables, full, gather)
         rec.update(diag)
-        return st, rec
+        if rows is None:
+            return full, rec, full.rung
+        block = dataclasses.replace(full, energy=full.energy[start:stop],
+                                    rung=full.rung[start:stop])
+        return block, rec, full.rung
 
     return sweeps, exchange
+
+
+def _exchange_chains(spec: StepSpec, exchange, st: PTState, betas, rows=None):
+    """Each chain's swap phase (`_interval_parts`' ``exchange``) on its
+    slice of C stacked chains, ``rows`` the gathered (C, R) energy and rung
+    rows on a mesh: ``(st', (C, R) records, (C, R) rungs)``."""
+    outs = [exchange(_chain(st, c), betas, None if rows is None else (rows[0][c], rows[1][c]))
+            for c in range(st.rung.shape[0])]
+    chains = [o[0] for o in outs]
+    # temp mode moves no state: the stacked lattices stand as they are
+    states = (st.states if spec.swap_mode == "temp"
+              else stack_states([c.states for c in chains]))
+    st = PTState(states=states,
+                 **{f: torch.stack([getattr(c, f) for c in chains])
+                    for f in ("energy", "rung", "key", "phase", "t")})
+    return st, _stack_records([o[1] for o in outs]), torch.stack([o[2] for o in outs])
 
 
 def make_interval_step(system, spec: StepSpec, observables=None):
@@ -279,7 +329,7 @@ def make_interval_step(system, spec: StepSpec, observables=None):
             rec = _observe(observables, st)
             rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
             return st, rec
-        return exchange(sweeps(st, betas), betas)
+        return exchange(sweeps(st, betas), betas)[:2]
 
     return interval_step
 
@@ -309,10 +359,6 @@ def make_ensemble_step(system, spec: StepSpec, observables=None):
     spi = spec.sweeps_per_interval
     sweeps, exchange = _interval_parts(system, spec, observables)
 
-    def observe(st: PTState):
-        return _stack_records([_observe(observables, _chain(st, c))
-                               for c in range(st.rung.shape[0])])
-
     def ensemble_step(st: PTState, betas: torch.Tensor):
         if fused_round is not None:
             states, rung, energy, _, acc, prob, att = fused_round(
@@ -321,36 +367,15 @@ def make_ensemble_step(system, spec: StepSpec, observables=None):
             )
             st = dataclasses.replace(st, states=states, rung=rung, energy=energy,
                                      t=st.t + spi, phase=st.phase + 1)
-            rec = observe(st)
+            rec = _observe_chains(observables, st)
             rec.update(swap_accept=acc[0], swap_prob=prob[0], swap_attempt=att[0])
             return st, rec
-        st = sweeps(st, betas)
-        outs = [exchange(_chain(st, c), betas) for c in range(st.rung.shape[0])]
-        chains = [o[0] for o in outs]
-        # temp mode moves no state: the stacked lattices stand as they are
-        states = (st.states if spec.swap_mode == "temp"
-                  else stack_states([c.states for c in chains]))
-        st = PTState(states=states,
-                     **{f: torch.stack([getattr(c, f) for c in chains])
-                        for f in ("energy", "rung", "key", "phase", "t")})
-        return st, _stack_records([o[1] for o in outs])
+        return _exchange_chains(spec, exchange, sweeps(st, betas), betas)[:2]
 
     return ensemble_step
 
 
 # -- sharded interval step: one rank's block of a mesh --------------------------
-
-
-def _observe_full(observables, local: PTState, energy_full, rung_full, gather):
-    """`_observe` on a rank's block of one chain: ``energy_full`` and
-    ``rung_full`` are the gathered (R,) rows; each observable is evaluated
-    on the local lattices and its (R_local,) row all-gathered (``gather``),
-    so lattices never cross ranks."""
-    inv = _inverse(rung_full)
-    out = {"energy": energy_full[inv]}
-    for name, fn in observables.items():
-        out[name] = gather(fn(local.states))[inv]
-    return out
 
 
 def make_sharded_interval_step(system, spec: StepSpec, observables, layout):
@@ -361,21 +386,13 @@ def make_sharded_interval_step(system, spec: StepSpec, observables, layout):
     ``st_local`` is one chain's block (``(R/D, ...)`` leaves) or, on the
     round and interval-fused paths, the rank's chains stacked (``(C/E,
     R/D, ...)``, one kernel call an interval for all of them).  Same record
-    contract and PRNG streams as `make_interval_step`:
-
-    * **sweeps**: the block's slots carry their global ids, ``offset =
-      d * R/D`` (``replica_offset`` into the fused kernels' counter stream;
-      the per-sweep step's keys ``fold_in(fold_in(key, 2t), offset + r)``);
-    * **exchange**: one all-gather each of the energy and rung rows over
-      the replica subgroup (`MeshLayout.gather_replicas`), then the
-      full-ladder decision on every rank from the same rows; the round
-      path runs it as one standalone launch over the rank's chains
-      (`kernels.exchange.exchange_rows`) from the round kernel's counter
-      swap stream, so a sharded round run equals the single-device round
-      launch; the other paths run the exchange strategy (DEO, SEO,
-      windowed, VMPT's recycling) keyed on ``fold_in(key, 2t+1)``.  Each
-      rank keeps its block of the new rungs; in state mode (one slot
-      block) the lattices move within the rank.
+    contract and PRNG streams as `make_interval_step`: the sweeps and the
+    strategies' exchange are `_interval_parts` on the rank's block, after
+    one all-gather each of the energy and rung rows over the replica
+    subgroup (`MeshLayout.gather_replicas`).  The round path runs its
+    exchange as one standalone launch over the rank's chains
+    (`kernels.exchange.exchange_rows`) from the round kernel's counter swap
+    stream, so a sharded round run equals the single-device round launch.
 
     ``record`` holds whole (R,) rows in rung order (``(C/E, R)`` stacked)
     and ``rung_full`` is the post-swap slot→rung map the stats update keys
@@ -383,94 +400,32 @@ def make_sharded_interval_step(system, spec: StepSpec, observables, layout):
     """
     observables = dict(observables or {})
     fused_round = _round_interval(system, spec) is not None
-    fused = getattr(system, "use_fused", False)
-    recycle = spec.do_swap and spec.exchange.n_virtual > 1
-    spi = spec.sweeps_per_interval
+    sweeps, exchange = _interval_parts(system, spec, observables, layout)
+    start, stop = layout.slot_block(spec.n_replicas)
 
     def gather(x):
         # looked up at each call: a caller may wrap the layout's collective
         return layout.gather_replicas(x)
 
-    def sweeps(st: PTState, betas, offset: int) -> PTState:
-        betas_slot = betas[st.rung.long()]
-        if fused:
-            states, de, _ = system.batched_mcmc_interval(
-                st.key, st.t, st.states, betas_slot, n_sweeps=spi, replica_offset=offset)
-            return dataclasses.replace(st, states=states, energy=st.energy + de,
-                                       t=st.t + spi)
-        for _ in range(spi):
-            states, de, _ = system.batched_mcmc_step(st.key, st.t, st.states, betas_slot,
-                                                     replica_offset=offset)
-            st = dataclasses.replace(st, states=states, energy=st.energy + de, t=st.t + 1)
-        return st
-
-    def chain_exchange(local: PTState, energy_full, rung_full, betas):
-        """One chain's swap phase on its gathered rows: ``(local', record,
-        rung_full')``."""
-        full = dataclasses.replace(local, energy=energy_full, rung=rung_full)
-        if spec.swap_mode == "state":
-            # one slot block (EngineConfig's guard): the rows are the rank's own
-            full = dataclasses.replace(full, states=local.states)
-        start = layout.slot_block(spec.n_replicas)[0]
-        stop = start + local.energy.shape[0]
-
-        def pull_back(after: PTState) -> PTState:
-            out = dataclasses.replace(local, rung=after.rung[start:stop].contiguous(),
-                                      phase=after.phase)
-            if spec.swap_mode == "state":
-                out = dataclasses.replace(out, states=after.states, energy=after.energy)
-            return out
-
-        if recycle:
-            partner, perm, diag = _swap_decision(spec, betas, full)
-            pre = _observe_full(observables, local, energy_full, rung_full, gather)
-            rec = {k: torch.stack([v, v[partner]]) for k, v in pre.items()}
-            rec["est_weight"] = spec.exchange.estimator_weights(partner, diag["swap_prob"])
-            full = _apply_swap(spec, full, perm)
-            local = pull_back(full)
-        else:
-            if spec.do_swap:
-                _, perm, diag = _swap_decision(spec, betas, full)
-                full = _apply_swap(spec, full, perm)
-                local = pull_back(full)
-            else:
-                z = torch.zeros(spec.n_replicas, device=local.energy.device)
-                diag = {"swap_accept": z.bool(), "swap_prob": z, "swap_attempt": z.bool()}
-            rec = _observe_full(observables, local, full.energy, full.rung, gather)
-        rec.update(diag)
-        return local, rec, full.rung
-
     def step(st: PTState, betas: torch.Tensor):
         stacked = st.key.dim() == 2
-        start, stop = layout.slot_block(spec.n_replicas)
-        st = sweeps(st, betas, start)
+        st = sweeps(st, betas)
         # the exchange's only traffic: the O(R) energy and rung rows
-        energy_full, rung_full = gather(st.energy), gather(st.rung)
-        if fused_round:
-            new_rung, acc, prob, att = kernel_exchange.exchange_rows(
-                rung_full, energy_full, betas, st.phase, st.key,
-                pairing=spec.exchange.name, criterion=spec.criterion)
-            st = dataclasses.replace(st, rung=new_rung[..., start:stop].contiguous(),
-                                     phase=st.phase + 1)
+        rows = gather(st.energy), gather(st.rung)
+        if not fused_round:
             if stacked:
-                rec = _stack_records([
-                    _observe_full(observables, _chain(st, c), energy_full[c], new_rung[c],
-                                  gather) for c in range(st.key.shape[0])])
-            else:
-                rec = _observe_full(observables, st, energy_full, new_rung, gather)
-            rec.update(swap_accept=acc, swap_prob=prob, swap_attempt=att)
-            return st, rec, new_rung
-        if not stacked:
-            return chain_exchange(st, energy_full, rung_full, betas)
-        outs = [chain_exchange(_chain(st, c), energy_full[c], rung_full[c], betas)
-                for c in range(st.key.shape[0])]
-        chains = [o[0] for o in outs]
-        states = (st.states if spec.swap_mode == "temp"
-                  else stack_states([c.states for c in chains]))
-        st = PTState(states=states,
-                     **{f: torch.stack([getattr(c, f) for c in chains])
-                        for f in ("energy", "rung", "key", "phase", "t")})
-        return st, _stack_records([o[1] for o in outs]), torch.stack([o[2] for o in outs])
+                return _exchange_chains(spec, exchange, st, betas, rows)
+            return exchange(st, betas, rows)
+        new_rung, acc, prob, att = kernel_exchange.exchange_rows(
+            rows[1], rows[0], betas, st.phase, st.key,
+            pairing=spec.exchange.name, criterion=spec.criterion)
+        st = dataclasses.replace(st, rung=new_rung[..., start:stop].contiguous(),
+                                 phase=st.phase + 1)
+        full = dataclasses.replace(st, energy=rows[0], rung=new_rung)
+        rec = (_observe_chains(observables, full, gather) if stacked
+               else _observe(observables, full, gather))
+        rec.update(swap_accept=acc, swap_prob=prob, swap_attempt=att)
+        return st, rec, new_rung
 
     return step
 
@@ -745,7 +700,7 @@ class Engine:
     (`repro_torch.resilience.FaultPlan`) instrument the host loop;
     ``strict_kernels`` makes a failed kernel preparation or launch on a
     fused or round path an error instead of a degradation to the per-sweep
-    path (which calls ``on_degrade``).
+    path (which calls ``on_degrade``); on a mesh it is always an error.
     """
 
     def __init__(
@@ -1002,11 +957,13 @@ class Engine:
         same device, bit-equal to a never-fused run of the same spec from
         the same state (the fused counter stream is not the per-sweep one).
         ``strict_kernels`` makes it an error, and so does a system with no
-        kernel flag set (the serve Supervisor retries those).  Never falls
-        back to the CPU or to a plain version.
+        kernel flag set (the serve Supervisor retries those).  So does a
+        mesh: every rank must run the same path and swap stream, and a
+        failure one rank meets cannot be agreed with the others mid-chunk.
+        Never falls back to the CPU or to a plain version.
         """
         flags = [f for f in _KERNEL_FLAGS if getattr(self.system, f, False)]
-        if self.strict_kernels or not flags or self._degraded:
+        if self.strict_kernels or not flags or self._degraded or self.layout is not None:
             raise err
         self._degraded = True
         warnings.warn(

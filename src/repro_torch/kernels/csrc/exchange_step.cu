@@ -19,9 +19,10 @@
 // Per chain c (block c): rung'[c], accept / prob / attempt rows[c] at phase
 // phase0[c] + phase_add, from key_words[c]; the betas row is shared.
 //
-// Bound.  ~30 B read and written per rung and R + 3 Threefry blocks: at
-// R = 1,500 about 45 KB (0.013 us at 3.35 TB/s) and 1.1e5 integer
-// instructions (0.003 us at 33.5e12/s).  What it costs is the launch and
+// Bound.  22 B a rung (rung, energy and beta read, 12 B; rung, accept,
+// prob and attempt written, 10 B; the scratch table is the kernel's own)
+// and R + 3 Threefry blocks: at R = 1,500 about 33 KB (0.0099 us at
+// 3.35 TB/s) and 1.1e5 integer instructions (0.003 us at 33.5e12/s).  What it costs is the launch and
 // one block's three dependent stages over the rows, each at least one round
 // trip to L2: latency, as the round launches' tail is (exchange.cuh).
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false, as the

@@ -12,9 +12,11 @@ Writes ``OUTDIR/mesh4.npz`` (rank 0: every scenario's final energies,
 rungs, lattices, swap counters and the bytes a rank gathered per interval;
 the parent runs the same scenarios unsharded in the JAX package and
 asserts bit-equality), a checkpoint under ``OUTDIR/ckpt`` saved on the
-(1, 4) mesh at sweep 40, and ``resumed_*`` arrays: a JAX-package
-checkpoint the parent left in ``OUTDIR/jax_ckpt`` resumed on the (2, 2)
-mesh and run to the end.  Imports no JAX.
+(1, 4) mesh at sweep 40, ``fault_*`` arrays (each rank's outcome of an
+``engine.compile`` fault injected on one rank of a fused mesh), and
+``resumed_*`` arrays: a JAX-package checkpoint the parent left in
+``OUTDIR/jax_ckpt`` resumed on the (2, 2) mesh and run to the end.
+Imports no JAX.
 """
 import datetime
 import os
@@ -50,6 +52,8 @@ SCENARIOS = {
 }
 # the mesh a JAX-package checkpoint (two chains, sweep 40) is resumed on
 RESUME_MESH = (2, 2)
+# the one rank an engine.compile fault is injected on
+FAULT_RANK = 1
 
 
 def config_kw(engine_kw: dict) -> dict:
@@ -77,6 +81,7 @@ def _rank(rank: int, outdir: str) -> None:
     from repro_torch.core import keys, systems
     from repro_torch.core.distributed import MeshSpec
     from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.resilience import Fault, FaultPlan, InjectedFault
 
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(outdir, "store"), WORLD)
@@ -107,6 +112,25 @@ def _rank(rank: int, outdir: str) -> None:
             out[f"{name}_accepts"] = whole.stats.swap_accepts.numpy()
             out[f"{name}_summary_acceptance"] = res.summary["swap_acceptance"]
             out[f"{name}_gathered_bytes"] = gathered
+
+    # an injected engine.compile fault on one rank of a fused (1, 4) mesh:
+    # fatal there, and no rank leaves the fused path (a degradation one
+    # rank alone took would split the ranks' paths and swap streams)
+    faults = FaultPlan([Fault("engine.compile")]) if rank == FAULT_RANK else None
+    _, sys_name, params, engine_kw = SCENARIOS["fused"]
+    eng = Engine(systems.make_system(sys_name, params),
+                 EngineConfig(**config_kw(engine_kw), mesh=MeshSpec(1, WORLD)),
+                 device="cpu", faults=faults)
+    try:
+        eng.ensure_compiled(2)
+        raised = False
+    except InjectedFault:
+        raised = True
+    flags = [None] * WORLD
+    dist.all_gather_object(flags, (raised, eng.system.use_fused, eng.n_compiles))
+    if rank == 0:
+        out["fault_raised"], out["fault_still_fused"], out["fault_compiles"] = (
+            np.asarray(f, np.int64) for f in zip(*flags))
 
     # a checkpoint saved mid-run on the (1, 4) mesh (rank 0 writes it)
     mgr = CheckpointManager(os.path.join(outdir, "ckpt"), keep=2)

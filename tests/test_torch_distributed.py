@@ -6,11 +6,12 @@ step (gathered rows, the full-ladder decision, the local block pulled back)
 and must equal the JAX package's ``MeshSpec(1, 1)`` run and the port's own
 unsharded run bit for bit, for every exchange strategy and on the fused
 and round paths; the mesh guards (axes, divisibility, the state-mode guard,
-"needs N ranks") fail as the JAX ones do.
+"needs N ranks") fail as the JAX ones do, and a kernel failure on a mesh
+is an error, never a degradation.
 
 The multi-rank half (4 gloo ranks, the checkpoints across meshes and
-packages, the gathered bytes, the CLI under torchrun) is in
-tests/test_torch_distributed_ranks.py.
+packages, the gathered bytes) is in tests/test_torch_distributed_ranks.py,
+the CLI under torchrun in tests/test_torch_distributed_cli.py.
 """
 import dataclasses
 import importlib.util
@@ -104,6 +105,29 @@ def test_mesh_build_needs_its_ranks():
         Engine(tsystems.make_system("ising", {"length": L}),
                EngineConfig(n_replicas=R, swap_interval=5, mesh=MeshSpec(1, 2)), device="cpu")
     assert "torchrun --nproc-per-node 2" in str(err.value)
+
+
+@pytest.mark.parametrize("how", ["compile fault", "refused launch"])
+def test_mesh_never_degrades(how, monkeypatch):
+    """On a mesh a failed preparation or a refused launch on a fused path is
+    an error, as under ``strict_kernels``: a degradation one rank took alone
+    would put the ranks on different paths and swap streams."""
+    from repro_torch.engine import driver
+    from repro_torch.kernels import build
+    from repro_torch.resilience import Fault, FaultPlan, InjectedFault
+
+    faults = FaultPlan([Fault("engine.compile")]) if how == "compile fault" else None
+    eng = Engine(tsystems.make_system("ising", {"length": L, "use_fused": True}),
+                 EngineConfig(n_replicas=R, swap_interval=5, mesh=MeshSpec()), device="cpu",
+                 faults=faults)
+    if how == "refused launch":
+        def refuse(self, state, n):
+            raise build.KernelError("ising_fused launch failed with cudaError 1")
+
+        monkeypatch.setattr(driver.Engine, "_issue", refuse)
+    with pytest.raises(InjectedFault if how == "compile fault" else build.KernelError):
+        eng.run(eng.init(keys.key(0), TEMPS), 10)
+    assert eng.system.use_fused and not eng._degraded
 
 
 def test_local_block_and_gather_state_round_trip():

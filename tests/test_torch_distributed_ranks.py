@@ -6,21 +6,18 @@ twin; the in-process half is tests/test_torch_distributed.py).
 gloo ranks with `torch.multiprocessing` (spawn) and runs every scenario of
 its table on its mesh: (1, 4) DEO per sweep, fused, round (``pack_bits``)
 and SEO; (2, 2) with two chains, per sweep and round; HP and
-``single_flip`` per sweep; a checkpoint saved on (1, 4); and a JAX
-checkpoint (written here first) resumed on (2, 2).  Each final state, rung
+``single_flip`` per sweep; a checkpoint saved on (1, 4); an
+``engine.compile`` fault on one rank; and a JAX checkpoint (written here
+first) resumed on (2, 2).  Each final state, rung
 map and swap counter must equal JAX's unsharded engine from the same seed;
 the (1, 4) checkpoint resumes on one device in the port and in JAX; and
 the child's count of the bytes every replica-axis all-gather returned
-shows that an interval moves two O(R) rows and no lattice.
-
-``torchrun --nproc-per-node 2 -m repro_torch run ... --mesh-replicas 2
---device cpu`` writes the manifest the JAX CLI writes unsharded.
+shows that an interval moves two O(R) rows and no lattice.  The CLI
+under torchrun is in tests/test_torch_distributed_cli.py.
 """
-import json
 import os
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,7 +33,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import systems as tsystems  # noqa: E402
 from repro_torch.engine import Engine, EngineConfig  # noqa: E402
 from test_torch_distributed import (  # noqa: E402
-    CHILD, R, ROOT, SEED, TEMPS, _assert_state, _jax_run, _port_state, child,
+    CHILD, R, SEED, TEMPS, _assert_state, _jax_run, _port_state, child,
 )
 
 @pytest.fixture(scope="module")
@@ -107,38 +104,18 @@ def test_checkpoint_from_mesh_resumes_on_one_device(mesh4):
         np.testing.assert_array_equal(np.asarray(getattr(jresumed.pt, f)), want[f], err_msg=f)
 
 
+def test_kernel_failure_on_one_rank_is_fatal_not_a_degradation(mesh4):
+    """An engine.compile fault on one rank of a fused (1, 4) mesh raises
+    there; no rank degrades, so the ranks keep one path and swap stream."""
+    _, out = mesh4
+    want = [int(r == child.FAULT_RANK) for r in range(child.WORLD)]
+    assert out["fault_raised"].tolist() == want
+    assert out["fault_still_fused"].tolist() == [1] * child.WORLD
+    assert out["fault_compiles"].tolist() == [1 - w for w in want]
+
+
 def test_jax_checkpoint_resumes_on_two_by_two(mesh4):
     _, out = mesh4
     assert int(out["resumed_step"]) == child.CKPT_SWEEPS
     for f in ("energy", "rung", "states"):
         np.testing.assert_array_equal(out[f"resumed_{f}"], out[f"chains_{f}"], err_msg=f)
-
-
-# ---------- the CLI under torchrun ---------------------------------------------------
-
-
-def test_torchrun_cli_writes_the_unsharded_jax_manifest(tmp_path):
-    from repro.api import cli as jcli
-
-    from test_torch_engine import _assert_manifests_match
-
-    # examples/specs/ising_small.json (adaptation, two observables) cut to
-    # 100 + 100 sweeps
-    data = json.loads((ROOT / "examples" / "specs" / "ising_small.json").read_text())
-    for phase in data["schedule"]["phases"]:
-        phase["n_sweeps"] = 100
-    spec = str(tmp_path / "ising_small_cut.json")
-    Path(spec).write_text(json.dumps(data))
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-         "-m", "repro_torch", "run", spec, "--mesh-replicas", "2", "--device", "cpu",
-         "--out", str(tmp_path / "port"), "--quiet"],
-        env=env, capture_output=True, text=True, timeout=240, cwd=tmp_path)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.count("manifest.json") == 1  # rank 0 alone writes
-    assert jcli.main(["run", spec, "--out", str(tmp_path / "jax"), "--quiet"]) == 0
-    tm = json.loads((tmp_path / "port" / "manifest.json").read_text())
-    assert tm["spec"]["engine"]["mesh"] == {"ensemble": 1, "replica": 2}
-    _assert_manifests_match(json.loads((tmp_path / "jax" / "manifest.json").read_text()), tm)
