@@ -1089,9 +1089,13 @@ def rwkv_phases(torch, np, build, ref, device, card: str) -> dict:
             "decode_launches": counts_gen["wkv6"]}
 
 
-# 72 instructions a Threefry block (THREEFRY_OPS), ~4 cycles each in one
-# thread's dependent chain (Hopper's integer ALU latency) at 1.98 GHz: the
-# latency floor of a serial chain, whatever the issue rate
+# The serial chains' latency floor.  Only the key chain is serial whatever
+# the design: step m+1's key is fold_in(step m's key, 0), one Threefry
+# block, and the draws of a step hang off its key.  A block's dependent
+# chain is THREEFRY_DEPTH instructions (each round's add then xor, the
+# rotate issuing beside the add; one add a key injection) of its 72, ~4
+# cycles each (Hopper's integer ALU latency) at 1.98 GHz.
+THREEFRY_DEPTH = 2 * 20 + 5
 CHAIN_CYCLES_PER_INSTRUCTION = 4
 CLOCK_HZ = 1.98e9
 # instructions a monomer costs the HP contact scan (loads, the occupancy
@@ -1100,30 +1104,46 @@ HP_SCAN_OPS = 12
 FLIP_SITE_OPS = 20
 
 
-def bound_hp(work: dict, moves: int, n: int) -> tuple[float, str, float]:
-    """Least time of ``hp_moves_kernel`` for the work its data needs: 6
+def chain_floor_ms(steps: int) -> float:
+    """Least time of one chain of ``steps`` keys: the key walk's blocks in
+    series at ``CHAIN_CYCLES_PER_INSTRUCTION``."""
+    return 1e3 * steps * THREEFRY_DEPTH * CHAIN_CYCLES_PER_INSTRUCTION / CLOCK_HZ
+
+
+def serial_bound(ops: float, n_bytes: float, steps: int) -> dict:
+    """``roof``: max(operations at the issue rate, bytes at HBM rate), the
+    kernel line's bound; ``chain``: the key chain's latency; ``least``: the
+    larger of the two, the least time the card could take (ms, bound by)."""
+    t_ops, t_bytes = 1e3 * ops / INT32_OPS_PER_S, 1e3 * n_bytes / HBM_BYTES_PER_S
+    roof = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    chain = chain_floor_ms(steps)
+    return {"roof": roof, "chain": chain,
+            "least": roof if roof[0] >= chain else (chain, "key chain")}
+
+
+def bound_hp(work: dict, moves: int, n: int, steps: int) -> dict:
+    """`serial_bound` of ``hp_moves_kernel`` for the work its data needs: 6
     Threefry blocks a move (next key, site key, randint's two keys and two
     words), 5 more an end move (direction), 2 more a tested move (the
     uniform) and the chain scan of a move to a new site, at the issue rate;
-    the bytes (chains in and out) are negligible.  Also returns the latency
-    floor of one chain (ms): its blocks in series at
-    ``CHAIN_CYCLES_PER_INSTRUCTION``, taking each replica as the average."""
+    the chains in and out, the per-replica p rows and the outputs; and a
+    chain's ``steps`` keys (its moves)."""
+    r = work["replicas"]
     blocks = 6 * moves + 5 * work["ends"] + 2 * work["tested"]
     ops = blocks * THREEFRY_OPS + HP_SCAN_OPS * n * work["evaluated"]
-    r = work["replicas"]
-    chain = (blocks / r) * THREEFRY_OPS * CHAIN_CYCLES_PER_INSTRUCTION / CLOCK_HZ
-    return 1e3 * ops / INT32_OPS_PER_S, "operations", 1e3 * chain
+    n_bytes = r * (2 * 8 * n + 4 * 7 + 4 + 4) + n + 4 * 7
+    return serial_bound(ops, n_bytes, steps)
 
 
-def bound_flips(r: int, flips: int) -> tuple[float, str, float]:
-    """Least time of ``single_flip_kernel``: 10 Threefry blocks a flip (next
-    key, site key, randint's two keys and four words, uniform key and word)
-    and its site arithmetic, at the issue rate, against the lattice copy
-    (read and written once, L^2 bytes a replica, counted by the caller);
-    and one chain's latency floor (ms)."""
+def bound_flips(r: int, flips: int, length: int) -> dict:
+    """`serial_bound` of ``single_flip_kernel``: 10 Threefry blocks a flip
+    (next key, site key, randint's two keys and four words, uniform key and
+    word) and its site arithmetic at the issue rate; the lattice read and
+    written once (L^2 bytes a replica each way), the p rows and the outputs;
+    and one chain's ``flips`` keys."""
     ops = r * flips * (10 * THREEFRY_OPS + FLIP_SITE_OPS)
-    chain = flips * 10 * THREEFRY_OPS * CHAIN_CYCLES_PER_INSTRUCTION / CLOCK_HZ
-    return 1e3 * ops / INT32_OPS_PER_S, "operations", 1e3 * chain
+    n_bytes = r * (2 * length * length + 4 * 10 + 4 + 4) + 4 * 10
+    return serial_bound(ops, n_bytes, flips)
 
 
 def check_serial_chains(torch, np, sc, keys, device):
@@ -1134,8 +1154,12 @@ def check_serial_chains(torch, np, sc, keys, device):
 
     rng = np.random.default_rng(200)
     n_cases = 0
+    # N > 32 puts several monomers on a lane; R = 1, 33, 1501 leave a block's
+    # warps idle (four replicas a block)
+    seq20 = "HPHPPHHPHHPHPHHPPHPH"
     hp_cases = (("HPH", 13, 1.0), ("HHPPHPH", 64, 0.7), ("HPHPPHHPHH", 13, 1.0),
-                ("HPHPPHHPHHPHPHHPPHPH", 1500, 1.0), ("HPHPPHHPHHPHPHHPPHPH", 7, 1.3))
+                (seq20, 1500, 1.0), (seq20, 7, 1.3), (seq20, 1, 1.0),
+                ((seq20 * 2)[:33], 33, 1.0), ((seq20 * 3)[:48], 1501, 0.8))
     for seq, r, eps in hp_cases:
         chain = HPChain(seq, eps=eps)
         pos = chain.init_state_batched(keys.split(keys.key(int(rng.integers(1 << 30)),
@@ -1153,10 +1177,15 @@ def check_serial_chains(torch, np, sc, keys, device):
                     raise AssertionError(f"hp_moves N={len(seq)} R={r}: {what} != plain")
             pos, t = got[0], t + 1
         n_cases += 1
+    # flip counts around a 256-flip tile; L=5 (and 2) with 300 flips, where
+    # every flip collides with an earlier one
     flip_cases = ((5, 13, 1, "metropolis", 1.0, 0.0), (5, 13, 7, "glauber", 0.7, 0.3),
                   (7, 13, 300, "metropolis", 1.0, 0.3), (6, 64, 300, "glauber", 1.0, 0.0),
                   (301, 64, 300, "glauber", 1.0, 0.0), (300, 1500, 300, "glauber", 1.0, 0.0),
-                  (300, 1500, 7, "metropolis", 0.7, 0.3))
+                  (300, 1500, 7, "metropolis", 0.7, 0.3), (5, 33, 300, "metropolis", 1.0, 0.0),
+                  (2, 33, 300, "glauber", 0.7, 0.3), (9, 1, 255, "glauber", 1.0, 0.0),
+                  (9, 1501, 256, "metropolis", 0.7, 0.3), (10, 33, 257, "glauber", 1.0, 0.3),
+                  (31, 33, 1000, "glauber", 0.7, 0.3), (300, 1, 1000, "metropolis", 1.0, 0.0))
     for length, r, flips, rule, j, b in flip_cases:
         spins = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8),
                                             size=(r, length, length))).to(device)
@@ -1202,9 +1231,9 @@ def time_serial_chains(torch, np, sc, keys, device, seq: str):
     dev_ms, _ = profiler_ms(torch, lambda: sc.hp_moves_kernel(pos, key, t, betas, **kw), 20,
                             "hp_moves_kernel")
     plain = cuda_ms(torch, lambda: sc.hp_moves_plain(pos, key, t, betas, **kw), 2)
-    bound, by, floor = bound_hp(work, r * n, n)
-    out["hp_moves"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound": (bound, by),
-                       "latency_floor": floor, "work": work}
+    hb = bound_hp(work, r * n, n, n)
+    out["hp_moves"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound": hb["roof"],
+                       "least": hb["least"], "latency_floor": hb["chain"], "work": work}
     length, flips = 300, 300
     spins = torch.from_numpy(np.random.default_rng(9).choice(
         np.array([-1, 1], np.int8), size=(r, length, length))).to(device)
@@ -1213,12 +1242,22 @@ def time_serial_chains(torch, np, sc, keys, device, seq: str):
     dev_ms, _ = profiler_ms(torch, lambda: sc.single_flip_kernel(spins, key, t, betas, **kw),
                             10, "single_flip_kernel")
     plain = cuda_ms(torch, lambda: sc.single_flip_plain(spins, key, t, betas, **kw), 1)
-    bound, by, floor = bound_flips(r, flips)
-    t_bytes = 2.0 * r * length * length / HBM_BYTES_PER_S * 1e3
-    if t_bytes > bound:
-        bound, by = t_bytes, "bytes"
+    fb = bound_flips(r, flips, length)
     out["single_flip"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
-                          "bound": (bound, by), "latency_floor": floor}
+                          "bound": fb["roof"], "least": fb["least"],
+                          "latency_floor": fb["chain"]}
+    # one chain's critical path a step, read directly: R=1, 10000 steps
+    # (single_flip at L=300; HP's 20-mer, from the folded chains), by CUDA
+    # events: a launch takes 1.5-4 ms, which hides the wrapper's host time
+    # (the profiler's device time dropped a launch's duration once)
+    steps = 10000
+    one = {"single_flip": lambda: sc.single_flip_kernel(
+               spins[:1].contiguous(), key, t, betas[:1], **dict(kw, flips=steps)),
+           "hp_moves": lambda: sc.hp_moves_kernel(
+               pos[:1].contiguous(), key, t, betas[:1], hmask=hmask, eps=1.0, n_moves=steps)}
+    for name, fn in one.items():
+        out[name]["step_us"] = 1e3 * cuda_ms(torch, fn, 5) / steps
+        out[name]["step_floor_us"] = 1e3 * chain_floor_ms(1)
     return out
 
 
@@ -1245,9 +1284,10 @@ def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
     expect_launches(counts_now(build), "phase 20 kernel checks", hp_moves=4 * n_hp,
                     single_flip=2 * n_flip)
     print(f"phase 20 serial chains: {n_cases} cases equal to plain bit for bit (positions / "
-          f"spins, ΔE, nacc): hp_moves at N = 3, 7, 10, 20 (R up to 1500, eps 0.7-1.3, 4 "
-          f"launches each from folded chains), single_flip at L = 5, 6, 7, 300, 301 (R up "
-          f"to 1500; 1, 7 and 300 flips; metropolis and glauber; j=0.7 b=0.3 too)")
+          f"spins, ΔE, nacc): hp_moves at N = 3, 7, 10, 20, 33, 48 (R = 1, 7, 13, 33, 64, "
+          f"1500, 1501; eps 0.7-1.3; 4 launches each from folded chains), single_flip at "
+          f"L = 2, 5, 6, 7, 9, 10, 31, 300, 301 (R = 1 to 1501; 1, 7, 255, 256, 257, 300 and "
+          f"1000 flips; metropolis and glauber; j=0.7 b=0.3 too; 2 launches each)")
     seq20 = "HPHPPHHPHHPHPHHPPHPH"  # benchmarks/systems_bench.py
     times = time_serial_chains(torch, np, sc, keys, device, seq20)
     for name, tm in times.items():
@@ -1255,7 +1295,11 @@ def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
               f"wrapper's host time included), {tm['device_ms']:.4f} ms device time "
               f"(profiler), vs plain "
               f"{tm['plain_ms']:.4f} ms (bound {tm['bound'][0]:.5f} ms, {tm['bound'][1]}; one "
-              f"chain's latency floor {tm['latency_floor']:.4f} ms)"
+              f"chain's key walk {tm['latency_floor']:.5f} ms; least time "
+              f"{tm['least'][0]:.5f} ms, {tm['least'][1]}; device time / least "
+              f"{tm['device_ms'] / tm['least'][0]:.3f}); one chain at R=1, 10000 steps: "
+              f"{tm['step_us']:.5f} µs a step (CUDA events / 10000; key walk "
+              f"{tm['step_floor_us']:.5f} µs a step)"
               + (f", work {tm['work']}" if "work" in tm else ""))
 
     n_rep, interval = 1500, 100
@@ -2173,16 +2217,15 @@ def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) ->
     serial = {}
     for name, fn_k, fn_p, x, kw, bound in (
             ("hp_moves_offset", sc.hp_moves_kernel, sc.hp_moves_plain, pos, hkw,
-             bound_hp(hp_work, half * n, n)[:2]),
+             bound_hp(hp_work, half * hkw["n_moves"], n, hkw["n_moves"])),
             ("single_flip_offset", sc.single_flip_kernel, sc.single_flip_plain, spins, fkw,
-             max(bound_flips(half, fkw["flips"])[:2],
-                 (2e3 * half * 300 * 300 / HBM_BYTES_PER_S, "bytes")))):
+             bound_flips(half, fkw["flips"], 300))):
         serial[name] = {
             "ms": cuda_ms(torch, lambda: fn_k(x[blk], key, t, hb[blk], replica_offset=half,
                                               **kw), 20, 2),
             "plain_ms": cuda_ms(torch, lambda: fn_p(x[blk], key, t, hb[blk],
                                                     replica_offset=half, **kw), 1),
-            "bound": bound}
+            "bound": bound["roof"], "least": bound["least"]}
     # #2p's round tail at L=32 R=1500 S=1 (a round launch less the same
     # launch without the exchange, profiler device time, in turns): the
     # device time of a launch is the mean over the launches the profiler
@@ -2250,7 +2293,8 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
           f"{tm['jax_uniform_offset']['bound'][0]:.4f} ms); "
           + "".join(f"{name[:-7]} 750 replicas at offset 750 {tm[name]['ms']:.4f} ms vs plain "
                     f"{tm[name]['plain_ms']:.2f} ms (bound {tm[name]['bound'][0]:.5f} ms by "
-                    f"{tm[name]['bound'][1]}); "
+                    f"{tm[name]['bound'][1]}, least time {tm[name]['least'][0]:.5f} ms by "
+                    f"{tm[name]['least'][1]}); "
                     for name in ("hp_moves_offset", "single_flip_offset"))
           + f"#2p round tail at L=32 R=1500 "
           f"S=1: round launch {kern['packed_tail'][0]:.5f} ms, sweeps alone "
@@ -3201,7 +3245,10 @@ def main() -> int:
             "ms": zt[name]["ms"], "plain_ms": zt[name]["plain_ms"],
             "bound_ms": zt[name]["bound"][0], "bound_by": zt[name]["bound"][1],
             "library_ms": None, "shape": shape,
-            "latency_floor_ms": zt[name]["latency_floor"], "device_ms": zt[name]["device_ms"],
+            "latency_floor_ms": zt[name]["latency_floor"],
+            "least_ms": zt[name]["least"][0], "least_by": zt[name]["least"][1],
+            "step_us": zt[name]["step_us"], "step_floor_us": zt[name]["step_floor_us"],
+            "device_ms": zt[name]["device_ms"],
             "path_ms_per_interval": zoo["paths"][path]["ms"]})
     kernels[-2]["conformance_launches"] = zoo["conformance_launches"]
     mk = mesh["kernels"]["times"]
@@ -3234,6 +3281,7 @@ def main() -> int:
             off = mk[k["name"] + "_offset"]
             k["offset_ms"], k["offset_plain_ms"] = off["ms"], off["plain_ms"]
             k["offset_bound_ms"], k["offset_bound_by"] = off["bound"]
+            k["offset_least_ms"], k["offset_least_by"] = off["least"]
             k["offset_shape"] = ("750 replicas at offset 750, N=20, 20 moves"
                                  if k["name"] == "hp_moves"
                                  else "750 replicas at offset 750, L=300, 30 flips")

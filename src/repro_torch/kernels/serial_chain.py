@@ -152,7 +152,8 @@ def _offset(replica_offset: int) -> int:
 def hp_moves_kernel(pos, key, t, betas, *, hmask, eps: float, n_moves: int,
                     replica_offset: int = 0):
     """One launch of ``hp_moves_kernel``; arguments and result as
-    `hp_moves_plain`, all on one CUDA device."""
+    `hp_moves_plain`, all on one CUDA device.  A chain lives in one warp's
+    shared memory, so N is at most ~25,800 (the launch raises above)."""
     dev = pos.device
     if dev.type != "cuda":
         raise ValueError(f"hp_moves_kernel needs CUDA tensors, got {dev}")
@@ -228,6 +229,8 @@ def single_flip_kernel(spins, key, t, betas, *, j: float, b: float, rule: str, f
     check(betas, "betas", torch.float32, (r,), dev)
     if flips < 0:
         raise ValueError(f"flips must be >= 0, got {flips}")
+    if length * length >= 1 << 31:
+        raise ValueError(f"single_flip_kernel indexes a lattice with int32, got L={length}")
     p_tab, de_tab = accept_tables(betas, j=j, b=b, rule=rule)
     out = torch.empty_like(spins)
     de = torch.empty(r, dtype=torch.float32, device=dev)

@@ -677,11 +677,13 @@ def test_reduced_rwkv_on_cuda_equals_cpu(dev, dtype):
 
 @pytest.mark.parametrize("sequence,r,eps", [
     ("HPH", 5, 1.0), ("HHPPHPH", 33, 0.7), ("HPHPPHHPHH", 13, 1.0),
-    ("HPHPPHHPHHPHPHHPPHPH", 130, 1.3),
+    ("HPHPPHHPHHPHPHHPPHPH", 130, 1.3), ("HPHPPHHPHHPHPHHPPHPH", 1501, 1.0),
+    (("HPHPPHHPHHPHPHHPPHPH" * 2)[:33], 1, 1.0), (("HPHPPHHPHHPHPHHPPHPH" * 3)[:48], 33, 0.8),
 ])
 def test_hp_moves_kernel_matches_plain(dev, sequence, r, eps):
     """Positions, ΔE and counts bit for bit over 4 launches, each from the
-    last one's (folded) chains."""
+    last one's (folded) chains; N > 32 puts several monomers on a lane, and
+    R = 1, 33, 1501 leave warps of the last block (four a block) idle."""
     from repro_torch.core.hp import HPChain
 
     rng = np.random.default_rng(len(sequence) + r)
@@ -718,6 +720,35 @@ def test_single_flip_kernel_matches_plain(dev, length, rule, j, b, flips):
             assert torch.equal(g, w)
         spins, t = got[0], t + 1
     assert build.launches["single_flip"] == 2
+
+
+@pytest.mark.parametrize("length,r,flips", [
+    (9, 1, 255), (9, 33, 256), (10, 1501, 257), (31, 33, 1000), (5, 33, 300), (2, 1, 300),
+])
+def test_single_flip_kernel_tile_edges_match_plain(dev, length, r, flips):
+    """Flip counts around the kernel's 256-flip tile and past several tiles;
+    L=5 and L=2 with 300 flips, where every flip collides with an earlier
+    one (spins, ΔE and counts bit for bit over 2 launches)."""
+    spins = _lattice(length + flips + r, r, length, dev)[0]
+    betas = torch.linspace(0.2, 1.5, r, device=dev)
+    key, t = keys.key(6, device=dev), torch.tensor(3, device=dev)
+    build.reset_launches()
+    for _ in range(2):
+        kw = dict(j=0.7, b=0.3, rule="metropolis", flips=flips)
+        got = sc.single_flip_kernel(spins, key, t, betas, **kw)
+        want = sc.single_flip_plain(spins, key, t, betas, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        spins, t = got[0], t + 1
+    assert build.launches["single_flip"] == 2
+
+
+def test_single_flip_kernel_refuses_a_lattice_past_int32_indices(dev):
+    spins = torch.empty((1, 46341, 46341), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        sc.single_flip_kernel(spins, keys.key(1, device=dev), torch.tensor(0, device=dev),
+                              torch.ones(1, device=dev), j=1.0, b=0.0, rule="glauber",
+                              flips=1)
 
 
 def test_serial_chain_ops_dispatch_to_the_kernels(dev):

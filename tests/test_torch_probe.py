@@ -1,6 +1,7 @@
 """The kernel probes' parts that need no card: the SASS loop count, the
 source substitutions, the exchange cases and the round timings' specs
-(``repro_torch.launch.fused_probe``, ``wkv6_probe``, ``round_timing``)."""
+(``repro_torch.launch.fused_probe``, ``wkv6_probe``, ``round_timing``,
+``serial_probe``)."""
 from pathlib import Path
 
 import pytest
@@ -10,6 +11,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.api import RunSpec  # noqa: E402
 from repro_torch.launch import fused_probe as fp  # noqa: E402
 from repro_torch.launch import round_timing as rt  # noqa: E402
+from repro_torch.launch import serial_probe as sp  # noqa: E402
 from repro_torch.launch import wkv6_probe as wp  # noqa: E402
 
 
@@ -142,3 +144,18 @@ def test_round_timing_specs_are_round_path_specs(name):
     assert params["use_fused"] and params["use_fused_round"]
     assert spec.ladder.n_replicas == 1500
     assert spec.schedule.total_sweeps == spec.engine.swap_interval * rt.CONFIGS[name][3]
+
+
+@pytest.mark.parametrize("edits", [*sp.VARIANTS.values(), sp.STAGE_CLOCKS],
+                         ids=[*sp.VARIANTS, "stage clocks"])
+def test_serial_probe_edits_apply_once_to_the_package_source(edits):
+    from repro_torch.kernels import build
+
+    text = (build.CSRC / "serial_chain.cu").read_text()
+    out = sp.substitute(text, edits)
+    assert out != text and all(new in out for _, new in edits)
+
+
+def test_serial_probe_refuses_an_edit_that_does_not_match():
+    with pytest.raises(ValueError, match="not exactly one"):
+        sp.substitute("int a; int a;", [("int a;", "int b;")])

@@ -13,10 +13,10 @@
   energies within the `keys.normal` bound (and the ulps of XLA's and
   torch's exp/log in the logsumexp), acceptance counts equal; a short run.
 * The HP lattice protein: ``init``, ``hp_energy``, ``rg2`` and one step of
-  N moves at N of 3, 10 and 20: positions, ΔE and counts bit-equal; a short
+  N moves at N of 3, 10, 20 and 40: positions, ΔE and counts bit-equal; a short
   engine run (its per-rung ``rg2``, a mean over N, within 4 ulps: XLA may
   multiply by 1/N, test_torch_engine).
-* Ising ``update="single_flip"``: one step of 1, 7 and 16 flips at L=5
+* Ising ``update="single_flip"``: one step of 1, 7, 16 and 300 flips at L=5
   and 6 (odd L has no checkerboard), both rules, integer and non-integer
   j, b: spins, ΔE and counts bit-equal; a short engine run.
 * The generic per-sweep path: `pt.init_replicas` without a batched init,
@@ -253,7 +253,8 @@ def test_gaussian_run_matches_jax():
 # -- the HP lattice protein ----------------------------------------------------------
 
 
-@pytest.mark.parametrize("sequence", ["HPH", "HPHPPHHPHH", HP20], ids=["N3", "N10", "N20"])
+@pytest.mark.parametrize("sequence", ["HPH", "HPHPPHHPHH", HP20, HP20 * 2],
+                         ids=["N3", "N10", "N20", "N40"])
 def test_hp_init_energy_and_step_match_jax(sequence):
     jsys, tsys, jst, tst = _init_both("hp_protein", {"sequence": sequence}, r=7)
     _assert_state_equal(tst, jst, "init")
@@ -291,7 +292,7 @@ def test_hp_tables_equal_the_plain_expressions():
 # -- Ising single_flip ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flips", [1, 7, 16])
+@pytest.mark.parametrize("flips", [1, 7, 16, 300])
 @pytest.mark.parametrize("length,j,b,rule", [
     (5, 1.0, 0.0, "glauber"), (6, 1.0, 0.0, "metropolis"), (5, 0.7, 0.3, "metropolis"),
 ], ids=["L5-glauber", "L6-metropolis", "L5-j0.7-b0.3"])
