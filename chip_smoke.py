@@ -1110,18 +1110,24 @@ def chain_floor_ms(steps: int) -> float:
     return 1e3 * steps * THREEFRY_DEPTH * CHAIN_CYCLES_PER_INSTRUCTION / CLOCK_HZ
 
 
-def serial_bound(ops: float, n_bytes: float, steps: int) -> dict:
-    """``roof``: max(operations at the issue rate, bytes at HBM rate), the
-    kernel line's bound; ``chain``: the key chain's latency; ``least``: the
-    larger of the two, the least time the card could take (ms, bound by)."""
-    t_ops, t_bytes = 1e3 * ops / INT32_OPS_PER_S, 1e3 * n_bytes / HBM_BYTES_PER_S
-    roof = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-    chain = chain_floor_ms(steps)
-    return {"roof": roof, "chain": chain,
-            "least": roof if roof[0] >= chain else (chain, "key chain")}
+def serial_bound(ops: float, n_bytes: float, steps: int) -> tuple:
+    """(ms, bound by, parts): the least time the card could take, the
+    largest of the operations at the issue rate, the bytes at HBM rate and
+    one chain's key walk of ``steps`` keys (operations too, in series), and
+    each of the three (ms)."""
+    parts = {"operations": 1e3 * ops / INT32_OPS_PER_S,
+             "bytes": 1e3 * n_bytes / HBM_BYTES_PER_S, "key walk": chain_floor_ms(steps)}
+    least = max(parts.values())
+    return least, "bytes" if least == parts["bytes"] else "operations", parts
 
 
-def bound_hp(work: dict, moves: int, n: int, steps: int) -> dict:
+def bound_text(bound: tuple) -> str:
+    """`serial_bound`'s result for a print line."""
+    return (f"bound {bound[0]:.5f} ms by {bound[1]}, the most of " + ", ".join(
+        f"{what} {ms:.5f}" for what, ms in bound[2].items()))
+
+
+def bound_hp(work: dict, moves: int, n: int, steps: int) -> tuple:
     """`serial_bound` of ``hp_moves_kernel`` for the work its data needs: 6
     Threefry blocks a move (next key, site key, randint's two keys and two
     words), 5 more an end move (direction), 2 more a tested move (the
@@ -1135,7 +1141,7 @@ def bound_hp(work: dict, moves: int, n: int, steps: int) -> dict:
     return serial_bound(ops, n_bytes, steps)
 
 
-def bound_flips(r: int, flips: int, length: int) -> dict:
+def bound_flips(r: int, flips: int, length: int) -> tuple:
     """`serial_bound` of ``single_flip_kernel``: 10 Threefry blocks a flip
     (next key, site key, randint's two keys and four words, uniform key and
     word) and its site arithmetic at the issue rate; the lattice read and
@@ -1177,13 +1183,14 @@ def check_serial_chains(torch, np, sc, keys, device):
                     raise AssertionError(f"hp_moves N={len(seq)} R={r}: {what} != plain")
             pos, t = got[0], t + 1
         n_cases += 1
-    # flip counts around a 256-flip tile; L=5 (and 2) with 300 flips, where
+    # flip counts around a 128-flip tile; L=5 (and 2) with 300 flips, where
     # every flip collides with an earlier one
     flip_cases = ((5, 13, 1, "metropolis", 1.0, 0.0), (5, 13, 7, "glauber", 0.7, 0.3),
                   (7, 13, 300, "metropolis", 1.0, 0.3), (6, 64, 300, "glauber", 1.0, 0.0),
                   (301, 64, 300, "glauber", 1.0, 0.0), (300, 1500, 300, "glauber", 1.0, 0.0),
                   (300, 1500, 7, "metropolis", 0.7, 0.3), (5, 33, 300, "metropolis", 1.0, 0.0),
-                  (2, 33, 300, "glauber", 0.7, 0.3), (9, 1, 255, "glauber", 1.0, 0.0),
+                  (2, 33, 300, "glauber", 0.7, 0.3), (9, 33, 128, "metropolis", 1.0, 0.3),
+                  (9, 1, 129, "glauber", 0.7, 0.0), (9, 1, 255, "glauber", 1.0, 0.0),
                   (9, 1501, 256, "metropolis", 0.7, 0.3), (10, 33, 257, "glauber", 1.0, 0.3),
                   (31, 33, 1000, "glauber", 0.7, 0.3), (300, 1, 1000, "metropolis", 1.0, 0.0))
     for length, r, flips, rule, j, b in flip_cases:
@@ -1231,9 +1238,8 @@ def time_serial_chains(torch, np, sc, keys, device, seq: str):
     dev_ms, _ = profiler_ms(torch, lambda: sc.hp_moves_kernel(pos, key, t, betas, **kw), 20,
                             "hp_moves_kernel")
     plain = cuda_ms(torch, lambda: sc.hp_moves_plain(pos, key, t, betas, **kw), 2)
-    hb = bound_hp(work, r * n, n, n)
-    out["hp_moves"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain, "bound": hb["roof"],
-                       "least": hb["least"], "latency_floor": hb["chain"], "work": work}
+    out["hp_moves"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                       "bound": bound_hp(work, r * n, n, n), "work": work}
     length, flips = 300, 300
     spins = torch.from_numpy(np.random.default_rng(9).choice(
         np.array([-1, 1], np.int8), size=(r, length, length))).to(device)
@@ -1242,10 +1248,8 @@ def time_serial_chains(torch, np, sc, keys, device, seq: str):
     dev_ms, _ = profiler_ms(torch, lambda: sc.single_flip_kernel(spins, key, t, betas, **kw),
                             10, "single_flip_kernel")
     plain = cuda_ms(torch, lambda: sc.single_flip_plain(spins, key, t, betas, **kw), 1)
-    fb = bound_flips(r, flips, length)
     out["single_flip"] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
-                          "bound": fb["roof"], "least": fb["least"],
-                          "latency_floor": fb["chain"]}
+                          "bound": bound_flips(r, flips, length)}
     # one chain's critical path a step, read directly: R=1, 10000 steps
     # (single_flip at L=300; HP's 20-mer, from the folded chains), by CUDA
     # events: a launch takes 1.5-4 ms, which hides the wrapper's host time
@@ -1257,7 +1261,6 @@ def time_serial_chains(torch, np, sc, keys, device, seq: str):
                pos[:1].contiguous(), key, t, betas[:1], hmask=hmask, eps=1.0, n_moves=steps)}
     for name, fn in one.items():
         out[name]["step_us"] = 1e3 * cuda_ms(torch, fn, 5) / steps
-        out[name]["step_floor_us"] = 1e3 * chain_floor_ms(1)
     return out
 
 
@@ -1286,20 +1289,18 @@ def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
     print(f"phase 20 serial chains: {n_cases} cases equal to plain bit for bit (positions / "
           f"spins, ΔE, nacc): hp_moves at N = 3, 7, 10, 20, 33, 48 (R = 1, 7, 13, 33, 64, "
           f"1500, 1501; eps 0.7-1.3; 4 launches each from folded chains), single_flip at "
-          f"L = 2, 5, 6, 7, 9, 10, 31, 300, 301 (R = 1 to 1501; 1, 7, 255, 256, 257, 300 and "
-          f"1000 flips; metropolis and glauber; j=0.7 b=0.3 too; 2 launches each)")
+          f"L = 2, 5, 6, 7, 9, 10, 31, 300, 301 (R = 1 to 1501; 1, 7, 128, 129, 255, 256, 257, "
+          f"300 and 1000 flips; metropolis and glauber; j=0.7 b=0.3 too; 2 launches each)")
     seq20 = "HPHPPHHPHHPHPHHPPHPH"  # benchmarks/systems_bench.py
     times = time_serial_chains(torch, np, sc, keys, device, seq20)
     for name, tm in times.items():
         print(f"phase 20 times [{card}]: {name} {tm['ms']:.4f} ms by CUDA events (the "
               f"wrapper's host time included), {tm['device_ms']:.4f} ms device time "
               f"(profiler), vs plain "
-              f"{tm['plain_ms']:.4f} ms (bound {tm['bound'][0]:.5f} ms, {tm['bound'][1]}; one "
-              f"chain's key walk {tm['latency_floor']:.5f} ms; least time "
-              f"{tm['least'][0]:.5f} ms, {tm['least'][1]}; device time / least "
-              f"{tm['device_ms'] / tm['least'][0]:.3f}); one chain at R=1, 10000 steps: "
-              f"{tm['step_us']:.5f} µs a step (CUDA events / 10000; key walk "
-              f"{tm['step_floor_us']:.5f} µs a step)"
+              f"{tm['plain_ms']:.4f} ms ({bound_text(tm['bound'])}; device time / bound "
+              f"{tm['device_ms'] / tm['bound'][0]:.3f}); one chain at R=1, 10000 "
+              f"steps: {tm['step_us']:.5f} µs a step (CUDA events / 10000; key walk "
+              f"{1e3 * chain_floor_ms(1):.5f} µs a step)"
               + (f", work {tm['work']}" if "work" in tm else ""))
 
     n_rep, interval = 1500, 100
@@ -2225,7 +2226,7 @@ def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) ->
                                               **kw), 20, 2),
             "plain_ms": cuda_ms(torch, lambda: fn_p(x[blk], key, t, hb[blk],
                                                     replica_offset=half, **kw), 1),
-            "bound": bound["roof"], "least": bound["least"]}
+            "bound": bound}
     # #2p's round tail at L=32 R=1500 S=1 (a round launch less the same
     # launch without the exchange, profiler device time, in turns): the
     # device time of a launch is the mean over the launches the profiler
@@ -2292,9 +2293,7 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
           f"{tm['jax_uniform_offset']['plain_ms']:.2f} ms (bound "
           f"{tm['jax_uniform_offset']['bound'][0]:.4f} ms); "
           + "".join(f"{name[:-7]} 750 replicas at offset 750 {tm[name]['ms']:.4f} ms vs plain "
-                    f"{tm[name]['plain_ms']:.2f} ms (bound {tm[name]['bound'][0]:.5f} ms by "
-                    f"{tm[name]['bound'][1]}, least time {tm[name]['least'][0]:.5f} ms by "
-                    f"{tm[name]['least'][1]}); "
+                    f"{tm[name]['plain_ms']:.2f} ms ({bound_text(tm[name]['bound'])}); "
                     for name in ("hp_moves_offset", "single_flip_offset"))
           + f"#2p round tail at L=32 R=1500 "
           f"S=1: round launch {kern['packed_tail'][0]:.5f} ms, sweeps alone "
@@ -3244,10 +3243,7 @@ def main() -> int:
             "launches": zoo["paths"][path]["counts"][name], "max_abs_err": 0.0,
             "ms": zt[name]["ms"], "plain_ms": zt[name]["plain_ms"],
             "bound_ms": zt[name]["bound"][0], "bound_by": zt[name]["bound"][1],
-            "library_ms": None, "shape": shape,
-            "latency_floor_ms": zt[name]["latency_floor"],
-            "least_ms": zt[name]["least"][0], "least_by": zt[name]["least"][1],
-            "step_us": zt[name]["step_us"], "step_floor_us": zt[name]["step_floor_us"],
+            "library_ms": None, "shape": shape, "step_us": zt[name]["step_us"],
             "device_ms": zt[name]["device_ms"],
             "path_ms_per_interval": zoo["paths"][path]["ms"]})
     kernels[-2]["conformance_launches"] = zoo["conformance_launches"]
@@ -3280,8 +3276,7 @@ def main() -> int:
             k["mesh_launches_per_rank"] = mesh["ranks"][0][key]["counts"][k["name"]]
             off = mk[k["name"] + "_offset"]
             k["offset_ms"], k["offset_plain_ms"] = off["ms"], off["plain_ms"]
-            k["offset_bound_ms"], k["offset_bound_by"] = off["bound"]
-            k["offset_least_ms"], k["offset_least_by"] = off["least"]
+            k["offset_bound_ms"], k["offset_bound_by"] = off["bound"][:2]
             k["offset_shape"] = ("750 replicas at offset 750, N=20, 20 moves"
                                  if k["name"] == "hp_moves"
                                  else "750 replicas at offset 750, L=300, 30 flips")

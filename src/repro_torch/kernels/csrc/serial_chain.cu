@@ -35,17 +35,19 @@
 // writes 135 MB of lattice (0.081 ms at 3.35 TB/s), which sets its pace;
 // HP moves 0.5 MB and is latency-bound.
 //
-// Design.  Both kernels walk the key chain once on one lane, draw every
-// other word on other lanes, and leave the moves in order on the serial
+// Design.  Both kernels walk the key chain once, draw every other word on
+// the other lanes in parallel, and leave the moves in order on the serial
 // path with only the state update there.
 //   hp_moves_kernel: one warp a replica, kHpWarps warps a block (fewer when
 //   N is too long for the chains in shared memory).  The chain (N int2)
-//   lives in shared memory, lane l scanning monomers l, l+32, ...  For a
-//   tile of up to 32 moves every lane walks the keys in lockstep and lane m
-//   keeps move m's key, then draws its site, direction and uniform (9
-//   blocks, on 32 lanes at once).  Each move then runs warp-wide: the
-//   draws come by __shfl_sync, the occupancy by __any_sync, the contact
-//   counts by __reduce_add_sync, and lane 0 writes an accepted position.
+//   lives in shared memory, lane l scanning monomers l, l+32, ...; a chain
+//   too long for one warp's shared memory (N over ~25,800) lives in the
+//   output rows instead.  For a tile of up to 32 moves every lane walks the
+//   keys in lockstep and lane m keeps move m's key, then draws its site,
+//   direction and uniform (9 blocks, on 32 lanes at once).  Each move then
+//   runs warp-wide: the draws come by __shfl_sync, the occupancy by
+//   __any_sync, the contact counts by __reduce_add_sync, and lane 0 writes
+//   an accepted position.
 //   single_flip_kernel: one block of 3 warps a replica, so that 1500 blocks
 //   are resident at once (12 an SM, 56 registers a thread).  The lattice
 //   stays in global memory: at L=300 it is 90 KB, which in shared memory
@@ -63,7 +65,10 @@
 //   sites from the output lattice (the tile's start), then lane 0 applies
 //   the flips from shared memory alone: a linked site's spin is its
 //   flip's result, so a flip sees every earlier one (at L=5 every flip
-//   collides); k = 5 (s > 0) + (nbr + 4) / 2 comes from two byte dot
+//   collides).  Reading the five spins from the lattice in the serial pass
+//   instead is exact too, but there, with 1500 blocks at once, each read
+//   waits ~1,300 cycles, and the kernel takes 1.3x as long at L=300.
+//   k = 5 (s > 0) + (nbr + 4) / 2 comes from two byte dot
 //   products, the flip is bit k of the word, and an accepted one is written
 //   to the lattice at once.  ΔE is summed in flip order after each tile
 //   from the k each flip recorded (a rejected flip adds 0.0f, as the plain
@@ -95,11 +100,14 @@ constexpr int kFlipReject = kFlipTable;  // the ΔE slot (0.0f) of a rejected fl
 constexpr unsigned kUpWrap = 1u << 10, kDownWrap = 1u << 11;
 constexpr unsigned kRightWrap = 1u << 12, kLeftWrap = 1u << 13;
 
-// Dynamic shared memory of an hp_moves block: hmask (n bytes, padded to 8),
-// the ΔE row and each warp's p row (8 floats each), each warp's chain.
-size_t hp_smem_bytes(int n, int warps) {
-  return static_cast<size_t>((n + 7) & ~7) + sizeof(float) * 8 * (1 + warps) +
-         sizeof(int2) * static_cast<size_t>(n) * warps;
+// Dynamic shared memory of an hp_moves block: the ΔE row and each warp's p
+// row (8 floats each), then, where the chains live in shared memory, hmask
+// (n bytes, padded to 8) and each warp's chain.
+size_t hp_smem_bytes(int n, int warps, bool chains) {
+  const size_t tables = sizeof(float) * 8 * (1 + warps);
+  return chains ? tables + static_cast<size_t>((n + 7) & ~7) +
+                      sizeof(int2) * static_cast<size_t>(n) * warps
+                : tables;
 }
 
 __global__ void __launch_bounds__(32 * kHpWarps)
@@ -108,18 +116,25 @@ hp_moves_kernel(const int* __restrict__ pos_in, int* __restrict__ pos_out,
                 const int64_t* __restrict__ t, const float* __restrict__ p_tab,
                 const float* __restrict__ de_tab, float* __restrict__ de_out,
                 int* __restrict__ nacc_out, int n_replicas, int n, int n_moves,
-                unsigned int offset) {
+                unsigned int offset, bool smem_chains) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  uint8_t* h = smem;
-  float* de_s = reinterpret_cast<float*>(smem + ((n + 7) & ~7));
+  float* de_s = reinterpret_cast<float*>(smem);
   float* p_s = de_s + 8 * (1 + warp);
-  int2* chain = reinterpret_cast<int2*>(de_s + 8 * (1 + warps)) + static_cast<size_t>(warp) * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) h[j] = hmask[j] != 0;
+  const int r = blockIdx.x * warps + warp;
+  int2* dst = reinterpret_cast<int2*>(pos_out) + static_cast<size_t>(r) * n;
+  // the chain and hmask in shared memory, or else the output row and hmask itself
+  const uint8_t* h = hmask;
+  int2* chain = dst;
+  if (smem_chains) {
+    uint8_t* h_s = smem + sizeof(float) * 8 * (1 + warps);
+    for (int j = threadIdx.x; j < n; j += blockDim.x) h_s[j] = hmask[j] != 0;
+    h = h_s;
+    chain = reinterpret_cast<int2*>(h_s + ((n + 7) & ~7)) + static_cast<size_t>(warp) * n;
+  }
   if (threadIdx.x < kHpTable) de_s[threadIdx.x] = de_tab[threadIdx.x];
   __syncthreads();
-  const int r = blockIdx.x * warps + warp;
   if (r >= n_replicas) return;
   if (lane < kHpTable) p_s[lane] = p_tab[static_cast<size_t>(r) * kHpTable + lane];
   const int2* src = reinterpret_cast<const int2*>(pos_in) + static_cast<size_t>(r) * n;
@@ -181,8 +196,8 @@ hp_moves_kernel(const int* __restrict__ pos_in, int* __restrict__ pos_out,
       }
     }
   }
-  int2* dst = reinterpret_cast<int2*>(pos_out) + static_cast<size_t>(r) * n;
-  for (int j = lane; j < n; j += 32) dst[j] = chain[j];
+  if (smem_chains)
+    for (int j = lane; j < n; j += 32) dst[j] = chain[j];
   if (lane == 0) {
     de_out[r] = de_acc;
     nacc_out[r] = nacc;
@@ -475,17 +490,15 @@ extern "C" {
 
 // Launches on `stream`: pos (R, N, 2) int32 in and out, hmask (N,) uint8,
 // p_tab (R, 7) and de_tab (7,) f32, de (R,) f32, nacc (R,) int32; replica r
-// keyed as global slot offset + r; returns cudaGetLastError(), or
-// cudaErrorInvalidValue when one warp's chain does not fit a block's shared
-// memory (N over ~25,800).
+// keyed as global slot offset + r; returns cudaGetLastError().
 int hp_moves_launch(const void* pos_in, void* pos_out, const void* hmask,
                     const void* key_words, const void* t, const void* p_tab,
                     const void* de_tab, void* de, void* nacc, int n_replicas, int n,
                     int n_moves, unsigned int offset, void* stream) {
+  const bool smem_chains = hp_smem_bytes(n, 1, true) <= kMaxSmem;
   int warps = kHpWarps;
-  while (warps > 1 && hp_smem_bytes(n, warps) > kMaxSmem) --warps;
-  const size_t smem = hp_smem_bytes(n, warps);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  while (smem_chains && hp_smem_bytes(n, warps, true) > kMaxSmem) --warps;
+  const size_t smem = hp_smem_bytes(n, warps, smem_chains);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         hp_moves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -497,7 +510,7 @@ int hp_moves_launch(const void* pos_in, void* pos_out, const void* hmask,
       static_cast<const uint8_t*>(hmask), static_cast<const int64_t*>(key_words),
       static_cast<const int64_t*>(t), static_cast<const float*>(p_tab),
       static_cast<const float*>(de_tab), static_cast<float*>(de), static_cast<int*>(nacc),
-      n_replicas, n, n_moves, offset);
+      n_replicas, n, n_moves, offset, smem_chains);
   return static_cast<int>(cudaGetLastError());
 }
 

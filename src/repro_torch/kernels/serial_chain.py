@@ -152,8 +152,7 @@ def _offset(replica_offset: int) -> int:
 def hp_moves_kernel(pos, key, t, betas, *, hmask, eps: float, n_moves: int,
                     replica_offset: int = 0):
     """One launch of ``hp_moves_kernel``; arguments and result as
-    `hp_moves_plain`, all on one CUDA device.  A chain lives in one warp's
-    shared memory, so N is at most ~25,800 (the launch raises above)."""
+    `hp_moves_plain`, all on one CUDA device."""
     dev = pos.device
     if dev.type != "cuda":
         raise ValueError(f"hp_moves_kernel needs CUDA tensors, got {dev}")

@@ -12,7 +12,8 @@ of the repository has no ``.git``), it prints
   ``single_flip`` (L=300, R=1500, 300 flips), and of each at R=1 and 3000
   steps (one chain's critical path: ms / 3000);
 * ``single_flip`` variants with a part of the work taken out (`VARIANTS`;
-  their outputs are wrong on purpose), device time in turns at both shapes;
+  the outputs of all but "no links", which reads the lattice in the serial
+  pass, are wrong on purpose), device time in turns at both shapes;
 * the pipeline's stages: a copy of the source (`STAGE_CLOCKS`) that records
   ``clock64()`` (SM cycles since the block began) where each warp's work of
   a stage ends and at each stage's barrier, for three blocks.
@@ -43,6 +44,20 @@ VARIANTS = {
     "copy only": [("const int tiles = (flips + kFlipTile - 1) / kFlipTile;",
                    "const int tiles = 0;")],
     "no apply": [("if (warp == 1 && stage >= 1)", "if (false)")],
+    # exact: the serial pass reads each flip's five spins from the lattice
+    "no links": [
+        ("    insert_site(sm, row * length + col, j);\n", ""),
+        ("  for (int j = tid; j < count; j += kDrawThreads) {\n    unsigned link[kSites];",
+         "  for (int j = tid; j < 0; j += kDrawThreads) {\n    unsigned link[kSites];"),
+        ("  clear_sites(sm, tid, kDrawThreads);\n", ""),
+        ("for (int f0 = lane; f0 < kFlipTile; f0 += 64) {", "for (int f0 = lane; f0 < 0; f0 += 64) {"),
+        ("    unsigned nb = b.x, sw = b.y;\n    if ((l.x & l.y) != 0xffffffffu) {",
+         "    unsigned nb = 0u, sw = static_cast<uint8_t>(s[d.x]);\n"
+         "    for (int q = 0; q < 4; ++q)\n"
+         "      nb |= static_cast<unsigned>(static_cast<uint8_t>(\n"
+         "                s[flip_site(static_cast<int>(d.x), d.y, q, length)])) << (8 * q);\n"
+         "    if (false) {"),
+    ],
 }
 _SLOTS = 64  # a block's clock slots: 4 roles x 12 stages, 12 barriers, 3 copy ends
 STAGE_CLOCKS = [

@@ -702,6 +702,30 @@ def test_hp_moves_kernel_matches_plain(dev, sequence, r, eps):
     assert build.launches["hp_moves"] == 4
 
 
+def test_hp_moves_kernel_matches_plain_past_shared_memory(dev):
+    """A chain too long for one warp's shared memory (N = 26,000) is worked
+    on in the output rows: bit for bit over 2 launches of 256 moves from a
+    staircase, where every interior monomer can make a corner move."""
+    n, r = 26000, 5
+    rng = np.random.default_rng(26)
+    i = np.arange(n)
+    stairs = np.stack([(i + 1) // 2, i // 2], axis=-1).astype(np.int32)
+    pos = torch.from_numpy(np.broadcast_to(stairs, (r, n, 2)).copy()).to(dev)
+    betas = torch.from_numpy(rng.uniform(0.2, 3.0, r).astype(np.float32)).to(dev)
+    key, t = keys.key(8, device=dev), torch.tensor(3, device=dev)
+    hmask = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    build.reset_launches()
+    for _ in range(2):
+        kw = dict(hmask=hmask, eps=1.0, n_moves=256)
+        got = sc.hp_moves_kernel(pos, key, t, betas, **kw)
+        want = sc.hp_moves_plain(pos, key, t, betas, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        pos, t = got[0], t + 1
+    assert int(got[2].sum()) > 0
+    assert build.launches["hp_moves"] == 2
+
+
 @pytest.mark.parametrize("flips", [1, 7, 300])
 @pytest.mark.parametrize("length,rule,j,b", [
     (5, "metropolis", 1.0, 0.0), (6, "glauber", 1.0, 0.0), (7, "glauber", 0.7, 0.3),
@@ -723,10 +747,12 @@ def test_single_flip_kernel_matches_plain(dev, length, rule, j, b, flips):
 
 
 @pytest.mark.parametrize("length,r,flips", [
-    (9, 1, 255), (9, 33, 256), (10, 1501, 257), (31, 33, 1000), (5, 33, 300), (2, 1, 300),
+    (9, 33, 128), (9, 1, 129), (9, 1, 255), (9, 33, 256), (10, 1501, 257), (31, 33, 1000),
+    (5, 33, 300), (2, 1, 300),
 ])
 def test_single_flip_kernel_tile_edges_match_plain(dev, length, r, flips):
-    """Flip counts around the kernel's 256-flip tile and past several tiles;
+    """Flip counts around the kernel's 128-flip tile (one tile, one and two
+    tiles with a flip over or short) and past several tiles;
     L=5 and L=2 with 300 flips, where every flip collides with an earlier
     one (spins, ΔE and counts bit for bit over 2 launches)."""
     spins = _lattice(length + flips + r, r, length, dev)[0]
