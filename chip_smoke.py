@@ -146,11 +146,15 @@ Phases, one line each or more (any failure raises and exits non-zero):
     the card (bit-equal to a never-fused run), fatal with ``strict_kernels``;
 23. the mesh over ``torch.distributed`` (``repro_torch.core.distributed``):
     the standalone exchange launch (``csrc/exchange_step.cu``, the sharded
-    round path's exchange on the gathered rows) at R in {6, 1500}, C in {1,
+    round path's exchange on the gathered rows, its rows in shared memory,
+    past 19,368 rungs in global scratch) at R from 1 to 19,369, C in {1, 2,
     3}, every pairing and criterion, equal to a round launch's exchange bit
-    for bit and to plain ``exchange_step``; ``jax_uniform`` and both serial
-    chains at replica offsets 0 and 750 equal to plain and to the unsharded
-    launch's rows; timed beside bounds; then the paper's round configuration
+    for bit and to plain ``exchange_step``, with the rank slice and the next
+    phase it writes; ``exchange_rows`` one device op (the profiler);
+    ``jax_uniform`` and both serial chains at replica offsets 0 and 750
+    equal to plain and to the unsharded launch's rows; timed beside bounds
+    (the exchange by CUDA events and the profiler at R=1500, C=1 and 8, the
+    bound's parts printed); then the paper's round configuration
     (L=300 R=1500 S=100, glauber, logistic DEO, 3 intervals) through
     ``Session`` unsharded, on a one-rank NCCL group (``MeshSpec(1, 1)``) and
     on two spawned ranks sharing the card over gloo (``MeshSpec(1, 2)`` and,
@@ -161,7 +165,9 @@ Phases, one line each or more (any failure raises and exits non-zero):
     interval; a checkpoint saved on (1, 2) restored on one device, one saved
     unsharded restored on (2, 1); the per-sweep, ``pack_bits`` fused, Potts
     round, HP and ``single_flip`` paths on (1, 2), each equal to its
-    unsharded run.  No run here holds two GPUs;
+    unsharded run; the round path at L=32 R=1500 swapping every sweep on
+    (1, 1), equal to its unsharded run, ms an interval.  No run here holds
+    two GPUs;
 24. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -179,6 +185,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -918,6 +925,29 @@ def profiler_ms(torch, fn, reps: int, name: str) -> tuple[float, int]:
         seen = sum(e.count for e in rows)
         if seen:
             return sum(float(e.self_device_time_total) for e in rows) / seen / 1e3, seen
+    raise AssertionError(f"the profiler saw no {name} launch in three windows")
+
+
+def device_ops_of_calls(torch, fn, name: str, calls: int) -> tuple[dict, int]:
+    """The device ops of ``calls`` back-to-back calls of ``fn``, as
+    ``torch.profiler`` keys and counts them, and how many calls of ``fn``
+    were made in all.  A window in which the tracer saw no kernel whose name
+    holds ``name`` is read again, up to three times (the tracer has lost
+    whole short windows on the card); the first window that saw one is the
+    answer, whatever else it saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        if any(name in k for k in seen):
+            return seen, window * calls
     raise AssertionError(f"the profiler saw no {name} launch in three windows")
 
 
@@ -1896,7 +1926,8 @@ def mesh_spec_dicts() -> dict:
     the paper's round configuration (L=300, R=1500 paper ladder, S=100,
     glauber, logistic DEO) on (1, 2), and with two chains on (2, 1); then
     the per-sweep, ``pack_bits`` fused and Potts round paths on (1, 2), and
-    HP and ``single_flip`` at phase 20's widths over fewer sweeps."""
+    HP and ``single_flip`` at phase 20's widths over fewer sweeps; and the
+    round path at L=32 swapping every sweep on (1, 1)."""
     paper = {"kind": "paper", "n_replicas": 1500, "t_min": 1.0, "t_max": 4.0}
 
     def spec(system, params, n_sweeps, interval=100, ladder=paper, observables=(), **engine):
@@ -1924,6 +1955,9 @@ def mesh_spec_dicts() -> dict:
         "single_flip": (spec("ising", {"length": 300, "update": "single_flip",
                                        "flips_per_step": 300, "accept_rule": "glauber"}, 10,
                              interval=5, observables=("absmag",)), (1, 2)),
+        # short rounds (a swap every sweep), in this process on (1, 1)
+        "short": (spec("ising", {**rnd, "length": 32}, 500, interval=1,
+                       observables=("absmag", "energy_per_site"), chunk_intervals=100), (1, 1)),
     }
 
 
@@ -1936,6 +1970,7 @@ MESH_LAUNCHES = {
     "potts_round": ({"potts_fused": 1, "exchange_step": 1}, {"potts_fused": 1, "exchange": 1}),
     "hp": ({"hp_moves": 20}, None),
     "single_flip": ({"single_flip": 5}, None),
+    "short": ({"ising_fused": 1, "exchange_step": 1}, {"ising_fused": 1, "exchange": 1}),
 }
 
 
@@ -2089,65 +2124,110 @@ def mesh_rank(rank: int, world: int, outdir: str, jobs: list, device: str = "cud
     dist.destroy_process_group()
 
 
+# (R, C) of phase 23's standalone exchange cases: unaligned chain rows (C=3,
+# R not a multiple of 4), the largest R whose rows fit a block's shared
+# memory and R past it (the global-scratch variant)
+SHARED_MAX_R = 19368
+EXCHANGE_CASES = ((6, 1), (6, 3), (1500, 1), (1500, 3), (1, 3), (3, 3), (1501, 3),
+                  (SHARED_MAX_R, 1), (SHARED_MAX_R + 1, 2))
+# dependent instructions of a pair's p (its argument, libdevice's expf, 1 + e
+# and the IEEE division)
+P_DEPTH = 20
+
+
+def exchange_bound(r: int, c: int, width: int) -> tuple:
+    """(ms, bound by, parts) of the standalone exchange over C chains of R
+    rungs (DEO at an even phase: R // 2 pairs a chain), slices ``width``
+    wide: the most of its operations at the issue rate (a Threefry block a
+    pair and 3 a chain, ~20 more a pair for p), its bytes (rung, energy in
+    and rung, accept, prob, attempt out a chain, 18 B a rung; the shared
+    betas row once; the slice, phase, key words), and one block's dependent
+    chain (ss, wk, u and p in series)."""
+    pairs = r // 2
+    ops = c * ((pairs + 3) * THREEFRY_OPS + P_DEPTH * pairs)
+    n_bytes = 4 * r + c * (18 * r + 4 * width + 32)
+    parts = {"operations": 1e3 * ops / INT32_OPS_PER_S,
+             "bytes": 1e3 * n_bytes / HBM_BYTES_PER_S,
+             "dependent chain": 1e3 * (3 * THREEFRY_DEPTH + P_DEPTH)
+             * CHAIN_CYCLES_PER_INSTRUCTION / CLOCK_HZ}
+    least = max(parts.values())
+    return least, "bytes" if least == parts["bytes"] else "operations", parts
+
+
+def exchange_inputs(torch, np, keys, rng, r: int, c: int, device):
+    """(C, R) rung maps and energies near a paper ladder's, (R,) betas, (C,)
+    phases, (C, 2) key words."""
+    temps = 1.0 + np.arange(r) * 3.0 / r
+    betas = torch.from_numpy((1.0 / temps).astype(np.float32)).to(device)
+    rung = torch.from_numpy(np.stack([rng.permutation(r) for _ in range(c)])
+                            .astype(np.int32)).to(device)
+    by_rung = (-180000 + 100 * np.arange(r) + rng.integers(-400, 400, (c, r))).astype(np.float32)
+    energy = torch.from_numpy(np.take_along_axis(
+        by_rung, rung.cpu().numpy().astype(np.int64), 1)).to(device)
+    phase = torch.from_numpy(rng.integers(0, 1 << 20, c)).to(device)
+    words = torch.stack([keys.key(int(rng.integers(1 << 30)), device=device) for _ in range(c)])
+    return rung, energy, betas, phase, words
+
+
 def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) -> dict:
     """Phase 23 (a): the standalone exchange launch (``exchange_step.cu``)
-    over all pairings and criteria at R in {6, 1500}, C in {1, 3}: rows
-    equal bit for bit to a round launch's exchange (kernel A at S=0, chain
-    by chain) and to the plain ``exchange_step`` in rung and attempt, in
-    prob and accept but where u lies between the two p; ``jax_uniform``,
-    ``hp_moves`` and ``single_flip`` at replica offsets 0 and R/2 equal to
-    their plain versions and to the unsharded launch's rows; times (CUDA
-    events) beside bounds."""
+    over all pairings and criteria at `EXCHANGE_CASES` (both variants, the
+    shared-memory one and past it the global-scratch one): rows equal bit
+    for bit to a round launch's exchange (kernel A at S=0, chain by chain)
+    and to the plain ``exchange_step`` in rung and attempt, in prob and
+    accept but where u lies between the two p; the rank slice and the next
+    phase it also writes; one call of ``exchange_rows`` one device op (the
+    profiler); ``jax_uniform``, ``hp_moves`` and ``single_flip`` at replica
+    offsets 0 and R/2 equal to their plain versions and to the unsharded
+    launch's rows; times (CUDA events, the profiler) beside bounds."""
     rng = np.random.default_rng(23)
     n_cases, max_err, n_prob_diff = 0, 0.0, 0
+    if not (xk.shared_fits(SHARED_MAX_R) and not xk.shared_fits(SHARED_MAX_R + 1)):
+        raise AssertionError(f"phase 23: {SHARED_MAX_R} is not the last R in shared memory")
     build.reset_launches()
-    for r in (6, 1500):
-        temps = 1.0 + np.arange(r) * 3.0 / r
-        betas = torch.from_numpy((1.0 / temps).astype(np.float32)).to(device)
-        for c in (1, 3):
-            for pairing in ("deo", "seo"):
-                for criterion in ("logistic", "metropolis"):
-                    rung = torch.from_numpy(np.stack([rng.permutation(r) for _ in range(c)])
-                                            .astype(np.int32)).to(device)
-                    by_rung = (-180000 + 100 * np.arange(r)
-                               + rng.integers(-400, 400, (c, r))).astype(np.float32)
-                    energy = torch.from_numpy(np.take_along_axis(
-                        by_rung, rung.cpu().numpy().astype(np.int64), 1)).to(device)
-                    phase = torch.from_numpy(rng.integers(0, 1 << 20, c)).to(device)
-                    words = torch.stack([keys.key(int(rng.integers(1 << 30)), device=device)
-                                         for _ in range(c)])
-                    what = f"R={r} C={c} {pairing}/{criterion}"
-                    got = xk.exchange_step_kernel(rung, energy, betas, phase, words,
-                                                  pairing=pairing, criterion=criterion)
-                    for i in range(c):
-                        spins = torch.ones((r, 2, 2), dtype=torch.int8, device=device)
-                        zero = torch.zeros((), dtype=torch.int64, device=device)
-                        rd = isk.ising_round_kernel(
-                            spins, words[i], zero, phase[i], betas, rung[i], energy[i],
-                            n_sweeps=0, pairing=pairing, criterion=criterion)
-                        rows = (rd[1], rd[4], rd[5], rd[6])
-                        if not all(torch.equal(g[i], w) for g, w in zip(got, rows)):
-                            raise AssertionError(f"phase 23 exchange {what} chain {i}: "
-                                                 "!= the round launch's exchange")
-                        want = xk.exchange_step(rung[i], energy[i], betas, phase[i], words[i],
-                                                pairing=pairing, criterion=criterion)
-                        u = prng.swap_uniforms(words[i], phase[i], r)
-                        lo = torch.minimum(got[2][i], want[2])
-                        hi = torch.maximum(got[2][i], want[2])
-                        in_gap = (u >= lo) & (u < hi)
-                        prob_diff = got[2][i] != want[2]
-                        acc_diff = got[1][i] != want[1]
-                        if bool((prob_diff & ~in_gap).any()) or bool((acc_diff & ~in_gap).any()):
-                            raise AssertionError(f"phase 23 exchange {what}: prob/accept "
-                                                 "differ from plain outside the u gap")
-                        if not torch.equal(got[3][i], want[3]) or (
-                                not bool(acc_diff.any()) and not torch.equal(got[0][i], want[0])):
-                            raise AssertionError(f"phase 23 exchange {what}: rung/attempt "
-                                                 "!= plain")
-                        n_prob_diff += int(prob_diff.sum().item())
-                        max_err = max(max_err, (got[2][i] - want[2]).abs().max().item())
-                    n_cases += 1
-    n_x = n_cases
+    for r, c in EXCHANGE_CASES:
+        for pairing in ("deo", "seo"):
+            for criterion in ("logistic", "metropolis"):
+                rung, energy, betas, phase, words = exchange_inputs(torch, np, keys, rng, r, c,
+                                                                    device)
+                what = f"R={r} C={c} {pairing}/{criterion}"
+                start = r // 2 if r > 1 else 0
+                got = xk.exchange_step_kernel(rung, energy, betas, phase, words,
+                                              pairing=pairing, criterion=criterion,
+                                              block=(start, r))
+                if not torch.equal(got[4], got[0][:, start:]) or not torch.equal(
+                        got[5], phase + 1):
+                    raise AssertionError(f"phase 23 exchange {what}: rank slice or next phase "
+                                         "!= new_rung[:, start:stop], phase + 1")
+                for i in range(c):
+                    spins = torch.ones((r, 2, 2), dtype=torch.int8, device=device)
+                    zero = torch.zeros((), dtype=torch.int64, device=device)
+                    rd = isk.ising_round_kernel(
+                        spins, words[i], zero, phase[i], betas, rung[i], energy[i],
+                        n_sweeps=0, pairing=pairing, criterion=criterion)
+                    rows = (rd[1], rd[4], rd[5], rd[6])
+                    if not all(torch.equal(g[i], w) for g, w in zip(got, rows)):
+                        raise AssertionError(f"phase 23 exchange {what} chain {i}: "
+                                             "!= the round launch's exchange")
+                    want = xk.exchange_step(rung[i], energy[i], betas, phase[i], words[i],
+                                            pairing=pairing, criterion=criterion)
+                    u = prng.swap_uniforms(words[i], phase[i], r)
+                    lo = torch.minimum(got[2][i], want[2])
+                    hi = torch.maximum(got[2][i], want[2])
+                    in_gap = (u >= lo) & (u < hi)
+                    prob_diff = got[2][i] != want[2]
+                    acc_diff = got[1][i] != want[1]
+                    if bool((prob_diff & ~in_gap).any()) or bool((acc_diff & ~in_gap).any()):
+                        raise AssertionError(f"phase 23 exchange {what}: prob/accept "
+                                             "differ from plain outside the u gap")
+                    if not torch.equal(got[3][i], want[3]) or (
+                            not bool(acc_diff.any()) and not torch.equal(got[0][i], want[0])):
+                        raise AssertionError(f"phase 23 exchange {what}: rung/attempt "
+                                             "!= plain")
+                    n_prob_diff += int(prob_diff.sum().item())
+                    max_err = max(max_err, (got[2][i] - want[2]).abs().max().item())
+                n_cases += 1
+    n_x = 4 * len(EXCHANGE_CASES)
     counts = counts_now(build)
     if counts["exchange_step"] != n_x:
         raise AssertionError(f"phase 23: {counts['exchange_step']} exchange launches != {n_x}")
@@ -2189,22 +2269,43 @@ def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) ->
                     raise AssertionError(f"phase 23 {what} offset {off} != plain / unsharded")
             n_cases += 1
     torch.cuda.synchronize()
-    # times at the sharded paper path's shapes (R=1500 gathered rows, one chain)
-    rung = torch.from_numpy(rng.permutation(r).astype(np.int32)).to(device)[None]
-    energy = torch.from_numpy((-180000 + 100 * rng.permutation(r)).astype(np.float32)
-                              ).to(device)[None]
-    betas = torch.from_numpy((1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)
-                             ).to(device)
-    phase = torch.zeros(1, dtype=torch.int64, device=device)
-    words = keys.key(3, device=device)[None]
+    # times at the sharded paper path's shapes: R=1500 gathered rows, one
+    # chain (as the paper's sharded step: (R,) rows, a rank block of 750) and
+    # 8 chains; the global-scratch variant at R=19369
     xkw = dict(pairing="deo", criterion="logistic")
-    x_ms = cuda_ms(torch, lambda: xk.exchange_step_kernel(rung, energy, betas, phase, words,
-                                                          **xkw), 200, 5)
-    x_plain = cuda_ms(torch, lambda: xk.exchange_step(rung[0], energy[0], betas, phase[0],
-                                                      words[0], **xkw), 50, 2)
-    # the function's own traffic: rung, energy, beta in (12 B a rung); rung,
-    # accept, prob, attempt out (10 B); its scratch table is the kernel's own
-    x_bound = bound_threefry(r + 3, 22.0 * r)
+    x_times = {}
+    for c, rows in ((1, r), (8, r), (1, SHARED_MAX_R + 1)):
+        rung_c, energy_c, betas_c, _, words_c = exchange_inputs(torch, np, keys, rng, rows, c,
+                                                                device)
+        phase_c = torch.zeros(c, dtype=torch.int64, device=device)
+        args = (rung_c, energy_c, betas_c, phase_c, words_c)
+        if c == 1:
+            args = (rung_c[0], energy_c[0], betas_c, phase_c[0], words_c[0])
+        width = rows - rows // 2
+        fn = functools.partial(xk.exchange_step_kernel, *args, block=(rows // 2, rows), **xkw)
+        rows_fn = functools.partial(xk.exchange_rows, *args, block=(rows // 2, rows), **xkw)
+        name = "exchange_shared" if rows == r else "exchange_global"
+        x_times[f"C={c} R={rows}"] = {
+            "ms": cuda_ms(torch, fn, 200, 5), "rows_ms": cuda_ms(torch, rows_fn, 200, 5),
+            "device_ms": profiler_ms(torch, fn, 200, name)[0],
+            "plain_ms": cuda_ms(torch, lambda: [xk.exchange_step(
+                rung_c[i], energy_c[i], betas_c, phase_c[i], words_c[i], **xkw)
+                for i in range(c)], 20, 2),
+            "bound": exchange_bound(rows, c, width)}
+        if c == 1 and rows == r:
+            # one call of exchange_rows on the kernel's types is one device op:
+            # one launch a call by the counter, and the profiler sees no
+            # device op but the exchange kernel, at most once a call
+            n0 = build.launches["exchange_step"]
+            ops, n_calls = device_ops_of_calls(torch, rows_fn, "exchange_shared_kernel", 10)
+            n_launched = build.launches["exchange_step"] - n0
+            if (n_launched != n_calls or len(ops) != 1
+                    or "exchange_shared_kernel" not in next(iter(ops))
+                    or next(iter(ops.values())) > 10):
+                raise AssertionError(f"phase 23: {n_calls} calls of exchange_rows launched "
+                                     f"{n_launched} times and ran {ops}, not one launch a call")
+            rung, energy, betas, words, phase = (rung_c, energy_c, betas_c, words_c,
+                                                 phase_c)
     half = r // 2
     u_ms = cuda_ms(torch, lambda: ju.jax_uniform_kernel(key, t, half, shape, half), 20)
     u_plain = cuda_ms(torch, lambda: ju.jax_uniform_plain(
@@ -2249,7 +2350,8 @@ def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) ->
     packed_tail = (min(reads["round"]), min(reads["sweeps"]))
     return {"n_cases": n_cases, "packed_tail": packed_tail, "packed_seen": seen, "n_exchange": n_x, "max_err": max_err,
             "n_prob_diff": n_prob_diff,
-            "times": {"exchange_step": {"ms": x_ms, "plain_ms": x_plain, "bound": x_bound},
+            "times": {"exchange_step": x_times["C=1 R=1500"], "exchange_step_c8": x_times["C=8 R=1500"],
+                      "exchange_step_global": x_times[f"C=1 R={SHARED_MAX_R + 1}"],
                       "jax_uniform_offset": {"ms": u_ms, "plain_ms": u_plain,
                                              "bound": u_bound}, **serial}}
 
@@ -2278,16 +2380,23 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
 
     t_phase = time.perf_counter()
     kern = check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device)
-    print(f"phase 23 kernels: {kern['n_exchange']} standalone exchange launches (R in 6, "
-          f"1500; C in 1, 3; DEO/SEO x logistic/metropolis) equal to the round launch's "
-          f"exchange bit for bit and to plain (rung, attempt; accept and prob but inside the "
-          f"u gap: {kern['n_prob_diff']} prob differences, max |dp| {kern['max_err']}); "
-          f"jax_uniform, hp_moves and single_flip at replica offsets 0 and 750 equal to plain "
-          f"and to the unsharded launch's rows; {kern['n_cases']} cases")
+    print(f"phase 23 kernels: {kern['n_exchange']} standalone exchange launches ((R, C) in "
+          f"{EXCHANGE_CASES}, R={SHARED_MAX_R + 1} the global-scratch variant; DEO/SEO x "
+          f"logistic/metropolis) equal to the round launch's exchange bit for bit and to plain "
+          f"(rung, attempt; accept and prob but inside the u gap: {kern['n_prob_diff']} prob "
+          f"differences, max |dp| {kern['max_err']}), each with its rank slice and phase + 1; "
+          f"exchange_rows one device op; jax_uniform, hp_moves and single_flip at replica "
+          f"offsets 0 and 750 equal to plain and to the unsharded launch's rows; "
+          f"{kern['n_cases']} cases")
     tm = kern["times"]
-    print(f"phase 23 kernel times [{card}]: standalone exchange R=1500 C=1 "
-          f"{tm['exchange_step']['ms']:.5f} ms vs plain {tm['exchange_step']['plain_ms']:.4f} ms "
-          f"(bound {tm['exchange_step']['bound'][0]:.6f} ms by {tm['exchange_step']['bound'][1]});"
+    print(f"phase 23 standalone exchange times [{card}]: " + "; ".join(
+        f"{what}: device {x['device_ms']:.5f} ms (profiler), {x['ms']:.5f} ms by CUDA events "
+        f"back to back (exchange_rows {x['rows_ms']:.5f}), plain {x['plain_ms']:.4f} ms, "
+        f"{bound_text(x['bound'])}"
+        for what, x in (("R=1500 C=1", tm["exchange_step"]), ("R=1500 C=8", tm["exchange_step_c8"]),
+                        (f"global variant R={SHARED_MAX_R + 1} C=1", tm["exchange_step_global"])))
+          + "; the bound is far below any launch")
+    print(f"phase 23 kernel times [{card}]:"
           f" jax_uniform 750 replicas at offset 750, (2,300,300): "
           f"{tm['jax_uniform_offset']['ms']:.4f} ms vs plain "
           f"{tm['jax_uniform_offset']['plain_ms']:.2f} ms (bound "
@@ -2314,6 +2423,7 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
                         **{k: v * ref[name]["n_int"] for k, v in want.items()})
     # (1, 1) on a one-rank NCCL group in this process
     one = mesh_session_run("paper", specs["paper"][0], (1, 1), "cuda")
+    short = mesh_session_run("short", specs["short"][0], (1, 1), "cuda")
     if dist.get_backend() != "nccl":
         raise AssertionError(f"phase 23: the one-rank group is {dist.get_backend()}, not nccl")
     dist.destroy_process_group()
@@ -2322,7 +2432,7 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
             ("paper_chains", specs["paper_chains"][0], (2, 1), None,
              str(work / "ckpt_ref_chains"))]
     jobs += [(name, data, mesh, None, None) for name, (data, mesh) in specs.items()
-             if name not in ("paper", "paper_chains")]
+             if name not in ("paper", "paper_chains") and mesh != (1, 1)]
     t = time.perf_counter()
     mp.start_processes(mesh_rank, args=(2, str(work), jobs), nprocs=2, start_method="spawn")
     spawn_s = time.perf_counter() - t
@@ -2336,9 +2446,10 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
         if "manifest" in got and got["manifest"] != want["manifest"]:
             raise AssertionError(f"phase 23 {name} {what}: manifest != the unsharded run's")
 
-    same(one, "paper", "MeshSpec(1, 1) nccl")
-    expect_launches(one["counts"], "phase 23 (1, 1)",
-                    **{k: v * one["n_int"] for k, v in MESH_LAUNCHES["paper"][0].items()})
+    for name, run in (("paper", one), ("short", short)):
+        same(run, name, "MeshSpec(1, 1) nccl")
+        expect_launches(run["counts"], f"phase 23 {name} (1, 1)",
+                        **{k: v * run["n_int"] for k, v in MESH_LAUNCHES[name][0].items()})
     lines = []
     for name, _, mesh, *_ in jobs:
         for k, res in enumerate(ranks):
@@ -2379,14 +2490,18 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
           f"two-chain checkpoint restored on (2, 1) in "
           f"{ranks[0]['paper_chains']['restore_s']:.3f} s (again "
           f"{ranks[0]['paper_chains']['restore2_s']:.3f} s), equal")
+    print(f"phase 23 short rounds [{card}]: L=32 R=1500 S=1, 500 intervals, equal to the "
+          f"unsharded run: unsharded {ref['short']['ms']:.4f} ms/interval, MeshSpec(1, 1) on "
+          f"one NCCL rank {short['ms']:.4f} ms/interval (1 launch of A and 1 standalone "
+          f"exchange an interval)")
     print(f"phase 23 all layouts [{card}]: " + "; ".join(lines)
           + f"; the two ranks' run {spawn_s:.1f} s with their start; no run held two GPUs")
     import shutil
 
     shutil.rmtree(work, ignore_errors=True)
     print(f"phase 23 done in {time.perf_counter() - t_phase:.1f} s")
-    return {"kernels": kern, "one": one, "ranks": ranks, "ref": ref, "restore_s": restore_s,
-            "spawn_s": spawn_s}
+    return {"kernels": kern, "one": one, "short": short, "ranks": ranks, "ref": ref,
+            "restore_s": restore_s, "spawn_s": spawn_s}
 
 
 def strict_api(api):
@@ -3256,7 +3371,13 @@ def main() -> int:
         "launches": mesh["one"]["counts"]["exchange_step"], "max_abs_err": mesh["kernels"]["max_err"],
         "ms": mk["exchange_step"]["ms"], "plain_ms": mk["exchange_step"]["plain_ms"],
         "bound_ms": mk["exchange_step"]["bound"][0], "bound_by": mk["exchange_step"]["bound"][1],
-        "library_ms": None, "shape": "C=1 R=1500 gathered rows",
+        "library_ms": None, "shape": "C=1 R=1500 gathered rows, rank slice 750",
+        "device_ms": mk["exchange_step"]["device_ms"], "rows_ms": mk["exchange_step"]["rows_ms"],
+        "c8_ms": mk["exchange_step_c8"]["ms"], "c8_device_ms": mk["exchange_step_c8"]["device_ms"],
+        "global_variant_device_ms": mk["exchange_step_global"]["device_ms"],
+        "global_variant_shape": f"C=1 R={SHARED_MAX_R + 1}",
+        "mesh_ms_per_interval": {"paper (1, 1)": mesh["one"]["ms"],
+                                 "L=32 S=1 (1, 1)": mesh["short"]["ms"]},
         "launches_per_rank": {f"{name} {tuple(m)}": mesh["ranks"][0][name]["counts"]["exchange_step"]
                               for name, m in (("paper", (1, 2)), ("paper_chains", (2, 1)),
                                               ("potts_round", (1, 2)))}})

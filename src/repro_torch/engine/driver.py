@@ -392,7 +392,10 @@ def make_sharded_interval_step(system, spec: StepSpec, observables, layout):
     subgroup (`MeshLayout.gather_replicas`).  The round path runs its
     exchange as one standalone launch over the rank's chains
     (`kernels.exchange.exchange_rows`) from the round kernel's counter swap
-    stream, so a sharded round run equals the single-device round launch.
+    stream, so a sharded round run equals the single-device round launch;
+    the same launch writes the rank's block of the new rungs and the next
+    phase, so on the card nothing else runs between the gathers and the
+    observables.
 
     ``record`` holds whole (R,) rows in rung order (``(C/E, R)`` stacked)
     and ``rung_full`` is the post-swap slot→rung map the stats update keys
@@ -416,11 +419,12 @@ def make_sharded_interval_step(system, spec: StepSpec, observables, layout):
             if stacked:
                 return _exchange_chains(spec, exchange, st, betas, rows)
             return exchange(st, betas, rows)
-        new_rung, acc, prob, att = kernel_exchange.exchange_rows(
-            rows[1], rows[0], betas, st.phase, st.key,
-            pairing=spec.exchange.name, criterion=spec.criterion)
-        st = dataclasses.replace(st, rung=new_rung[..., start:stop].contiguous(),
-                                 phase=st.phase + 1)
+        # one launch on the card: the decisions, the rank's block of the new
+        # rungs and the next phase
+        new_rung, acc, prob, att, rung, phase = kernel_exchange.exchange_rows(
+            rows[1], rows[0], betas, st.phase, st.key, pairing=spec.exchange.name,
+            criterion=spec.criterion, block=(start, stop))
+        st = dataclasses.replace(st, rung=rung, phase=phase)
         full = dataclasses.replace(st, energy=rows[0], rung=new_rung)
         rec = (_observe_chains(observables, full, gather) if stacked
                else _observe(observables, full, gather))

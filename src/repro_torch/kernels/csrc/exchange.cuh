@@ -154,13 +154,45 @@ __device__ __forceinline__ int partner_of(int r, int parity, int n) {
   return p >= n ? r : p;
 }
 
+// The swap stream of one exchange: the phase's word key (ss, then wk) and
+// the pairing's parity (DEO: the phase's; SEO: the phase coin), three
+// Threefry blocks in series.
+struct SwapKeys {
+  threefry::Pair wk;
+  int parity;
+};
+
+__device__ __forceinline__ SwapKeys swap_keys(const int64_t* key_words, uint32_t phase,
+                                              int seo) {
+  const threefry::Pair ss = threefry::hash(
+      static_cast<uint32_t>(key_words[0]), static_cast<uint32_t>(key_words[1]),
+      threefry::SWAP_DOMAIN, threefry::SWAP_DOMAIN);
+  const threefry::Pair wk = threefry::hash(ss.x0, ss.x1, phase, 0u);
+  const int parity = seo ? static_cast<int>(threefry::hash(wk.x0, wk.x1, 1u, 0u).x0 & 1u)
+                         : static_cast<int>(phase & 1u);
+  return {wk, parity};
+}
+
+// u[r] of the swap stream (prng.swap_uniforms)
+__device__ __forceinline__ float swap_uniform(const SwapKeys& k, int r) {
+  return threefry::to_uniform(threefry::hash(k.wk.x0, k.wk.x1, 0u, static_cast<uint32_t>(r)).x0);
+}
+
+// p of the pair (r, q) (swap_lib.swap_probability, torch's CUDA expressions)
+__device__ __forceinline__ float swap_probability(float br, float bq, float er, float eq,
+                                                  int metropolis) {
+  const float arg = (br - bq) * (er - eq);
+  return metropolis ? fminf(expf(fminf(arg, 80.0f)), 1.0f) : 1.0f / (1.0f + expf(-arg));
+}
+
 // One exchange over the rows, by the threads of one block, in three stages
 // separated by __syncthreads(); each stage walks the rows in passes of
 // kItems a thread.  `de` is the launch's ΔE row, written by every block; it
 // is read from L2 (__ldcg).  In place: a slot's rung and energy are read by
 // the thread that writes them, before it writes them.  kDelta = false is
-// the standalone launch (exchange_step.cu): energy_in already holds the
-// interval's energies, nothing is added and energy_out is not written.
+// the standalone launch's variant for rows past shared memory
+// (exchange_step.cu): energy_in already holds the interval's energies,
+// nothing is added and energy_out is not written.
 template <bool kDelta = true>
 __device__ __forceinline__ void step(const Round& rd, const float* de,
                                      const int64_t* key_words) {
@@ -189,14 +221,8 @@ __device__ __forceinline__ void step(const Round& rd, const float* de,
       }
     }
   }
-  const uint32_t phase = static_cast<uint32_t>(rd.phase0[0] + rd.phase_add);
-  const threefry::Pair ss = threefry::hash(
-      static_cast<uint32_t>(key_words[0]), static_cast<uint32_t>(key_words[1]),
-      threefry::SWAP_DOMAIN, threefry::SWAP_DOMAIN);
-  const threefry::Pair wk = threefry::hash(ss.x0, ss.x1, phase, 0u);
-  const int parity =
-      rd.seo ? static_cast<int>(threefry::hash(wk.x0, wk.x1, 1u, 0u).x0 & 1u)
-             : static_cast<int>(phase & 1u);
+  const SwapKeys keys =
+      swap_keys(key_words, static_cast<uint32_t>(rd.phase0[0] + rd.phase_add), rd.seo);
   __syncthreads();
 
   // the decision at each pair's lower rung, which also writes both rungs'
@@ -208,7 +234,7 @@ __device__ __forceinline__ void step(const Round& rd, const float* de,
     for (int k = 0; k < kItems; ++k) {
       const int r = base + k * stride;
       if (r < n) {
-        q[k] = partner_of(r, parity, n);
+        q[k] = partner_of(r, keys.parity, n);
         br[k] = rd.betas[r];
         bq[k] = rd.betas[q[k]];
         er[k] = e_rung[r];
@@ -219,12 +245,9 @@ __device__ __forceinline__ void step(const Round& rd, const float* de,
     for (int k = 0; k < kItems; ++k) {
       const int r = base + k * stride;
       if (r < n) {
-        const float arg = (br[k] - bq[k]) * (er[k] - eq[k]);
-        const float p = rd.metropolis ? fminf(expf(fminf(arg, 80.0f)), 1.0f)
-                                      : 1.0f / (1.0f + expf(-arg));
+        const float p = swap_probability(br[k], bq[k], er[k], eq[k], rd.metropolis);
         const bool is_lower = q[k] != r && r < q[k];
-        const float u = threefry::to_uniform(
-            threefry::hash(wk.x0, wk.x1, 0u, static_cast<uint32_t>(r)).x0);
+        const float u = swap_uniform(keys, r);
         const bool acc = (u < p) && is_lower;
         rd.acc_row[r] = acc;
         rd.prob_row[r] = is_lower ? p : 0.0f;

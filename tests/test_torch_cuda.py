@@ -13,7 +13,11 @@ errors; a run checkpointed and resumed on the card against its
 uninterrupted run; the reduced rwkv6-7b on the card against the CPU; both
 serial-chain kernels (HP moves, Ising single_flip) against their plain
 versions, and the zoo's per-sweep paths (EA, HP, single_flip, the Gaussian)
-on the card against the CPU and with host syncs made errors.
+on the card against the CPU and with host syncs made errors; the sharded
+round path's standalone exchange (its shared-memory and global-scratch
+variants) against a round launch's exchange and the plain version, with the
+rank slice and next phase it writes, as the sharded step's one device op
+between its gathers and its observables.
 
 These need a card and import no JAX, so they run wherever only PyTorch is
 installed; without a card they skip with a reason.  Run them on the card with
@@ -998,17 +1002,14 @@ def test_ensemble_interval_loop_never_syncs_the_host(dev, path):
 # -- the mesh's kernels: the standalone exchange and the replica offsets ----------
 
 
-@pytest.mark.parametrize("pairing", ["deo", "seo"])
-@pytest.mark.parametrize("criterion", ["logistic", "metropolis"])
-@pytest.mark.parametrize("r,c", [(6, 1), (6, 3), (1500, 1), (1500, 3)])
-def test_exchange_step_kernel_matches_round_launch_and_plain(dev, r, c, pairing, criterion):
-    """One standalone launch over C chains' gathered rows equals, chain by
-    chain, a round launch's exchange (kernel A at S=0) bit for bit, and the
-    plain ``exchange_step`` in rung and attempt, in accept and prob but where
-    u lies between the two p (the round exchange's own contract)."""
-    from repro_torch.kernels import exchange as xk
+# the largest R whose rows the standalone exchange keeps in shared memory
+# (12 B a rung of an H100 block's 232,448 B); R + 1 runs its global variant
+SHARED_MAX_R = 19368
 
-    rng = np.random.default_rng(r + c)
+
+def _exchange_rows_inputs(dev, r, c, seed):
+    """(C, R) rung maps and energies, (R,) betas, (C,) phases, (C, 2) keys."""
+    rng = np.random.default_rng(seed)
     betas = torch.from_numpy((1.0 / (1.0 + np.arange(r) * 3.0 / r)).astype(np.float32)).to(dev)
     rung = torch.from_numpy(np.stack([rng.permutation(r) for _ in range(c)]).astype(np.int32)
                             ).to(dev)
@@ -1016,6 +1017,25 @@ def test_exchange_step_kernel_matches_round_launch_and_plain(dev, r, c, pairing,
                               .astype(np.float32)).to(dev)
     phase = torch.from_numpy(rng.integers(0, 1 << 20, c)).to(dev)
     words = torch.stack([keys.key(int(s), device=dev) for s in rng.integers(1 << 30, size=c)])
+    return rung, energy, betas, phase, words
+
+
+@pytest.mark.parametrize("pairing", ["deo", "seo"])
+@pytest.mark.parametrize("criterion", ["logistic", "metropolis"])
+@pytest.mark.parametrize("r,c", [(6, 1), (6, 3), (1500, 1), (1500, 3), (1, 3), (2, 3), (3, 3),
+                                 (1501, 3), (SHARED_MAX_R, 1), (SHARED_MAX_R + 1, 1),
+                                 (SHARED_MAX_R + 1, 2)])
+def test_exchange_step_kernel_matches_round_launch_and_plain(dev, r, c, pairing, criterion):
+    """One standalone launch over C chains' gathered rows equals, chain by
+    chain, a round launch's exchange (kernel A at S=0) bit for bit, and the
+    plain ``exchange_step`` in rung and attempt, in accept and prob but where
+    u lies between the two p (the round exchange's own contract).  Rows
+    start unaligned at C=3 and R not a multiple of 4; R up to the largest
+    that shared memory holds, and past it the global-scratch variant."""
+    from repro_torch.kernels import exchange as xk
+
+    assert xk.shared_fits(SHARED_MAX_R) and not xk.shared_fits(SHARED_MAX_R + 1)
+    rung, energy, betas, phase, words = _exchange_rows_inputs(dev, r, c, r + c)
     build.reset_launches()
     got = xk.exchange_step_kernel(rung, energy, betas, phase, words, pairing=pairing,
                                   criterion=criterion)
@@ -1038,7 +1058,40 @@ def test_exchange_step_kernel_matches_round_launch_and_plain(dev, r, c, pairing,
             assert torch.equal(got[0][i], want[0])
 
 
+@pytest.mark.parametrize("r,c,block", [(1500, None, (0, 750)), (1500, None, (750, 1500)),
+                                       (1501, 3, (1, 1500)), (7, 2, (3, 4)),
+                                       (SHARED_MAX_R + 1, 2, (9685, SHARED_MAX_R + 1))])
+def test_exchange_step_kernel_writes_rank_slice_and_next_phase(dev, r, c, block):
+    """The launch's own post-work, in both variants: a mesh rank's slice of
+    the new rungs as a row of its own, and phase + 1, for one chain's (R,)
+    rows and for C stacked chains."""
+    from repro_torch.kernels import exchange as xk
+
+    args = _exchange_rows_inputs(dev, r, c or 1, r)
+    if c is None:
+        args = (args[0][0], args[1][0], args[2], args[3][0], args[4][0])
+    new_rung, *_, rung_block, next_phase = xk.exchange_step_kernel(
+        *args, pairing="seo", criterion="metropolis", block=block)
+    assert rung_block.is_contiguous() and rung_block.dtype == torch.int32
+    assert torch.equal(rung_block, new_rung[..., block[0]:block[1]])
+    assert next_phase.shape == args[3].shape and torch.equal(next_phase, args[3] + 1)
+    with pytest.raises(ValueError, match="not a slice"):
+        xk.exchange_step_kernel(*args, pairing="seo", criterion="metropolis", block=(0, r + 1))
+
+
+def _device_events(prof):
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
 def test_exchange_rows_dispatches_one_launch(dev):
+    """A call on tensors of the kernel's types is one launch and no other
+    device op (no scratch, no conversion or copy: the profiler sees one
+    kernel); C chains take one launch, each chain's rows its solo call's."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.kernels import exchange as xk
 
     rung = torch.stack([torch.randperm(8, device=dev) for _ in range(2)]).int()
@@ -1053,9 +1106,74 @@ def test_exchange_rows_dispatches_one_launch(dev):
     assert build.launches["exchange_step"] == 2
     for g, o in zip(got, one):
         assert torch.equal(g[1], o)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        xk.exchange_rows(rung, energy, betas, phase, key, pairing="deo", criterion="logistic",
+                         block=(4, 8))
+        torch.cuda.synchronize()
+    names = [e.name for e in _device_events(prof)]
+    assert len(names) == 1 and "exchange_shared_kernel" in names[0], names
     with pytest.raises(ValueError, match="CUDA"):
         xk.exchange_step_kernel(rung.cpu(), energy.cpu(), betas.cpu(), phase.cpu(), key.cpu(),
                                 pairing="deo", criterion="logistic")
+    with pytest.raises(TypeError, match="dtype"):
+        xk.exchange_step_kernel(rung.long(), energy, betas, phase, key, pairing="deo",
+                                criterion="logistic")
+    with pytest.raises(ValueError, match="contiguous"):
+        xk.exchange_step_kernel(rung.t().contiguous().t(), energy, betas, phase, key,
+                                pairing="deo", criterion="logistic")
+
+
+def test_sharded_round_step_runs_only_the_exchange_between_gathers_and_observables(
+        dev, monkeypatch):
+    """On the card the sharded round step launches exactly one device op
+    after its gathers and before its observables: the exchange, which also
+    writes the rank's rungs and the next phase.  A one-rank layout whose
+    gathers copy; a spin kernel marks each gather's end and the observables'
+    start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import driver
+
+    class OneRank:
+        def slot_block(self, n):
+            return 0, n
+
+        def gather_replicas(self, x, dim=-1):
+            out = x.clone()
+            torch.cuda._sleep(1)
+            return out
+
+    observe = driver._observe
+
+    def marked(observables, st, gather=None):
+        torch.cuda._sleep(1)
+        return observe(observables, st, gather)
+
+    monkeypatch.setattr(driver, "_observe", marked)
+    system = IsingSystem(length=8, use_fused=True, use_fused_round=True)
+    eng = Engine(system, EngineConfig(n_replicas=6, swap_interval=2), device="cuda",
+                 strict_kernels=True)
+    state = eng.init(keys.key(5, device=dev), np.geomspace(1.0, 3.0, 6))
+    step = driver.make_sharded_interval_step(
+        system, driver.StepSpec(n_replicas=6, sweeps_per_interval=2),
+        {"absmag": lambda s: s.float().mean((-2, -1)).abs()}, OneRank())
+    want, _ = make_interval_step(system, driver.StepSpec(n_replicas=6, sweeps_per_interval=2))(
+        state.pt, state.betas)
+    step(state.pt, state.betas)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got, rec, rung = step(state.pt, state.betas)
+        torch.cuda.synchronize()
+    names = [e.name for e in _device_events(prof)]
+    # the energy and rung gathers, the observables' start, the absmag gather
+    spins = [i for i, n in enumerate(names) if "spin_kernel" in n]
+    assert len(spins) == 4, names
+    between = names[spins[1] + 1:spins[2]]
+    assert len(between) == 1 and "exchange_shared_kernel" in between[0], between
+    for f in ("states", "energy", "rung", "t", "phase"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(rung, want.rung)
 
 
 @pytest.mark.parametrize("offset", [0, 20])

@@ -1,7 +1,7 @@
 """The kernel probes' parts that need no card: the SASS loop count, the
 source substitutions, the exchange cases and the round timings' specs
 (``repro_torch.launch.fused_probe``, ``wkv6_probe``, ``round_timing``,
-``serial_probe``)."""
+``serial_probe``, ``exchange_probe``)."""
 from pathlib import Path
 
 import pytest
@@ -9,6 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.api import RunSpec  # noqa: E402
+from repro_torch.launch import exchange_probe as xp  # noqa: E402
 from repro_torch.launch import fused_probe as fp  # noqa: E402
 from repro_torch.launch import round_timing as rt  # noqa: E402
 from repro_torch.launch import serial_probe as sp  # noqa: E402
@@ -159,3 +160,22 @@ def test_serial_probe_edits_apply_once_to_the_package_source(edits):
 def test_serial_probe_refuses_an_edit_that_does_not_match():
     with pytest.raises(ValueError, match="not exactly one"):
         sp.substitute("int a; int a;", [("int a;", "int b;")])
+
+
+@pytest.mark.parametrize("edits", xp.VARIANTS.values(), ids=list(xp.VARIANTS))
+def test_exchange_probe_edits_apply_once_to_the_package_source(edits):
+    from repro_torch.kernels import build
+
+    text = (build.CSRC / "exchange_step.cu").read_text()
+    out = xp.substitute(text, edits)
+    assert out != text and all(new in out for _, new in edits)
+
+
+@pytest.mark.parametrize("name", list(xp.MESH_CONFIGS))
+@pytest.mark.parametrize("mesh", [False, True])
+def test_exchange_probe_specs_are_round_path_specs(name, mesh):
+    side, interval, n_int = xp.MESH_CONFIGS[name]
+    spec = RunSpec.from_json(xp.mesh_spec(side, interval, n_int, mesh))
+    assert spec.system.params["use_fused_round"] and spec.ladder.n_replicas == xp.ROWS
+    assert spec.schedule.total_sweeps == interval * n_int
+    assert (spec.engine.mesh is not None) == mesh
