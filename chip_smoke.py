@@ -168,7 +168,19 @@ Phases, one line each or more (any failure raises and exits non-zero):
     unsharded run; the round path at L=32 R=1500 swapping every sweep on
     (1, 1), equal to its unsharded run, ms an interval.  No run here holds
     two GPUs;
-24. a JSON line per kernel (launches, error, times, bound), the card line,
+24. training (``repro_torch.train``): kernel #7b (``csrc/wkv6_bwd.cu``,
+    the wkv6 gradient) against its plain version (the gradient of
+    ``ref.wkv6`` under autograd) at the training shape (BH=512, T=512,
+    dk=dv=64) from zero and from a carried state, at T=1, 33, 100, 1000
+    and dk, dv < 64; #7 and #7b timed there beside their plain versions and
+    bounds; the reduced rwkv6-7b in f32, 3 train steps on the card == the
+    CPU with and without remat (launches a step: one #7 and one #7b a
+    layer, two #7 with remat); rwkv6-7b at full width with its depth cut to
+    8 of 32 layers (f32 masters, bf16 compute, remat, logit_chunk 512), 5
+    steps on ``SyntheticLM`` batches of (8, 512): ms a warm step, tokens/s,
+    peak memory, each loss finite, and one step and AdamW alone under
+    ``torch.profiler``;
+25. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 Every ``Session`` runs with ``strict_kernels=True`` but phase 22's injected
@@ -906,49 +918,58 @@ def profiler_ms(torch, fn, reps: int, name: str) -> tuple[float, int]:
     """Mean device time in ms of one launch of the kernels whose name holds
     ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler`` (no
     host time in it), and how many launches the profiler saw.  A window in
-    which the tracer saw none of them is read again, up to three times."""
+    which the tracer saw none of them is read again, up to six times (late
+    in the script the tracer has lost three windows in a row); each window
+    leads and ends with 50 ms of idle device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             # one small op first, so that the tracer is running when fn starts
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
+            time.sleep(0.05)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.05)
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and name in e.key]
         seen = sum(e.count for e in rows)
         if seen:
             return sum(float(e.self_device_time_total) for e in rows) / seen / 1e3, seen
-    raise AssertionError(f"the profiler saw no {name} launch in three windows")
+    raise AssertionError(f"the profiler saw no {name} launch in six windows")
 
 
 def device_ops_of_calls(torch, fn, name: str, calls: int) -> tuple[dict, int]:
     """The device ops of ``calls`` back-to-back calls of ``fn``, as
     ``torch.profiler`` keys and counts them, and how many calls of ``fn``
     were made in all.  A window in which the tracer saw no kernel whose name
-    holds ``name`` is read again, up to three times (the tracer has lost
-    whole short windows on the card); the first window that saw one is the
-    answer, whatever else it saw."""
+    holds ``name`` is read again, up to six times (the tracer has lost whole
+    short windows on the card, three in a row once); each window waits
+    50 ms with the device idle before the calls, so that the tracer is
+    running when they start, and after them, and holds no other device
+    work.  The first
+    window that saw one is the answer, whatever else it saw."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for window in range(1, 4):
+    for window in range(1, 7):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.05)
         seen = {e.key: e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA}
         if any(name in k for k in seen):
             return seen, window * calls
-    raise AssertionError(f"the profiler saw no {name} launch in three windows")
+    raise AssertionError(f"the profiler saw no {name} launch in six windows")
 
 
 def time_wkv6(torch, np, wk, ref, device) -> dict:
@@ -1117,6 +1138,266 @@ def rwkv_phases(torch, np, build, ref, device, card: str) -> dict:
 
     return {"err": err_w, "times": wkv_times, "prefill_launches": counts_prefill["wkv6"],
             "decode_launches": counts_gen["wkv6"]}
+
+
+def wkv6_bwd_bound(bh, t, dk, dv, state: bool) -> tuple[float, str]:
+    """Least time of kernel #7b: r, k, w, v and do read once and dr, dk, dw,
+    dv written once, u read and du written once, with an initial state
+    (``state``) it and d(final state) read and d(initial state) written
+    once; against its f32 flops, each once a slab and step: the forward
+    state's update (3·dk·dv), dS's update (3·dk·dv), dr, dk, dw and dv's
+    products (2·dk·dv each) and the bonus terms (~12·dk + 4·dv), at the
+    67e12/s fp32 rate."""
+    n_state = (3 if state else 0) * bh * dk * dv
+    n_bytes = 4.0 * (bh * t * (3 * dk + 2 * dv) + bh * t * (3 * dk + dv) + n_state
+                     + 2 * bh * dk)
+    flops = float(bh * t * (14 * dk * dv + 12 * dk + 4 * dv))
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def wkv6_bwd_inputs(torch, np, bh, t, dk, dv, seed, device, state=False):
+    """`wkv6_inputs` and the two cotangents: do (BH, T, dv) and, with
+    ``state``, d(final state) (BH, dk, dv), normal from the same seed."""
+    args = wkv6_inputs(torch, np, bh, t, dk, dv, seed, device, state)
+    rng = np.random.default_rng(seed + 1)
+    d_o = torch.from_numpy(rng.normal(size=(bh, t, dv)).astype(np.float32)).to(device)
+    d_s = (torch.from_numpy(rng.normal(size=(bh, dk, dv)).astype(np.float32)).to(device)
+           if state else None)
+    return args, d_o, d_s
+
+
+def check_wkv6_bwd(torch, np, wk, device) -> float:
+    """Phase 24 (a): kernel #7b == its plain version (the gradient of
+    ``ref.wkv6`` under autograd) on the card; returns max |err|.
+
+    Tolerance: 4·(T + dk + dv)·eps times the same gradient taken on the
+    inputs' magnitudes (|r|, |k|, |v|, w, |u|, |S0|, |do|, |dS_T|): each
+    gradient sums products of inputs over up to T steps and dk or dv lanes,
+    in other orders than autograd's."""
+    max_err = 0.0
+    cases = [((512, 512, 64, 64), False), ((512, 512, 64, 64), True),
+             ((8, 1, 64, 64), True), ((8, 33, 64, 64), False), ((4, 33, 64, 64), True),
+             ((4, 100, 48, 48), True), ((3, 33, 5, 63), True), ((3, 70, 63, 5), False),
+             ((2, 1000, 64, 64), True)]
+    for n, ((bh, t, dk, dv), state) in enumerate(cases):
+        args, d_o, d_s = wkv6_bwd_inputs(torch, np, bh, t, dk, dv, 500 + n, device, state)
+        got = wk.wkv6_bwd_kernel(*args, d_o, d_s)
+        want = wk.wkv6_bwd_plain(*args, d_o, d_s)
+        mag = wk.wkv6_bwd_plain(*(None if x is None else x.abs() for x in (*args, d_o, d_s)))
+        torch.cuda.synchronize()
+        for g, w_, m, name in zip(got, want, mag, ("dr", "dk", "dv", "dw", "du", "ds0")):
+            err = (g - w_).abs()
+            if not bool(torch.isfinite(g).all()) or bool(
+                    (err > 4 * (t + dk + dv) * F32_EPS * m).any()):
+                raise AssertionError(f"kernel #7b {(bh, t, dk, dv)} state={state}: {name} "
+                                     f"beyond the rounding bound, max err {err.max().item()}")
+            max_err = max(max_err, err.max().item())
+        del got, want, mag
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def time_wkv6_train(torch, np, wk, device) -> dict:
+    """Phase 24 (a) times at the training shape (rwkv6-7b, B=8: BH=512,
+    T=512, dk=dv=64, zero initial state): #7 and #7b by CUDA events and by
+    the profiler's device time, each beside its plain version (the plain
+    recurrence; the gradient of it under autograd) on the same inputs."""
+    args, d_o, _ = wkv6_bwd_inputs(torch, np, 512, 512, 64, 64, 540, device)
+    fwd = dict(ms=cuda_ms(torch, lambda: wk.wkv6_kernel(*args), 20),
+               device=profiler_ms(torch, lambda: wk.wkv6_kernel(*args), 20, "wkv6_kernel"),
+               plain_ms=cuda_ms(torch, lambda: wk.wkv6_plain(*args), 1),
+               bound=wkv6_bound(512, 512, 64, 64, False))
+    bwd = dict(ms=cuda_ms(torch, lambda: wk.wkv6_bwd_kernel(*args, d_o, None), 5),
+               device=profiler_ms(torch, lambda: wk.wkv6_bwd_kernel(*args, d_o, None), 5,
+                                  "wkv6_bwd"),
+               plain_ms=cuda_ms(torch, lambda: wk.wkv6_bwd_plain(*args, d_o, None), 1),
+               bound=wkv6_bwd_bound(512, 512, 64, 64, False))
+    torch.cuda.empty_cache()
+    return {"wkv6": fwd, "wkv6_bwd": bwd}
+
+
+def host_arrays(tree: dict) -> dict:
+    return {n: x.detach().cpu().numpy().copy() for n, x in tree.items()}
+
+
+def adam_direction(np, mu, nu, count: int, opt):
+    """AdamW's update direction ``(m / c1) / (sqrt(v / c2) + eps)`` in f32
+    from the moments after step ``count``."""
+    c1 = np.float32(1.0) - np.float32(opt.b1) ** np.float32(count)
+    c2 = np.float32(1.0) - np.float32(opt.b2) ** np.float32(count)
+    return (mu / c1) / (np.sqrt(nu / c2) + np.float32(opt.eps))
+
+
+def grow_master_bound(np, bound: dict, opt, lr: float, count: int, p: dict, mine: tuple,
+                      ref: tuple) -> dict:
+    """How far two runs' f32 masters may lie apart after one more AdamW
+    step, element by element: the last bound grown by the decay, plus lr
+    times the distance of the two runs' directions (each from its own
+    moments after the step, ``mine`` and ``ref`` as ``(mu, nu)``), plus four
+    f32 roundings of the update (``p``: the masters before it).  A gradient
+    near 0 whose sign is the last bits' moves it by up to 2 lr; elsewhere it
+    grows by a few roundings, so a last update left out lies far outside."""
+    eps32 = float(np.finfo(np.float32).eps)
+    out = {}
+    for n, pn in p.items():
+        da = adam_direction(np, *(m[n] for m in mine), count, opt)
+        db = adam_direction(np, *(m[n] for m in ref), count, opt)
+        out[n] = (bound.get(n, 0.0) * (1 + lr * opt.weight_decay) + lr * np.abs(da - db)
+                  + 4 * eps32 * (np.abs(pn) + lr * (1 + np.abs(da))))
+    return out
+
+
+def master_reading(np, mine: dict, ref: dict, bound: dict) -> float:
+    """The largest ``|mine - ref| / (1e-6 + bound)``: at most 1 where the
+    masters agree as the bound says."""
+    return max(float(np.max(np.abs(mine[n] - ref[n]) / (1e-6 + bound[n]))) for n in mine)
+
+
+def train_phases(torch, np, build, device, card: str) -> dict:
+    """Phase 24: training on the card.  (a) kernel #7b against its plain
+    version, and #7 and #7b timed at the training shape; (b) the reduced
+    rwkv6-7b in f32, 3 train steps on the card == the CPU, with and without
+    remat, and the launches a step; (c) rwkv6-7b at full width, depth cut to
+    8 of 32 layers (2.29e9 parameters: f32 masters, gradients and two Adam
+    moments take 16 B a parameter, ~37 GB, the whole 32 layers ~121 GB), bf16
+    compute, remat, logit_chunk 512, 5 steps on `SyntheticLM` batches of
+    (8, 512): ms a warm step, tokens/s, peak memory, each loss finite, and
+    one step and the optimizer alone under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    t_phase = time.perf_counter()
+    # -- (a) kernel #7b ------------------------------------------------------------
+    torch.cuda.empty_cache()
+    err = check_wkv6_bwd(torch, np, wk, device)
+    times = time_wkv6_train(torch, np, wk, device)
+    print(f"phase 24 kernel #7b (wkv6_bwd): equal to the plain gradient (dr, dk, dv, dw, du, "
+          f"d state) at the training shape (BH=512 T=512 dk=dv=64) from zero and from a "
+          f"carried state, at T=1, T=33, T=100 (dk=dv=48), T=1000, dk, dv in 5, 63, within "
+          f"4(T+dk+dv)·eps·|terms|; max |err| {err}")
+    for name, tm in times.items():
+        dev_ms, seen = tm["device"]
+        dev = (f"{dev_ms:.5f} ms device time (profiler, {seen} launches seen), bound/device "
+               f"time {tm['bound'][0] / dev_ms:.3f}")
+        print(f"phase 24 times [{card}]: {name} at BH=512 T=512 dk=dv=64 {tm['ms']:.4f} ms "
+              f"(CUDA events), plain {tm['plain_ms']:.4f} ms, bound {tm['bound'][0]:.5f} ms "
+              f"by {tm['bound'][1]}; {dev}; library_ms: none")
+
+    # -- (b) the reduced model: card == CPU, launches a step ------------------------
+    opt = opt_lib.AdamWConfig(warmup_steps=2, total_steps=10)
+    per_step = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(get_config("rwkv6_7b", reduced=True), dtype="float32",
+                                  remat=remat)
+        on_cpu, on_card = init_state(cfg, 0, device="cpu"), init_state(cfg, 0, device="cpu")
+        on_card.params = {n: p.to(device) for n, p in on_card.params.items()}
+        on_card.opt = opt_lib.init(on_card.params)
+        on_card.step = on_card.step.to(device)
+        step = make_train_step(cfg, opt)
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=4)
+        bound, dev_loss = {}, 0.0
+        for i in range(3):
+            b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+            before = host_arrays(on_card.params)
+            on_cpu, m_cpu = step(on_cpu, b)
+            build.reset_launches()
+            on_card, m_card = step(on_card, {k: v.to(device) for k, v in b.items()})
+            torch.cuda.synchronize()
+            counts = dict(build.launches)
+            expect_launches(counts, f"reduced train step (remat={remat})",
+                            wkv6=(2 if remat else 1) * cfg.n_layers, wkv6_bwd=cfg.n_layers)
+            lc, lg = float(m_cpu["loss"]), float(m_card["loss"])
+            if abs(lc - lg) > 1e-5 * abs(lc):
+                raise AssertionError(f"reduced train step {i}: loss card {lg} != CPU {lc}")
+            dev_loss = max(dev_loss, abs(lc - lg) / abs(lc))
+            bound = grow_master_bound(
+                np, bound, opt, float(m_cpu["lr"]), i + 1, before,
+                (host_arrays(on_card.opt.mu), host_arrays(on_card.opt.nu)),
+                (host_arrays(on_cpu.opt.mu), host_arrays(on_cpu.opt.nu)))
+        want = host_arrays(on_cpu.params)
+        reading = master_reading(np, host_arrays(on_card.params), want, bound)
+        skipped = master_reading(np, before, want, bound)
+        if reading > 1.0 or skipped <= 100.0:
+            raise AssertionError(f"reduced train steps (remat={remat}): masters card != CPU, "
+                                 f"reading {reading} of the bound (the card's step-2 masters "
+                                 f"read {skipped})")
+        per_step[remat] = {k: v for k, v in counts.items() if v}
+        print(f"phase 24 reduced rwkv6 [{card}]: f32, 2 layers d_model 128, remat={remat}: 3 "
+              f"train steps on the card == CPU (loss within 1e-5 relative, max "
+              f"{dev_loss:.2e}; masters within the bound the two runs' Adam directions "
+              f"explain, reading {reading:.4f}, the card's step-2 masters {skipped:.1f}); "
+              f"launches a step {per_step[remat]}")
+    del on_cpu, on_card
+    torch.cuda.empty_cache()
+
+    # -- (c) rwkv6-7b at full width, 8 layers, bf16 compute ----------------------------
+    cfg = dataclasses.replace(get_config("rwkv6_7b"), n_layers=8)
+    batch, seq, n_steps = 8, 512, 5
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = init_state(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in state.params.values())
+    step = make_train_step(cfg, opt_lib.AdamWConfig(warmup_steps=20, total_steps=100))
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in data.batch(i).items()}
+               for i in range(n_steps + 1)]
+    losses = []
+    build.reset_launches()
+    t = time.perf_counter()
+    state, m = step(state, batches[0])
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for b in batches[1:n_steps]:
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    warm_ms = 1e3 * (time.perf_counter() - t) / (n_steps - 1)
+    counts = dict(build.launches)
+    expect_launches(counts, "rwkv6-7b 8-layer train steps", wkv6=2 * cfg.n_layers * n_steps,
+                    wkv6_bwd=cfg.n_layers * n_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)) or int(state.step) != n_steps:
+        raise AssertionError(f"rwkv6-7b train steps: losses {losses}, step {int(state.step)}")
+    tokens_s = batch * seq / warm_ms * 1e3
+    # 6 flops a parameter and token for the matrix products (forward 2, backward
+    # 4; the embedding is a gather), 2 more for remat's second forward
+    n_mm = n_params - cfg.vocab * cfg.d_model - 9 * cfg.d_model * cfg.n_layers
+    mfu = 6 * n_mm * batch * seq / (warm_ms / 1e3) / 989e12
+    print(f"phase 24 rwkv6-7b training [{card}]: full width (d_model 4096, 64 heads x 64, "
+          f"d_ff 14336, vocab 65536), 8 of 32 layers, {n_params} parameters (f32 masters, "
+          f"bf16 compute, remat full, logit_chunk 512), initialised on the card in "
+          f"{init_s:.2f} s; SyntheticLM batches (8, 512): first step {first_s * 1e3:.1f} ms, "
+          f"warm steps {warm_ms:.1f} ms = {tokens_s:.1f} tokens/s (6·N·tokens at "
+          f"{mfu:.3f} of the bf16 peak, N = {n_mm} matmul parameters), peak memory "
+          f"{peak_gb:.2f} GB, losses {[round(x, 4) for x in losses]}; launches in "
+          f"{n_steps} steps {{'wkv6': {counts['wkv6']}, 'wkv6_bwd': {counts['wkv6_bwd']}}} "
+          f"(2 and 1 a layer and step)")
+    gemms = {"matmul": ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk"),
+             "elementwise": ("elementwise",), "reductions": ("reduce",)}
+    wkv = {"wkv6": ("wkv6_kernel", "wkv6"), "wkv6_bwd": ("wkv6_bwd_kernel", "wkv6_bwd")}
+    print(profile_breakdown(torch, build, lambda: step(state, batches[n_steps]), 1, card,
+                            "phase 24 rwkv6-7b train step (8, 512)", wkv, groups=gemms,
+                            unit="step"))
+    # the optimizer alone: the masters as their own gradients (no extra memory)
+    print(profile_breakdown(
+        torch, build,
+        lambda: opt_lib.apply(opt_lib.AdamWConfig(), state.params, dict(state.params),
+                              state.opt), 1, card, "phase 24 AdamW alone", {},
+        groups={k: gemms[k] for k in ("elementwise", "reductions")}, unit="step"))
+    del state, batches, step
+    torch.cuda.empty_cache()
+    print(f"phase 24 done in {time.perf_counter() - t_phase:.1f} s")
+    return {"err": err, "times": times, "launches": counts, "per_step": per_step,
+            "warm_ms": warm_ms, "tokens_s": tokens_s, "peak_gb": peak_gb}
 
 
 # The serial chains' latency floor.  Only the key chain is serial whatever
@@ -3244,7 +3525,10 @@ def main() -> int:
     # -- phase 23: the mesh over torch.distributed --------------------------------
     mesh = mesh_phases(torch, np, build, keys, prng, device, card)
 
-    # -- phase 24: kernel summary ---------------------------------------------
+    # -- phase 24: training on the card -------------------------------------------
+    tr = train_phases(torch, np, build, device, card)
+
+    # -- phase 25: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -3401,7 +3685,27 @@ def main() -> int:
             k["offset_shape"] = ("750 replicas at offset 750, N=20, 20 moves"
                                  if k["name"] == "hp_moves"
                                  else "750 replicas at offset 750, L=300, 30 flips")
-    print(f"phase 24 done in {time.perf_counter() - t_start:.1f} s")
+    tt = tr["times"]
+    for k in kernels:
+        if k["name"] == "wkv6":
+            k["train_ms"], k["train_plain_ms"] = tt["wkv6"]["ms"], tt["wkv6"]["plain_ms"]
+            k["train_device_ms"] = tt["wkv6"]["device"][0]
+            k["train_bound_ms"], k["train_bound_by"] = tt["wkv6"]["bound"][:2]
+            k["train_shape"] = "BH=512 T=512 dk=dv=64"
+            k["train_launches"] = tr["launches"]["wkv6"]
+    kernels.append({
+        "name": "wkv6_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+        "replaces": "none: XLA's autodiff of src/repro/kernels/ref.py:133 (wkv6's lax.scan), "
+                    "the gradient of src/repro/kernels/wkv6.py:54's recurrence",
+        "launches": tr["launches"]["wkv6_bwd"], "max_abs_err": tr["err"],
+        "ms": tt["wkv6_bwd"]["ms"], "plain_ms": tt["wkv6_bwd"]["plain_ms"],
+        "bound_ms": tt["wkv6_bwd"]["bound"][0], "bound_by": tt["wkv6_bwd"]["bound"][1],
+        "library_ms": None, "shape": "BH=512 T=512 dk=dv=64 (rwkv6-7b training, B=8)",
+        "device_ms": tt["wkv6_bwd"]["device"][0],
+        "launches_per_step": {f"remat={r}": c for r, c in tr["per_step"].items()},
+        "train_step_ms": tr["warm_ms"], "train_tokens_s": tr["tokens_s"],
+        "train_peak_gb": tr["peak_gb"]})
+    print(f"phase 25 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,12 @@ and ``phase`` (C,), ``stats.*`` (C, R) and ``stats.n_records`` (C,).
 `repro_torch.models.transformer.LM` holding the same values: the stacked
 ``groups/<i>_<kind>/...`` leaves (G, ...) are unstacked into the layers in
 order, then the ``tail`` layers, if any.
+
+`train_state_from_reference` takes a JAX training state
+(`repro.train.train_step.TrainState`: the masters, AdamW's ``mu``, ``nu``
+and ``count``, and ``step``) as numpy arrays in the same nested form and
+returns the port's `repro_torch.train.train_step.TrainState`: every leaf
+f32 (the count and the step int32), under the `LM`'s parameter names.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ from repro_torch.device import resolve_device
 from repro_torch.engine.driver import EngineState
 from repro_torch.engine.stats import OnlineStats
 
-__all__ = ["from_reference", "from_checkpoint_arrays", "lm_params_from_reference"]
+__all__ = ["from_reference", "from_checkpoint_arrays", "lm_params_from_reference",
+           "train_state_from_reference"]
 
 
 def _t(x, dtype, device) -> torch.Tensor:
@@ -110,14 +117,10 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{name}", value
 
 
-def lm_params_from_reference(params_np: dict, cfg, device):
-    """The port's `LM` with the JAX parameter pytree's values (see the module
-    docstring): the tensors the JAX code casts to the compute dtype at use
-    are stored cast, the f32 leaves (``w0``, ``u``, the norms) stay f32."""
-    from repro_torch.models.transformer import LM, plan
+def _lm_state(params_np: dict, cfg) -> dict:
+    """The JAX LM tree's arrays under the port's `LM` parameter names."""
+    from repro_torch.models.transformer import plan
 
-    device = resolve_device(device)
-    model = LM(cfg, None, device)
     pat, n_groups, _ = plan(cfg)
     layers = []
     for g in range(n_groups):
@@ -128,6 +131,48 @@ def lm_params_from_reference(params_np: dict, cfg, device):
     state = {n: params_np[n] for n in ("embed", "final_norm", "unembed") if n in params_np}
     for n, lp in enumerate(layers):
         state.update({f"layers.{n}.{name}": a for name, a in lp.items()})
+    return state
+
+
+def lm_params_from_reference(params_np: dict, cfg, device):
+    """The port's `LM` with the JAX parameter pytree's values (see the module
+    docstring): the tensors the JAX code casts to the compute dtype at use
+    are stored cast, the f32 leaves (``w0``, ``u``, the norms) stay f32."""
+    from repro_torch.models.transformer import LM
+
+    device = resolve_device(device)
+    model = LM(cfg, None, device)
+    state = _lm_state(params_np, cfg)
     model.load_state_dict({n: torch.from_numpy(np.array(a)) for n, a in state.items()},
                           strict=True)
     return model
+
+
+def train_state_from_reference(state_np, cfg, device):
+    """The port's `TrainState` from a JAX one dumped to numpy (an object with
+    ``params``, ``opt.mu``, ``opt.nu``, ``opt.count`` and ``step``, or the
+    same as nested dicts); the masters and moments in the `LM`'s parameter
+    order, f32, on ``device``."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    def get(x, name):
+        return x[name] if isinstance(x, dict) else getattr(x, name)
+
+    device = resolve_device(device)
+    names = [n for n, _ in LM(cfg, None, "meta").named_parameters()]
+
+    def tree(t):
+        flat = _lm_state(t, cfg)
+        if set(flat) != set(names):
+            raise KeyError(f"JAX tree leaves {sorted(set(flat) ^ set(names))} do not match "
+                           f"the port's LM")
+        return {n: _t(flat[n], torch.float32, device) for n in names}
+
+    opt = get(state_np, "opt")
+    return TrainState(
+        params=tree(get(state_np, "params")),
+        opt=AdamWState(mu=tree(get(opt, "mu")), nu=tree(get(opt, "nu")),
+                       count=_t(get(opt, "count"), torch.int32, device).reshape(())),
+        step=_t(get(state_np, "step"), torch.int32, device).reshape(()))

@@ -5,7 +5,9 @@ from repro_torch.checkpoint.manager import (
     engine_leaves,
     from_arrays,
     to_arrays,
+    train_from_arrays,
+    train_to_arrays,
 )
 
 __all__ = ["CheckpointCorrupt", "CheckpointManager", "engine_leaves", "from_arrays",
-           "to_arrays"]
+           "to_arrays", "train_from_arrays", "train_to_arrays"]

@@ -30,7 +30,14 @@ Layout: ``<dir>/step_<N:010d>/arrays_p<proc>.npz`` + ``meta.json``, staged in
 * a `repro_torch.resilience.FaultPlan` given as ``faults`` tears, corrupts
   or crashes a write at the JAX manager's seams.
 
-A tree is the port's ``EngineState``.
+A tree is the port's ``EngineState`` or a training state
+(`repro_torch.train.train_step.TrainState`).  A training state's leaves
+take JAX's ``keystr`` names too (`train_to_arrays`): ``.params['embed']``,
+``.params['groups']['0_rwkv']['tm']['w_r']`` with the layers stacked on a
+leading axis as JAX's scanned groups hold them, the same under
+``.opt.mu`` and ``.opt.nu``, then ``.opt.count`` and ``.step`` (int32), so
+either package resumes the other's training checkpoint.  Restoring one
+takes a template state (any device, ``meta`` too), as JAX's restore does.
 """
 from __future__ import annotations
 
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 
 __all__ = ["CheckpointCorrupt", "CheckpointManager", "engine_leaves", "to_arrays",
-           "from_arrays"]
+           "from_arrays", "train_to_arrays", "train_from_arrays"]
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -179,6 +186,79 @@ def from_arrays(arrays: dict[str, np.ndarray], device, like=None):
                        betas=values[("betas",)])
 
 
+# the rwkv family's one scanned group (`repro_torch.models.transformer.plan`)
+_GROUP = "0_rwkv"
+
+
+def _is_train_state(tree) -> bool:
+    return hasattr(tree, "opt") and hasattr(tree, "params")
+
+
+def _tree_names(prefix: str, names) -> dict:
+    """The port's leaf name -> (JAX name, layer index or None)."""
+    out = {}
+    for name in names:
+        if name.startswith("layers."):
+            _, idx, sub = name.split(".", 2)
+            key = "".join(f"[{p!r}]" for p in sub.split("."))
+            out[name] = (f"{prefix}['groups'][{_GROUP!r}]{key}", int(idx))
+        else:
+            out[name] = (f"{prefix}[{name!r}]", None)
+    return out
+
+
+def train_to_arrays(state) -> dict[str, np.ndarray]:
+    """Host numpy copies of a training state's leaves under JAX's names:
+    f32 trees with the layers stacked, the count and the step int32."""
+    out = {}
+    for prefix, tree in ((".params", state.params), (".opt.mu", state.opt.mu),
+                         (".opt.nu", state.opt.nu)):
+        stacks: dict[str, dict[int, np.ndarray]] = {}
+        for name, (key, layer) in _tree_names(prefix, tree).items():
+            a = tree[name].detach().cpu().numpy().astype(np.float32)
+            if layer is None:
+                out[key] = a
+            else:
+                stacks.setdefault(key, {})[layer] = a
+        for key, per in stacks.items():
+            out[key] = np.stack([per[i] for i in range(len(per))])
+    out[".opt.count"] = state.opt.count.detach().cpu().numpy().astype(np.int32)
+    out[".step"] = state.step.detach().cpu().numpy().astype(np.int32)
+    return dict(sorted(out.items()))
+
+
+def train_from_arrays(arrays: dict[str, np.ndarray], device, like):
+    """A training state on ``device`` from checkpoint arrays, leaf names and
+    shapes from the template ``like`` (any device)."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    def tree(prefix, template):
+        out = {}
+        for name, (key, layer) in _tree_names(prefix, template).items():
+            if key not in arrays:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            a = np.asarray(arrays[key])
+            if layer is not None:
+                a = a[layer]
+            want = tuple(template[name].shape)
+            if tuple(a.shape) != want:
+                raise ValueError(f"{key}: shape {a.shape} != expected {want}")
+            out[name] = torch.from_numpy(np.array(a, np.float32)).to(device)
+        return out
+
+    def scalar(key):
+        if key not in arrays:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        return torch.as_tensor(np.asarray(arrays[key], np.int32).reshape(()), device=device)
+
+    return TrainState(params=tree(".params", like.params),
+                      opt=AdamWState(mu=tree(".opt.mu", like.opt.mu),
+                                     nu=tree(".opt.nu", like.opt.nu),
+                                     count=scalar(".opt.count")),
+                      step=scalar(".step"))
+
+
 class CheckpointManager:
     """Checkpoints of one run (or one serve bucket) in ``directory``.
 
@@ -301,7 +381,7 @@ class CheckpointManager:
     def save(self, step: int, tree: Any, meta: dict | None = None, blocking: bool = True):
         """Checkpoint ``tree`` at ``step``.  The device-to-host copy happens
         here, before any writer thread starts; the file I/O may run on one."""
-        arrays = to_arrays(tree)
+        arrays = train_to_arrays(tree) if _is_train_state(tree) else to_arrays(tree)
         meta = dict(meta or {}, step=step, time=time.time())
         self.wait()  # at most one outstanding write
 
@@ -376,7 +456,8 @@ class CheckpointManager:
     # -- restore -------------------------------------------------------------
     def restore(self, step: int, tree_like: Any = None, verify: bool = True, device=None):
         """``(state, meta)`` of ``step`` on ``device`` (default: the
-        template's device, else the CPU), digests checked first."""
+        template's device, else the CPU), digests checked first.  A
+        training state needs its template ``tree_like``."""
         d = self._step_dir(step)
         if verify:
             self._verify(step)
@@ -384,6 +465,10 @@ class CheckpointManager:
             arrays = {k: z[k] for k in z.files}
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
+        if _is_train_state(tree_like):
+            dev = tree_like.step.device if device is None else torch.device(device)
+            return train_from_arrays(arrays, "cpu" if dev.type == "meta" else dev,
+                                     tree_like), meta
         if device is None:
             device = "cpu" if tree_like is None else tree_like.betas.device
         return from_arrays(arrays, device, like=tree_like), meta

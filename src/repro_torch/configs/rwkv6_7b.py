@@ -18,4 +18,5 @@ def config() -> ModelConfig:
 
 
 def reduced() -> ModelConfig:
-    return dataclasses.replace(config(), n_layers=2, d_model=128, d_ff=256, vocab=512)
+    return dataclasses.replace(config(), n_layers=2, d_model=128, d_ff=256, vocab=512,
+                               logit_chunk=16, remat=False)

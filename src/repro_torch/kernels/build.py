@@ -16,8 +16,8 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 so no float product is contracted into an FMA (the round exchange that
 kernels A, #2p and #5 run, ``exchange.cuh``, has no product followed by a
 sum, and its exp/sigmoid are libdevice's as in PyTorch's own kernels);
-``wkv6.cu`` keeps nvcc's default contraction (its sums are held to a
-tolerance, not bit for bit).
+``wkv6.cu`` and ``wkv6_bwd.cu`` keep nvcc's default contraction (their
+sums are held to a tolerance, not bit for bit).
 
 `launches` counts the launches of every kernel by name; each wrapper adds
 one where it launches its kernel, and nowhere else.  `epilogues` counts the
@@ -63,6 +63,7 @@ SOURCES = {
     "serial_chain": ["-fmad=false"],
     "exchange_step": ["-fmad=false"],
     "wkv6": [],
+    "wkv6_bwd": [],
 }
 _LOADED: dict[str, ctypes.CDLL] = {}
 # Hopper: 227 KB of shared memory per block (opt-in above 48 KB)
@@ -72,10 +73,10 @@ _P = ctypes.c_void_p
 # kernel name -> launches since the last reset (kernel A, kernel #2p,
 # kernels #1 and #4 of sweep.cu, kernel #5, the jax.random helper, the two
 # serial chains of serial_chain.cu, the standalone exchange of the sharded
-# round path, the RWKV-6 recurrence #7)
+# round path, the RWKV-6 recurrence #7 and its gradient #7b)
 launches = dict.fromkeys(
     ("ising_fused", "ising_packed", "ising_sweep", "potts_sweep", "potts_fused",
-     "jax_uniform", "hp_moves", "single_flip", "exchange_step", "wkv6"), 0,
+     "jax_uniform", "hp_moves", "single_flip", "exchange_step", "wkv6", "wkv6_bwd"), 0,
 )
 # round exchanges run at the end of a launch of kernel A, #2p or #5 since the
 # last reset (no launch of their own)

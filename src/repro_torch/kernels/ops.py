@@ -383,6 +383,27 @@ def potts_round_fused(
     )
 
 
+class _Wkv6(torch.autograd.Function):
+    """The recurrence on the card with its gradient: kernel #7 forward,
+    kernel #7b backward (the forward's inputs saved, nothing else)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, initial_state):
+        ctx.save_for_backward(r, k, v, w, u, initial_state)
+        ctx.set_materialize_grads(False)  # an unused final state's gradient: None
+        return _wkv6.wkv6_kernel(r, k, v, w, u, initial_state)
+
+    @staticmethod
+    def backward(ctx, d_o, d_state):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        d_o = torch.zeros_like(v) if d_o is None else d_o.contiguous()
+        d_state = None if d_state is None else d_state.contiguous()
+        need = ctx.needs_input_grad[5]
+        dr, dk, dv, dw, du, ds0 = _wkv6.wkv6_bwd_kernel(r, k, v, w, u, s0, d_o, d_state,
+                                                        need_state_grad=need)
+        return dr, dk, dv, dw, du, ds0
+
+
 def wkv6(
     r: torch.Tensor,
     k: torch.Tensor,
@@ -396,9 +417,12 @@ def wkv6(
 ):
     """RWKV-6 recurrence; see `ref.wkv6` for the contract.
 
-    On CUDA one launch of kernel #7 covers all T steps (no padding of T).
-    Returns ``(o (BH, T, dv) f32, final_state (BH, dk, dv) f32)``.
+    On CUDA one launch of kernel #7 covers all T steps (no padding of T);
+    where autograd records, the gradient is one launch of kernel #7b, and
+    never the plain version (`_Wkv6`; under ``no_grad`` it records
+    nothing).  On the CPU it is the plain recurrence, differentiated by
+    autograd.  Returns ``(o (BH, T, dv) f32, final_state (BH, dk, dv) f32)``.
     """
     if _device_kind(r, "wkv6 kernel") == "cpu":
         return _ref.wkv6(r, k, v, w, u, initial_state)
-    return _wkv6.wkv6_kernel(r, k, v, w, u, initial_state)
+    return _Wkv6.apply(r, k, v, w, u, initial_state)

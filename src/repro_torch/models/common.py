@@ -26,8 +26,12 @@ class ModelConfig:
     The fields the port reads, each with the JAX config's name and default.
     RWKV-6 heads are 64 wide (``d_model / 64`` of them) and its channel mix
     is a squared ReLU, so the head and activation fields wait for the
-    families that read them; weights are stored in ``dtype`` (no f32
-    masters, see `repro_torch.models.rwkv6`).
+    families that read them.  A serving `LM` stores its weights in
+    ``dtype``; training keeps f32 masters (``param_dtype``) and casts them
+    once a step (`repro_torch.train.train_step`).  ``remat`` recomputes each
+    layer in the backward pass (``remat_policy="full"``; ``"dots"`` is
+    refused by name), and the loss runs its softmax over ``logit_chunk``
+    positions at a time.
     """
 
     name: str
@@ -36,7 +40,11 @@ class ModelConfig:
     d_model: int
     d_ff: int
     vocab: int
-    dtype: str = "bfloat16"  # weights, matmuls and activations
+    dtype: str = "bfloat16"  # matmul/activation dtype (a serving LM's weights too)
+    param_dtype: str = "float32"  # master weights (training)
+    remat: bool = True
+    remat_policy: str = "full"  # full (recompute all); "dots" is not ported
+    logit_chunk: int = 512  # CE computed in seq chunks of this size
     tie_embeddings: bool = False
     embed_scale: float = 1.0
 

@@ -1,14 +1,17 @@
-"""Unified model API, the serving subset (twin of `repro.models.model`).
+"""Unified model API (twin of `repro.models.model`).
 
   init_params(cfg, generator, device)          -> LM module
+  forward_loss(model, cfg, batch, params)      -> scalar loss  (train)
   prefill_logits(model, cfg, batch)            -> (B, V) last-position logits
   init_decode_state(cfg, batch, seq, device)   -> per-layer decode states
   decode_step(model, cfg, state, token, pos)   -> (logits, new state)
 
-`forward_loss` (training) and every family but rwkv (encdec included) wait
-for a later slice and raise `NotImplementedError` (a family at
-`init_params` and `init_decode_state`).  Entry points put new tensors on ``cuda``
-unless the caller passes ``device="cpu"``.
+`forward_loss` runs the model's own tensors, or ``params`` (the training
+step's cast masters; see `repro_torch.models.transformer`).  Every family
+but rwkv (encdec included) waits for a later slice and raises
+`NotImplementedError` (a family at `init_params` and `init_decode_state`),
+and so does a batch with a context (``img``).  Entry points put new tensors
+on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -23,9 +26,10 @@ def init_params(cfg: ModelConfig, generator, device="cuda"):
     return transformer.init_params(cfg, generator, device=device)
 
 
-def forward_loss(model, cfg: ModelConfig, batch):
-    raise NotImplementedError(
-        "not yet ported: forward_loss (training waits for a later slice)")
+def forward_loss(model, cfg: ModelConfig, batch, params: dict | None = None):
+    """The mean next-token cross-entropy of ``batch`` (``tokens`` and
+    ``labels``, (B, S)), a scalar f32 tensor."""
+    return transformer.forward_loss(model, cfg, batch, params=params)
 
 
 def prefill_logits(model, cfg: ModelConfig, batch):

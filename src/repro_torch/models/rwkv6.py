@@ -25,6 +25,16 @@ tensor the JAX code uses only through it: the projections, the LoRA, the
 15.1 GB of bf16 instead of 30 GB of f32 plus a cast per matrix product.
 An f32 model is the config with ``dtype="float32"``.
 
+Training runs the same modules on other tensors: `repro_torch.train.
+train_step` keeps f32 masters and casts every >= 2-D one to the compute
+dtype once a step, as the JAX trainer does, and the layers run on those
+cast tensors through `torch.func.functional_call`
+(`repro_torch.models.transformer.backbone` with ``params``).  So in
+training ``u`` arrives in the compute dtype (JAX rounds it there too) and
+is widened to f32 for the recurrence, as JAX's promotion does; ``mu_*``,
+``w0`` and the norms arrive as f32 masters.  The sigmoid (and so SiLU)
+differentiates by JAX's ``logistic`` rule, ``g * (s * (1 - s))``.
+
 Decode state per layer: time-mix shift (B, D), channel-mix shift (B, D) and
 the wkv state (B*H, 64, 64) f32 — O(1) in sequence length.
 """
@@ -69,10 +79,27 @@ def _lerp(x, prev, mu):
     return x + (prev - x) * mu.to(x.dtype)
 
 
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid``: forward as XLA lowers it, gradient by JAX's rule."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def _sigmoid(x):
     """``jax.nn.sigmoid`` as it lowers: ``1 / (1 + exp(-x))``, each op in
-    ``x``'s dtype (in bf16 it rounds three times; ``torch.sigmoid`` once)."""
-    return 1.0 / (1.0 + torch.exp(-x))
+    ``x``'s dtype (in bf16 it rounds three times; ``torch.sigmoid`` once);
+    its gradient is ``logistic``'s JVP rule, ``g * (s * (1 - s))``, each op
+    in the dtype too."""
+    return _Logistic.apply(x)
 
 
 def _silu(x):
@@ -129,7 +156,8 @@ class TimeMix(nn.Module):
             return (z.reshape(b, s, h, HEAD_DIM).transpose(1, 2)
                     .reshape(b * h, s, HEAD_DIM).contiguous())
 
-        u = self.u[None].expand(b, h, HEAD_DIM).reshape(b * h, HEAD_DIM).contiguous()
+        u = (self.u[None].expand(b, h, HEAD_DIM).reshape(b * h, HEAD_DIM)
+             .to(torch.float32).contiguous())
         o, new_state = kops.wkv6(
             to_heads(r).to(torch.float32),
             to_heads(k).to(torch.float32),

@@ -11,19 +11,34 @@ in an `LM` module:
 A decode state is the list of the layers' states, in the same order.  Only
 the ``rwkv`` family runs; every other family is refused by name.  Entry
 points: `init_params`, `backbone`, `last_logits`, `init_decode_state`,
-`decode_step`; `lm_loss` / `forward_loss` wait for the training slice.
+`decode_step`, and for training `lm_loss` and `forward_loss`.
+
+`backbone` runs each layer through `torch.func.functional_call` on its
+slice of a dict of tensors under the `LM`'s parameter names: the model's
+own by default (serving, whose `LM` holds its bf16 tensors), or ``params``
+(training: the f32 masters as `repro_torch.train.train_step` casts them,
+with a template `LM` on the ``meta`` device that holds no memory).  With
+``cfg.remat`` and autograd recording, each layer runs under one
+non-reentrant `torch.utils.checkpoint` (JAX's ``jax.checkpoint`` of each
+scanned group; a group is one rwkv layer).  The layer's tensors are
+arguments of the checkpointed function, so its recompute in the backward
+pass runs on the same tensors.  So serving and training share one set of
+modules and one loop, and the masters stay f32.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
+from torch.func import functional_call
 
 from repro_torch.device import resolve_device
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.common import ModelConfig, dense_param, rms_norm
 
 __all__ = ["layer_pattern", "plan", "layer_kinds", "LM", "init_params", "backbone",
-           "unembed_matrix", "last_logits", "init_decode_state", "decode_step"]
+           "unembed_matrix", "last_logits", "lm_loss", "forward_loss", "init_decode_state",
+           "decode_step"]
 
 
 def layer_pattern(cfg: ModelConfig) -> tuple:
@@ -72,21 +87,65 @@ def init_params(cfg: ModelConfig, generator, device="cuda") -> LM:
     return LM(cfg, generator, device)
 
 
-def backbone(model: LM, cfg: ModelConfig, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
-    """Token ids (B, S) -> final hidden states (B, S, D)."""
+def _layer_params(params: dict, n: int, layer: nn.Module) -> dict:
+    prefix = f"layers.{n}."
+    return {name: params[prefix + name] for name, _ in layer.named_parameters()}
+
+
+def backbone(model: LM, cfg: ModelConfig, tokens: torch.Tensor, ctx=None,
+             params: dict | None = None) -> torch.Tensor:
+    """Token ids (B, S) -> final hidden states (B, S, D).
+
+    Each layer runs through `functional_call` on its slice of ``params``
+    (training: tensors under the model's parameter names; by default the
+    model's own) and, with ``cfg.remat`` where autograd records, under one
+    checkpoint a layer.
+    """
     if ctx is not None:
         raise NotImplementedError("not yet ported: ctx (the vlm / encdec families)")
-    x = model.embed[tokens] * cfg.embed_scale
-    for layer in model.layers:
-        state = rwkv_lib.init_rwkv_state(cfg, x.shape[0], device=x.device)
-        x, _ = layer(x, state)
-    return rms_norm(x, model.final_norm)
+    if params is None:
+        params = dict(model.named_parameters())
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and any(p.requires_grad for p in params.values()))
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"not yet ported: remat_policy={cfg.remat_policy!r} (the port recomputes "
+            "whole layers, remat_policy='full')")
+    x = params["embed"][tokens] * cfg.embed_scale
+    for n, layer in enumerate(model.layers):
+        def run(x, lp, layer=layer):
+            state = rwkv_lib.init_rwkv_state(cfg, x.shape[0], device=x.device)
+            return functional_call(layer, lp, (x, state))[0]
+
+        lp = _layer_params(params, n, layer)
+        x = (torch.utils.checkpoint.checkpoint(run, x, lp, use_reentrant=False) if remat
+             else run(x, lp))
+    return rms_norm(x, params["final_norm"])
 
 
-def unembed_matrix(model: LM, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return model.embed.T
-    return model.unembed
+def unembed_matrix(model: LM, cfg: ModelConfig, params: dict | None = None) -> torch.Tensor:
+    if params is None:
+        params = dict(model.named_parameters(recurse=False))
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+class _MmF32(torch.autograd.Function):
+    """One cuBLAS GEMM of a low-precision pair with an f32 output, and its
+    gradient: the f32 output gradient rounded to the operands' dtype, then
+    one GEMM (f32 accumulation) an operand, so each cotangent has its
+    operand's dtype, as JAX's transpose of a ``preferred_element_type=f32``
+    dot gives it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ b.T, a.T @ g
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -94,17 +153,52 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=float32``).
 
     On CUDA a low-precision pair goes to one cuBLAS GEMM with an f32 output
-    (``torch.mm(..., out_dtype=torch.float32)``).  Elsewhere the operands are
-    upcast, which is exact, and multiplied in f32.
+    (`_MmF32`; under ``no_grad`` it records nothing).  Elsewhere the
+    operands are upcast, which is exact, and multiplied in f32; autograd
+    then gives each operand's cotangent in f32, rounded to its dtype by the
+    upcast's gradient (JAX on the CPU).
     """
     if a.device.type == "cuda" and a.dtype in (torch.bfloat16, torch.float16):
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MmF32.apply(a, b)
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
 def last_logits(model: LM, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     """(B, V) f32 logits of the last position of ``hidden`` (B, S, D)."""
     return _mm_f32(hidden[:, -1].to(cfg.compute_dtype), unembed_matrix(model, cfg))
+
+
+def lm_loss(model: LM, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor,
+            params: dict | None = None) -> torch.Tensor:
+    """Chunked-softmax cross-entropy: the mean over every position of
+    ``logsumexp(logits) - logits[label]``, never materialising (B, S, V).
+
+    Operands in the compute dtype, logits f32 (`_mm_f32`), ``logit_chunk``
+    positions at a time, the chunks' sums added in order, as the JAX code.
+    """
+    b, s, d = hidden.shape
+    w = unembed_matrix(model, cfg, params).to(cfg.compute_dtype)
+    chunk = min(cfg.logit_chunk or s, s)
+    n = (s + chunk - 1) // chunk
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = 0
+    for i in range(n):
+        h = hidden[:, i * chunk:(i + 1) * chunk].to(cfg.compute_dtype)
+        y = labels[:, i * chunk:(i + 1) * chunk].to(torch.int64)
+        logits = _mm_f32(h.reshape(-1, d), w).reshape(*h.shape[:2], -1)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        total = total + torch.sum(lse - gold)
+        count += y.numel()
+    return total / count
+
+
+def forward_loss(model: LM, cfg: ModelConfig, batch, params: dict | None = None):
+    """The training loss of ``batch`` (``tokens``, ``labels`` (B, S)): a
+    scalar f32 tensor; see `backbone` for ``params``."""
+    ctx = batch.get("img") if isinstance(batch, dict) else None
+    hidden = backbone(model, cfg, batch["tokens"], ctx=ctx, params=params)
+    return lm_loss(model, cfg, hidden, batch["labels"], params=params)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,

@@ -15,8 +15,10 @@ asserts bit-equality), a checkpoint under ``OUTDIR/ckpt`` saved on the
 (1, 4) mesh at sweep 40, ``fault_*`` arrays (each rank's outcome of an
 ``engine.compile`` fault injected on one rank of a fused mesh), and
 ``resumed_*`` arrays: a JAX-package checkpoint the parent left in
-``OUTDIR/jax_ckpt`` resumed on the (2, 2) mesh and run to the end.
-Imports no JAX.
+``OUTDIR/jax_ckpt`` resumed on the (2, 2) mesh and run to the end, and
+``psum_*`` arrays: `repro_torch.train.grad_compress.compressed_psum` of
+each rank's `psum_inputs` over the 4 ranks (every rank's sum and new
+error).  Imports no JAX.
 """
 import datetime
 import os
@@ -72,6 +74,15 @@ def _count_gathers(layout, counts: list) -> None:
         return out
 
     layout.gather_replicas = counted
+
+
+def psum_inputs(rank: int):
+    """Rank ``rank``'s gradient and carried error for the compressed psum
+    (numpy f32, from a seed; the ranks' scales differ)."""
+    rng = np.random.default_rng(100 + rank)
+    g = (rng.normal(size=(64,)) * (rank + 1)).astype(np.float32)
+    err = (rng.normal(size=(64,)) * 0.01).astype(np.float32)
+    return g, err
 
 
 def _rank(rank: int, outdir: str) -> None:
@@ -137,6 +148,17 @@ def _rank(rank: int, outdir: str) -> None:
     eng = engine("deo", SCENARIOS["deo"][0])
     st = eng.init(keys.key(SEED), TEMPS)
     eng.run(st, CKPT_SWEEPS, checkpoint=mgr, checkpoint_every_chunks=1)
+
+    # int8 gradient compression with error feedback over the 4 ranks
+    from repro_torch.train.grad_compress import compressed_psum
+
+    g, err = (torch.from_numpy(x) for x in psum_inputs(rank))
+    total, new_err = compressed_psum(g, err)
+    outs = [None] * WORLD
+    dist.all_gather_object(outs, (total.numpy(), new_err.numpy()))
+    if rank == 0:
+        out["psum_totals"] = np.stack([t for t, _ in outs])
+        out["psum_errors"] = np.stack([e for _, e in outs])
 
     # a JAX-package checkpoint of two chains resumed on the (2, 2) mesh
     eng = engine("chains", RESUME_MESH)

@@ -6,11 +6,13 @@ by the last block to finish) against the plain sweeps and `exchange_plain`,
 held against kernel A: spins, counts and ΔE bit for bit, at every group
 width and on the walk's edge shapes), #1 and #4 (one Ising / Potts sweep on passed-in
 uniforms), #5 (fused Potts sweeps), the per-sweep ``jax.random`` draw and
-#7 (the RWKV-6 recurrence); the Session paths on the card against the CPU,
+#7 (the RWKV-6 recurrence) and #7b (its gradient, the backward of
+`ops.wkv6` under autograd, never the plain version); the Session paths on the card against the CPU,
 with one chain and with two, and with the SEO, windowed and VMPT strategies
 and state mode; the interval loop of every path with host syncs made
 errors; a run checkpointed and resumed on the card against its
-uninterrupted run; the reduced rwkv6-7b on the card against the CPU; both
+uninterrupted run; the reduced rwkv6-7b on the card against the CPU (serving
+launches unchanged under ``no_grad``, and three f32 train steps); both
 serial-chain kernels (HP moves, Ising single_flip) against their plain
 versions, and the zoo's per-sweep paths (EA, HP, single_flip, the Gaussian)
 on the card against the CPU and with host syncs made errors; the sharded
@@ -674,6 +676,124 @@ def test_reduced_rwkv_on_cuda_equals_cpu(dev, dtype):
         seq_card = serve_lm.generate(on_card, cfg, 4, 8, dev)
         assert build.launches["wkv6"] == 8 * cfg.n_layers
         assert torch.equal(seq_card.cpu(), serve_lm.generate(on_cpu, cfg, 4, 8, "cpu"))
+
+
+def _wkv6_bwd_inputs(seed, bh, t, dk, dv, dev, state):
+    args = _wkv6_inputs(seed, bh, t, dk, dv, dev, state)
+    rng = np.random.default_rng(seed + 1)
+    d_o = torch.from_numpy(rng.normal(size=(bh, t, dv)).astype(np.float32)).to(dev)
+    d_s = (torch.from_numpy(rng.normal(size=(bh, dk, dv)).astype(np.float32)).to(dev)
+           if state else None)
+    return args, d_o, d_s
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,state", [
+    (512, 512, 64, 64, False), (512, 512, 64, 64, True),  # rwkv6-7b training, B=8
+    (4, 1, 64, 64, True), (4, 33, 64, 64, False), (3, 33, 8, 8, True),
+    (2, 33, 5, 63, True), (2, 70, 63, 5, False), (3, 100, 48, 48, True),
+    (2, 1000, 64, 64, True),
+])
+def test_wkv6_bwd_kernel_matches_plain(dev, bh, t, dk, dv, state):
+    """Kernel #7b == the gradient of ``ref.wkv6`` under autograd (r, k, v,
+    w, u, initial state) within 4·(T + dk + dv)·eps times the same gradient
+    taken on the inputs' magnitudes (every term of a gradient is a product
+    of inputs, summed over up to T steps and dk or dv lanes, in other
+    orders); one launch."""
+    from repro_torch.kernels import wkv6 as wk
+
+    args, d_o, d_s = _wkv6_bwd_inputs(60 + t, bh, t, dk, dv, dev, state)
+    build.reset_launches()
+    got = wk.wkv6_bwd_kernel(*args, d_o, d_s)
+    assert {k: v for k, v in build.launches.items() if v} == {"wkv6_bwd": 1}
+    want = wk.wkv6_bwd_plain(*args, d_o, d_s)
+    mag = wk.wkv6_bwd_plain(*(None if x is None else x.abs() for x in (*args, d_o, d_s)))
+    for g, w, m in zip(got, want, mag):
+        assert bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= 4 * (t + dk + dv) * F32_EPS * m).all())
+
+
+def test_wkv6_backward_on_cuda_launches_the_kernel_never_plain(dev, monkeypatch):
+    """`ops.wkv6` under autograd on the card: one #7 forward, one #7b
+    backward, the plain recurrence never called (patched to raise), the
+    gradients equal to the kernel's; under ``no_grad`` just #7."""
+    from repro_torch.kernels import wkv6 as wk
+
+    args, d_o, d_s = _wkv6_bwd_inputs(70, 8, 40, 64, 64, dev, True)
+    direct = wk.wkv6_bwd_kernel(*args, d_o, d_s)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain wkv6 ran on CUDA tensors")
+
+    monkeypatch.setattr(ref, "wkv6", refuse)
+    monkeypatch.setattr(wk, "wkv6_plain", refuse)
+    xs = [x.clone().requires_grad_() for x in args]
+    build.reset_launches()
+    o, s = ops.wkv6(*xs)
+    grads = torch.autograd.grad((o, s), xs, (d_o, d_s))
+    assert {k: v for k, v in build.launches.items() if v} == {"wkv6": 1, "wkv6_bwd": 1}
+    for g, want in zip(grads, direct):
+        assert torch.equal(g, want)
+    build.reset_launches()
+    with torch.no_grad():
+        ops.wkv6(*xs)
+    assert {k: v for k, v in build.launches.items() if v} == {"wkv6": 1}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_steps_on_cuda_equal_cpu(dev, remat):
+    """Three f32 train steps of the reduced rwkv6-7b on the card against
+    the CPU from one state: each loss within 1e-5 relative, the masters
+    within what the two runs' Adam directions explain
+    (`_torch_train_bound`, as tests/test_torch_train.py holds the port
+    against JAX), the card's masters before the last step far outside it.
+    Launches a step: one #7 and one
+    #7b a layer, two #7 with ``remat``; and serving's prefill under
+    ``no_grad`` still one #7 a layer."""
+    import dataclasses
+
+    import _torch_train_bound as tb
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("rwkv6_7b", reduced=True), dtype="float32",
+                              remat=remat)
+    opt = opt_lib.AdamWConfig(warmup_steps=2, total_steps=10)
+    on_cpu, on_card = init_state(cfg, 0, device="cpu"), init_state(cfg, 0, device="cpu")
+    on_card.params = {n: p.to(dev) for n, p in on_card.params.items()}
+    on_card.opt = opt_lib.init(on_card.params)
+    on_card.step = on_card.step.to(dev)
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    def host(tree):
+        return {n: x.cpu().numpy().copy() for n, x in tree.items()}
+
+    bound = {}
+    for i in range(3):
+        b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+        before = host(on_card.params)
+        on_cpu, m_cpu = step(on_cpu, b)
+        build.reset_launches()
+        on_card, m_card = step(on_card, {k: v.to(dev) for k, v in b.items()})
+        torch.cuda.synchronize()
+        want = {"wkv6": (2 if remat else 1) * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
+        assert {k: v for k, v in build.launches.items() if v} == want
+        torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+        bound = tb.grow(bound, opt, float(m_cpu["lr"]), i + 1, before,
+                        (host(on_card.opt.mu), host(on_card.opt.nu)),
+                        (host(on_cpu.opt.mu), host(on_cpu.opt.nu)))
+    assert tb.reading(host(on_card.params), host(on_cpu.params), bound) <= 1.0
+    assert tb.reading(before, host(on_cpu.params), bound) > 100.0
+    serving = dataclasses.replace(cfg, dtype="bfloat16")
+    lm = model_lib.init_params(serving, 0, device=dev)
+    tokens = torch.ones((2, 9), dtype=torch.int64, device=dev)
+    build.reset_launches()
+    with torch.no_grad():
+        model_lib.prefill_logits(lm, serving, {"tokens": tokens})
+    assert {k: v for k, v in build.launches.items() if v} == {"wkv6": cfg.n_layers}
 
 
 # -- the serial chains (csrc/serial_chain.cu) and the rest of the zoo -------------

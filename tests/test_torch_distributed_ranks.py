@@ -7,8 +7,10 @@ gloo ranks with `torch.multiprocessing` (spawn) and runs every scenario of
 its table on its mesh: (1, 4) DEO per sweep, fused, round (``pack_bits``)
 and SEO; (2, 2) with two chains, per sweep and round; HP and
 ``single_flip`` per sweep; a checkpoint saved on (1, 4); an
-``engine.compile`` fault on one rank; and a JAX checkpoint (written here
-first) resumed on (2, 2).  Each final state, rung
+``engine.compile`` fault on one rank; a JAX checkpoint (written here
+first) resumed on (2, 2); and the int8 ``compressed_psum`` of one seeded
+gradient a rank, bit-equal to JAX's ``compressed_psum`` of the same four
+mapped over a named axis.  Each final state, rung
 map and swap counter must equal JAX's unsharded engine from the same seed;
 the (1, 4) checkpoint resumes on one device in the port and in JAX; and
 the child's count of the bytes every replica-axis all-gather returned
@@ -119,3 +121,24 @@ def test_jax_checkpoint_resumes_on_two_by_two(mesh4):
     assert int(out["resumed_step"]) == child.CKPT_SWEEPS
     for f in ("energy", "rung", "states"):
         np.testing.assert_array_equal(out[f"resumed_{f}"], out[f"chains_{f}"], err_msg=f)
+
+
+def test_compressed_psum_on_four_ranks_matches_jax(mesh4):
+    """`compressed_psum` over 4 gloo ranks (all-reduce MAX of the scales,
+    SUM of the int8 payload in int32) == the JAX package's
+    `compressed_psum` of the same four gradients, mapped over a named axis
+    of 4 (``jax.vmap``, whose ``pmax`` / ``psum`` reduce over it), bit for
+    bit: every rank's sum and its own new error."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.train import grad_compress as jgc
+
+    _, out = mesh4
+    g, err = (jnp.stack([jnp.asarray(child.psum_inputs(r)[i]) for r in range(child.WORLD)])
+              for i in (0, 1))
+    totals, errors = jax.vmap(lambda g, e: jgc.compressed_psum(g, e, "i"),
+                              axis_name="i")(g, err)
+    for r in range(child.WORLD):
+        assert np.array_equal(out["psum_totals"][r], np.asarray(totals[r])), r
+        assert np.array_equal(out["psum_errors"][r], np.asarray(errors[r])), r
