@@ -180,7 +180,21 @@ Phases, one line each or more (any failure raises and exits non-zero):
     steps on ``SyntheticLM`` batches of (8, 512): ms a warm step, tokens/s,
     peak memory, each loss finite, and one step and AdamW alone under
     ``torch.profiler``;
-25. a JSON line per kernel (launches, error, times, bound), the card line,
+25. parallel tempering over LM sequences (``repro_torch.core.ptlm``) and
+    the dense family: (a) rwkv6-7b at full width and depth (bf16, seeded as
+    phase 15), R=8 sequences of 64 tokens past an 8-token prompt, a
+    geometric ladder 1-8, a swap every 5 steps, 40 MH steps through
+    ``core.pt``: kernel #7 launched exactly 32 x (1 + 3 x 40) times (a
+    forward at init, three a step), the tracked energies equal to a fresh
+    ``batched_energy``, at most one token moved a replica and step; ms a
+    step, scored tokens/s, MH and swap acceptance, and a profile (idle
+    share); (b) gemma-2b at full width and depth (bf16): prefill (4, 512),
+    64 decode steps against the HBM floor, decode == full forward in f32,
+    and the same PT-LM run, with no hand-written kernel launched; (c)
+    reduced f32 gemma and rwkv6 PT-LM runs (30 steps) on the card and the
+    CPU with TF32 off: tokens, rungs, every MH acceptance and swap decision
+    equal;
+26. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 Every ``Session`` runs with ``strict_kernels=True`` but phase 22's injected
@@ -666,7 +680,8 @@ def profile_breakdown(torch, build, run, n_int: int, card: str, label: str,
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
         counts = dict(build.launches)
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()  # slow on a long trace: read once
+    rows = [e for e in averages if e.device_type == DeviceType.CUDA]
     seen = {lab: sum(e.count for e in rows if sub in e.key)
             for lab, (sub, _) in kernels.items()}
     lost = [f"{lab} {seen[lab]} of {counts[key]}" for lab, (_, key) in kernels.items()
@@ -676,7 +691,7 @@ def profile_breakdown(torch, build, run, n_int: int, card: str, label: str,
                 f"{', '.join(lost)} launches)")
     dev_us = {e.key: float(e.self_device_time_total) for e in rows}
     busy_ms = sum(dev_us.values()) / 1e3
-    syncs = sum(e.count for e in prof.key_averages() if e.key in (
+    syncs = sum(e.count for e in averages if e.key in (
         "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"))
     named = {lab: sum(v for k, v in dev_us.items() if sub in k) / 1e3
              for lab, (sub, _) in kernels.items()}
@@ -872,7 +887,9 @@ def check_wkv6(torch, np, wk, ref, device) -> float:
     own small shapes, also its rtol = atol = 3e-5.
     """
     max_err = 0.0
+    # "ptlm": every forward of PT-LM over rwkv6-7b (R=8 x 64 heads, 64 tokens, zero state)
     cases = [((256, 512, 64, 64), False, "prefill"), ((256, 1, 64, 64), True, "decode"),
+             ((512, 64, 64, 64), False, "ptlm"),
              ((4, 33, 8, 8), False, "small"), ((2, 16, 16, 8), True, "small"),
              ((1, 8, 4, 4), False, "small"), ((3, 64, 64, 64), True, "small"),
              # rows that are no multiple of 16 bytes (4-byte copies), several stages
@@ -1005,8 +1022,9 @@ def rwkv_phases(torch, np, build, ref, device, card: str) -> dict:
     err_w = check_wkv6(torch, np, wk, ref, device)
     wkv_times = time_wkv6(torch, np, wk, ref, device)
     print(f"phase 14 kernel #7 (wkv6): equal to plain at the prefill (BH=256 T=512 dk=dv=64), "
-          f"decode (BH=256 T=1, carried state), 4 small shapes, 3 with dk or dv in 1, 5, 63 "
-          f"(T=33) and 3 of T=1000 within 2(dk+T)·eps·|terms| (and 3e-5 at the small ones); "
+          f"decode (BH=256 T=1, carried state), PT-LM's forward (BH=512 T=64), 4 small "
+          f"shapes, 3 with dk or dv in 1, 5, 63 (T=33) and 3 of T=1000 within "
+          f"2(dk+T)·eps·|terms| (and 3e-5 at the small ones); "
           f"two launches == one at T=32 split 16, T=100 split 45, T=1000 split 333, T=70 "
           f"split 1 (dk=5, dv=63); w=1, k=0 the identity; max |err| {err_w}")
     for name, tm in wkv_times.items():
@@ -1398,6 +1416,275 @@ def train_phases(torch, np, build, device, card: str) -> dict:
     print(f"phase 24 done in {time.perf_counter() - t_phase:.1f} s")
     return {"err": err, "times": times, "launches": counts, "per_step": per_step,
             "warm_ms": warm_ms, "tokens_s": tokens_s, "peak_gb": peak_gb}
+
+
+# -- phase 25: parallel tempering over LM sequences, and the dense family ------------
+PTLM_R, PTLM_SEQ, PTLM_PROMPT, PTLM_STEPS, PTLM_SWAP = 8, 64, 8, 40, 5
+PTLM_SMALL_STEPS = 30  # the reduced runs, card against CPU
+# tracked energies (a sum of per-step differences) against a fresh
+# batched_energy, relative to the energies' magnitude (~2e2-2e3 nats here):
+# each accepted step adds one f32 rounding, and a replica's forward does not
+# depend on the other rows of its batch
+PTLM_ENERGY_RTOL = 1e-4
+
+
+class CheckedLM:
+    """A bound LM system whose MH steps are checked and counted on the card:
+    how many tokens each step moved (at most one a replica), the moves
+    accepted, and each step's acceptances (kept for card == CPU).  Nothing
+    waits for the card; everything else is the system's own."""
+
+    def __init__(self, torch, system):
+        self.system = system
+        dev = system.model.embed.device
+        self.too_many = torch.zeros((), dtype=torch.int64, device=dev)
+        self.accepted = torch.zeros((), dtype=torch.int64, device=dev)
+        self.steps = []
+
+    def __getattr__(self, name):
+        return getattr(self.system, name)
+
+    def batched_mcmc_step(self, key, t, tokens, betas, replica_offset=0):
+        new, de, acc = self.system.batched_mcmc_step(key, t, tokens, betas, replica_offset)
+        self.too_many += ((new != tokens).sum(dim=1) > 1).sum()
+        self.accepted += acc.sum()
+        self.steps.append(acc)
+        return new, de, acc
+
+
+def ptlm_run(torch, np, build, model, cfg, what: str, r=PTLM_R, seq=PTLM_SEQ,
+             prompt=PTLM_PROMPT, steps=PTLM_STEPS, seed=4) -> dict:
+    """PT over ``model``'s sequences through `core.pt.init` / `run`: R
+    replicas of ``seq`` tokens past a ``prompt``-token prompt, a geometric
+    ladder from 1 to 8, a swap every 5 steps.  The launch counts are 0 just
+    before init and read just after the run; the tracked energies must
+    equal a fresh ``batched_energy`` within `PTLM_ENERGY_RTOL` of their
+    magnitude and no step may move two tokens of a replica."""
+    from repro_torch.core import keys, ladder
+    from repro_torch.core import pt as pt_lib
+    from repro_torch.core.ptlm import LMSystem
+
+    dev = model.embed.device
+    system = CheckedLM(torch, LMSystem(cfg=cfg, seq_len=seq, prompt_len=prompt).bind(model))
+    temps = tuple(float(t) for t in ladder.geometric_ladder(r, 1.0, 8.0))
+    ptc = pt_lib.PTConfig(n_replicas=r, temps=temps, swap_interval=PTLM_SWAP)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build.reset_launches()
+    t = time.perf_counter()
+    st = pt_lib.init(system, ptc, keys.key(seed, device=dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    e0 = st.energy[torch.argsort(st.rung)].clone()
+    t = time.perf_counter()
+    st, trace = pt_lib.run(system, ptc, st, steps)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(build.launches)
+    fresh = system.batched_energy(st.states)
+    dev_e = (st.energy - fresh).abs().max().item()
+    if (not bool(torch.isfinite(st.energy).all())
+            or dev_e > PTLM_ENERGY_RTOL * fresh.abs().max().item()):
+        raise AssertionError(f"{what}: tracked energies != batched_energy ({dev_e})")
+    if int(system.too_many) != 0:
+        raise AssertionError(f"{what}: a step moved more than one token of a replica")
+    if (tuple(st.states.shape) != (r, seq) or st.states.dtype != torch.int32
+            or not bool(((st.states >= 0) & (st.states < cfg.vocab)).all())):
+        raise AssertionError(f"{what}: bad tokens")
+    if sorted(st.rung.cpu().tolist()) != list(range(r)) or int(st.t) != steps:
+        raise AssertionError(f"{what}: bad rungs or step counter")
+    att = int(trace["swap_attempt"].sum())
+    return {"state": st, "trace": trace, "counts": counts, "init_s": init_s, "wall": wall,
+            "ms_step": 1e3 * wall / steps, "tokens_s": 3 * r * seq * steps / wall,
+            "accept": int(system.accepted) / (r * steps),
+            "swap_rate": int(trace["swap_accept"].sum()) / max(att, 1), "energy_dev": dev_e,
+            "cold": (e0[0].item(), trace["energy"][-1, 0].item()),
+            "acc_steps": torch.stack(system.steps).cpu(), "system": system, "ptc": ptc,
+            "shape": (r, seq, prompt, steps)}
+
+
+def ptlm_line(res: dict, label: str, card: str) -> str:
+    r, seq, prompt, steps = res["shape"]
+    return (f"{label} [{card}]: R={r} x {seq} tokens (prompt {prompt}), "
+            f"geometric ladder 1-8, a swap every {PTLM_SWAP} steps, {steps} MH steps: "
+            f"init {1e3 * res['init_s']:.2f} ms, {res['ms_step']:.2f} ms a MH step (three "
+            f"forwards), {res['tokens_s']:.1f} scored tokens/s (3 x R x S a step), MH "
+            f"acceptance {res['accept']:.4f}, swap acceptance {res['swap_rate']:.4f}, cold "
+            f"rung NLL {res['cold'][0]:.2f} -> {res['cold'][1]:.2f}, tracked energies == "
+            f"batched_energy within {res['energy_dev']:.3e} (<= {PTLM_ENERGY_RTOL:g} of "
+            f"their magnitude), at most one token moved a replica and step")
+
+
+def ptlm_phases(torch, np, build, device, card: str) -> dict:
+    """Phase 25: PT-LM over rwkv6-7b at full width and depth (kernel #7 in
+    every forward), gemma-2b at full width (prefill, decode, decode ==
+    full forward, PT-LM) and reduced PT-LM runs card == CPU.  Returns what
+    the kernel summary needs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.rwkv_rounding import decode_vs_forward
+    from repro_torch.models import model as model_lib
+
+    t_phase = time.perf_counter()
+
+    def stamp() -> str:
+        return f"[{time.perf_counter() - t_phase:.1f} s] "
+
+    def one_step(res):
+        """One MH step of every replica (three forwards) from the run's final
+        state, for the profiler (its trace of a whole interval takes the host
+        tens of seconds to read)."""
+        system, st = res["system"], res["state"]
+        betas = torch.from_numpy(res["ptc"].betas).to(device)[st.rung.long()]
+        return lambda: system.batched_mcmc_step(st.key, st.t, st.states, betas)
+
+    gemms = {"matmul": ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")}
+    out = {}
+
+    # -- (a) rwkv6-7b at full width and depth, bf16, seeded as phase 15 ---------------
+    cfg = get_config("rwkv6_7b")
+    torch.cuda.empty_cache()
+    lm = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    ptlm_run(torch, np, build, lm, cfg, "phase 25 rwkv6-7b warm-up", steps=PTLM_SWAP)
+    res = ptlm_run(torch, np, build, lm, cfg, "phase 25 rwkv6-7b PT-LM")
+    want = cfg.n_layers * (1 + 3 * PTLM_STEPS)  # one forward at init, three a step
+    expect_launches(res["counts"], "phase 25 rwkv6-7b PT-LM", wkv6=want)
+    print(stamp() + ptlm_line(res, "phase 25 rwkv6-7b PT-LM (full width and depth, bf16, "
+                              "15 GB)", card)
+          + f"; wkv6 launches {res['counts']['wkv6']} == 32 x (1 + 3 x {PTLM_STEPS})")
+    print(stamp() + profile_breakdown(torch, build, one_step(res), 1, card,
+                                      "phase 25 rwkv6-7b PT-LM",
+                                      {"wkv6": ("wkv6_kernel", "wkv6")}, groups=gemms,
+                                      unit="MH step"))
+    out["rwkv"] = {k: res[k] for k in ("ms_step", "tokens_s", "accept", "swap_rate",
+                                       "energy_dev", "counts")}
+    del lm, res
+    torch.cuda.empty_cache()
+
+    # -- (b) gemma-2b at full width and depth, bf16 --------------------------------------
+    cfg = get_config("gemma_2b")
+    lm = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    n_params = sum(q.numel() for q in lm.parameters())
+    if n_params != cfg.n_params:
+        raise AssertionError(f"gemma-2b: {n_params} parameters, ModelConfig {cfg.n_params}")
+    w_bytes = sum(q.numel() * q.element_size() for q in lm.parameters())
+    floor_ms = 1e3 * w_bytes / HBM_BYTES_PER_S  # a decode step streams every weight once
+    batch, seq, n_gen = 4, 512, 64
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    with torch.inference_mode():
+        model_lib.prefill_logits(lm, cfg, {"tokens": tokens})  # first use of each op
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t = time.perf_counter()
+        for _ in range(3):
+            logits = model_lib.prefill_logits(lm, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t) / 3
+        expect_launches(dict(build.launches), "phase 25 gemma-2b prefill")
+    if (tuple(logits.shape) != (batch, cfg.vocab) or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"gemma-2b prefill logits {tuple(logits.shape)} not finite")
+    serve_lm.generate(lm, cfg, batch, 4, device)  # first use of the decode ops
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t = time.perf_counter()
+    seqs = serve_lm.generate(lm, cfg, batch, n_gen, device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    expect_launches(dict(build.launches), "phase 25 gemma-2b decode loop")
+    if (tuple(seqs.shape) != (batch, n_gen + 1)
+            or not bool(((seqs >= 0) & (seqs < cfg.vocab)).all())):
+        raise AssertionError(f"gemma-2b generate: bad token ids {seqs[:, :8].tolist()}")
+    ms_token = 1e3 * gen_s / n_gen
+    print(stamp() + f"phase 25 gemma-2b [{card}]: full width and depth (18 layers, d_model 2048, 8 "
+          f"heads x 256, MQA, GeGLU d_ff 16384, vocab 256000, tied embeddings, bf16), "
+          f"{n_params} parameters ({w_bytes / 1e9:.3f} GB); prefill (4, 512): "
+          f"{prefill_ms:.2f} ms = {batch * seq / prefill_ms * 1e3:.1f} tokens/s; generate "
+          f"B=4 x {n_gen} tokens: {ms_token:.3f} ms/token = {batch * n_gen / gen_s:.1f} "
+          f"tokens/s, {ms_token / floor_ms:.2f}x the {floor_ms:.3f} ms HBM floor (weight "
+          f"bytes / 3.35 TB/s); no hand-written kernel launched (attention is einsum and "
+          f"an f32 softmax, GEMMs cuBLAS)")
+    with torch.inference_mode():
+        print(stamp() + profile_breakdown(
+            torch, build, lambda: model_lib.prefill_logits(lm, cfg, {"tokens": tokens}), 1,
+            card, "phase 25 gemma-2b prefill (4, 512)", {}, groups=gemms, unit="forward"))
+    print(stamp() + profile_breakdown(
+        torch, build, lambda: serve_lm.generate(lm, cfg, batch, 4, device), 4, card,
+        "phase 25 gemma-2b decode loop", {}, groups=gemms, unit="token"))
+    res = ptlm_run(torch, np, build, lm, cfg, "phase 25 gemma-2b warm-up", steps=PTLM_SWAP)
+    res = ptlm_run(torch, np, build, lm, cfg, "phase 25 gemma-2b PT-LM")
+    expect_launches(res["counts"], "phase 25 gemma-2b PT-LM")
+    print(stamp() + ptlm_line(res, "phase 25 gemma-2b PT-LM (full width and depth, bf16)",
+                              card))
+    print(stamp() + profile_breakdown(torch, build, one_step(res), 1, card,
+                                      "phase 25 gemma-2b PT-LM", {}, groups=gemms,
+                                      unit="MH step"))
+    out["gemma"] = {"prefill_tokens_s": batch * seq / prefill_ms * 1e3, "ms_token": ms_token,
+                    "floor_ms": floor_ms, **{k: res[k] for k in (
+                        "ms_step", "tokens_s", "accept", "swap_rate", "energy_dev")}}
+    del lm, res, logits
+    torch.cuda.empty_cache()
+    # decode == full forward at full width in f32 (10 GB of weights), with the
+    # tolerance of phase 16 (rtol = atol = 3e-2; step 0 within 1e-4)
+    n_dec = 16
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():
+        lm32 = model_lib.init_params(cfg32, torch.Generator(device=device).manual_seed(0),
+                                     device=device)
+        steps32, full32 = decode_vs_forward(lm32, cfg32, tokens, n_dec)
+        torch.cuda.synchronize()
+        del lm32
+        torch.cuda.empty_cache()
+    dev32 = (steps32 - full32).abs()
+    if not bool(torch.isfinite(steps32).all()) or bool((dev32 > 3e-2 + 3e-2 * full32.abs()).any()):
+        raise AssertionError(f"gemma-2b f32 decode != full forward: {dev32.max().item()}")
+    if bool((dev32[:, 0] > 1e-4 + 1e-4 * full32[:, 0].abs()).any()):
+        raise AssertionError(f"gemma-2b f32 decode step 0 != forward: {dev32[:, 0].max().item()}")
+    print(stamp() + f"phase 25 gemma-2b decode == full forward [{card}]: full width, "
+          f"{n_dec} steps, "
+          f"f32 weights: max |decode - forward| {dev32.max().item():.3e} (step 0: "
+          f"{dev32[:, 0].max().item():.3e} <= 1e-4) within rtol = atol = 3e-2 (logits up to "
+          f"{full32.abs().max().item():.3f})")
+    out["gemma"]["decode_dev"] = dev32.max().item()
+    del steps32, full32, dev32, tokens
+    torch.cuda.empty_cache()
+
+    # -- (c) reduced f32 PT-LM runs: the card against the CPU ---------------------------
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: card == CPU needs full f32")
+    for arch in ("gemma_2b", "rwkv6_7b"):
+        small = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        with torch.inference_mode():
+            lm_cpu = model_lib.init_params(small, 0, device="cpu")
+            lm_card = copy.deepcopy(lm_cpu).to(device)
+        kw = dict(r=4, seq=12, prompt=1, steps=PTLM_SMALL_STEPS)
+        on_card = ptlm_run(torch, np, build, lm_card, small, f"phase 25 reduced {arch} card",
+                           **kw)
+        want = ({"wkv6": small.n_layers * (1 + 3 * PTLM_SMALL_STEPS)} if arch == "rwkv6_7b"
+                else {})
+        expect_launches(on_card["counts"], f"phase 25 reduced {arch} card", **want)
+        on_cpu = ptlm_run(torch, np, build, lm_cpu, small, f"phase 25 reduced {arch} CPU", **kw)
+        for name, a, b in (
+                ("tokens", on_card["state"].states.cpu(), on_cpu["state"].states),
+                ("rungs", on_card["state"].rung.cpu(), on_cpu["state"].rung),
+                ("MH acceptances", on_card["acc_steps"], on_cpu["acc_steps"]),
+                ("swap decisions", on_card["trace"]["swap_accept"].cpu(),
+                 on_cpu["trace"]["swap_accept"])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 25 reduced {arch}: {name} card != CPU")
+        e_dev = (on_card["trace"]["energy"].cpu() - on_cpu["trace"]["energy"]).abs().max().item()
+        print(stamp() + f"phase 25 reduced {arch} [{card}]: f32, R=4 x 12 tokens, "
+              f"{PTLM_SMALL_STEPS} MH "
+              f"steps, TF32 off: tokens, rungs, every step's MH acceptances and every swap "
+              f"decision equal on the card and the CPU; energies within {e_dev:.3e}")
+        del lm_card, on_card
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 25 done in {out['seconds']:.1f} s")
+    return out
 
 
 # The serial chains' latency floor.  Only the key chain is serial whatever
@@ -3528,7 +3815,10 @@ def main() -> int:
     # -- phase 24: training on the card -------------------------------------------
     tr = train_phases(torch, np, build, device, card)
 
-    # -- phase 25: kernel summary ---------------------------------------------
+    # -- phase 25: PT over LM sequences, and the dense family ---------------------
+    lmpt = ptlm_phases(torch, np, build, device, card)
+
+    # -- phase 26: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -3693,6 +3983,10 @@ def main() -> int:
             k["train_bound_ms"], k["train_bound_by"] = tt["wkv6"]["bound"][:2]
             k["train_shape"] = "BH=512 T=512 dk=dv=64"
             k["train_launches"] = tr["launches"]["wkv6"]
+            k["ptlm_launches"] = lmpt["rwkv"]["counts"]["wkv6"]
+            k["ptlm_shape"] = (f"rwkv6-7b, R={PTLM_R} x {PTLM_SEQ} tokens, {PTLM_STEPS} MH "
+                               "steps: BH=512 T=64 a forward")
+            k["ptlm_ms_per_step"] = lmpt["rwkv"]["ms_step"]
     kernels.append({
         "name": "wkv6_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
         "replaces": "none: XLA's autodiff of src/repro/kernels/ref.py:133 (wkv6's lax.scan), "
@@ -3705,7 +3999,7 @@ def main() -> int:
         "launches_per_step": {f"remat={r}": c for r, c in tr["per_step"].items()},
         "train_step_ms": tr["warm_ms"], "train_tokens_s": tr["tokens_s"],
         "train_peak_gb": tr["peak_gb"]})
-    print(f"phase 25 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 26 done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,10 @@ and ``phase`` (C,), ``stats.*`` (C, R) and ``stats.n_records`` (C,).
 (``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
 `repro_torch.models.transformer.LM` holding the same values: the stacked
 ``groups/<i>_<kind>/...`` leaves (G, ...) are unstacked into the layers in
-order, then the ``tail`` layers, if any.
+order, then the ``tail`` layers, if any.  A dense layer's leaves are
+``norm1``, ``attn.{wq, wk, wv, wo[, q_norm, k_norm]}``, ``norm2`` and
+``ffn.{[w_gate,] w_up, w_down}``; a model with tied embeddings has no
+``unembed``.
 
 `train_state_from_reference` takes a JAX training state
 (`repro.train.train_step.TrainState`: the masters, AdamW's ``mu``, ``nu``
@@ -137,7 +140,8 @@ def _lm_state(params_np: dict, cfg) -> dict:
 def lm_params_from_reference(params_np: dict, cfg, device):
     """The port's `LM` with the JAX parameter pytree's values (see the module
     docstring): the tensors the JAX code casts to the compute dtype at use
-    are stored cast, the f32 leaves (``w0``, ``u``, the norms) stay f32."""
+    are stored cast, the f32 leaves (``w0``, ``u``, the norms, ``q_norm`` /
+    ``k_norm``) stay f32."""
     from repro_torch.models.transformer import LM
 
     device = resolve_device(device)

@@ -186,22 +186,23 @@ def from_arrays(arrays: dict[str, np.ndarray], device, like=None):
                        betas=values[("betas",)])
 
 
-# the rwkv family's one scanned group (`repro_torch.models.transformer.plan`)
-_GROUP = "0_rwkv"
-
-
 def _is_train_state(tree) -> bool:
     return hasattr(tree, "opt") and hasattr(tree, "params")
 
 
 def _tree_names(prefix: str, names) -> dict:
-    """The port's leaf name -> (JAX name, layer index or None)."""
+    """The port's leaf name -> (JAX name, layer index or None).  The dense
+    and rwkv families stack their layers in one scanned group
+    (`repro_torch.models.transformer.plan`), ``0_attn`` (a layer with an
+    ``attn`` child) or ``0_rwkv``."""
+    layers = [name.split(".", 2) for name in names if name.startswith("layers.")]
+    group = "0_attn" if any(sub.startswith("attn.") for _, _, sub in layers) else "0_rwkv"
     out = {}
     for name in names:
         if name.startswith("layers."):
             _, idx, sub = name.split(".", 2)
             key = "".join(f"[{p!r}]" for p in sub.split("."))
-            out[name] = (f"{prefix}['groups'][{_GROUP!r}]{key}", int(idx))
+            out[name] = (f"{prefix}['groups'][{group!r}]{key}", int(idx))
         else:
             out[name] = (f"{prefix}[{name!r}]", None)
     return out

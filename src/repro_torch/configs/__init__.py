@@ -3,7 +3,9 @@
 ``get_config(name)`` returns the published configuration and
 ``get_config(name, reduced=True)`` the same-family reduced one used by the
 CPU tests.  The registry knows the JAX package's ten architectures; the
-port runs ``rwkv6_7b`` and refuses the others by name.
+port runs the dense four (``gemma_2b``, ``qwen3_32b``, ``minitron_4b``,
+``stablelm_3b``) and ``rwkv6_7b``, and refuses the moe, hybrid, encdec and
+vlm ones by name.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ ALIASES = {
 }
 
 # architectures whose config module the port has
-PORTED = ("rwkv6_7b",)
+PORTED = ("qwen3_32b", "gemma_2b", "minitron_4b", "stablelm_3b", "rwkv6_7b")
 
 
 def get_config(name: str, reduced: bool = False):

@@ -9,14 +9,18 @@ from repro_torch.models.common import ModelConfig
 def config() -> ModelConfig:
     return ModelConfig(
         name="rwkv6-7b",
-        family="rwkv",  # 64 heads of 64; channel-mix squared ReLU
+        family="rwkv",
         n_layers=32,
         d_model=4096,
+        n_heads=64,  # d_model / 64 (fixed RWKV head dim)
+        n_kv_heads=64,
+        head_dim=64,
         d_ff=14336,
         vocab=65536,
+        act="relu2",  # channel-mix squared ReLU
     )
 
 
 def reduced() -> ModelConfig:
-    return dataclasses.replace(config(), n_layers=2, d_model=128, d_ff=256, vocab=512,
-                               logit_chunk=16, remat=False)
+    return dataclasses.replace(config(), n_layers=2, d_model=128, n_heads=2, n_kv_heads=2,
+                               head_dim=64, d_ff=256, vocab=512, logit_chunk=16, remat=False)

@@ -60,7 +60,9 @@ class System(Protocol):
     r)`` (`core.keys.replica_keys`); ``replica_offset`` is the first global
     slot of a replica shard on a mesh, 0 on one device.  A system may have
     only per-replica ``init_state(key)`` / ``energy(state)`` instead of the
-    batched pair: `batched_init` / `batched_energy` stack them.
+    batched pair: `batched_init` / `batched_energy` stack them.  A system
+    whose ``mesh_refusal`` is set (the LM system, `repro_torch.core.ptlm`)
+    is refused by an engine on a mesh with that message.
     """
 
     def init_state_batched(self, keys_: torch.Tensor) -> State:
@@ -83,7 +85,12 @@ def batched_init(system, key: torch.Tensor, n_replicas: int) -> State:
     """``n_replicas`` initial states from one key: replica r from
     ``split(key, R)[r]``, through ``init_state_batched`` where the system
     has it, else its per-replica ``init_state`` stacked (JAX's ``vmap`` over
-    the same keys)."""
+    the same keys).  A system with ``init_state_from_key(key, R)`` draws
+    all R from the unsplit key instead (JAX's natively batched
+    ``init_state_batched(key, R)``, the LM system's)."""
+    whole = getattr(system, "init_state_from_key", None)
+    if whole is not None:
+        return whole(key, n_replicas)
     replica_keys = keys.split(key, n_replicas)
     fast = getattr(system, "init_state_batched", None)
     if fast is not None:

@@ -9,7 +9,9 @@ Every sequence starts from token 1; step ``pos`` samples the next token with
 ``jax.random`` draw reproduced by `repro_torch.core.keys`, so the same
 weights give the JAX loop's tokens.  The weights are drawn from a seeded
 `torch.Generator` (not the JAX example's ``jax.random.key(0)`` weights).
-The port runs the rwkv family; other architectures are refused by name.
+The port runs the dense archs (``gemma_2b``, ``qwen3_32b``, ``minitron_4b``,
+``stablelm_3b``: a KV cache of ``--tokens`` + 8 positions) and
+``rwkv6_7b``; the others are refused by name.
 """
 from __future__ import annotations
 

@@ -11,7 +11,8 @@ the optimizer AdamW with 20 warmup steps and a cosine decay over
 JAX driver's line (``step N loss L X it/s``); with ``--ckpt-dir`` it saves
 every ``--ckpt-every`` steps in the JAX package's training-checkpoint
 format and a restart resumes at the newest saved step (``[restart] resumed
-at step N``).  An architecture the port has not ported is refused by name.
+at step N``).  The dense archs and ``rwkv6_7b`` train; an architecture the
+port has not ported is refused by name.
 """
 from __future__ import annotations
 

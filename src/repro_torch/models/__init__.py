@@ -1,2 +1,3 @@
-"""The LM substrate (twin of `repro.models`): the RWKV-6 family's serving
-path — `model.prefill_logits`, `model.init_decode_state`, `model.decode_step`."""
+"""The LM substrate (twin of `repro.models`): the dense decoder family
+(`attention`, `ffn`) and RWKV-6 (`rwkv6`), assembled by `transformer` and
+dispatched by `model` (prefill, decode, training loss)."""

@@ -1,0 +1,224 @@
+"""Self-attention: GQA / MQA, qk-norm, a sliding window, the chunked
+online softmax and KV-cache decode (twin of `repro.models.attention`).
+
+Conventions, as in the JAX code: x (B, S, D); q (B, S, H, hd); k, v
+(B, S, KV, hd); a layer's cache k, v (B, KV, S, hd), or (B, KV, W, hd) as a
+ring of W = ``swa_window`` slots (``cfg.ring_cache``).  GQA groups the
+query heads as ``(b, s, kv, h // kv, hd)``: head ``i`` reads kv head
+``i // (h // kv)``.
+
+Attention is the plain products and an f32 softmax, op for op as the JAX
+code computes it outside any Pallas kernel: scores in the compute dtype
+times ``hd ** -0.5`` (rounded to that dtype, as JAX's weak typing does),
+widened to f32, masked with ``NEG_INF``, ``exp(x - max) / sum`` in f32,
+the probabilities cast back to the compute dtype for the product with v.
+No library attention kernel runs; the products are `torch.einsum`
+(cuBLAS on the card).  ``attend_chunked`` is the JAX code's static
+triangular loop over (chunk, chunk) blocks with an f32 online softmax,
+but for its last step: each chunk's output goes back to (B, c, H, hd)
+with positions before heads, where JAX's raw reshape of (B, KV, G, c, hd)
+mixes the two (JAX's chunked path disagrees with its own dense one; the
+port's agrees with both dense paths).  It runs where a sequence is longer
+than ``attn_chunk`` (2048 in the full dense configs).
+
+Decode writes the new key and value into the layer's cache in place and
+returns it.  ``cross_attention`` (the vlm and encdec families) is not
+ported and is refused by name.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models.common import ModelConfig, apply_rope, dense_param, rms_norm, scalar
+
+__all__ = ["NEG_INF", "Attention", "project_qkv", "gqa_scores", "gqa_out", "causal_mask",
+           "softmax", "attend_full", "attend_chunked", "attention", "init_kv_cache",
+           "decode_attention", "cross_attention"]
+
+NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
+
+
+class Attention(nn.Module):
+    """One layer's projections (``init_attention`` of the JAX code): ``wq``
+    (D, H, hd), ``wk`` / ``wv`` (D, KV, hd), ``wo`` (H, hd, D) in the
+    compute dtype and, with ``qk_norm``, ``q_norm`` / ``k_norm`` (hd,) f32."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        d, h, kv, hd, dt = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                            cfg.compute_dtype)
+        self.wq = dense_param(generator, (d, h, hd), dtype=dt, device=device)
+        self.wk = dense_param(generator, (d, kv, hd), dtype=dt, device=device)
+        self.wv = dense_param(generator, (d, kv, hd), dtype=dt, device=device)
+        self.wo = dense_param(generator, (h, hd, d), in_axis=0, dtype=dt, device=device)
+        if cfg.qk_norm:
+            self.q_norm = nn.Parameter(torch.zeros((hd,), dtype=torch.float32, device=device),
+                                       requires_grad=False)
+            self.k_norm = nn.Parameter(torch.zeros((hd,), dtype=torch.float32, device=device),
+                                       requires_grad=False)
+
+
+def project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) in the compute dtype, q and k
+    RMS-normed over hd with ``qk_norm``; ``p`` is an `Attention` (or any
+    object with its tensors)."""
+    dt = cfg.compute_dtype
+    x = x.to(dt)
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    k = torch.einsum("btd,dgk->btgk", x, p.wk.to(dt))
+    v = torch.einsum("btd,dgk->btgk", x, p.wv.to(dt))
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm)
+        k = rms_norm(k, p.k_norm)
+    return q, k, v
+
+
+def gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """(B, S, H, hd) x (B, T, KV, hd) -> (B, KV, H/KV, S, T) grouped scores,
+    in q's dtype."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, hd)
+    return torch.einsum("bskgd,btkd->bkgst", qg, k) * scalar(scale, q.dtype)
+
+
+def gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, S, T) x (B, T, KV, hd) -> (B, S, H, hd)."""
+    b, kv, g, s, t = probs.shape
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, kv * g, v.shape[-1])
+
+
+def causal_mask(s: int, t: int, offset: int = 0, window: int = 0, device=None) -> torch.Tensor:
+    """(s, t) boolean keep-mask; ``offset`` = kv length - q length."""
+    qi = torch.arange(s, device=device)[:, None] + offset
+    kj = torch.arange(t, device=device)[None, :]
+    keep = kj <= qi
+    if window:
+        keep &= kj > qi - window
+    return keep
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis: ``exp(x - max) / sum``."""
+    u = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    return u / torch.sum(u, dim=-1, keepdim=True)
+
+
+def attend_full(q, k, v, cfg: ModelConfig, *, causal: bool = True, offset: int = 0):
+    """Dense-scores attention (train / prefill at moderate S)."""
+    scores = gqa_scores(q, k, cfg.head_dim ** -0.5).to(torch.float32)
+    if causal:
+        keep = causal_mask(q.shape[1], k.shape[1], offset, cfg.swa_window, device=q.device)
+        scores = torch.where(keep, scores, NEG_INF)
+    probs = softmax(scores).to(q.dtype)
+    return gqa_out(probs, v)
+
+
+def attend_chunked(q, k, v, cfg: ModelConfig, *, chunk: int, window: int = 0):
+    """Causal attention as a static triangular loop over (chunk, chunk)
+    blocks with an f32 online softmax; with ``window``, blocks wholly
+    outside the sliding window are skipped."""
+    b, s, h, hd = q.shape
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of attn_chunk {chunk}")
+    n = s // chunk
+    scale = hd ** -0.5
+    kvh = k.shape[2]
+    outs = []
+    for i in range(n):
+        qi = q[:, i * chunk:(i + 1) * chunk]
+        m = torch.full((b, kvh, h // kvh, chunk, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kvh, h // kvh, chunk, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kvh, h // kvh, chunk, hd), dtype=torch.float32, device=q.device)
+        j_lo = max(0, (i * chunk - window + 1) // chunk) if window else 0
+        for jc in range(j_lo, i + 1):
+            kj = k[:, jc * chunk:(jc + 1) * chunk]
+            vj = v[:, jc * chunk:(jc + 1) * chunk]
+            sc = gqa_scores(qi, kj, scale).to(torch.float32)
+            if jc == i or window:
+                keep = causal_mask(chunk, chunk, offset=(i - jc) * chunk, window=window,
+                                   device=q.device)
+                sc = torch.where(keep, sc, NEG_INF)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bkgst,btkd->bkgsd", p.to(q.dtype),
+                                             vj).to(torch.float32)
+            m = m_new
+        out = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)  # (B, KV, G, c, hd)
+        # positions before heads, as `gqa_out` lays them out; JAX's code
+        # reshapes (B, KV, G, c, hd) straight to (B, c, H, hd), which mixes
+        # positions and heads wherever it chunks (the port does not copy that)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, chunk, h, hd))
+    return torch.cat(outs, dim=1)
+
+
+def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over a full sequence (train / prefill):
+    (B, S, D) -> (B, S, D)."""
+    q, k, v = project_qkv(p, cfg, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.attn_chunk and x.shape[1] > cfg.attn_chunk:
+        ctx = attend_chunked(q, k, v, cfg, chunk=cfg.attn_chunk, window=cfg.swa_window)
+    else:
+        ctx = attend_full(q, k, v, cfg, causal=True)
+    return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(cfg.compute_dtype))
+
+
+def cross_attention(*args, **kwargs):
+    raise NotImplementedError("not yet ported: cross_attention (the vlm and encdec families)")
+
+
+# -- decode (KV cache) ------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
+    """One layer's cache ``{"k", "v"}`` (B, KV, S, hd) in the compute dtype;
+    S is ``min(max_seq, swa_window)`` for a ring cache."""
+    s = max_seq
+    if cfg.swa_window and cfg.ring_cache:
+        s = min(max_seq, cfg.swa_window)
+    shape = (batch, cfg.n_kv_heads, s, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos):
+    """One token's self-attention against a layer's cache.
+
+    ``x`` (B, 1, D) at position ``pos`` (an int or a 0-d integer tensor).
+    The new key and value are written at ``pos`` (full cache) or ``pos %
+    W`` (ring) in place; keys carry RoPE at their true position, so a warm
+    ring needs no order, and slots past ``pos`` are masked while it is
+    cold.  Returns (out (B, 1, D), the cache).
+    """
+    dt = cfg.compute_dtype
+    window = cfg.swa_window
+    ring = bool(window) and cfg.ring_cache
+    cache_k, cache_v = cache["k"], cache["v"]
+    b = x.shape[0]
+    q, k_new, v_new = project_qkv(p, cfg, x)
+    positions = (pos.reshape(1, 1).expand(b, 1) if isinstance(pos, torch.Tensor)
+                 else torch.full((b, 1), pos, device=x.device))  # no copy to the card
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    slot = pos % cache_k.shape[2] if ring else pos
+    cache_k[:, :, slot] = k_new[:, 0].to(dt)
+    cache_v[:, :, slot] = v_new[:, 0].to(dt)
+
+    _, kv, s, hd = cache_k.shape
+    h = q.shape[2]
+    qg = q.reshape(b, 1, kv, h // kv, hd)
+    scores = torch.einsum("bokgd,bktd->bkgot", qg, cache_k) * scalar(hd ** -0.5, dt)
+    t_idx = torch.arange(s, device=x.device)
+    keep = t_idx <= pos  # a ring: cold start only, a warm ring is fully valid
+    if window and not ring:
+        keep &= t_idx > pos - window
+    scores = torch.where(keep, scores.to(torch.float32), NEG_INF)
+    probs = softmax(scores).to(dt)
+    ctx = torch.einsum("bkgot,bktd->bokgd", probs, cache_v).reshape(b, 1, h, hd)
+    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(dt))
+    return out, cache

@@ -1,22 +1,26 @@
-"""Shared model pieces: the config, its parameter count, RMS norm and the
-dense initializer (twin of `repro.models.common`).
+"""Shared model pieces: the config, its parameter count, RMS norm, RoPE,
+JAX's sigmoid and SiLU, and the dense initializer (twin of
+`repro.models.common`).
 
 `ModelConfig` has the JAX package's fields that the port reads, with
-their defaults; `compute_dtype` is a torch dtype.  `dense_init` draws from
-an explicit `torch.Generator` (`dense_param` wraps it as a frozen
-parameter), so a model is made from a seed on any device; its numbers differ from ``jax.random``'s, and parity
-tests carry the JAX package's weights over
-(`repro_torch.carry.lm_params_from_reference`) instead.  RoPE and the other
-primitives wait for the families that use them.
+their names and defaults; `compute_dtype` is a torch dtype.  `dense_init`
+draws from an explicit `torch.Generator` (`dense_param` wraps it as a
+frozen parameter), so a model is made from a seed on any device; its
+numbers differ from ``jax.random``'s, and parity tests carry the JAX
+package's weights over (`repro_torch.carry.lm_params_from_reference`)
+instead.  `scalar` rounds a Python constant to a tensor's dtype first, as
+JAX's weak typing does (``x_bf16 * 0.0884`` multiplies by the bf16 value).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 
-__all__ = ["ModelConfig", "param_count", "rms_norm", "dense_init", "dense_param"]
+__all__ = ["ModelConfig", "param_count", "rms_norm", "rope_freqs", "apply_rope", "scalar",
+           "sigmoid", "silu", "dense_init", "dense_param"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,29 +28,42 @@ class ModelConfig:
     """Architecture description (one instance per arch in `repro_torch.configs`).
 
     The fields the port reads, each with the JAX config's name and default.
-    RWKV-6 heads are 64 wide (``d_model / 64`` of them) and its channel mix
-    is a squared ReLU, so the head and activation fields wait for the
-    families that read them.  A serving `LM` stores its weights in
+    The dense family reads the head fields (``n_kv_heads`` below
+    ``n_heads`` is GQA, 1 is MQA), ``act`` (the FFN: ``silu`` / ``geglu``
+    gated, ``relu2`` plain), ``qk_norm``, ``rope_theta``, ``swa_window``
+    (0: full causal), ``attn_chunk`` (0: dense scores; else the chunked
+    online softmax past that length) and ``ring_cache`` (a windowed
+    decode cache of ``swa_window`` slots).  RWKV-6 heads are 64 wide
+    whatever the head fields say.  A serving `LM` stores its weights in
     ``dtype``; training keeps f32 masters (``param_dtype``) and casts them
-    once a step (`repro_torch.train.train_step`).  ``remat`` recomputes each
-    layer in the backward pass (``remat_policy="full"``; ``"dots"`` is
-    refused by name), and the loss runs its softmax over ``logit_chunk``
-    positions at a time.
+    once a step (`repro_torch.train.train_step`).  ``remat`` recomputes
+    each layer in the backward pass (``remat_policy="full"``; ``"dots"``
+    is refused by name), and the loss runs its softmax over
+    ``logit_chunk`` positions at a time.
     """
 
     name: str
-    family: str  # the port runs "rwkv"
+    family: str  # the port runs "dense" and "rwkv"
     n_layers: int
     d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
     d_ff: int
     vocab: int
+    act: str = "silu"  # silu | geglu (gated) | relu2 | gelu | relu (plain)
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    swa_window: int = 0  # sliding-window size; 0 = full causal
+    attn_chunk: int = 0  # 0 = dense scores; else chunked online softmax
+    ring_cache: bool = False  # windowed decode: ring-buffer KV (W slots) vs full S
     dtype: str = "bfloat16"  # matmul/activation dtype (a serving LM's weights too)
     param_dtype: str = "float32"  # master weights (training)
     remat: bool = True
     remat_policy: str = "full"  # full (recompute all); "dots" is not ported
     logit_chunk: int = 512  # CE computed in seq chunks of this size
     tie_embeddings: bool = False
-    embed_scale: float = 1.0
+    embed_scale: float = 1.0  # sqrt(d_model) for the gemma family
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -59,17 +76,35 @@ class ModelConfig:
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """The JAX package's analytic parameter count, rwkv family (it leaves out
-    the nine d-vectors a layer of lerp weights, ``w0`` and ``ln_scale``)."""
-    if cfg.family != "rwkv":
-        raise NotImplementedError(f"not yet ported: param_count of the {cfg.family!r} family")
+    """The JAX package's analytic parameter count of the dense and rwkv
+    families (for rwkv it leaves out the nine d-vectors a layer of lerp
+    weights, ``w0`` and ``ln_scale``)."""
     d = cfg.d_model
-    tm = 5 * d * d + 2 * d * 64 + d  # time-mix: r,k,v,g,o + decay lora + bonus u
-    cm = 2 * d * cfg.d_ff + d * d  # channel-mix k/v + receptance gate
-    out = cfg.n_layers * (tm + cm + 2 * d) + cfg.vocab * d + d  # + embedding, final norm
+    per_layer_norms = 2 * d
+    if cfg.family == "dense":
+        hd = cfg.head_dim
+        attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
+        if cfg.qk_norm:
+            attn += 2 * hd
+        gated = cfg.act in ("silu", "gelu_glu", "geglu", "swiglu")
+        ffn = (3 if gated else 2) * d * cfg.d_ff
+        out = cfg.n_layers * (attn + ffn + per_layer_norms)
+    elif cfg.family == "rwkv":
+        tm = 5 * d * d + 2 * d * 64 + d  # time-mix: r,k,v,g,o + decay lora + bonus u
+        cm = 2 * d * cfg.d_ff + d * d  # channel-mix k/v + receptance gate
+        out = cfg.n_layers * (tm + cm + per_layer_norms)
+    else:
+        raise NotImplementedError(f"not yet ported: param_count of the {cfg.family!r} family")
+    out += cfg.vocab * d + d  # embedding + final norm
     if not cfg.tie_embeddings:
         out += cfg.vocab * d  # untied unembed
     return out
+
+
+def scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: the constant JAX multiplies by when a
+    weakly typed Python float meets an array of that dtype."""
+    return float(torch.tensor(value, dtype=torch.float64).to(dtype))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -78,6 +113,60 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # a plain tensor, whatever mode fills the cache
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+        return (1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exps)).to(device)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim / 2,) f32 inverse frequencies ``1 / theta^(2i / head_dim)``,
+    computed on the host once a device and cached (the same values on every
+    device; no copy to the card a call)."""
+    return _rope_freqs(head_dim, float(theta), torch.device(device or "cpu"))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding of ``x`` (..., S, n, head_dim) at ``positions``
+    (..., S), in f32 and cast back: the head is split into halves (not
+    interleaved pairs), ``[x1 cos - x2 sin, x2 cos + x1 sin]``."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions[..., :, None, None].to(torch.float32) * freqs  # (..., S, 1, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid``: forward as XLA lowers it, gradient by JAX's rule."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as it lowers: ``1 / (1 + exp(-x))``, each op in
+    ``x``'s dtype (in bf16 it rounds three times; ``torch.sigmoid`` once);
+    its gradient is ``logistic``'s JVP rule, ``g * (s * (1 - s))``, each op
+    in the dtype too."""
+    return _Logistic.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)`` with `sigmoid` above."""
+    return x * sigmoid(x)
 
 
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,

@@ -7,11 +7,12 @@
   decode_step(model, cfg, state, token, pos)   -> (logits, new state)
 
 `forward_loss` runs the model's own tensors, or ``params`` (the training
-step's cast masters; see `repro_torch.models.transformer`).  Every family
-but rwkv (encdec included) waits for a later slice and raises
-`NotImplementedError` (a family at `init_params` and `init_decode_state`),
-and so does a batch with a context (``img``).  Entry points put new tensors
-on ``cuda`` unless the caller passes ``device="cpu"``.
+step's cast masters; see `repro_torch.models.transformer`).  The dense and
+rwkv families run; moe, hybrid, vlm and encdec wait for a later slice and
+raise `NotImplementedError` by name (at `init_params` and
+`init_decode_state`), and so does a batch with a context (``img``).  Entry
+points put new tensors on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 

@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ModelConfig, dense_param, rms_norm
+from repro_torch.models.common import ModelConfig, dense_param, rms_norm, sigmoid
 
 __all__ = ["LORA_RANK", "HEAD_DIM", "heads", "TimeMix", "ChannelMix", "RWKVBlock",
            "init_rwkv_state"]
@@ -79,32 +79,9 @@ def _lerp(x, prev, mu):
     return x + (prev - x) * mu.to(x.dtype)
 
 
-class _Logistic(torch.autograd.Function):
-    """``jax.nn.sigmoid``: forward as XLA lowers it, gradient by JAX's rule."""
-
-    @staticmethod
-    def forward(ctx, x):
-        s = 1.0 / (1.0 + torch.exp(-x))
-        ctx.save_for_backward(s)
-        return s
-
-    @staticmethod
-    def backward(ctx, g):
-        (s,) = ctx.saved_tensors
-        return g * (s * (1.0 - s))
-
-
-def _sigmoid(x):
-    """``jax.nn.sigmoid`` as it lowers: ``1 / (1 + exp(-x))``, each op in
-    ``x``'s dtype (in bf16 it rounds three times; ``torch.sigmoid`` once);
-    its gradient is ``logistic``'s JVP rule, ``g * (s * (1 - s))``, each op
-    in the dtype too."""
-    return _Logistic.apply(x)
-
-
 def _silu(x):
-    """``jax.nn.silu``: ``x * sigmoid(x)`` with the sigmoid above."""
-    return x * _sigmoid(x)
+    """``jax.nn.silu``: ``x * sigmoid(x)`` with this module's ``sigmoid``."""
+    return x * sigmoid(x)
 
 
 def _head_rms(x, scale, h):
@@ -190,7 +167,7 @@ class ChannelMix(nn.Module):
         xr = _lerp(x, prev, self.mu_r)
         kk = torch.square(torch.relu(xk @ self.w_k))
         vv = kk @ self.w_v
-        rr = _sigmoid(xr @ self.w_r)
+        rr = sigmoid(xr @ self.w_r)
         return rr * vv, new_last
 
 

@@ -1,17 +1,26 @@
-"""Decoder-only LM assembly, the rwkv subset (twin of `repro.models.transformer`).
+"""Decoder-only LM assembly for the dense and rwkv families (twin of
+`repro.models.transformer`).
 
-The JAX package expands each architecture to a cyclic pattern of layer kinds
-and stacks the layers into scanned groups plus a tail; the port keeps the
-same plan (`layer_pattern`, `plan`) but holds the layers unstacked, in order,
-in an `LM` module:
+The JAX package expands each architecture to a cyclic pattern of layer
+kinds and stacks the layers into scanned groups plus a tail; the port keeps
+the same plan (`layer_pattern`, `plan`) but holds the layers unstacked, in
+order, in an `LM` module:
 
-  LM.embed (V, D), LM.layers [RWKVBlock ...], LM.final_norm (D,),
-  LM.unembed (D, V) (absent with tied embeddings)
+  LM.embed (V, D), LM.layers [DenseBlock | RWKVBlock ...], LM.final_norm
+  (D,), LM.unembed (D, V) (absent with tied embeddings)
 
-A decode state is the list of the layers' states, in the same order.  Only
-the ``rwkv`` family runs; every other family is refused by name.  Entry
-points: `init_params`, `backbone`, `last_logits`, `init_decode_state`,
-`decode_step`, and for training `lm_loss` and `forward_loss`.
+A ``DenseBlock`` (kind ``"attn"``) is JAX's pre-norm attention layer,
+``norm1``, ``attn`` (`repro_torch.models.attention`), ``norm2``, ``ffn``
+(`repro_torch.models.ffn`), each residual.  The other kinds (``attn_local``,
+``attn_moe``, ``rglru``, ``cross``) and their families (moe, hybrid, vlm,
+encdec) are refused by name.  A decode state is the list of the layers'
+states, in the same order: a dense layer's KV cache ``{"k", "v"}`` (B, KV,
+S, hd), which `decode_step` updates in place, or an rwkv layer's O(1)
+state.  Entry points: `init_params`, `backbone`, `last_logits`,
+`init_decode_state`, `decode_step`, and for training `lm_loss` and
+`forward_loss`.  The embedding is multiplied by ``embed_scale`` rounded to
+the compute dtype first (JAX's weak typing: gemma-2b's sqrt(2048) is 45.25
+in bf16).
 
 `backbone` runs each layer through `torch.func.functional_call` on its
 slice of a dict of tensors under the `LM`'s parameter names: the model's
@@ -20,7 +29,7 @@ own by default (serving, whose `LM` holds its bf16 tensors), or ``params``
 with a template `LM` on the ``meta`` device that holds no memory).  With
 ``cfg.remat`` and autograd recording, each layer runs under one
 non-reentrant `torch.utils.checkpoint` (JAX's ``jax.checkpoint`` of each
-scanned group; a group is one rwkv layer).  The layer's tensors are
+scanned group; a group is one layer).  The layer's tensors are
 arguments of the checkpointed function, so its recompute in the backward
 pass runs on the same tensors.  So serving and training share one set of
 modules and one loop, and the masters stay f32.
@@ -33,20 +42,30 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import rwkv6 as rwkv_lib
-from repro_torch.models.common import ModelConfig, dense_param, rms_norm
+from repro_torch.models.common import ModelConfig, dense_param, rms_norm, scalar
+from repro_torch.models.ffn import FFN
 
-__all__ = ["layer_pattern", "plan", "layer_kinds", "LM", "init_params", "backbone",
-           "unembed_matrix", "last_logits", "lm_loss", "forward_loss", "init_decode_state",
-           "decode_step"]
+__all__ = ["layer_pattern", "plan", "layer_kinds", "DenseBlock", "LM", "init_params", "embed",
+           "backbone", "unembed_matrix", "mm_f32", "last_logits", "lm_loss", "forward_loss",
+           "init_decode_state", "decode_step"]
+
+
+# the JAX package's layer kinds of the families the port does not run yet
+_REFUSED_KINDS = {"moe": "attn_moe", "hybrid": "rglru, attn_local", "vlm": "cross",
+                  "encdec": "whisper's encoder-decoder"}
 
 
 def layer_pattern(cfg: ModelConfig) -> tuple:
-    if cfg.family != "rwkv":
-        raise NotImplementedError(
-            f"not yet ported: the {cfg.family!r} family of {cfg.name}; the port runs "
-            "the rwkv family")
-    return ("rwkv",)
+    if cfg.family == "dense":
+        return ("attn",)
+    if cfg.family == "rwkv":
+        return ("rwkv",)
+    kinds = _REFUSED_KINDS.get(cfg.family, "unknown")
+    raise NotImplementedError(
+        f"not yet ported: the {cfg.family!r} family of {cfg.name} (layer kinds {kinds}); "
+        "the port runs the dense and rwkv families")
 
 
 def plan(cfg: ModelConfig):
@@ -60,9 +79,43 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     return [*pat * n_groups, *(pat[i % len(pat)] for i in range(tail))]
 
 
+class DenseBlock(nn.Module):
+    """One dense layer (kind ``"attn"``): pre-norm self-attention and FFN,
+    each residual.  The attention reads the config it is called with (a
+    ring cache or a window is a config of the same weights)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device),
+                                  requires_grad=False)
+        self.attn = attn_lib.Attention(cfg, generator, device)
+        self.norm2 = nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device),
+                                  requires_grad=False)
+        self.ffn = FFN(cfg, generator, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+        """x (B, S, D) at ``positions`` (B, S) -> (B, S, D)."""
+        h = rms_norm(x, self.norm1)
+        x = x + attn_lib.attention(self.attn, cfg, h, positions)
+        return x + self.ffn(rms_norm(x, self.norm2))
+
+    def decode(self, x: torch.Tensor, pos, cache: dict, cfg: ModelConfig):
+        """One token x (B, 1, D) at ``pos`` against the layer's KV cache
+        (updated in place). Returns (x', cache)."""
+        h = rms_norm(x, self.norm1)
+        o, cache = attn_lib.decode_attention(self.attn, cfg, h, cache, pos)
+        x = x + o
+        return x + self.ffn(rms_norm(x, self.norm2)), cache
+
+
+_BLOCKS = {"attn": DenseBlock, "rwkv": rwkv_lib.RWKVBlock}
+
+
 class LM(nn.Module):
     """The decoder-only LM's parameters (empty unless ``generator`` is given),
-    stored as `repro_torch.models.rwkv6` describes."""
+    stored as `DenseBlock` and `repro_torch.models.rwkv6` describe."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
@@ -70,8 +123,7 @@ class LM(nn.Module):
         d, dt = cfg.d_model, cfg.compute_dtype
         self.embed = dense_param(generator, (cfg.vocab, d), in_axis=1, dtype=dt,
                                  device=device)
-        self.layers = nn.ModuleList(
-            rwkv_lib.RWKVBlock(cfg, generator, device) for _ in kinds)
+        self.layers = nn.ModuleList(_BLOCKS[kind](cfg, generator, device) for kind in kinds)
         self.final_norm = nn.Parameter(
             torch.zeros((d,), dtype=torch.float32, device=device), requires_grad=False)
         if not cfg.tie_embeddings:
@@ -90,6 +142,15 @@ def init_params(cfg: ModelConfig, generator, device="cuda") -> LM:
 def _layer_params(params: dict, n: int, layer: nn.Module) -> dict:
     prefix = f"layers.{n}."
     return {name: params[prefix + name] for name, _ in layer.named_parameters()}
+
+
+def embed(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` in the compute dtype times
+    ``embed_scale`` rounded to it (JAX's weak typing)."""
+    x = table[tokens].to(cfg.compute_dtype)
+    if cfg.embed_scale != 1.0:
+        x = x * scalar(cfg.embed_scale, cfg.compute_dtype)
+    return x
 
 
 def backbone(model: LM, cfg: ModelConfig, tokens: torch.Tensor, ctx=None,
@@ -111,11 +172,17 @@ def backbone(model: LM, cfg: ModelConfig, tokens: torch.Tensor, ctx=None,
         raise NotImplementedError(
             f"not yet ported: remat_policy={cfg.remat_policy!r} (the port recomputes "
             "whole layers, remat_policy='full')")
-    x = params["embed"][tokens] * cfg.embed_scale
-    for n, layer in enumerate(model.layers):
-        def run(x, lp, layer=layer):
-            state = rwkv_lib.init_rwkv_state(cfg, x.shape[0], device=x.device)
-            return functional_call(layer, lp, (x, state))[0]
+    x = embed(params["embed"], cfg, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    for n, (layer, kind) in enumerate(zip(model.layers, layer_kinds(cfg), strict=True)):
+        if kind == "rwkv":
+            def run(x, lp, layer=layer):
+                state = rwkv_lib.init_rwkv_state(cfg, x.shape[0], device=x.device)
+                return functional_call(layer, lp, (x, state))[0]
+        else:
+            def run(x, lp, layer=layer):
+                return functional_call(layer, lp, (x, positions, cfg))
 
         lp = _layer_params(params, n, layer)
         x = (torch.utils.checkpoint.checkpoint(run, x, lp, use_reentrant=False) if remat
@@ -148,7 +215,7 @@ class _MmF32(torch.autograd.Function):
         return g @ b.T, a.T @ g
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with f32 accumulation and output (JAX's
     ``preferred_element_type=float32``).
 
@@ -165,7 +232,7 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def last_logits(model: LM, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     """(B, V) f32 logits of the last position of ``hidden`` (B, S, D)."""
-    return _mm_f32(hidden[:, -1].to(cfg.compute_dtype), unembed_matrix(model, cfg))
+    return mm_f32(hidden[:, -1].to(cfg.compute_dtype), unembed_matrix(model, cfg))
 
 
 def lm_loss(model: LM, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor,
@@ -173,7 +240,7 @@ def lm_loss(model: LM, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Ten
     """Chunked-softmax cross-entropy: the mean over every position of
     ``logsumexp(logits) - logits[label]``, never materialising (B, S, V).
 
-    Operands in the compute dtype, logits f32 (`_mm_f32`), ``logit_chunk``
+    Operands in the compute dtype, logits f32 (`mm_f32`), ``logit_chunk``
     positions at a time, the chunks' sums added in order, as the JAX code.
     """
     b, s, d = hidden.shape
@@ -185,7 +252,7 @@ def lm_loss(model: LM, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Ten
     for i in range(n):
         h = hidden[:, i * chunk:(i + 1) * chunk].to(cfg.compute_dtype)
         y = labels[:, i * chunk:(i + 1) * chunk].to(torch.int64)
-        logits = _mm_f32(h.reshape(-1, d), w).reshape(*h.shape[:2], -1)
+        logits = mm_f32(h.reshape(-1, d), w).reshape(*h.shape[:2], -1)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y[..., None])[..., 0]
         total = total + torch.sum(lse - gold)
@@ -203,23 +270,28 @@ def forward_loss(model: LM, cfg: ModelConfig, batch, params: dict | None = None)
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> list[dict]:
-    """Per-layer decode states in layer order (O(1) in ``max_seq`` for rwkv)."""
+    """Per-layer decode states in layer order: a dense layer's KV cache
+    (`repro_torch.models.attention.init_kv_cache`), an rwkv layer's O(1)
+    state."""
     device = resolve_device(device)
-    return [rwkv_lib.init_rwkv_state(cfg, batch, device=device) for _ in layer_kinds(cfg)]
+    return [rwkv_lib.init_rwkv_state(cfg, batch, device=device) if kind == "rwkv"
+            else attn_lib.init_kv_cache(cfg, batch, max_seq, device=device)
+            for kind in layer_kinds(cfg)]
 
 
 def decode_step(model: LM, cfg: ModelConfig, state: list[dict], token: torch.Tensor,
                 pos, ctx=None):
-    """One serve step: token (B, 1) at position ``pos`` (unused by rwkv).
+    """One serve step: token (B, 1) at position ``pos`` (an int or a 0-d
+    tensor; unused by rwkv).  Dense layers write their KV caches in place.
 
     Returns (logits (B, V) f32, new_state).
     """
     if ctx is not None:
         raise NotImplementedError("not yet ported: ctx (the vlm / encdec families)")
-    x = model.embed[token] * cfg.embed_scale
+    x = embed(model.embed, cfg, token)
     new_state = []
-    for layer, st in zip(model.layers, state, strict=True):
-        x, st = layer(x, st)
+    for layer, kind, st in zip(model.layers, layer_kinds(cfg), state, strict=True):
+        x, st = layer(x, st) if kind == "rwkv" else layer.decode(x, pos, st, cfg)
         new_state.append(st)
     hidden = rms_norm(x, model.final_norm)
     return last_logits(model, cfg, hidden), new_state

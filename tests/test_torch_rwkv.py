@@ -92,7 +92,7 @@ def test_config_matches_jax(reduced):
         assert mine.n_params == 7_533_367_296
 
 
-@pytest.mark.parametrize("arch", ["qwen3_32b", "mixtral-8x22b", "whisper_medium",
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b", "mixtral-8x22b", "whisper_medium",
                                   "recurrentgemma_9b"])
 def test_other_archs_refused_by_name(arch):
     with pytest.raises(NotImplementedError, match="not yet ported: arch") as err:
@@ -229,9 +229,9 @@ def test_refusals_by_name(port_models):
     tokens = torch.ones((1, 2), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ctx"):
         tm.prefill_logits(port_models["float32"], cfg, {"tokens": tokens, "img": tokens})
-    dense = dataclasses.replace(cfg, family="dense", name="tiny-dense")
-    with pytest.raises(NotImplementedError, match="the 'dense' family of tiny-dense"):
-        tm.init_params(dense, 0, device="cpu")
+    moe = dataclasses.replace(cfg, family="moe", name="tiny-moe")
+    with pytest.raises(NotImplementedError, match="the 'moe' family of tiny-moe"):
+        tm.init_params(moe, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="encdec"):
         tm.init_decode_state(dataclasses.replace(cfg, family="encdec"), 1, 4, device="cpu")
 

@@ -403,7 +403,7 @@ def test_bf16_gradients_need_the_logistic_rule(jax_state, jax_grads, monkeypatch
     ``logistic`` rule, the bf16 gradients leave their bounds."""
     from repro_torch.models import rwkv6 as trwkv
 
-    monkeypatch.setattr(trwkv, "_sigmoid", lambda x: 1.0 / (1.0 + torch.exp(-x)))
+    monkeypatch.setattr(trwkv, "sigmoid", lambda x: 1.0 / (1.0 + torch.exp(-x)))
     _, _, read, _, _ = _gradient_readings(jax_state, jax_grads, "bfloat16")
     assert [n for n, r in read.items() if r > _bf16_share(n)]
 
@@ -588,8 +588,8 @@ def test_train_cli_on_cpu_resumes_equal_to_an_uninterrupted_run(tmp_path):
 
 
 def test_train_cli_refuses_a_missing_card_and_unported_archs():
-    out = _train("--arch", "qwen3_32b", "--device", "cpu", "--steps", "1")
-    assert out.returncode != 0 and "not yet ported: arch 'qwen3_32b'" in out.stderr
+    out = _train("--arch", "mixtral_8x22b", "--device", "cpu", "--steps", "1")
+    assert out.returncode != 0 and "not yet ported: arch 'mixtral_8x22b'" in out.stderr
     if not torch.cuda.is_available():
         out = _train("--steps", "1")
         assert out.returncode != 0 and "CUDA was requested" in out.stderr
