@@ -194,7 +194,20 @@ Phases, one line each or more (any failure raises and exits non-zero):
     reduced f32 gemma and rwkv6 PT-LM runs (30 steps) on the card and the
     CPU with TF32 off: tokens, rungs, every MH acceptance and swap decision
     equal;
-26. a JSON line per kernel (launches, error, times, bound), the card line,
+26. the hybrid and moe families (``hybrid_moe_phases``, callable alone):
+    recurrentgemma-9b at full width and depth (bf16, 9,396,408,320
+    parameters): prefill (4, 512), 64 decode steps against the HBM floor,
+    profiles, the RG-LRU scan alone, a (1, 4096) prefill through
+    ``attend_chunked`` with the 2048 window held against the masked dense
+    path in f32 at full width and depth, decode == forward in f32 on one
+    group; mixtral-8x22b and qwen3-moe-235b-a22b at full width with 4
+    layers: prefill (4, 512), 64 / 16 decode steps against the bytes a step
+    reads, ``router_load``'s dropped share, two qwen3 prefills bit-equal,
+    profiles and one MoE layer's dispatch / expert GEMMs / combine; the
+    three reduced configs in f32 on the card == the CPU (logits, 12 decode
+    steps, the loss, MoE expert assignments); no hand-written kernel is
+    launched;
+27. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 Every ``Session`` runs with ``strict_kernels=True`` but phase 22's injected
@@ -1687,6 +1700,401 @@ def ptlm_phases(torch, np, build, device, card: str) -> dict:
     return out
 
 
+# -- phase 26: the hybrid and moe families at full width ------------------------------
+# recurrentgemma-9b (38 layers) and mixtral-8x22b / qwen3-moe-235b-a22b at full
+# width with their depth cut to 4 layers, bf16 on seeded weights; no
+# hand-written kernel is on these paths (the RG-LRU scan, the conv, the MoE
+# dispatch and combine are torch ops, the products cuBLAS).  Tolerances:
+# the (1, 4096) prefill through attend_chunked with the 2048 window against
+# the masked dense path (attn_chunk=0) in f32 at full width and depth, rtol
+# = atol = 1e-3 on the last position's logits (the two paths differ by the
+# online softmax's f32 roundings; in bf16 the comparison is printed, with
+# rounding flips amplified by 38 random layers); decode == forward in f32 as
+# phase 25 (rtol = atol = 3e-2, step 0 within 1e-4); reduced f32 models on
+# the card against the CPU with TF32 off: logits rtol = atol = 1e-4, the
+# loss within 1e-5 relative, MoE expert assignments equal.
+HYBRID_MOE_CHUNK_TOL = 1e-3
+RECURRENTGEMMA_HELD = 9_396_408_320  # what the model holds (param_count says 9,975,459,840)
+
+
+def device_busy_ms(torch, fn, reps: int = 1) -> tuple[float, int]:
+    """Device time in ms of every kernel and copy that one call of ``fn``
+    issues (``torch.profiler``, the mean over ``reps`` calls) and the device
+    ops a call.  The tracer drops device events now and then and never adds
+    any (one window saw 2 of a combine's 17 ops), so three windows that saw
+    ops are read, up to six in all, and the one with the most ops is kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []  # (ops, busy ms) of each window that saw device ops
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        ops = sum(e.count for e in rows) - 1  # less the tracer's first op
+        if ops > 0:
+            seen.append((ops, sum(float(e.self_device_time_total) for e in rows) / 1e3))
+            if len(seen) == 3:
+                break
+    if not seen:
+        raise AssertionError("the profiler saw no device op in six windows")
+    ops, busy = max(seen)
+    return busy / reps, ops // reps
+
+
+class MoERecorder:
+    """Wraps `repro_torch.models.moe.moe_ffn` while in use: every call's
+    routing (``expert_idx``), ``router_load`` of its input and, for the
+    first call, the input itself."""
+
+    def __init__(self, moe_lib, keep_input: bool = False):
+        self.moe_lib, self.keep_input = moe_lib, keep_input
+        self.calls, self.first_input = [], None
+
+    def __enter__(self):
+        orig = self.orig = self.moe_lib.moe_ffn
+
+        def recorded(p, cfg, x, trace=None):
+            t = {} if trace is None else trace
+            y = orig(p, cfg, x, trace=t)
+            counts, dropped = self.moe_lib.router_load(cfg, x, p)
+            self.calls.append({"expert_idx": t["expert_idx"], "counts": counts,
+                               "dropped": dropped})
+            if self.keep_input and self.first_input is None:
+                self.first_input = (p, x.detach().clone())
+            return y
+
+        self.moe_lib.moe_ffn = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_lib.moe_ffn = self.orig
+
+
+def serve_full_width(torch, build, model_lib, serve_lm, lm, cfg, what: str, n_gen: int,
+                     floor_bytes: float, device) -> dict:
+    """Prefill (4, 512) (first use, then 3 timed) and ``generate`` B=4 x
+    ``n_gen`` tokens (after 4 of first use), with no hand-written kernel
+    launched; finite logits and token ids in the vocabulary."""
+    batch, seq = 4, 512
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    with torch.inference_mode():
+        model_lib.prefill_logits(lm, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t = time.perf_counter()
+        for _ in range(3):
+            logits = model_lib.prefill_logits(lm, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t) / 3
+    expect_launches(dict(build.launches), f"{what} prefill")
+    if (tuple(logits.shape) != (batch, cfg.vocab) or logits.dtype != torch.float32
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{what} prefill logits {tuple(logits.shape)} not finite")
+    serve_lm.generate(lm, cfg, batch, 4, device)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t = time.perf_counter()
+    seqs = serve_lm.generate(lm, cfg, batch, n_gen, device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    expect_launches(dict(build.launches), f"{what} decode loop")
+    if (tuple(seqs.shape) != (batch, n_gen + 1)
+            or not bool(((seqs >= 0) & (seqs < cfg.vocab)).all())):
+        raise AssertionError(f"{what} generate: bad token ids {seqs[:, :8].tolist()}")
+    floor_ms = 1e3 * floor_bytes / HBM_BYTES_PER_S
+    ms_token = 1e3 * gen_s / n_gen
+    return {"tokens": tokens, "prefill_ms": prefill_ms,
+            "prefill_tokens_s": batch * seq / prefill_ms * 1e3, "ms_token": ms_token,
+            "floor_ms": floor_ms, "x_floor": ms_token / floor_ms,
+            "decode_tokens_s": batch * n_gen / gen_s}
+
+
+def serve_line(res: dict, n_gen: int) -> str:
+    return (f"prefill (4, 512): {res['prefill_ms']:.2f} ms = {res['prefill_tokens_s']:.1f} "
+            f"tokens/s; generate B=4 x {n_gen} tokens: {res['ms_token']:.3f} ms/token = "
+            f"{res['decode_tokens_s']:.1f} tokens/s, {res['x_floor']:.2f}x the "
+            f"{res['floor_ms']:.3f} ms floor")
+
+
+def hybrid_moe_phases(torch, np, build, device, card: str) -> dict:
+    """Phase 26: the hybrid family (recurrentgemma-9b at full width and
+    depth) and the moe family (mixtral-8x22b and qwen3-moe-235b-a22b at
+    full width, 4 layers each) on the card, and their reduced configs card
+    == CPU.  Returns the numbers PERF.md keeps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.rwkv_rounding import decode_vs_forward
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import rglru as rglru_lib
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+
+    def stamp() -> str:
+        return f"[{time.perf_counter() - t_phase:.1f} s] "
+
+    def seeded(cfg):
+        return model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                     device=device)
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the f32 checks below need full f32")
+    gemms = {"matmul": ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")}
+    out = {}
+
+    # -- (a) recurrentgemma-9b at full width and depth, bf16 ----------------------------
+    cfg = get_config("recurrentgemma_9b")
+    torch.cuda.reset_peak_memory_stats()
+    lm = seeded(cfg)
+    held = sum(q.numel() for q in lm.parameters())
+    if held != RECURRENTGEMMA_HELD or cfg.n_params == held:
+        raise AssertionError(f"recurrentgemma-9b holds {held} parameters (param_count "
+                             f"{cfg.n_params})")
+    w_bytes = sum(q.numel() * q.element_size() for q in lm.parameters())
+    n_gen = 64
+    # tied embeddings: a step reads every weight once (the table is the unembedding)
+    res = serve_full_width(torch, build, model_lib, serve_lm, lm, cfg, "recurrentgemma-9b",
+                           n_gen, w_bytes, device)
+    print(stamp() + f"phase 26 recurrentgemma-9b [{card}]: full width and depth (38 layers: "
+          f"12 x (rglru, rglru, attn_local) + 2 rglru, d_model 4096, lru 4096, MQA 16 x 256, "
+          f"window 2048, GeGLU 12288, vocab 256000, tied, bf16), {held} parameters "
+          f"({w_bytes / 1e9:.3f} GB; param_count {cfg.n_params}); " + serve_line(res, n_gen)
+          + " (weight bytes / 3.35 TB/s)")
+    tokens = res["tokens"]
+    with torch.inference_mode():
+        print(stamp() + profile_breakdown(
+            torch, build, lambda: model_lib.prefill_logits(lm, cfg, {"tokens": tokens}), 1,
+            card, "phase 26 recurrentgemma-9b prefill (4, 512)", {}, groups=gemms,
+            unit="forward"))
+    print(stamp() + profile_breakdown(
+        torch, build, lambda: serve_lm.generate(lm, cfg, 4, 4, device), 4, card,
+        "phase 26 recurrentgemma-9b decode loop", {}, groups=gemms, unit="token"))
+    # the RG-LRU scan alone (gates and the associative scan) at the layer's inputs
+    mix = lm.layers[0].mix
+    scan = {}
+    with torch.inference_mode():
+        for b, s in ((4, 512), (1, 4096)):
+            u = torch.randn((b, s, cfg.lru_width), device=device,
+                            generator=torch.Generator(device=device).manual_seed(2)
+                            ).to(cfg.compute_dtype)
+            busy, ops = device_busy_ms(torch, lambda: rglru_lib.rglru_scan(mix, cfg, u), 3)
+            scan[(b, s)] = {"ms": cuda_ms(torch, lambda: rglru_lib.rglru_scan(mix, cfg, u), 5),
+                            "device_ms": busy, "ops": ops}
+    n_rec = tf.layer_kinds(cfg).count("rglru")
+    print(stamp() + f"phase 26 RG-LRU scan [{card}]: gates + associative scan of one layer "
+          + "; ".join(f"({b}, {s}): {v['ms']:.3f} ms (CUDA events), {v['device_ms']:.3f} ms "
+                      f"device in {v['ops']} device ops, x {n_rec} layers = "
+                      f"{v['device_ms'] * n_rec:.1f} ms a forward" for (b, s), v in scan.items()))
+    # (1, 4096): attend_chunked with the 2048 window, and the scan at 4096 steps
+    long = torch.randint(0, cfg.vocab, (1, 4096), device=device,
+                         generator=torch.Generator(device=device).manual_seed(3))
+    dense_cfg = dataclasses.replace(cfg, attn_chunk=0)
+    with torch.inference_mode():
+        model_lib.prefill_logits(lm, cfg, {"tokens": long})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        chunked = model_lib.prefill_logits(lm, cfg, {"tokens": long})
+        torch.cuda.synchronize()
+        long_ms = 1e3 * (time.perf_counter() - t)
+        dense = model_lib.prefill_logits(lm, dense_cfg, {"tokens": long})
+        torch.cuda.synchronize()
+    if not (bool(torch.isfinite(chunked).all()) and bool(torch.isfinite(dense).all())):
+        raise AssertionError("recurrentgemma-9b (1, 4096) prefill: logits not finite")
+    bf16_dev = (chunked - dense).abs().max().item()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out["recurrentgemma"] = {**{k: res[k] for k in ("prefill_ms", "prefill_tokens_s",
+                                                    "ms_token", "floor_ms", "x_floor")},
+                             "long_ms": long_ms, "bf16_chunked_vs_dense": bf16_dev,
+                             "scan": {f"{b}x{s}": v for (b, s), v in scan.items()},
+                             "peak_gb": peak_gb}
+    del lm, mix, res, chunked, dense
+    free()
+    # the same comparison in f32 at full width and depth (37.6 GB of weights)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.inference_mode():
+        lm32 = seeded(cfg32)
+        chunked = model_lib.prefill_logits(lm32, cfg32, {"tokens": long})
+        dense = model_lib.prefill_logits(lm32, dataclasses.replace(cfg32, attn_chunk=0),
+                                         {"tokens": long})
+        torch.cuda.synchronize()
+        del lm32
+        free()
+    dev32 = (chunked - dense).abs()
+    tol = HYBRID_MOE_CHUNK_TOL
+    if not bool(torch.isfinite(chunked).all()) or bool((dev32 > tol + tol * dense.abs()).any()):
+        raise AssertionError(f"recurrentgemma-9b f32 chunked != dense: {dev32.max().item()}")
+    print(stamp() + f"phase 26 recurrentgemma-9b (1, 4096) [{card}]: attend_chunked (2 chunks "
+          f"of 2048, window 2048) and the RG-LRU scan over 4096 steps: bf16 prefill "
+          f"{long_ms:.2f} ms = {4096 / long_ms * 1e3:.1f} tokens/s; last-position logits "
+          f"against the masked dense path (attn_chunk=0, (1, 1, 16, 4096, 4096) f32 scores a "
+          f"layer): f32 max |dev| {dev32.max().item():.3e} within rtol = atol = {tol} (logits "
+          f"up to {dense.abs().max().item():.3f}); bf16 max |dev| {bf16_dev:.3e} (not held: "
+          f"bf16 rounding flips); peak memory {peak_gb:.3f} GB")
+    out["recurrentgemma"]["f32_chunked_vs_dense"] = dev32.max().item()
+    del chunked, dense, dev32
+    free()
+    # decode == full forward in f32 at full width, one group (rglru, rglru, attn_local)
+    n_dec = 16
+    cfg3 = dataclasses.replace(cfg32, n_layers=3)
+    with torch.inference_mode():
+        lm3 = seeded(cfg3)
+        steps32, full32 = decode_vs_forward(lm3, cfg3, tokens, n_dec)
+        torch.cuda.synchronize()
+        del lm3
+        free()
+    dev = (steps32 - full32).abs()
+    if not bool(torch.isfinite(steps32).all()) or bool((dev > 3e-2 + 3e-2 * full32.abs()).any()):
+        raise AssertionError(f"recurrentgemma-9b f32 decode != forward: {dev.max().item()}")
+    if bool((dev[:, 0] > 1e-4 + 1e-4 * full32[:, 0].abs()).any()):
+        raise AssertionError(f"recurrentgemma-9b f32 decode step 0: {dev[:, 0].max().item()}")
+    print(stamp() + f"phase 26 recurrentgemma-9b decode == full forward [{card}]: full width, "
+          f"one group (rglru, rglru, attn_local), f32, {n_dec} steps: max |decode - forward| "
+          f"{dev.max().item():.3e} (step 0: {dev[:, 0].max().item():.3e} <= 1e-4) within "
+          f"rtol = atol = 3e-2 (logits up to {full32.abs().max().item():.3f})")
+    out["recurrentgemma"]["decode_dev"] = dev.max().item()
+    del steps32, full32, dev, tokens
+    free()
+
+    # -- (b), (c) mixtral-8x22b and qwen3-moe-235b-a22b, 4 layers at full width -------
+    moe_runs = (("mixtral_8x22b", "mixtral-8x22b", 10_418_903_040, 64,
+                 "48 heads x 128, GQA 8, SWA 4096, 8 experts top-2 of d_ff 16384, "
+                 "vocab 32768"),
+                ("qwen3_moe_235b", "qwen3-moe-235b-a22b", 11_195_683_840, 16,
+                 "64 heads x 128, GQA 4, qk-norm, 128 experts top-8 of d_ff 1536, "
+                 "vocab 151936"))
+    for arch, name, want_held, n_gen, shape in moe_runs:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=4)
+        lm = seeded(cfg)
+        held = sum(q.numel() for q in lm.parameters())
+        if held != want_held or held != cfg.n_params:
+            raise AssertionError(f"{name}: {held} parameters, param_count {cfg.n_params}")
+        w_bytes = sum(q.numel() * q.element_size() for q in lm.parameters())
+        # a decode step reads every weight but the embedding table (4 rows of
+        # it): the experts' batched products read all E experts; and the KV
+        # caches of max_seq = n_gen + 8 positions
+        kv_bytes = (2 * cfg.n_layers * 4 * cfg.n_kv_heads * (n_gen + 8) * cfg.head_dim
+                    * lm.embed.element_size())
+        step_bytes = (w_bytes - lm.embed.numel() * lm.embed.element_size()
+                      + 4 * cfg.d_model * lm.embed.element_size() + kv_bytes)
+        res = serve_full_width(torch, build, model_lib, serve_lm, lm, cfg, name, n_gen,
+                               step_bytes, device)
+        tokens = res["tokens"]
+        with torch.inference_mode(), MoERecorder(moe_lib, keep_input=True) as rec:
+            logits = model_lib.prefill_logits(lm, cfg, {"tokens": tokens})
+        dropped = [float(c["dropped"]) for c in rec.calls]
+        cap = moe_lib.capacity(cfg, tokens.numel())
+        line = (f"phase 26 {name} [{card}]: full width ({shape}, d_model {cfg.d_model}), depth "
+                f"cut to 4 of {full.n_layers} layers, bf16, {held} parameters "
+                f"({w_bytes / 1e9:.3f} GB), active {cfg.n_active_params}; " + serve_line(res, n_gen)
+                + f" (the {step_bytes / 1e9:.3f} GB a step reads / 3.35 TB/s: every weight but "
+                f"the embedding table, all {cfg.n_experts} experts, the KV caches); router_load "
+                f"at prefill (T = 2048, capacity {cap}): dropped share a layer "
+                f"{[round(d, 5) for d in dropped]}")
+        out[arch] = {**{k: res[k] for k in ("prefill_ms", "prefill_tokens_s", "ms_token",
+                                            "floor_ms", "x_floor")}, "dropped": dropped}
+        if arch == "qwen3_moe_235b":  # the ordered combine: prefill twice, bit-equal
+            with torch.inference_mode():
+                again = model_lib.prefill_logits(lm, cfg, {"tokens": tokens})
+                p0, x0 = rec.first_input
+                y1 = moe_lib.moe_ffn(p0, cfg, x0)
+                y2 = moe_lib.moe_ffn(p0, cfg, x0)
+            if not (torch.equal(again, logits) and torch.equal(y1, y2)):
+                raise AssertionError(f"{name}: two prefills (or MoE layers) on the same inputs "
+                                     "differ")
+            line += "; two prefills on the same inputs bit-equal (logits and layer 0's MoE)"
+        print(stamp() + line)
+        with torch.inference_mode():
+            print(stamp() + profile_breakdown(
+                torch, build, lambda: model_lib.prefill_logits(lm, cfg, {"tokens": tokens}), 1,
+                card, f"phase 26 {name} prefill (4, 512)", {}, groups=gemms, unit="forward"))
+        print(stamp() + profile_breakdown(
+            torch, build, lambda: serve_lm.generate(lm, cfg, 4, 4, device), 4, card,
+            f"phase 26 {name} decode loop", {}, groups=gemms, unit="token"))
+        # one layer's MoE by stage, at the prefill's layer-0 input and at one decode step's
+        p0, x0 = rec.first_input
+        stages = {}
+        with torch.inference_mode():
+            for label, x in (("prefill", x0.reshape(-1, cfg.d_model)),
+                             ("decode", x0.reshape(-1, cfg.d_model)[:4])):
+                x_g, slots, idx = moe_lib.route(p0, cfg, x)
+                y_g = moe_lib.experts(p0, cfg, x_g)
+                calls = {"route": lambda: moe_lib.route(p0, cfg, x),
+                         "experts": lambda: moe_lib.experts(p0, cfg, x_g),
+                         "combine": lambda: moe_lib.combine(y_g, slots, idx)}
+                # CUDA events beside the profiler: a profiler window can drop device ops
+                stages[label] = {k: (cuda_ms(torch, f, 20, 2), *device_busy_ms(torch, f, 3))
+                                 for k, f in calls.items()}
+        print(stamp() + f"phase 26 {name} MoE stages [{card}]: one layer, ms by CUDA events "
+              "(device time by the profiler, device ops it saw): " + "; ".join(
+                  f"{label} (T={4 * 512 if label == 'prefill' else 4}): dispatch (router, "
+                  f"top-k, sort, searchsorted, scatters, gather) {v['route'][0]:.4f} "
+                  f"({v['route'][1]:.4f}, {v['route'][2]}), expert GEMMs "
+                  f"{v['experts'][0]:.4f} ({v['experts'][1]:.4f}, {v['experts'][2]}), combine "
+                  f"{v['combine'][0]:.4f} ({v['combine'][1]:.4f}, {v['combine'][2]})"
+                  for label, v in stages.items()))
+        out[arch]["stages"] = {k: {s: v[s][:2] for s in v} for k, v in stages.items()}
+        del lm, res, tokens, logits, rec, p0, x0, x_g, slots, idx, y_g
+        free()
+
+    # -- (d) the reduced configs: the card against the CPU (f32, TF32 off) --------------
+    for arch in ("recurrentgemma_9b", "mixtral_8x22b", "qwen3_moe_235b"):
+        small = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        lm_cpu = model_lib.init_params(small, 0, device="cpu")
+        lm_card = copy.deepcopy(lm_cpu).to(device)
+        toks = torch.from_numpy(np.random.default_rng(4).integers(0, small.vocab, (2, 16)))
+        batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+        got = {}
+        for where, lm_, dev in (("card", lm_card, device), ("cpu", lm_cpu, "cpu")):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.inference_mode(), MoERecorder(moe_lib) as rec:
+                logits = model_lib.prefill_logits(lm_, small, b)
+                loss = model_lib.forward_loss(lm_, small, b)
+                state = model_lib.init_decode_state(small, 2, 12, device=dev)
+                steps = []
+                for pos in range(12):
+                    lg, state = model_lib.decode_step(lm_, small, state,
+                                                      b["tokens"][:, pos:pos + 1], pos)
+                    steps.append(lg)
+            got[where] = {"logits": logits.cpu(), "loss": loss.item(),
+                          "steps": torch.stack(steps, 1).cpu(),
+                          "routes": [c["expert_idx"].cpu() for c in rec.calls]}
+        a, b = got["card"], got["cpu"]
+        for key in ("logits", "steps"):
+            if not torch.allclose(a[key], b[key], rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"phase 26 reduced {arch}: {key} card != CPU, "
+                                     f"{(a[key] - b[key]).abs().max().item()}")
+        if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]):
+            raise AssertionError(f"phase 26 reduced {arch}: loss {a['loss']} != {b['loss']}")
+        if len(a["routes"]) != len(b["routes"]) or not all(
+                torch.equal(x, y) for x, y in zip(a["routes"], b["routes"])):
+            raise AssertionError(f"phase 26 reduced {arch}: MoE expert assignments differ")
+        print(stamp() + f"phase 26 reduced {arch} [{card}]: f32, TF32 off: prefill logits, 12 "
+              f"decode steps (max |dev| {(a['steps'] - b['steps']).abs().max().item():.3e}) "
+              f"and forward_loss ({a['loss']:.6f}) on the card == CPU; "
+              f"{len(a['routes'])} MoE calls with equal expert assignments")
+        del lm_card
+        free()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 26 done in {out['seconds']:.1f} s")
+    return out
+
+
 # The serial chains' latency floor.  Only the key chain is serial whatever
 # the design: step m+1's key is fold_in(step m's key, 0), one Threefry
 # block, and the draws of a step hang off its key.  A block's dependent
@@ -2864,12 +3272,13 @@ def check_mesh_kernels(torch, np, xk, isk, ju, sc, keys, prng, build, device) ->
             # one call of exchange_rows on the kernel's types is one device op:
             # one launch a call by the counter, and the profiler sees no
             # device op but the exchange kernel, at most once a call
+            # (windows of 100 calls: the tracer lost six windows of 10 in a row once)
             n0 = build.launches["exchange_step"]
-            ops, n_calls = device_ops_of_calls(torch, rows_fn, "exchange_shared_kernel", 10)
+            ops, n_calls = device_ops_of_calls(torch, rows_fn, "exchange_shared_kernel", 100)
             n_launched = build.launches["exchange_step"] - n0
             if (n_launched != n_calls or len(ops) != 1
                     or "exchange_shared_kernel" not in next(iter(ops))
-                    or next(iter(ops.values())) > 10):
+                    or next(iter(ops.values())) > 100):
                 raise AssertionError(f"phase 23: {n_calls} calls of exchange_rows launched "
                                      f"{n_launched} times and ran {ops}, not one launch a call")
             rung, energy, betas, words, phase = (rung_c, energy_c, betas_c, words_c,
@@ -3818,7 +4227,10 @@ def main() -> int:
     # -- phase 25: PT over LM sequences, and the dense family ---------------------
     lmpt = ptlm_phases(torch, np, build, device, card)
 
-    # -- phase 26: kernel summary ---------------------------------------------
+    # -- phase 26: the hybrid and moe families at full width ----------------------
+    hm = hybrid_moe_phases(torch, np, build, device, card)
+
+    # -- phase 27: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -3999,7 +4411,8 @@ def main() -> int:
         "launches_per_step": {f"remat={r}": c for r, c in tr["per_step"].items()},
         "train_step_ms": tr["warm_ms"], "train_tokens_s": tr["tokens_s"],
         "train_peak_gb": tr["peak_gb"]})
-    print(f"phase 26 done in {time.perf_counter() - t_start:.1f} s")
+    print(f"phase 27 done in {time.perf_counter() - t_start:.1f} s (phase 26: "
+          f"{hm['seconds']:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

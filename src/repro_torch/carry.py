@@ -32,10 +32,14 @@ and ``phase`` (C,), ``stats.*`` (C, R) and ``stats.n_records`` (C,).
 (``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
 `repro_torch.models.transformer.LM` holding the same values: the stacked
 ``groups/<i>_<kind>/...`` leaves (G, ...) are unstacked into the layers in
-order, then the ``tail`` layers, if any.  A dense layer's leaves are
+order, then the ``tail`` layers, if any (recurrentgemma's 38 layers are
+12 groups of ``0_rglru``, ``1_rglru``, ``2_attn_local`` and a 2-layer
+``rglru`` tail).  A dense or ``attn_local`` layer's leaves are
 ``norm1``, ``attn.{wq, wk, wv, wo[, q_norm, k_norm]}``, ``norm2`` and
-``ffn.{[w_gate,] w_up, w_down}``; a model with tied embeddings has no
-``unembed``.
+``ffn.{[w_gate,] w_up, w_down}``; an ``rglru`` layer has ``mix.{w_x,
+w_gmlp, conv_w, conv_b, w_r, b_r, w_i, b_i, lam, w_out}`` in place of
+``attn``, an ``attn_moe`` layer ``moe.{router, w_gate, w_up, w_down}`` in
+place of ``ffn``; a model with tied embeddings has no ``unembed``.
 
 `train_state_from_reference` takes a JAX training state
 (`repro.train.train_step.TrainState`: the masters, AdamW's ``mu``, ``nu``
@@ -141,7 +145,7 @@ def lm_params_from_reference(params_np: dict, cfg, device):
     """The port's `LM` with the JAX parameter pytree's values (see the module
     docstring): the tensors the JAX code casts to the compute dtype at use
     are stored cast, the f32 leaves (``w0``, ``u``, the norms, ``q_norm`` /
-    ``k_norm``) stay f32."""
+    ``k_norm``, ``b_r``, ``b_i``, ``lam``, the MoE ``router``) stay f32."""
     from repro_torch.models.transformer import LM
 
     device = resolve_device(device)

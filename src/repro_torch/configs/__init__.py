@@ -4,7 +4,8 @@
 ``get_config(name, reduced=True)`` the same-family reduced one used by the
 CPU tests.  The registry knows the JAX package's ten architectures; the
 port runs the dense four (``gemma_2b``, ``qwen3_32b``, ``minitron_4b``,
-``stablelm_3b``) and ``rwkv6_7b``, and refuses the moe, hybrid, encdec and
+``stablelm_3b``), ``rwkv6_7b``, the hybrid ``recurrentgemma_9b`` and the
+moe ``mixtral_8x22b`` and ``qwen3_moe_235b``, and refuses the encdec and
 vlm ones by name.
 """
 from __future__ import annotations
@@ -41,7 +42,8 @@ ALIASES = {
 }
 
 # architectures whose config module the port has
-PORTED = ("qwen3_32b", "gemma_2b", "minitron_4b", "stablelm_3b", "rwkv6_7b")
+PORTED = ("qwen3_32b", "gemma_2b", "minitron_4b", "stablelm_3b", "qwen3_moe_235b",
+          "mixtral_8x22b", "recurrentgemma_9b", "rwkv6_7b")
 
 
 def get_config(name: str, reduced: bool = False):

@@ -10,8 +10,10 @@ Every sequence starts from token 1; step ``pos`` samples the next token with
 weights give the JAX loop's tokens.  The weights are drawn from a seeded
 `torch.Generator` (not the JAX example's ``jax.random.key(0)`` weights).
 The port runs the dense archs (``gemma_2b``, ``qwen3_32b``, ``minitron_4b``,
-``stablelm_3b``: a KV cache of ``--tokens`` + 8 positions) and
-``rwkv6_7b``; the others are refused by name.
+``stablelm_3b``: a KV cache of ``--tokens`` + 8 positions), ``rwkv6_7b``,
+the hybrid ``recurrentgemma_9b`` and the moe ``mixtral_8x22b`` and
+``qwen3_moe_235b``; the decode state is `model.init_decode_state`'s for
+every family.  The others are refused by name.
 """
 from __future__ import annotations
 

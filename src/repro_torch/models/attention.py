@@ -3,7 +3,9 @@ online softmax and KV-cache decode (twin of `repro.models.attention`).
 
 Conventions, as in the JAX code: x (B, S, D); q (B, S, H, hd); k, v
 (B, S, KV, hd); a layer's cache k, v (B, KV, S, hd), or (B, KV, W, hd) as a
-ring of W = ``swa_window`` slots (``cfg.ring_cache``).  GQA groups the
+ring of W slots (``cfg.ring_cache``), W the layer's window.  A layer's
+window is ``swa_window`` unless the caller passes ``layer_window`` (the
+hybrid family's ``attn_local`` layers pass ``local_window``).  GQA groups the
 query heads as ``(b, s, kv, h // kv, hd)``: head ``i`` reads kv head
 ``i // (h // kv)``.
 
@@ -19,7 +21,7 @@ but for its last step: each chunk's output goes back to (B, c, H, hd)
 with positions before heads, where JAX's raw reshape of (B, KV, G, c, hd)
 mixes the two (JAX's chunked path disagrees with its own dense one; the
 port's agrees with both dense paths).  It runs where a sequence is longer
-than ``attn_chunk`` (2048 in the full dense configs).
+than ``attn_chunk`` (2048 in the full configs), with the layer's window.
 
 Decode writes the new key and value into the layer's cache in place and
 returns it.  ``cross_attention`` (the vlm and encdec families) is not
@@ -90,6 +92,11 @@ def gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, kv * g, v.shape[-1])
 
 
+def _window(cfg: ModelConfig, layer_window: int | None) -> int:
+    """A layer's attention window: ``layer_window``, or ``swa_window``."""
+    return cfg.swa_window if layer_window is None else layer_window
+
+
 def causal_mask(s: int, t: int, offset: int = 0, window: int = 0, device=None) -> torch.Tensor:
     """(s, t) boolean keep-mask; ``offset`` = kv length - q length."""
     qi = torch.arange(s, device=device)[:, None] + offset
@@ -106,11 +113,14 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     return u / torch.sum(u, dim=-1, keepdim=True)
 
 
-def attend_full(q, k, v, cfg: ModelConfig, *, causal: bool = True, offset: int = 0):
-    """Dense-scores attention (train / prefill at moderate S)."""
+def attend_full(q, k, v, cfg: ModelConfig, *, causal: bool = True, offset: int = 0,
+                window: int | None = None):
+    """Dense-scores attention (train / prefill at moderate S), masked to
+    ``window`` (default ``cfg.swa_window``; 0 = full causal)."""
+    window = _window(cfg, window)
     scores = gqa_scores(q, k, cfg.head_dim ** -0.5).to(torch.float32)
     if causal:
-        keep = causal_mask(q.shape[1], k.shape[1], offset, cfg.swa_window, device=q.device)
+        keep = causal_mask(q.shape[1], k.shape[1], offset, window, device=q.device)
         scores = torch.where(keep, scores, NEG_INF)
     probs = softmax(scores).to(q.dtype)
     return gqa_out(probs, v)
@@ -157,16 +167,19 @@ def attend_chunked(q, k, v, cfg: ModelConfig, *, chunk: int, window: int = 0):
     return torch.cat(outs, dim=1)
 
 
-def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
+              layer_window: int | None = None) -> torch.Tensor:
     """Causal self-attention over a full sequence (train / prefill):
-    (B, S, D) -> (B, S, D)."""
+    (B, S, D) -> (B, S, D), within ``layer_window`` (default
+    ``cfg.swa_window``)."""
     q, k, v = project_qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    window = _window(cfg, layer_window)
     if cfg.attn_chunk and x.shape[1] > cfg.attn_chunk:
-        ctx = attend_chunked(q, k, v, cfg, chunk=cfg.attn_chunk, window=cfg.swa_window)
-    else:
-        ctx = attend_full(q, k, v, cfg, causal=True)
+        ctx = attend_chunked(q, k, v, cfg, chunk=cfg.attn_chunk, window=window)
+    else:  # JAX's local-attention branch is these ops with the layer's window
+        ctx = attend_full(q, k, v, cfg, causal=True, window=window)
     return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(cfg.compute_dtype))
 
 
@@ -175,19 +188,24 @@ def cross_attention(*args, **kwargs):
 
 
 # -- decode (KV cache) ------------------------------------------------------------------
-def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> dict:
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None, *,
+                  layer_window: int | None = None) -> dict:
     """One layer's cache ``{"k", "v"}`` (B, KV, S, hd) in the compute dtype;
-    S is ``min(max_seq, swa_window)`` for a ring cache."""
+    S is ``min(max_seq, W)`` for a ring cache, W the layer's window
+    (``layer_window``, default ``swa_window``)."""
+    window = _window(cfg, layer_window)
     s = max_seq
-    if cfg.swa_window and cfg.ring_cache:
-        s = min(max_seq, cfg.swa_window)
+    if window and cfg.ring_cache:
+        s = min(max_seq, window)
     shape = (batch, cfg.n_kv_heads, s, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
 
 
-def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos):
-    """One token's self-attention against a layer's cache.
+def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos, *,
+                     layer_window: int | None = None):
+    """One token's self-attention against a layer's cache, within
+    ``layer_window`` (default ``swa_window``).
 
     ``x`` (B, 1, D) at position ``pos`` (an int or a 0-d integer tensor).
     The new key and value are written at ``pos`` (full cache) or ``pos %
@@ -196,7 +214,7 @@ def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos):
     cold.  Returns (out (B, 1, D), the cache).
     """
     dt = cfg.compute_dtype
-    window = cfg.swa_window
+    window = _window(cfg, layer_window)
     ring = bool(window) and cfg.ring_cache
     cache_k, cache_v = cache["k"], cache["v"]
     b = x.shape[0]

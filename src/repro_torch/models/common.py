@@ -34,7 +34,13 @@ class ModelConfig:
     (0: full causal), ``attn_chunk`` (0: dense scores; else the chunked
     online softmax past that length) and ``ring_cache`` (a windowed
     decode cache of ``swa_window`` slots).  RWKV-6 heads are 64 wide
-    whatever the head fields say.  A serving `LM` stores its weights in
+    whatever the head fields say.  The hybrid family reads ``pattern``
+    (its cyclic layer kinds), ``lru_width`` (0: ``d_model``),
+    ``conv1d_width`` and ``local_window`` (the ``attn_local`` layers'
+    window, and their ring's length); the moe family ``n_experts``,
+    ``top_k``, ``capacity_factor`` and ``renorm_gates``
+    (`repro_torch.models.moe`).  ``moe_token_stationary=True`` is a GSPMD
+    placement hint of the JAX code and is refused by name.  A serving `LM` stores its weights in
     ``dtype``; training keeps f32 masters (``param_dtype``) and casts them
     once a step (`repro_torch.train.train_step`).  ``remat`` recomputes
     each layer in the backward pass (``remat_policy="full"``; ``"dots"``
@@ -43,7 +49,7 @@ class ModelConfig:
     """
 
     name: str
-    family: str  # the port runs "dense" and "rwkv"
+    family: str  # the port runs "dense", "rwkv", "hybrid" and "moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,9 +60,20 @@ class ModelConfig:
     act: str = "silu"  # silu | geglu (gated) | relu2 | gelu | relu (plain)
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    renorm_gates: bool = True
+    moe_token_stationary: bool = False  # a GSPMD placement hint; True is refused
     swa_window: int = 0  # sliding-window size; 0 = full causal
     attn_chunk: int = 0  # 0 = dense scores; else chunked online softmax
     ring_cache: bool = False  # windowed decode: ring-buffer KV (W slots) vs full S
+    # --- hybrid (RG-LRU / Griffin) ---
+    pattern: tuple = ()  # cyclic layer pattern, e.g. ("rglru", "rglru", "attn_local")
+    lru_width: int = 0
+    conv1d_width: int = 4
+    local_window: int = 2048  # hybrid local-attention window
     dtype: str = "bfloat16"  # matmul/activation dtype (a serving LM's weights too)
     param_dtype: str = "float32"  # master weights (training)
     remat: bool = True
@@ -74,31 +91,57 @@ class ModelConfig:
         """Total parameter count (analytic)."""
         return param_count(self)
 
+    @property
+    def n_active_params(self) -> int:
+        """Active-per-token parameters (MoE: only the routed experts)."""
+        return param_count(self, active_only=True)
 
-def param_count(cfg: ModelConfig) -> int:
-    """The JAX package's analytic parameter count of the dense and rwkv
-    families (for rwkv it leaves out the nine d-vectors a layer of lerp
-    weights, ``w0`` and ``ln_scale``)."""
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The JAX package's analytic parameter count of the dense, rwkv,
+    hybrid and moe families, its formula word for word.
+
+    It is not always what the model holds: for rwkv it leaves out the nine
+    d-vectors a layer of lerp weights, ``w0`` and ``ln_scale``; for the
+    hybrid family it counts every layer whose kind is not ``"attn"`` as a
+    recurrent one, so recurrentgemma's ``attn_local`` layers count as
+    RG-LRU layers, and it leaves out ``lam`` (9,975,459,840 at full size
+    against the 9,396,408,320 the model holds)."""
     d = cfg.d_model
+    hd = cfg.head_dim
+    attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
+    if cfg.qk_norm:
+        attn += 2 * hd
+    gated = cfg.act in ("silu", "gelu_glu", "geglu", "swiglu")
+    dense_ffn = (3 if gated else 2) * d * cfg.d_ff
     per_layer_norms = 2 * d
     if cfg.family == "dense":
-        hd = cfg.head_dim
-        attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
-        if cfg.qk_norm:
-            attn += 2 * hd
-        gated = cfg.act in ("silu", "gelu_glu", "geglu", "swiglu")
-        ffn = (3 if gated else 2) * d * cfg.d_ff
-        out = cfg.n_layers * (attn + ffn + per_layer_norms)
+        out = cfg.n_layers * (attn + dense_ffn + per_layer_norms)
     elif cfg.family == "rwkv":
         tm = 5 * d * d + 2 * d * 64 + d  # time-mix: r,k,v,g,o + decay lora + bonus u
         cm = 2 * d * cfg.d_ff + d * d  # channel-mix k/v + receptance gate
         out = cfg.n_layers * (tm + cm + per_layer_norms)
+    elif cfg.family == "moe":
+        e_used = cfg.top_k if active_only else cfg.n_experts
+        ffn = e_used * (3 * d * cfg.d_ff) + d * cfg.n_experts
+        out = cfg.n_layers * (attn + ffn + per_layer_norms)
+    elif cfg.family == "hybrid":
+        n_attn = sum(1 for i in range(cfg.n_layers) if _hybrid_kind(cfg, i) == "attn")
+        n_rec = cfg.n_layers - n_attn
+        lru = cfg.lru_width or d
+        rec = 2 * d * lru + lru * cfg.conv1d_width + 3 * lru + lru * d + 2 * lru * lru
+        out = n_attn * (attn + dense_ffn + per_layer_norms) + n_rec * (
+            rec + dense_ffn + per_layer_norms)
     else:
         raise NotImplementedError(f"not yet ported: param_count of the {cfg.family!r} family")
     out += cfg.vocab * d + d  # embedding + final norm
     if not cfg.tie_embeddings:
         out += cfg.vocab * d  # untied unembed
     return out
+
+
+def _hybrid_kind(cfg: ModelConfig, i: int) -> str:
+    return cfg.pattern[i % len(cfg.pattern)] if cfg.pattern else "attn"
 
 
 def scalar(value: float, dtype: torch.dtype) -> float:

@@ -7,10 +7,11 @@
   decode_step(model, cfg, state, token, pos)   -> (logits, new state)
 
 `forward_loss` runs the model's own tensors, or ``params`` (the training
-step's cast masters; see `repro_torch.models.transformer`).  The dense and
-rwkv families run; moe, hybrid, vlm and encdec wait for a later slice and
-raise `NotImplementedError` by name (at `init_params` and
-`init_decode_state`), and so does a batch with a context (``img``).  Entry
+step's cast masters; see `repro_torch.models.transformer`).  The dense,
+rwkv, hybrid and moe families run; vlm and encdec wait for a later slice
+and raise `NotImplementedError` by name (at `init_params` and
+`init_decode_state`), and so does a batch with a context (``img``) and an
+MoE config with ``moe_token_stationary=True``.  Entry
 points put new tensors on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """

@@ -1,26 +1,31 @@
-"""Decoder-only LM assembly for the dense and rwkv families (twin of
-`repro.models.transformer`).
+"""Decoder-only LM assembly for the dense, rwkv, hybrid and moe families
+(twin of `repro.models.transformer`).
 
 The JAX package expands each architecture to a cyclic pattern of layer
 kinds and stacks the layers into scanned groups plus a tail; the port keeps
 the same plan (`layer_pattern`, `plan`) but holds the layers unstacked, in
 order, in an `LM` module:
 
-  LM.embed (V, D), LM.layers [DenseBlock | RWKVBlock ...], LM.final_norm
-  (D,), LM.unembed (D, V) (absent with tied embeddings)
+  LM.embed (V, D), LM.layers [DenseBlock | RGLRUBlock | MoEBlock |
+  RWKVBlock ...], LM.final_norm (D,), LM.unembed (D, V) (absent with tied
+  embeddings)
 
-A ``DenseBlock`` (kind ``"attn"``) is JAX's pre-norm attention layer,
-``norm1``, ``attn`` (`repro_torch.models.attention`), ``norm2``, ``ffn``
-(`repro_torch.models.ffn`), each residual.  The other kinds (``attn_local``,
-``attn_moe``, ``rglru``, ``cross``) and their families (moe, hybrid, vlm,
-encdec) are refused by name.  A decode state is the list of the layers'
-states, in the same order: a dense layer's KV cache ``{"k", "v"}`` (B, KV,
-S, hd), which `decode_step` updates in place, or an rwkv layer's O(1)
-state.  Entry points: `init_params`, `backbone`, `last_logits`,
-`init_decode_state`, `decode_step`, and for training `lm_loss` and
-`forward_loss`.  The embedding is multiplied by ``embed_scale`` rounded to
-the compute dtype first (JAX's weak typing: gemma-2b's sqrt(2048) is 45.25
-in bf16).
+A ``DenseBlock`` (kinds ``"attn"`` and the hybrid family's
+``"attn_local"``, whose window is ``local_window``) is JAX's pre-norm
+attention layer, ``norm1``, ``attn`` (`repro_torch.models.attention`),
+``norm2``, ``ffn`` (`repro_torch.models.ffn`), each residual; an
+``RGLRUBlock`` (``"rglru"``) has ``mix`` (`repro_torch.models.rglru`) in
+place of ``attn``, an ``MoEBlock`` (``"attn_moe"``) ``moe``
+(`repro_torch.models.moe`) in place of ``ffn``.  The vlm family's
+``cross`` kind and the encdec family are refused by name.  A decode
+state is the list of the layers' states, in the same order: an attention
+layer's KV cache ``{"k", "v"}`` (B, KV, S, hd), sized by the layer's
+window with a ring cache, which `decode_step` updates in place; an
+RG-LRU layer's ``{"conv", "h"}``; an rwkv layer's O(1) state.  Entry
+points: `init_params`, `backbone`, `last_logits`, `init_decode_state`,
+`decode_step`, and for training `lm_loss` and `forward_loss`.  The
+embedding is multiplied by ``embed_scale`` rounded to the compute dtype
+first (JAX's weak typing: gemma-2b's sqrt(2048) is 45.25 in bf16).
 
 `backbone` runs each layer through `torch.func.functional_call` on its
 slice of a dict of tensors under the `LM`'s parameter names: the model's
@@ -36,6 +41,8 @@ modules and one loop, and the masters stay f32.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -43,29 +50,40 @@ from torch.func import functional_call
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.common import ModelConfig, dense_param, rms_norm, scalar
 from repro_torch.models.ffn import FFN
 
-__all__ = ["layer_pattern", "plan", "layer_kinds", "DenseBlock", "LM", "init_params", "embed",
-           "backbone", "unembed_matrix", "mm_f32", "last_logits", "lm_loss", "forward_loss",
-           "init_decode_state", "decode_step"]
+__all__ = ["layer_pattern", "plan", "layer_kinds", "DenseBlock", "RGLRUBlock", "MoEBlock", "LM",
+           "init_params", "embed", "backbone", "unembed_matrix", "mm_f32", "last_logits",
+           "lm_loss", "forward_loss", "init_decode_state", "decode_step"]
 
 
 # the JAX package's layer kinds of the families the port does not run yet
-_REFUSED_KINDS = {"moe": "attn_moe", "hybrid": "rglru, attn_local", "vlm": "cross",
-                  "encdec": "whisper's encoder-decoder"}
+_REFUSED_KINDS = {"vlm": "cross", "encdec": "whisper's encoder-decoder"}
 
 
 def layer_pattern(cfg: ModelConfig) -> tuple:
-    if cfg.family == "dense":
-        return ("attn",)
+    if cfg.family == "hybrid":
+        pat = cfg.pattern or ("rglru", "rglru", "attn_local")
+        for kind in pat:
+            if kind not in ("rglru", "attn", "attn_local"):
+                raise NotImplementedError(
+                    f"not yet ported: layer kind {kind!r} in the pattern of {cfg.name} (the "
+                    "port's hybrid layers are rglru, attn and attn_local)")
+        return pat
     if cfg.family == "rwkv":
         return ("rwkv",)
+    if cfg.family == "moe":
+        return ("attn_moe",)
+    if cfg.family == "dense":
+        return ("attn",)
     kinds = _REFUSED_KINDS.get(cfg.family, "unknown")
     raise NotImplementedError(
         f"not yet ported: the {cfg.family!r} family of {cfg.name} (layer kinds {kinds}); "
-        "the port runs the dense and rwkv families")
+        "the port runs the dense, rwkv, hybrid and moe families")
 
 
 def plan(cfg: ModelConfig):
@@ -79,43 +97,100 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     return [*pat * n_groups, *(pat[i % len(pat)] for i in range(tail))]
 
 
-class DenseBlock(nn.Module):
-    """One dense layer (kind ``"attn"``): pre-norm self-attention and FFN,
-    each residual.  The attention reads the config it is called with (a
-    ring cache or a window is a config of the same weights)."""
+def _norm(d: int, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device),
+                        requires_grad=False)
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+
+class DenseBlock(nn.Module):
+    """One attention layer (kind ``"attn"``, or ``"attn_local"`` within
+    ``local_window``): pre-norm self-attention and FFN, each residual.  The
+    attention reads the config it is called with (a ring cache or a window
+    is a config of the same weights)."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None, kind: str = "attn"):
         super().__init__()
-        d = cfg.d_model
-        self.norm1 = nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device),
-                                  requires_grad=False)
+        self.local = kind == "attn_local"
+        self.norm1 = _norm(cfg.d_model, device)
         self.attn = attn_lib.Attention(cfg, generator, device)
-        self.norm2 = nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device),
-                                  requires_grad=False)
+        self.norm2 = _norm(cfg.d_model, device)
         self.ffn = FFN(cfg, generator, device)
+
+    def window(self, cfg: ModelConfig):
+        return cfg.local_window if self.local else None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
         """x (B, S, D) at ``positions`` (B, S) -> (B, S, D)."""
         h = rms_norm(x, self.norm1)
-        x = x + attn_lib.attention(self.attn, cfg, h, positions)
+        x = x + attn_lib.attention(self.attn, cfg, h, positions, layer_window=self.window(cfg))
         return x + self.ffn(rms_norm(x, self.norm2))
 
     def decode(self, x: torch.Tensor, pos, cache: dict, cfg: ModelConfig):
         """One token x (B, 1, D) at ``pos`` against the layer's KV cache
         (updated in place). Returns (x', cache)."""
         h = rms_norm(x, self.norm1)
-        o, cache = attn_lib.decode_attention(self.attn, cfg, h, cache, pos)
+        o, cache = attn_lib.decode_attention(self.attn, cfg, h, cache, pos,
+                                             layer_window=self.window(cfg))
         x = x + o
         return x + self.ffn(rms_norm(x, self.norm2)), cache
 
 
-_BLOCKS = {"attn": DenseBlock, "rwkv": rwkv_lib.RWKVBlock}
+class RGLRUBlock(nn.Module):
+    """One recurrent layer (kind ``"rglru"``): pre-norm RG-LRU block and FFN,
+    each residual."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        self.norm1 = _norm(cfg.d_model, device)
+        self.mix = rglru_lib.init_rglru(cfg, generator, device)
+        self.norm2 = _norm(cfg.d_model, device)
+        self.ffn = FFN(cfg, generator, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+        """x (B, S, D) -> (B, S, D): the scan from a zero state."""
+        return self.decode(x, None, None, cfg)[0]
+
+    def decode(self, x: torch.Tensor, pos, state: dict | None, cfg: ModelConfig):
+        """x (B, S, D) from ``state`` (``{"conv", "h"}``, one token a step;
+        None: the scan from zero). Returns (x', new state)."""
+        o, state = rglru_lib.rglru_block(self.mix, cfg, rms_norm(x, self.norm1), state)
+        x = x + o
+        return x + self.ffn(rms_norm(x, self.norm2)), state
+
+
+class MoEBlock(nn.Module):
+    """One MoE layer (kind ``"attn_moe"``): pre-norm self-attention and the
+    MoE FFN, each residual."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        self.norm1 = _norm(cfg.d_model, device)
+        self.attn = attn_lib.Attention(cfg, generator, device)
+        self.norm2 = _norm(cfg.d_model, device)
+        self.moe = moe_lib.init_moe(cfg, generator, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+        h = rms_norm(x, self.norm1)
+        x = x + attn_lib.attention(self.attn, cfg, h, positions)
+        return x + moe_lib.moe_ffn(self.moe, cfg, rms_norm(x, self.norm2))
+
+    def decode(self, x: torch.Tensor, pos, cache: dict, cfg: ModelConfig):
+        h = rms_norm(x, self.norm1)
+        o, cache = attn_lib.decode_attention(self.attn, cfg, h, cache, pos)
+        x = x + o
+        return x + moe_lib.moe_ffn(self.moe, cfg, rms_norm(x, self.norm2)), cache
+
+
+_BLOCKS = {"attn": DenseBlock, "attn_local": functools.partial(DenseBlock, kind="attn_local"),
+           "rglru": RGLRUBlock, "attn_moe": MoEBlock, "rwkv": rwkv_lib.RWKVBlock}
 
 
 class LM(nn.Module):
     """The decoder-only LM's parameters (empty unless ``generator`` is given),
-    stored as `DenseBlock` and `repro_torch.models.rwkv6` describe."""
+    stored as the blocks above and `repro_torch.models.rwkv6` describe."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
@@ -270,19 +345,29 @@ def forward_loss(model: LM, cfg: ModelConfig, batch, params: dict | None = None)
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> list[dict]:
-    """Per-layer decode states in layer order: a dense layer's KV cache
-    (`repro_torch.models.attention.init_kv_cache`), an rwkv layer's O(1)
-    state."""
+    """Per-layer decode states in layer order: an attention layer's KV
+    cache (`repro_torch.models.attention.init_kv_cache`; a ring is sized by
+    the layer's window, ``local_window`` for ``attn_local``), an RG-LRU
+    layer's ``conv`` (B, W-1, lru) and ``h`` (B, lru) f32, an rwkv layer's
+    O(1) state."""
     device = resolve_device(device)
-    return [rwkv_lib.init_rwkv_state(cfg, batch, device=device) if kind == "rwkv"
-            else attn_lib.init_kv_cache(cfg, batch, max_seq, device=device)
-            for kind in layer_kinds(cfg)]
+
+    def one(kind):
+        if kind == "rwkv":
+            return rwkv_lib.init_rwkv_state(cfg, batch, device=device)
+        if kind == "rglru":
+            return rglru_lib.init_rglru_state(cfg, batch, device=device)
+        window = cfg.local_window if kind == "attn_local" else None
+        return attn_lib.init_kv_cache(cfg, batch, max_seq, device=device, layer_window=window)
+
+    return [one(kind) for kind in layer_kinds(cfg)]
 
 
 def decode_step(model: LM, cfg: ModelConfig, state: list[dict], token: torch.Tensor,
                 pos, ctx=None):
     """One serve step: token (B, 1) at position ``pos`` (an int or a 0-d
-    tensor; unused by rwkv).  Dense layers write their KV caches in place.
+    tensor; unused by rwkv and RG-LRU layers).  Attention layers write
+    their KV caches in place.
 
     Returns (logits (B, V) f32, new_state).
     """

@@ -4,8 +4,8 @@ accumulation (twin of `repro.train.train_step`).
 A `TrainState` holds f32 master weights under the `LM`'s parameter names
 (``embed``, ``layers.<n>.tm.w_r``, ...: JAX's tree with its stacked groups
 unstacked into layers), the AdamW moments mirroring them and the step, a
-0-d int32 device tensor.  Each step casts every >= 2-D f32 master to the
-compute dtype once, before the layers (1-D leaves stay f32), runs
+0-d int32 device tensor.  Each step casts the f32 masters that JAX casts
+to the compute dtype once, before the layers (`cast_params`), runs
 `repro_torch.models.model.forward_loss` on those tensors through a template
 `LM` on the ``meta`` device, and takes f32 gradients with respect to the
 masters: the cast's gradient widens each bf16 cotangent to f32, as JAX's
@@ -55,9 +55,25 @@ def init_state(cfg: ModelConfig, generator, device="cuda") -> TrainState:
 
 
 def cast_params(cfg: ModelConfig, params: dict) -> dict:
-    """Every >= 2-D f32 tensor to ``cfg.compute_dtype``; the rest as it is."""
+    """The f32 tensors that JAX's ``cast_params`` casts, to
+    ``cfg.compute_dtype``; the rest as they are.
+
+    JAX casts every >= 2-D f32 leaf of its tree, and its tree stacks the
+    layers of the scanned groups (G, ...): there a layer's 1-D leaves (the
+    norms, ``w0``, ``ln_scale``, biases) are 2-D and cast too, so their
+    gradients come back rounded to the compute dtype.  The tail's layers
+    and the top-level leaves (``final_norm``) keep their own rank.
+    """
     dt = cfg.compute_dtype
-    return {n: p.to(dt) if p.dim() >= 2 and p.dtype == torch.float32 else p
+    pat, n_groups, _ = transformer.plan(cfg)
+    stacked = n_groups * len(pat)  # the layers JAX holds in its groups
+
+    def rank(name: str, p: torch.Tensor) -> int:
+        parts = name.split(".")
+        in_group = parts[0] == "layers" and int(parts[1]) < stacked
+        return p.dim() + in_group
+
+    return {n: p.to(dt) if rank(n, p) >= 2 and p.dtype == torch.float32 else p
             for n, p in params.items()}
 
 

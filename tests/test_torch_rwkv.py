@@ -38,7 +38,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import model as jm  # noqa: E402
 from repro.models import rwkv6 as jrwkv  # noqa: E402
 from repro_torch import carry  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import PORTED, get_config  # noqa: E402
 from repro_torch.core import keys  # noqa: E402
 from repro_torch.launch import serve_lm  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
@@ -95,9 +95,26 @@ def test_config_matches_jax(reduced):
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b", "mixtral-8x22b", "whisper_medium",
                                   "recurrentgemma_9b"])
 def test_other_archs_refused_by_name(arch):
-    with pytest.raises(NotImplementedError, match="not yet ported: arch") as err:
-        get_config(arch)
-    assert arch.replace("-", "_").split("_")[0] in str(err.value)
+    """An arch the port does not run is refused by name; the moe and hybrid
+    archs run (dashed names too) and refuse what the port leaves out of
+    them by name (``moe_token_stationary=True``, a context); an unknown
+    arch is a KeyError."""
+    name = arch.replace("-", "_")
+    if name in PORTED:
+        cfg = get_config(arch, reduced=True)
+        assert cfg.family in ("moe", "hybrid") and cfg.name.startswith(name.split("_")[0])
+        if cfg.family == "moe":
+            with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
+                tm.init_params(dataclasses.replace(cfg, moe_token_stationary=True), 0,
+                               device="cpu")
+        with pytest.raises(NotImplementedError, match="ctx"):
+            tm.decode_step(tm.init_params(cfg, 0, device="cpu"), cfg,
+                           tm.init_decode_state(cfg, 1, 2, device="cpu"),
+                           torch.ones((1, 1), dtype=torch.int64), 0, ctx=torch.ones(1))
+    else:
+        with pytest.raises(NotImplementedError, match="not yet ported: arch") as err:
+            get_config(arch)
+        assert name.split("_")[0] in str(err.value)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt5")
 
@@ -229,8 +246,12 @@ def test_refusals_by_name(port_models):
     tokens = torch.ones((1, 2), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ctx"):
         tm.prefill_logits(port_models["float32"], cfg, {"tokens": tokens, "img": tokens})
-    moe = dataclasses.replace(cfg, family="moe", name="tiny-moe")
-    with pytest.raises(NotImplementedError, match="the 'moe' family of tiny-moe"):
+    vlm = dataclasses.replace(cfg, family="vlm", name="tiny-vlm")
+    with pytest.raises(NotImplementedError, match="the 'vlm' family of tiny-vlm"):
+        tm.init_params(vlm, 0, device="cpu")
+    moe = dataclasses.replace(cfg, family="moe", name="tiny-moe", n_experts=4, top_k=2,
+                              moe_token_stationary=True)
+    with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
         tm.init_params(moe, 0, device="cpu")
     with pytest.raises(NotImplementedError, match="encdec"):
         tm.init_decode_state(dataclasses.replace(cfg, family="encdec"), 1, 4, device="cpu")
