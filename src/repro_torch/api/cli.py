@@ -44,6 +44,7 @@ Subcommands:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -73,42 +74,37 @@ def _with_mesh(spec: RunSpec, args) -> RunSpec:
     return spec
 
 
-def _bring_up_ranks(spec: RunSpec, device: str) -> bool:
-    """Under a launcher that sets ``WORLD_SIZE`` (torchrun), initialize the
-    process group a mesh spec runs on, from ``RANK`` / ``WORLD_SIZE`` /
-    ``MASTER_ADDR`` / ``MASTER_PORT`` (NCCL for cuda, gloo for cpu, the
-    rank's card ``cuda:{LOCAL_RANK}``).  Returns whether this process
+def _ranks(spec: RunSpec, device: str):
+    """Under a launcher that sets ``WORLD_SIZE`` (torchrun), the process
+    group a mesh spec runs on, for a ``with`` (brought up from the
+    environment and ended after the run: `repro_torch.core.distributed.
+    launcher_group`); otherwise nothing.  Yields whether this process
     writes results: rank 0, or the only process."""
-    import torch
-    import torch.distributed as dist
-
     if spec.engine.mesh is None or "WORLD_SIZE" not in os.environ:
-        return True
-    if not dist.is_initialized():
-        if device == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method="env://")
-    return dist.get_rank() == 0
+        return contextlib.nullcontext(True)
+    from repro_torch.core.distributed import launcher_group
+
+    return launcher_group(device)
 
 
 def _cmd_run(args) -> int:
     with open(args.spec) as f:
         spec = _with_mesh(RunSpec.from_json(f.read()), args)
-    writer = _bring_up_ranks(spec, args.device)
     out = args.out or os.path.join(
         "runs", os.path.splitext(os.path.basename(args.spec))[0]
     )
-    os.makedirs(out, exist_ok=True)
-    callbacks = [] if args.quiet else [ProgressCallback(every=args.progress_every)]
-    callbacks.append(CheckpointCallback(os.path.join(out, "checkpoints"),
-                                        every_chunks=args.checkpoint_every))
-    obs_cb = None
-    if args.timeline or args.metrics_out or args.torch_profile:
-        obs_cb = ObsCallback(timeline_path=args.timeline, metrics_path=args.metrics_out,
-                             torch_profile_dir=args.torch_profile)
-        callbacks.append(obs_cb)
-    result = Session(spec, callbacks=callbacks, device=args.device,
-                     strict_kernels=args.strict_kernels).run()
+    with _ranks(spec, args.device) as writer:
+        os.makedirs(out, exist_ok=True)
+        callbacks = [] if args.quiet else [ProgressCallback(every=args.progress_every)]
+        callbacks.append(CheckpointCallback(os.path.join(out, "checkpoints"),
+                                            every_chunks=args.checkpoint_every))
+        obs_cb = None
+        if args.timeline or args.metrics_out or args.torch_profile:
+            obs_cb = ObsCallback(timeline_path=args.timeline, metrics_path=args.metrics_out,
+                                 torch_profile_dir=args.torch_profile)
+            callbacks.append(obs_cb)
+        result = Session(spec, callbacks=callbacks, device=args.device,
+                         strict_kernels=args.strict_kernels).run()
     if not writer:
         return 0
     path = result.write_manifest(os.path.join(out, "manifest.json"))
@@ -133,14 +129,14 @@ def _cmd_resume(args) -> int:
     if data is None:
         raise FileNotFoundError(f"no spec.json in {ckdir!r}")
     spec = _with_mesh(RunSpec.from_json(data), args)
-    writer = _bring_up_ranks(spec, args.device)
-    session = Session.from_checkpoint(ckdir, callbacks=callbacks, device=args.device,
-                                      mesh=spec.engine.mesh)
-    if session.remaining_sweeps == 0:
-        print(f"nothing to resume: the checkpointed run already covers all "
-              f"{session.spec.schedule.total_sweeps} scheduled sweeps", file=sys.stderr)
-        return 0
-    result = session.run()
+    with _ranks(spec, args.device) as writer:
+        session = Session.from_checkpoint(ckdir, callbacks=callbacks, device=args.device,
+                                          mesh=spec.engine.mesh)
+        if session.remaining_sweeps == 0:
+            print(f"nothing to resume: the checkpointed run already covers all "
+                  f"{session.spec.schedule.total_sweeps} scheduled sweeps", file=sys.stderr)
+            return 0
+        result = session.run()
     if writer:
         print(result.write_manifest(os.path.join(args.dir, "manifest.json")))
     return 0

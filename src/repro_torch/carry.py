@@ -30,7 +30,8 @@ and ``phase`` (C,), ``stats.*`` (C, R) and ``stats.n_records`` (C,).
 `lm_params_from_reference` takes the JAX package's LM parameter pytree
 (`repro.models.model.init_params`) as a nested dict of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``) and returns the port's
-`repro_torch.models.transformer.LM` holding the same values: the stacked
+`repro_torch.models.transformer.LM` (or, for the encdec family,
+`repro_torch.models.whisper.WhisperLM`) holding the same values: the stacked
 ``groups/<i>_<kind>/...`` leaves (G, ...) are unstacked into the layers in
 order, then the ``tail`` layers, if any (recurrentgemma's 38 layers are
 12 groups of ``0_rglru``, ``1_rglru``, ``2_attn_local`` and a 2-layer
@@ -39,7 +40,13 @@ order, then the ``tail`` layers, if any (recurrentgemma's 38 layers are
 ``ffn.{[w_gate,] w_up, w_down}``; an ``rglru`` layer has ``mix.{w_x,
 w_gmlp, conv_w, conv_b, w_r, b_r, w_i, b_i, lam, w_out}`` in place of
 ``attn``, an ``attn_moe`` layer ``moe.{router, w_gate, w_up, w_down}`` in
-place of ``ffn``; a model with tied embeddings has no ``unembed``.
+place of ``ffn``, a vlm ``cross`` layer (``3_cross`` in llama-3.2-vision's
+groups) ``attn.gate`` (1,) f32 besides the attention's leaves; a model with
+tied embeddings has no ``unembed``.  Whisper's tree is ``enc`` (its layers
+stacked (enc_layers, ...): ``norm1``, ``attn``, ``norm2``, ``ffn``),
+``enc_norm``, ``dec`` (stacked (n_layers, ...): ``norm1``, ``self``,
+``norm2``, ``cross``, ``norm3``, ``ffn``), ``embed``, ``final_norm`` and
+``unembed``; the port's names are ``enc.<n>.…`` and ``dec.<n>.…``.
 
 `train_state_from_reference` takes a JAX training state
 (`repro.train.train_step.TrainState`: the masters, AdamW's ``mu``, ``nu``
@@ -125,9 +132,17 @@ def _leaves(tree, prefix=""):
 
 
 def _lm_state(params_np: dict, cfg) -> dict:
-    """The JAX LM tree's arrays under the port's `LM` parameter names."""
+    """The JAX LM tree's arrays under the port's `LM` (`WhisperLM`)
+    parameter names."""
     from repro_torch.models.transformer import plan
 
+    if cfg.family == "encdec":
+        state = {n: params_np[n] for n in ("embed", "enc_norm", "final_norm", "unembed")}
+        for stack, depth in (("enc", cfg.enc_layers), ("dec", cfg.n_layers)):
+            for name, a in _leaves(params_np[stack]):
+                for n in range(depth):
+                    state[f"{stack}.{n}.{name}"] = np.asarray(a)[n]
+        return state
     pat, n_groups, _ = plan(cfg)
     layers = []
     for g in range(n_groups):
@@ -145,11 +160,12 @@ def lm_params_from_reference(params_np: dict, cfg, device):
     """The port's `LM` with the JAX parameter pytree's values (see the module
     docstring): the tensors the JAX code casts to the compute dtype at use
     are stored cast, the f32 leaves (``w0``, ``u``, the norms, ``q_norm`` /
-    ``k_norm``, ``b_r``, ``b_i``, ``lam``, the MoE ``router``) stay f32."""
-    from repro_torch.models.transformer import LM
+    ``k_norm``, ``b_r``, ``b_i``, ``lam``, the MoE ``router``, the cross
+    layers' ``gate``) stay f32."""
+    from repro_torch.models.model import model_class
 
     device = resolve_device(device)
-    model = LM(cfg, None, device)
+    model = model_class(cfg)(cfg, None, device)
     state = _lm_state(params_np, cfg)
     model.load_state_dict({n: torch.from_numpy(np.array(a)) for n, a in state.items()},
                           strict=True)
@@ -161,21 +177,21 @@ def train_state_from_reference(state_np, cfg, device):
     ``params``, ``opt.mu``, ``opt.nu``, ``opt.count`` and ``step``, or the
     same as nested dicts); the masters and moments in the `LM`'s parameter
     order, f32, on ``device``."""
-    from repro_torch.models.transformer import LM
+    from repro_torch.models.model import model_class
     from repro_torch.train.optimizer import AdamWState
-    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.train_step import TrainState, jax_layer_paths
 
     def get(x, name):
         return x[name] if isinstance(x, dict) else getattr(x, name)
 
     device = resolve_device(device)
-    names = [n for n, _ in LM(cfg, None, "meta").named_parameters()]
+    names = [n for n, _ in model_class(cfg)(cfg, None, "meta").named_parameters()]
 
     def tree(t):
         flat = _lm_state(t, cfg)
         if set(flat) != set(names):
             raise KeyError(f"JAX tree leaves {sorted(set(flat) ^ set(names))} do not match "
-                           f"the port's LM")
+                           f"the port's model")
         return {n: _t(flat[n], torch.float32, device) for n in names}
 
     opt = get(state_np, "opt")
@@ -183,4 +199,5 @@ def train_state_from_reference(state_np, cfg, device):
         params=tree(get(state_np, "params")),
         opt=AdamWState(mu=tree(get(opt, "mu")), nu=tree(get(opt, "nu")),
                        count=_t(get(opt, "count"), torch.int32, device).reshape(())),
-        step=_t(get(state_np, "step"), torch.int32, device).reshape(()))
+        step=_t(get(state_np, "step"), torch.int32, device).reshape(()),
+        jax_paths=jax_layer_paths(cfg))

@@ -34,7 +34,9 @@ A tree is the port's ``EngineState`` or a training state
 (`repro_torch.train.train_step.TrainState`).  A training state's leaves
 take JAX's ``keystr`` names too (`train_to_arrays`): ``.params['embed']``,
 ``.params['groups']['0_rwkv']['tm']['w_r']`` with the layers stacked on a
-leading axis as JAX's scanned groups hold them, the same under
+leading axis as JAX's scanned groups hold them (each group of the layer
+plan, ``['tail'][t]``, whisper's ``['enc']`` / ``['dec']``: the state's
+``jax_paths``), the same under
 ``.opt.mu`` and ``.opt.nu``, then ``.opt.count`` and ``.step`` (int32), so
 either package resumes the other's training checkpoint.  Restoring one
 takes a template state (any device, ``meta`` too), as JAX's restore does.
@@ -190,21 +192,20 @@ def _is_train_state(tree) -> bool:
     return hasattr(tree, "opt") and hasattr(tree, "params")
 
 
-def _tree_names(prefix: str, names) -> dict:
-    """The port's leaf name -> (JAX name, layer index or None).  The dense
-    and rwkv families stack their layers in one scanned group
-    (`repro_torch.models.transformer.plan`), ``0_attn`` (a layer with an
-    ``attn`` child) or ``0_rwkv``."""
-    layers = [name.split(".", 2) for name in names if name.startswith("layers.")]
-    group = "0_attn" if any(sub.startswith("attn.") for _, _, sub in layers) else "0_rwkv"
+def _tree_names(prefix: str, names, paths: dict) -> dict:
+    """The port's leaf name -> (JAX name, index in a stack of layers or
+    None).  ``paths`` (`repro_torch.train.train_step.jax_layer_paths`) says
+    where JAX's tree holds each layer: a group of the layer plan at an
+    index, a tail layer, whisper's ``enc`` / ``dec`` stacks."""
     out = {}
     for name in names:
-        if name.startswith("layers."):
-            _, idx, sub = name.split(".", 2)
-            key = "".join(f"[{p!r}]" for p in sub.split("."))
-            out[name] = (f"{prefix}['groups'][{group!r}]{key}", int(idx))
-        else:
+        parts = name.split(".")
+        entry = paths.get(".".join(parts[:2]))
+        if entry is None:
             out[name] = (f"{prefix}[{name!r}]", None)
+        else:
+            key = "".join(f"[{p!r}]" for p in parts[2:])
+            out[name] = (f"{prefix}{entry[0]}{key}", entry[1])
     return out
 
 
@@ -215,7 +216,7 @@ def train_to_arrays(state) -> dict[str, np.ndarray]:
     for prefix, tree in ((".params", state.params), (".opt.mu", state.opt.mu),
                          (".opt.nu", state.opt.nu)):
         stacks: dict[str, dict[int, np.ndarray]] = {}
-        for name, (key, layer) in _tree_names(prefix, tree).items():
+        for name, (key, layer) in _tree_names(prefix, tree, state.jax_paths).items():
             a = tree[name].detach().cpu().numpy().astype(np.float32)
             if layer is None:
                 out[key] = a
@@ -236,7 +237,7 @@ def train_from_arrays(arrays: dict[str, np.ndarray], device, like):
 
     def tree(prefix, template):
         out = {}
-        for name, (key, layer) in _tree_names(prefix, template).items():
+        for name, (key, layer) in _tree_names(prefix, template, like.jax_paths).items():
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key}")
             a = np.asarray(arrays[key])
@@ -257,7 +258,7 @@ def train_from_arrays(arrays: dict[str, np.ndarray], device, like):
                       opt=AdamWState(mu=tree(".opt.mu", like.opt.mu),
                                      nu=tree(".opt.nu", like.opt.nu),
                                      count=scalar(".opt.count")),
-                      step=scalar(".step"))
+                      step=scalar(".step"), jax_paths=like.jax_paths)
 
 
 class CheckpointManager:

@@ -2,11 +2,11 @@
 
 ``get_config(name)`` returns the published configuration and
 ``get_config(name, reduced=True)`` the same-family reduced one used by the
-CPU tests.  The registry knows the JAX package's ten architectures; the
-port runs the dense four (``gemma_2b``, ``qwen3_32b``, ``minitron_4b``,
-``stablelm_3b``), ``rwkv6_7b``, the hybrid ``recurrentgemma_9b`` and the
-moe ``mixtral_8x22b`` and ``qwen3_moe_235b``, and refuses the encdec and
-vlm ones by name.
+CPU tests.  The registry knows the JAX package's ten architectures and
+the port runs all of them: the dense four (``gemma_2b``, ``qwen3_32b``,
+``minitron_4b``, ``stablelm_3b``), ``rwkv6_7b``, the hybrid
+``recurrentgemma_9b``, the moe ``mixtral_8x22b`` and ``qwen3_moe_235b``,
+the encdec ``whisper_medium`` and the vlm ``llama32_vision_11b``.
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ ALIASES = {
 
 # architectures whose config module the port has
 PORTED = ("qwen3_32b", "gemma_2b", "minitron_4b", "stablelm_3b", "qwen3_moe_235b",
-          "mixtral_8x22b", "recurrentgemma_9b", "rwkv6_7b")
+          "mixtral_8x22b", "recurrentgemma_9b", "rwkv6_7b", "whisper_medium",
+          "llama32_vision_11b")
 
 
 def get_config(name: str, reduced: bool = False):

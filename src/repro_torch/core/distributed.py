@@ -47,6 +47,7 @@ Elastic scaling: replicas are independent between swaps, so
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -60,6 +61,7 @@ __all__ = [
     "REPLICA_AXIS",
     "MeshSpec",
     "MeshLayout",
+    "launcher_group",
     "local_block",
     "gather_state",
     "rebalance_ladder",
@@ -74,6 +76,35 @@ def _launcher_hint(n: int) -> str:
     return (f"start one process per rank, e.g. `torchrun --nproc-per-node {n} "
             f"-m repro_torch run SPEC.json ...`, or initialize a "
             f"torch.distributed process group of {n} ranks before building the engine")
+
+
+@contextlib.contextmanager
+def launcher_group(device: str):
+    """The process group a launcher (torchrun) describes in ``RANK`` /
+    ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``, for the body of the
+    ``with``: NCCL on cuda (the rank's card ``cuda:{LOCAL_RANK}``), gloo on
+    cpu.  Yields whether this process writes results (rank 0).
+
+    A group that was up already is left as it is.  A group brought up here
+    is ended here: after a barrier when the body returns, so no rank leaves
+    while another still talks to it, and at once when it raises (a barrier
+    could wait forever on a rank inside a collective).  A process that
+    exits with its group still up can abort in the group's destructor
+    (``terminate called without an active exception``) while a peer is
+    still running."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield dist.get_rank() == 0
+        return
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method="env://")
+    try:
+        yield dist.get_rank() == 0
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,21 +25,13 @@ import os
 import time
 
 
-def _mesh(device: str):
-    """``MeshSpec(1, WORLD_SIZE)`` under a launcher (the process group
-    brought up from its environment), else None."""
+def _mesh():
+    """``MeshSpec(1, WORLD_SIZE)`` under a launcher, else None."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1:
         return None
-    import torch
-    import torch.distributed as dist
-
     from repro_torch.core.distributed import MeshSpec
 
-    if not dist.is_initialized():
-        if device == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        dist.init_process_group("nccl" if device == "cuda" else "gloo", init_method="env://")
     return MeshSpec(ensemble=1, replica=world)
 
 
@@ -56,16 +48,25 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-every", type=int, default=0, help="intervals between checkpoints")
     args = ap.parse_args(argv)
 
+    if args.smoke:
+        args.replicas, args.length, args.sweeps = 16, 32, 500
+
+    mesh = _mesh()
+    if mesh is None:
+        return _sample(args, None)
+    from repro_torch.core.distributed import launcher_group
+
+    with launcher_group(args.device):
+        return _sample(args, mesh)
+
+
+def _sample(args, mesh) -> int:
     import numpy as np
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import diagnostics, ising, keys, ladder
     from repro_torch.engine import Engine, EngineConfig
 
-    if args.smoke:
-        args.replicas, args.length, args.sweeps = 16, 32, 500
-
-    mesh = _mesh(args.device)
     system = ising.IsingSystem(length=args.length, j=1.0, b=0.0)
     interval = args.swap_interval if args.swap_interval > 0 else args.sweeps
     chunk = args.ckpt_every * interval if args.ckpt_every else args.sweeps

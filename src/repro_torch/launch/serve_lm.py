@@ -9,11 +9,15 @@ Every sequence starts from token 1; step ``pos`` samples the next token with
 ``jax.random`` draw reproduced by `repro_torch.core.keys`, so the same
 weights give the JAX loop's tokens.  The weights are drawn from a seeded
 `torch.Generator` (not the JAX example's ``jax.random.key(0)`` weights).
-The port runs the dense archs (``gemma_2b``, ``qwen3_32b``, ``minitron_4b``,
-``stablelm_3b``: a KV cache of ``--tokens`` + 8 positions), ``rwkv6_7b``,
-the hybrid ``recurrentgemma_9b`` and the moe ``mixtral_8x22b`` and
-``qwen3_moe_235b``; the decode state is `model.init_decode_state`'s for
-every family.  The others are refused by name.
+Every arch runs: the dense ones (``gemma_2b``, ``qwen3_32b``,
+``minitron_4b``, ``stablelm_3b``: a KV cache of ``--tokens`` + 8
+positions), ``rwkv6_7b``, the hybrid ``recurrentgemma_9b``, the moe
+``mixtral_8x22b`` and ``qwen3_moe_235b``, the vlm ``llama32_vision_11b``
+and the encdec ``whisper_medium``; the decode state is
+`model.init_decode_state`'s for every family.  As in the JAX example, the
+vlm decodes over a seeded image context (B, img_tokens, D) and whisper over
+the encoder's output of seeded frames (B, enc_seq, D) (`context`; the
+port's draws, from a `torch.Generator` seeded 2).
 """
 from __future__ import annotations
 
@@ -27,21 +31,41 @@ from repro_torch.core import keys
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
 
-__all__ = ["TEMPERATURE", "generate", "main"]
+__all__ = ["TEMPERATURE", "context", "generate", "main"]
 
 TEMPERATURE = 0.8
 
 
 @torch.inference_mode()
-def generate(model, cfg, batch: int, n_tokens: int, device) -> torch.Tensor:
+def context(model, cfg, batch: int, device):
+    """The decode context of the example: for the vlm, image tokens (batch,
+    img_tokens, D) f32 N(0, 1); for encdec, `whisper.encode` of frames
+    (batch, enc_seq, D) drawn so; else None.  Drawn from a
+    `torch.Generator` on ``device`` seeded 2."""
+    if cfg.family not in ("vlm", "encdec"):
+        return None
+    device = resolve_device(device)
+    n = cfg.img_tokens if cfg.family == "vlm" else cfg.enc_seq
+    x = torch.randn((batch, n, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(2))
+    if cfg.family == "vlm":
+        return x
+    from repro_torch.models import whisper
+
+    return whisper.encode(model, cfg, x)
+
+
+@torch.inference_mode()
+def generate(model, cfg, batch: int, n_tokens: int, device, ctx=None) -> torch.Tensor:
     """(batch, n_tokens + 1) int64 token ids: the start token 1, then
-    ``n_tokens`` sampled ones."""
+    ``n_tokens`` sampled ones, every step over ``ctx`` (the encoder output
+    or the image tokens; required for encdec)."""
     device = resolve_device(device)
     state = model_lib.init_decode_state(cfg, batch, max_seq=n_tokens + 8, device=device)
     token = torch.ones((batch, 1), dtype=torch.int64, device=device)
     seqs = [token]
     for pos in range(n_tokens):
-        logits, state = model_lib.decode_step(model, cfg, state, token, pos)
+        logits, state = model_lib.decode_step(model, cfg, state, token, pos, ctx=ctx)
         token = keys.categorical(keys.key(100 + pos, device=device),
                                  logits / TEMPERATURE)[:, None]
         seqs.append(token)
@@ -59,8 +83,9 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=True)
     model = model_lib.init_params(cfg, 0, device=device)
+    ctx = context(model, cfg, args.batch, device)
     t0 = time.perf_counter()
-    out = generate(model, cfg, args.batch, args.tokens, device)
+    out = generate(model, cfg, args.batch, args.tokens, device, ctx=ctx)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0

@@ -11,8 +11,11 @@ the optimizer AdamW with 20 warmup steps and a cosine decay over
 JAX driver's line (``step N loss L X it/s``); with ``--ckpt-dir`` it saves
 every ``--ckpt-every`` steps in the JAX package's training-checkpoint
 format and a restart resumes at the newest saved step (``[restart] resumed
-at step N``).  The dense, rwkv, hybrid and moe archs train; an
-architecture the port has not ported is refused by name.
+at step N``).  The dense, rwkv, hybrid, moe and vlm archs train (the vlm
+on batches with no ``img``, as JAX's `repro.launch.train` does: its cross
+layers then attend over their own input).  ``whisper_medium`` is refused
+by name: its loss needs ``frames``, which `SyntheticLM` does not make
+(JAX's `repro.launch.train` fails on it with a ``KeyError``).
 """
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ def main(argv=None) -> int:
     from repro_torch.train.train_step import init_state, make_train_step
 
     cfg = get_config(args.arch, reduced=args.smoke)
+    if cfg.family == "encdec":
+        raise SystemExit(f"{args.arch}: the encdec family needs frames, which the synthetic "
+                         "LM batches do not carry; this trains decoder-only archs")
     device = resolve_device(args.device)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch)
     opt_cfg = opt_lib.AdamWConfig(warmup_steps=20, total_steps=args.steps)

@@ -24,8 +24,13 @@ port's agrees with both dense paths).  It runs where a sequence is longer
 than ``attn_chunk`` (2048 in the full configs), with the layer's window.
 
 Decode writes the new key and value into the layer's cache in place and
-returns it.  ``cross_attention`` (the vlm and encdec families) is not
-ported and is refused by name.
+returns it.  ``cross_attention`` (the vlm and encdec families) attends
+from x over a context (whisper's encoder output, llama-3.2-vision's image
+tokens) with no mask and no RoPE: K and V are projected from the context
+(``project_qkv(..., kv_x=)``), the scores are GQA's in f32 and the output
+is, ``gated``, scaled by ``tanh(gate)`` (f32, cast to the output's dtype).
+A cross layer's ``gate`` starts at 0 (JAX's ``init_attention(cross=True)``),
+so a freshly made vlm model's cross layers add exactly 0.
 """
 from __future__ import annotations
 
@@ -44,9 +49,10 @@ NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
 class Attention(nn.Module):
     """One layer's projections (``init_attention`` of the JAX code): ``wq``
     (D, H, hd), ``wk`` / ``wv`` (D, KV, hd), ``wo`` (H, hd, D) in the
-    compute dtype and, with ``qk_norm``, ``q_norm`` / ``k_norm`` (hd,) f32."""
+    compute dtype; with ``qk_norm``, ``q_norm`` / ``k_norm`` (hd,) f32; with
+    ``cross``, the tanh ``gate`` (1,) f32, zero."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None, cross: bool = False):
         super().__init__()
         d, h, kv, hd, dt = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                             cfg.compute_dtype)
@@ -59,17 +65,22 @@ class Attention(nn.Module):
                                        requires_grad=False)
             self.k_norm = nn.Parameter(torch.zeros((hd,), dtype=torch.float32, device=device),
                                        requires_grad=False)
+        if cross:  # llama-3.2-vision's tanh gate
+            self.gate = nn.Parameter(torch.zeros((1,), dtype=torch.float32, device=device),
+                                     requires_grad=False)
 
 
-def project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
-    """q (B, S, H, hd), k and v (B, S, KV, hd) in the compute dtype, q and k
+def project_qkv(p, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """q (B, S, H, hd) from x, k and v (B, T, KV, hd) from ``kv_x`` (a
+    cross-attention context; None: x itself), in the compute dtype, q and k
     RMS-normed over hd with ``qk_norm``; ``p`` is an `Attention` (or any
     object with its tensors)."""
     dt = cfg.compute_dtype
     x = x.to(dt)
+    kv_src = x if kv_x is None else kv_x.to(dt)
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
-    k = torch.einsum("btd,dgk->btgk", x, p.wk.to(dt))
-    v = torch.einsum("btd,dgk->btgk", x, p.wv.to(dt))
+    k = torch.einsum("btd,dgk->btgk", kv_src, p.wk.to(dt))
+    v = torch.einsum("btd,dgk->btgk", kv_src, p.wv.to(dt))
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
@@ -183,8 +194,20 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
     return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(cfg.compute_dtype))
 
 
-def cross_attention(*args, **kwargs):
-    raise NotImplementedError("not yet ported: cross_attention (the vlm and encdec families)")
+def cross_attention(p, cfg: ModelConfig, x: torch.Tensor, context: torch.Tensor, *,
+                    gated: bool = False) -> torch.Tensor:
+    """Cross-attention of x (B, S, D) over ``context`` (B, T, D) (whisper's
+    decoder over the encoder output, llama-3.2-vision's image layers): no
+    mask, no RoPE, the scores f32 and JAX's softmax; -> (B, S, D), times
+    ``tanh(gate)`` (f32, cast to the output's dtype) when ``gated``."""
+    q, k, v = project_qkv(p, cfg, x, kv_x=context)
+    scores = gqa_scores(q, k, cfg.head_dim ** -0.5).to(torch.float32)
+    probs = softmax(scores).to(q.dtype)
+    ctx = gqa_out(probs, v)
+    out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(cfg.compute_dtype))
+    if gated:
+        out = torch.tanh(p.gate.to(torch.float32)).to(out.dtype) * out
+    return out
 
 
 # -- decode (KV cache) ------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Shared model pieces: the config, its parameter count, RMS norm, RoPE,
-JAX's sigmoid and SiLU, and the dense initializer (twin of
+the sinusoid table, JAX's sigmoid and SiLU, and the dense initializer (twin of
 `repro.models.common`).
 
 `ModelConfig` has the JAX package's fields that the port reads, with
@@ -19,8 +19,8 @@ import math
 
 import torch
 
-__all__ = ["ModelConfig", "param_count", "rms_norm", "rope_freqs", "apply_rope", "scalar",
-           "sigmoid", "silu", "dense_init", "dense_param"]
+__all__ = ["ModelConfig", "param_count", "is_cross_layer", "rms_norm", "rope_freqs", "apply_rope",
+           "sinusoid_positions", "scalar", "sigmoid", "silu", "dense_init", "dense_param"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +40,12 @@ class ModelConfig:
     window, and their ring's length); the moe family ``n_experts``,
     ``top_k``, ``capacity_factor`` and ``renorm_gates``
     (`repro_torch.models.moe`).  ``moe_token_stationary=True`` is a GSPMD
-    placement hint of the JAX code and is refused by name.  A serving `LM` stores its weights in
+    placement hint of the JAX code and is refused by name.  The encdec
+    family (whisper) reads ``enc_layers`` (its encoder's depth; ``n_layers``
+    is the decoder's) and ``enc_seq`` (the frames' length); the vlm family
+    ``cross_attn_every`` (layer ``i`` is a gated cross-attention layer
+    where ``i % k == k - 2``) and ``img_tokens`` (the image context's
+    length).  A serving `LM` stores its weights in
     ``dtype``; training keeps f32 masters (``param_dtype``) and casts them
     once a step (`repro_torch.train.train_step`).  ``remat`` recomputes
     each layer in the backward pass (``remat_policy="full"``; ``"dots"``
@@ -49,7 +54,7 @@ class ModelConfig:
     """
 
     name: str
-    family: str  # the port runs "dense", "rwkv", "hybrid" and "moe"
+    family: str  # dense | moe | hybrid | rwkv | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -74,6 +79,12 @@ class ModelConfig:
     lru_width: int = 0
     conv1d_width: int = 4
     local_window: int = 2048  # hybrid local-attention window
+    # --- enc-dec (whisper) ---
+    enc_layers: int = 0
+    enc_seq: int = 1500  # precomputed frame embeddings (stub frontend)
+    # --- vlm ---
+    cross_attn_every: int = 0  # every k-th layer is cross-attn (0 = none)
+    img_tokens: int = 0
     dtype: str = "bfloat16"  # matmul/activation dtype (a serving LM's weights too)
     param_dtype: str = "float32"  # master weights (training)
     remat: bool = True
@@ -98,15 +109,18 @@ class ModelConfig:
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
-    """The JAX package's analytic parameter count of the dense, rwkv,
-    hybrid and moe families, its formula word for word.
+    """The JAX package's analytic parameter count, its formula word for word.
 
     It is not always what the model holds: for rwkv it leaves out the nine
     d-vectors a layer of lerp weights, ``w0`` and ``ln_scale``; for the
     hybrid family it counts every layer whose kind is not ``"attn"`` as a
     recurrent one, so recurrentgemma's ``attn_local`` layers count as
     RG-LRU layers, and it leaves out ``lam`` (9,975,459,840 at full size
-    against the 9,396,408,320 the model holds)."""
+    against the 9,396,408,320 the model holds); for the vlm family it
+    counts each cross layer's gate as ``d`` where the gate holds 1
+    (9,775,190,016 against 9,775,157,256 for llama-3.2-vision-11b); for
+    encdec it leaves out ``enc_norm`` (810,986,496 against 810,987,520 for
+    whisper-medium)."""
     d = cfg.d_model
     hd = cfg.head_dim
     attn = d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + cfg.n_heads * hd * d
@@ -132,6 +146,14 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
         rec = 2 * d * lru + lru * cfg.conv1d_width + 3 * lru + lru * d + 2 * lru * lru
         out = n_attn * (attn + dense_ffn + per_layer_norms) + n_rec * (
             rec + dense_ffn + per_layer_norms)
+    elif cfg.family == "encdec":
+        enc = cfg.enc_layers * (attn + dense_ffn + per_layer_norms)
+        dec = cfg.n_layers * (2 * attn + dense_ffn + 3 * d)
+        out = enc + dec
+    elif cfg.family == "vlm":
+        n_cross = sum(1 for i in range(cfg.n_layers) if is_cross_layer(cfg, i))
+        out = (cfg.n_layers - n_cross) * (attn + dense_ffn + per_layer_norms) + n_cross * (
+            attn + dense_ffn + per_layer_norms + d)  # gate
     else:
         raise NotImplementedError(f"not yet ported: param_count of the {cfg.family!r} family")
     out += cfg.vocab * d + d  # embedding + final norm
@@ -142,6 +164,13 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
 
 def _hybrid_kind(cfg: ModelConfig, i: int) -> str:
     return cfg.pattern[i % len(cfg.pattern)] if cfg.pattern else "attn"
+
+
+def is_cross_layer(cfg: ModelConfig, i: int) -> bool:
+    """Llama-3.2-Vision style: cross-attention at layers 3, 8, 13, ...
+    (``i % k == k - 2`` for ``k = cross_attn_every``; 0: none)."""
+    k = cfg.cross_attn_every
+    return bool(k) and (i % k == k - 2)
 
 
 def scalar(value: float, dtype: torch.dtype) -> float:
@@ -182,6 +211,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoid_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """The classic transformer's sinusoidal table (the whisper encoder's
+    positions): (n, d) f32, ``[sin(ang), cos(ang)]`` with ``ang = pos /
+    10000^(2i / d)``, op for op as JAX's (``pow`` of an f32 exponent, then
+    the division).  ``sin`` / ``cos`` of angles up to n - 1 rad may differ
+    from XLA's by an ulp (tests/test_torch_encdec.py states the gap)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, dtype=torch.float32, device=device), dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 class _Logistic(torch.autograd.Function):

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly for the dense, rwkv, hybrid and moe families
-(twin of `repro.models.transformer`).
+"""Decoder-only LM assembly for the dense, rwkv, hybrid, moe and vlm
+families (twin of `repro.models.transformer`; the encdec family is
+`repro_torch.models.whisper`).
 
 The JAX package expands each architecture to a cyclic pattern of layer
 kinds and stacks the layers into scanned groups plus a tail; the port keeps
@@ -7,8 +8,8 @@ the same plan (`layer_pattern`, `plan`) but holds the layers unstacked, in
 order, in an `LM` module:
 
   LM.embed (V, D), LM.layers [DenseBlock | RGLRUBlock | MoEBlock |
-  RWKVBlock ...], LM.final_norm (D,), LM.unembed (D, V) (absent with tied
-  embeddings)
+  CrossBlock | RWKVBlock ...], LM.final_norm (D,), LM.unembed (D, V)
+  (absent with tied embeddings)
 
 A ``DenseBlock`` (kinds ``"attn"`` and the hybrid family's
 ``"attn_local"``, whose window is ``local_window``) is JAX's pre-norm
@@ -16,13 +17,17 @@ attention layer, ``norm1``, ``attn`` (`repro_torch.models.attention`),
 ``norm2``, ``ffn`` (`repro_torch.models.ffn`), each residual; an
 ``RGLRUBlock`` (``"rglru"``) has ``mix`` (`repro_torch.models.rglru`) in
 place of ``attn``, an ``MoEBlock`` (``"attn_moe"``) ``moe``
-(`repro_torch.models.moe`) in place of ``ffn``.  The vlm family's
-``cross`` kind and the encdec family are refused by name.  A decode
-state is the list of the layers' states, in the same order: an attention
-layer's KV cache ``{"k", "v"}`` (B, KV, S, hd), sized by the layer's
-window with a ring cache, which `decode_step` updates in place; an
-RG-LRU layer's ``{"conv", "h"}``; an rwkv layer's O(1) state.  Entry
-points: `init_params`, `backbone`, `last_logits`, `init_decode_state`,
+(`repro_torch.models.moe`) in place of ``ffn``, a ``CrossBlock``
+(``"cross"``, the vlm family's every ``cross_attn_every``-th layer; the
+hybrid family's pattern may name it too) a gated cross-attention over the
+context ``ctx`` (the image tokens, (B, T, D)) and no self-attention.  With
+no context, a cross layer attends over its own normed input, unmasked, as
+JAX's does (``kv_x=None``).  A decode state is the list of the layers'
+states, in the same order: an attention layer's KV cache ``{"k", "v"}``
+(B, KV, S, hd), sized by the layer's window with a ring cache, which
+`decode_step` updates in place; an RG-LRU layer's ``{"conv", "h"}``; an
+rwkv layer's O(1) state; a cross layer's empty dict.  Entry points:
+`init_params`, `backbone`, `last_logits`, `init_decode_state`,
 `decode_step`, and for training `lm_loss` and `forward_loss`.  The
 embedding is multiplied by ``embed_scale`` rounded to the compute dtype
 first (JAX's weak typing: gemma-2b's sqrt(2048) is 45.25 in bf16).
@@ -37,7 +42,8 @@ non-reentrant `torch.utils.checkpoint` (JAX's ``jax.checkpoint`` of each
 scanned group; a group is one layer).  The layer's tensors are
 arguments of the checkpointed function, so its recompute in the backward
 pass runs on the same tensors.  So serving and training share one set of
-modules and one loop, and the masters stay f32.
+modules and one loop (`run_layer`, which `repro_torch.models.whisper`
+uses too), and the masters stay f32.
 """
 from __future__ import annotations
 
@@ -56,34 +62,35 @@ from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.common import ModelConfig, dense_param, rms_norm, scalar
 from repro_torch.models.ffn import FFN
 
-__all__ = ["layer_pattern", "plan", "layer_kinds", "DenseBlock", "RGLRUBlock", "MoEBlock", "LM",
-           "init_params", "embed", "backbone", "unembed_matrix", "mm_f32", "last_logits",
-           "lm_loss", "forward_loss", "init_decode_state", "decode_step"]
-
-
-# the JAX package's layer kinds of the families the port does not run yet
-_REFUSED_KINDS = {"vlm": "cross", "encdec": "whisper's encoder-decoder"}
+__all__ = ["layer_pattern", "plan", "layer_kinds", "DenseBlock", "RGLRUBlock", "MoEBlock",
+           "CrossBlock", "LM", "init_params", "norm_param", "embed", "layer_params",
+           "model_params", "remat_enabled", "run_layer", "backbone", "unembed_matrix",
+           "mm_f32", "last_logits", "lm_loss", "forward_loss", "init_decode_state",
+           "decode_step"]
 
 
 def layer_pattern(cfg: ModelConfig) -> tuple:
     if cfg.family == "hybrid":
         pat = cfg.pattern or ("rglru", "rglru", "attn_local")
-        for kind in pat:
-            if kind not in ("rglru", "attn", "attn_local"):
-                raise NotImplementedError(
-                    f"not yet ported: layer kind {kind!r} in the pattern of {cfg.name} (the "
-                    "port's hybrid layers are rglru, attn and attn_local)")
+        for kind in pat:  # any kind JAX's _init_layer makes
+            if kind not in _BLOCKS:
+                raise ValueError(f"unknown layer kind {kind!r} in the pattern of {cfg.name}")
         return pat
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every or 5
+        return tuple("cross" if i == k - 2 else "attn" for i in range(k))
     if cfg.family == "rwkv":
         return ("rwkv",)
     if cfg.family == "moe":
         return ("attn_moe",)
     if cfg.family == "dense":
         return ("attn",)
-    kinds = _REFUSED_KINDS.get(cfg.family, "unknown")
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name} is an encoder-decoder: it runs through "
+                         "repro_torch.models.whisper (models.model dispatches on the family)")
     raise NotImplementedError(
-        f"not yet ported: the {cfg.family!r} family of {cfg.name} (layer kinds {kinds}); "
-        "the port runs the dense, rwkv, hybrid and moe families")
+        f"not yet ported: the {cfg.family!r} family of {cfg.name} (the port runs the dense, "
+        "rwkv, hybrid, moe, vlm and encdec families)")
 
 
 def plan(cfg: ModelConfig):
@@ -97,7 +104,8 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     return [*pat * n_groups, *(pat[i % len(pat)] for i in range(tail))]
 
 
-def _norm(d: int, device) -> nn.Parameter:
+def norm_param(d: int, device) -> nn.Parameter:
+    """A layer norm's scale: (d,) f32 zeros, as JAX's init makes it."""
     return nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device),
                         requires_grad=False)
 
@@ -111,9 +119,9 @@ class DenseBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, generator=None, device=None, kind: str = "attn"):
         super().__init__()
         self.local = kind == "attn_local"
-        self.norm1 = _norm(cfg.d_model, device)
+        self.norm1 = norm_param(cfg.d_model, device)
         self.attn = attn_lib.Attention(cfg, generator, device)
-        self.norm2 = _norm(cfg.d_model, device)
+        self.norm2 = norm_param(cfg.d_model, device)
         self.ffn = FFN(cfg, generator, device)
 
     def window(self, cfg: ModelConfig):
@@ -142,9 +150,9 @@ class RGLRUBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        self.norm1 = _norm(cfg.d_model, device)
+        self.norm1 = norm_param(cfg.d_model, device)
         self.mix = rglru_lib.init_rglru(cfg, generator, device)
-        self.norm2 = _norm(cfg.d_model, device)
+        self.norm2 = norm_param(cfg.d_model, device)
         self.ffn = FFN(cfg, generator, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
@@ -166,9 +174,9 @@ class MoEBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        self.norm1 = _norm(cfg.d_model, device)
+        self.norm1 = norm_param(cfg.d_model, device)
         self.attn = attn_lib.Attention(cfg, generator, device)
-        self.norm2 = _norm(cfg.d_model, device)
+        self.norm2 = norm_param(cfg.d_model, device)
         self.moe = moe_lib.init_moe(cfg, generator, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
@@ -184,8 +192,34 @@ class MoEBlock(nn.Module):
         return x + moe_lib.moe_ffn(self.moe, cfg, rms_norm(x, self.norm2)), cache
 
 
+class CrossBlock(nn.Module):
+    """One gated cross-attention layer (kind ``"cross"``): pre-norm
+    cross-attention over the context (a ``gate``d `Attention`, zero at
+    init) and FFN, each residual; no self-attention, so no decode state."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        self.norm1 = norm_param(cfg.d_model, device)
+        self.attn = attn_lib.Attention(cfg, generator, device, cross=True)
+        self.norm2 = norm_param(cfg.d_model, device)
+        self.ffn = FFN(cfg, generator, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                ctx: torch.Tensor | None = None) -> torch.Tensor:
+        """x (B, S, D) over ``ctx`` (B, T, D); None: over the normed x."""
+        h = rms_norm(x, self.norm1)
+        x = x + attn_lib.cross_attention(self.attn, cfg, h, ctx, gated=True)
+        return x + self.ffn(rms_norm(x, self.norm2))
+
+    def decode(self, x: torch.Tensor, pos, state: dict, cfg: ModelConfig,
+               ctx: torch.Tensor | None = None):
+        """One token: the same layer (its context is whole at every step)."""
+        return self.forward(x, None, cfg, ctx), state
+
+
 _BLOCKS = {"attn": DenseBlock, "attn_local": functools.partial(DenseBlock, kind="attn_local"),
-           "rglru": RGLRUBlock, "attn_moe": MoEBlock, "rwkv": rwkv_lib.RWKVBlock}
+           "rglru": RGLRUBlock, "attn_moe": MoEBlock, "cross": CrossBlock,
+           "rwkv": rwkv_lib.RWKVBlock}
 
 
 class LM(nn.Module):
@@ -214,9 +248,33 @@ def init_params(cfg: ModelConfig, generator, device="cuda") -> LM:
     return LM(cfg, generator, device)
 
 
-def _layer_params(params: dict, n: int, layer: nn.Module) -> dict:
-    prefix = f"layers.{n}."
+def layer_params(params: dict, prefix: str, layer: nn.Module) -> dict:
+    """``layer``'s tensors in ``params``, found under ``prefix`` + its names."""
     return {name: params[prefix + name] for name, _ in layer.named_parameters()}
+
+
+def model_params(model: nn.Module, params: dict | None) -> dict:
+    """``params``, or by default the model's own tensors under their names."""
+    return dict(model.named_parameters()) if params is None else params
+
+
+def remat_enabled(cfg: ModelConfig, params: dict) -> bool:
+    """Whether the layers recompute in the backward pass: ``cfg.remat``,
+    autograd recording and a tensor of ``params`` requiring grad."""
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and any(p.requires_grad for p in params.values()))
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"not yet ported: remat_policy={cfg.remat_policy!r} (the port recomputes "
+            "whole layers, remat_policy='full')")
+    return remat
+
+
+def run_layer(run, x: torch.Tensor, lp: dict, remat: bool) -> torch.Tensor:
+    """``run(x, lp)``: under one non-reentrant checkpoint with ``remat``."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(run, x, lp, use_reentrant=False)
+    return run(x, lp)
 
 
 def embed(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -235,18 +293,10 @@ def backbone(model: LM, cfg: ModelConfig, tokens: torch.Tensor, ctx=None,
     Each layer runs through `functional_call` on its slice of ``params``
     (training: tensors under the model's parameter names; by default the
     model's own) and, with ``cfg.remat`` where autograd records, under one
-    checkpoint a layer.
+    checkpoint a layer.  ``ctx`` (B, T, D) is the cross layers' context.
     """
-    if ctx is not None:
-        raise NotImplementedError("not yet ported: ctx (the vlm / encdec families)")
-    if params is None:
-        params = dict(model.named_parameters())
-    remat = (cfg.remat and torch.is_grad_enabled()
-             and any(p.requires_grad for p in params.values()))
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"not yet ported: remat_policy={cfg.remat_policy!r} (the port recomputes "
-            "whole layers, remat_policy='full')")
+    params = model_params(model, params)
+    remat = remat_enabled(cfg, params)
     x = embed(params["embed"], cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -255,13 +305,14 @@ def backbone(model: LM, cfg: ModelConfig, tokens: torch.Tensor, ctx=None,
             def run(x, lp, layer=layer):
                 state = rwkv_lib.init_rwkv_state(cfg, x.shape[0], device=x.device)
                 return functional_call(layer, lp, (x, state))[0]
+        elif kind == "cross":
+            def run(x, lp, layer=layer):
+                return functional_call(layer, lp, (x, positions, cfg, ctx))
         else:
             def run(x, lp, layer=layer):
                 return functional_call(layer, lp, (x, positions, cfg))
 
-        lp = _layer_params(params, n, layer)
-        x = (torch.utils.checkpoint.checkpoint(run, x, lp, use_reentrant=False) if remat
-             else run(x, lp))
+        x = run_layer(run, x, layer_params(params, f"layers.{n}.", layer), remat)
     return rms_norm(x, params["final_norm"])
 
 
@@ -336,8 +387,9 @@ def lm_loss(model: LM, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Ten
 
 
 def forward_loss(model: LM, cfg: ModelConfig, batch, params: dict | None = None):
-    """The training loss of ``batch`` (``tokens``, ``labels`` (B, S)): a
-    scalar f32 tensor; see `backbone` for ``params``."""
+    """The training loss of ``batch`` (``tokens``, ``labels`` (B, S), and
+    for the vlm family optionally ``img`` (B, T, D), the cross layers'
+    context): a scalar f32 tensor; see `backbone` for ``params``."""
     ctx = batch.get("img") if isinstance(batch, dict) else None
     hidden = backbone(model, cfg, batch["tokens"], ctx=ctx, params=params)
     return lm_loss(model, cfg, hidden, batch["labels"], params=params)
@@ -349,10 +401,14 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int,
     cache (`repro_torch.models.attention.init_kv_cache`; a ring is sized by
     the layer's window, ``local_window`` for ``attn_local``), an RG-LRU
     layer's ``conv`` (B, W-1, lru) and ``h`` (B, lru) f32, an rwkv layer's
-    O(1) state."""
+    O(1) state, and a cross layer's empty dict: JAX allocates a full KV
+    cache for each cross layer and never writes it (its decode recomputes
+    the cross K/V from the context every step), so the port holds none."""
     device = resolve_device(device)
 
     def one(kind):
+        if kind == "cross":
+            return {}
         if kind == "rwkv":
             return rwkv_lib.init_rwkv_state(cfg, batch, device=device)
         if kind == "rglru":
@@ -367,16 +423,20 @@ def decode_step(model: LM, cfg: ModelConfig, state: list[dict], token: torch.Ten
                 pos, ctx=None):
     """One serve step: token (B, 1) at position ``pos`` (an int or a 0-d
     tensor; unused by rwkv and RG-LRU layers).  Attention layers write
-    their KV caches in place.
+    their KV caches in place; cross layers attend over ``ctx`` (B, T, D),
+    their K/V projected from it anew every step, as JAX's do.
 
     Returns (logits (B, V) f32, new_state).
     """
-    if ctx is not None:
-        raise NotImplementedError("not yet ported: ctx (the vlm / encdec families)")
     x = embed(model.embed, cfg, token)
     new_state = []
     for layer, kind, st in zip(model.layers, layer_kinds(cfg), state, strict=True):
-        x, st = layer(x, st) if kind == "rwkv" else layer.decode(x, pos, st, cfg)
+        if kind == "rwkv":
+            x, st = layer(x, st)
+        elif kind == "cross":
+            x, st = layer.decode(x, pos, st, cfg, ctx)
+        else:
+            x, st = layer.decode(x, pos, st, cfg)
         new_state.append(st)
     hidden = rms_norm(x, model.final_norm)
     return last_logits(model, cfg, hidden), new_state

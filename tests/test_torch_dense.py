@@ -49,6 +49,7 @@ from repro.models import ffn as jffn  # noqa: E402
 from repro.models import model as jm  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
+import _torch_lm_parity as lm  # noqa: E402
 import _torch_train_bound as tb  # noqa: E402
 from repro_torch import carry  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
@@ -370,32 +371,44 @@ def test_the_full_configs_build_the_counted_parameters():
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b", "mixtral_8x22b", "recurrentgemma_9b",
                                   "whisper_medium", "llama32_vision_11b"])
 def test_unported_families_refused_by_name(arch):
-    """The vlm and encdec archs are refused by name, and so are their
-    families on a dense config.  The moe and hybrid archs run; what the port
-    leaves out of them is refused by name: ``moe_token_stationary=True`` (a
-    GSPMD placement), a context (``img``) and a ``cross`` layer in a hybrid
-    pattern."""
-    family = jax_get_config(arch, reduced=True)
-    if arch in PORTED:
-        cfg = get_config(arch, reduced=True)
-        assert cfg.family == family.family in ("moe", "hybrid")
-        if cfg.family == "moe":
-            bad, what = dataclasses.replace(cfg, moe_token_stationary=True), "moe_token_stationary"
-        else:
-            bad, what = dataclasses.replace(cfg, pattern=("rglru", "cross")), "layer kind 'cross'"
-        with pytest.raises(NotImplementedError, match=f"not yet ported: {what}"):
+    """Every arch of the registry runs now, and what the port still leaves
+    out of these families is refused by name.  The vlm and encdec archs
+    build, their configs equal JAX's, and a prefill over their context
+    (``img``, ``frames``) runs; a ``cross`` layer in a hybrid pattern runs
+    with a context and equals JAX's (its gate set to 1.0 in the weights both
+    packages get); ``moe_token_stationary=True`` (a GSPMD placement) is
+    still refused by name."""
+    ref = jax_get_config(arch, reduced=True)
+    cfg = get_config(arch, reduced=True)
+    assert arch in PORTED
+    assert dataclasses.asdict(cfg) == {f: getattr(ref, f) for f in dataclasses.asdict(cfg)}
+    tokens = torch.from_numpy(lm.tokens(1, 2, 8))
+    if cfg.family == "moe":
+        bad = dataclasses.replace(cfg, moe_token_stationary=True)
+        with pytest.raises(NotImplementedError, match="not yet ported: moe_token_stationary"):
             tm.init_params(bad, 0, device="cpu")
-        model = tm.init_params(cfg, 0, device="cpu")
-        tokens = torch.ones((1, 2), dtype=torch.int64)
-        with pytest.raises(NotImplementedError, match="not yet ported: ctx"):
-            tm.prefill_logits(model, cfg, {"tokens": tokens, "img": tokens})
         return
-    with pytest.raises(NotImplementedError, match=f"not yet ported: arch '{arch}'"):
-        get_config(arch)
-    cfg = dataclasses.replace(get_config("gemma_2b", reduced=True), family=family.family,
-                              name=family.name)
-    with pytest.raises(NotImplementedError, match=f"the '{family.family}' family"):
-        tm.init_params(cfg, 0, device="cpu")
+    if cfg.family == "hybrid":
+        jcfg = dataclasses.replace(ref, pattern=("rglru", "cross"), dtype="float32")
+        cfg = dataclasses.replace(cfg, pattern=("rglru", "cross"), dtype="float32")
+        params = jax.jit(jm.init_params, static_argnums=0)(jcfg, jax.random.key(0))
+        jparams, params_np = lm.set_gates(jax.tree_util.tree_map(np.asarray, params), 1.0)
+        model = carry.lm_params_from_reference(params_np, cfg, "cpu")
+        assert ttf.layer_kinds(cfg) == ["rglru", "cross"] * 2 + ["rglru"]
+        img = np.random.default_rng(2).normal(size=(2, 4, 64)).astype(np.float32)
+        want = jax.jit(lambda p, b: jm.prefill_logits(p, jcfg, b))(
+            jparams, {"tokens": jnp.asarray(tokens.numpy()), "img": jnp.asarray(img)})
+        got = tm.prefill_logits(model, cfg, {"tokens": tokens, "img": torch.from_numpy(img)})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+        assert (got - tm.prefill_logits(model, cfg, {"tokens": tokens})).abs().max() > 1e-3
+        return
+    model = tm.init_params(cfg, 0, device="cpu")
+    n = cfg.img_tokens if cfg.family == "vlm" else cfg.enc_seq
+    ctx = torch.randn((2, n, cfg.d_model), generator=torch.Generator().manual_seed(3))
+    batch = {"tokens": tokens, "img" if cfg.family == "vlm" else "frames": ctx}
+    logits = tm.prefill_logits(model, cfg, batch)
+    assert tuple(logits.shape) == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert type(model).__name__ == ("LM" if cfg.family == "vlm" else "WhisperLM")
 
 
 # -- training ---------------------------------------------------------------------------

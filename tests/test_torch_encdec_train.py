@@ -1,0 +1,100 @@
+"""The encdec family's training loss and gradients against the JAX
+package's, on the CPU.
+
+`forward_loss` of the reduced ``whisper_medium`` (2 encoder and 2 decoder
+layers over 16 frames of numpy-seeded embeddings) and its f32 gradients
+with respect to the carried f32 masters through
+`repro_torch.train.train_step.cast_params`, against ``jax.value_and_grad``
+through JAX's ``cast_params`` (`_torch_lm_parity`), in f32 (JAX jitted)
+and bf16 (JAX op by op); then one train step of the port from JAX's
+masters against JAX's.  Kept apart from tests/test_torch_encdec.py so
+that each file stays well under a minute on the CPU.
+
+Tolerances: the loss within 1e-5 relative (f32) / 1e-3 (bf16); each
+leaf's gradient within 1e-5 of its largest value in f32 and within
+``BF16_GRAD_SHARE`` of it in bf16; in bf16 each leaf's gradient
+bf16-exact in both packages alike, and rounded exactly where JAX's
+``cast_params`` casts it: every leaf of ``enc`` and ``dec`` (JAX stacks
+them (L, ...), so the norms are (L, d) and cast), not ``enc_norm`` and
+``final_norm``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.train import optimizer as jopt  # noqa: E402
+from repro.train import train_step as jts  # noqa: E402
+import _torch_lm_parity as lm  # noqa: E402
+import _torch_train_bound as tb  # noqa: E402
+from repro_torch import carry  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train import train_step as tts  # noqa: E402
+
+ARCH = "whisper_medium"
+BF16_GRAD_SHARE = 0.05
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return lm.jax_init(ARCH)
+
+
+def _data():
+    data = lm.batch(1, 2, 16)
+    data["frames"] = np.random.default_rng(2).normal(size=(2, 16, 64)).astype(np.float32)
+    return data
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_and_gradients_match_jax(jax_params, dtype):
+    jcfg, cfg = lm.cfgs(ARCH, dtype)
+    data = _data()
+    port = lm.port_loss_and_grads(cfg, jax_params[1], data)
+    ref = lm.jax_loss_and_grads(jcfg, cfg, jax_params[0], data)
+    lm.check_gradients(cfg, port, ref, f32_share=1e-5, bf16_share=BF16_GRAD_SHARE)
+    grads, cast = port[1], port[2]
+    # the encoder learns through the cross-attention
+    assert float(grads["enc.0.attn.wq"].abs().max()) > 0
+    if dtype == "bfloat16":
+        assert cast["enc.1.norm2"].dtype == cast["dec.0.norm3"].dtype == torch.bfloat16
+        assert cast["enc_norm"].dtype == cast["final_norm"].dtype == torch.float32
+        assert lm.bf16_exact(grads["dec.1.norm1"].numpy())
+        assert not lm.bf16_exact(grads["enc_norm"].numpy())
+
+
+def test_one_f32_train_step_matches_jax(jax_params):
+    """One AdamW step of the reduced whisper from one carried JAX
+    `TrainState`: the loss, ``lr``, ``grad_norm`` and the masters, each
+    within what the two runs' Adam directions explain
+    (`_torch_train_bound`); the step splits the frames with the tokens
+    into 2 microbatches as JAX's does."""
+    opt = dict(warmup_steps=2, total_steps=10)
+    jcfg, cfg = lm.cfgs(ARCH, "float32")
+    params = jax_params[0]
+    js = jts.TrainState(params=params, opt=jopt.init(params), step=jnp.zeros((), jnp.int32))
+    ts = carry.train_state_from_reference(jax.tree_util.tree_map(np.asarray, js), cfg, "cpu")
+    data = _data()
+    before = {n: x.numpy().copy() for n, x in ts.params.items()}
+    js, jmet = jax.jit(jts.make_train_step(jcfg, jopt.AdamWConfig(**opt), microbatches=2))(
+        js, {k: jnp.asarray(v) for k, v in data.items()})
+    ts, tmet = tts.make_train_step(cfg, topt.AdamWConfig(**opt), microbatches=2)(
+        ts, {k: torch.from_numpy(v) for k, v in data.items()})
+    np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(tmet["lr"]), float(jmet["lr"]), rtol=1e-6)
+    np.testing.assert_allclose(float(tmet["grad_norm"]), float(jmet["grad_norm"]), rtol=1e-3)
+
+    def port(tree):
+        return {n: x.numpy() for n, x in tree.items()}
+
+    def ref(tree):
+        return carry._lm_state(jax.tree_util.tree_map(np.asarray, tree), cfg)
+
+    bound = tb.grow({}, topt.AdamWConfig(**opt), float(tmet["lr"]), 1, before,
+                    (port(ts.opt.mu), port(ts.opt.nu)), (ref(js.opt.mu), ref(js.opt.nu)))
+    assert set(ts.params) == set(ref(js.params))
+    assert tb.reading(port(ts.params), ref(js.params), bound) <= 1.0
+    assert tb.reading(before, ref(js.params), bound) > 100.0

@@ -95,26 +95,30 @@ def test_config_matches_jax(reduced):
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b", "mixtral-8x22b", "whisper_medium",
                                   "recurrentgemma_9b"])
 def test_other_archs_refused_by_name(arch):
-    """An arch the port does not run is refused by name; the moe and hybrid
-    archs run (dashed names too) and refuse what the port leaves out of
-    them by name (``moe_token_stationary=True``, a context); an unknown
-    arch is a KeyError."""
+    """Every arch of the registry runs (dashed names too), and what the port
+    leaves out of them is refused by name (``moe_token_stationary=True``).
+    A context is ignored by a family with no cross layer, as JAX's
+    ``decode_step`` ignores it; whisper's decode step needs its encoder
+    output and says so.  An unknown arch is a KeyError."""
     name = arch.replace("-", "_")
-    if name in PORTED:
-        cfg = get_config(arch, reduced=True)
-        assert cfg.family in ("moe", "hybrid") and cfg.name.startswith(name.split("_")[0])
-        if cfg.family == "moe":
-            with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
-                tm.init_params(dataclasses.replace(cfg, moe_token_stationary=True), 0,
-                               device="cpu")
-        with pytest.raises(NotImplementedError, match="ctx"):
-            tm.decode_step(tm.init_params(cfg, 0, device="cpu"), cfg,
-                           tm.init_decode_state(cfg, 1, 2, device="cpu"),
-                           torch.ones((1, 1), dtype=torch.int64), 0, ctx=torch.ones(1))
+    assert name in PORTED
+    cfg = get_config(arch, reduced=True)
+    assert cfg.name.startswith(name.split("_")[0])
+    if cfg.family == "moe":
+        with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
+            tm.init_params(dataclasses.replace(cfg, moe_token_stationary=True), 0, device="cpu")
+    model = tm.init_params(cfg, 0, device="cpu")
+    token = torch.ones((1, 1), dtype=torch.int64)
+
+    def step(**kw):
+        return tm.decode_step(model, cfg, tm.init_decode_state(cfg, 1, 2, device="cpu"), token,
+                              0, **kw)[0]
+
+    if cfg.family == "encdec":
+        with pytest.raises(ValueError, match="needs ctx"):
+            step()
     else:
-        with pytest.raises(NotImplementedError, match="not yet ported: arch") as err:
-            get_config(arch)
-        assert name.split("_")[0] in str(err.value)
+        assert torch.equal(step(ctx=torch.ones(1)), step())
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt5")
 
@@ -242,19 +246,24 @@ def test_generate_matches_the_jax_example_loop(jax_params):
 
 
 def test_refusals_by_name(port_models):
+    """rwkv has no cross layer, so an ``img`` changes nothing (JAX's
+    backbone hands it only to cross layers); a family no package knows and
+    ``moe_token_stationary=True`` are refused by name, and the decoder-only
+    assembly sends an encdec config to whisper's module by name."""
     _, cfg = _cfgs("float32")
     tokens = torch.ones((1, 2), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ctx"):
-        tm.prefill_logits(port_models["float32"], cfg, {"tokens": tokens, "img": tokens})
-    vlm = dataclasses.replace(cfg, family="vlm", name="tiny-vlm")
-    with pytest.raises(NotImplementedError, match="the 'vlm' family of tiny-vlm"):
-        tm.init_params(vlm, 0, device="cpu")
+    model = port_models["float32"]
+    assert torch.equal(tm.prefill_logits(model, cfg, {"tokens": tokens, "img": torch.ones(1)}),
+                       tm.prefill_logits(model, cfg, {"tokens": tokens}))
+    other = dataclasses.replace(cfg, family="ssm", name="tiny-ssm")
+    with pytest.raises(NotImplementedError, match="the 'ssm' family of tiny-ssm"):
+        tm.init_params(other, 0, device="cpu")
     moe = dataclasses.replace(cfg, family="moe", name="tiny-moe", n_experts=4, top_k=2,
                               moe_token_stationary=True)
     with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
         tm.init_params(moe, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        tm.init_decode_state(dataclasses.replace(cfg, family="encdec"), 1, 4, device="cpu")
+    with pytest.raises(ValueError, match="encoder-decoder.*whisper"):
+        ttf.init_decode_state(dataclasses.replace(cfg, family="encdec"), 1, 4, device="cpu")
 
 
 def test_init_params_from_a_seed(port_models):
