@@ -221,7 +221,21 @@ Phases, one line each or more (any failure raises and exits non-zero):
     the cross K/V recompute's share of a step's device time, decode ==
     forward in f32; both reduced configs in f32 on the card == the CPU;
     no hand-written kernel is launched;
-28. a JSON line per kernel (launches, error, times, bound), the card line,
+28. the LM placement layer (``placement_phases``, callable alone): two
+    spawned ranks over gloo share the card (``comm.eager_collectives``);
+    gemma-2b at full width, serving in f32 on a (2, 1) and a (1, 2) mesh
+    (prefill (4, 128), 16 teacher-forced decode steps with the KV cache's
+    sequence on 'model') and training 2 of 18 layers with ``cast_shardings``
+    / ``grad_shardings``; rwkv6-7b at full width and depth in f32 on (1, 2),
+    kernel #7 on each rank's heads, 32 launches a forward a rank;
+    qwen3-moe-235b, 2 of 94 layers, token-stationary prefill on (2, 1); PT-LM
+    over gemma-2b on ``MeshSpec(1, 2)``; each against the unsharded run on
+    the card (logits within 3e-2 of their scale, greedy tokens and routing
+    equal, rwkv's tokens but at near-ties, PT-LM against a replay of the two
+    halves), resident bytes and the training step's cast all-gather and
+    grads reduce-scatter equal to the specs' arithmetic; times (contention
+    of two ranks on one card, not scaling);
+29. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 Every ``Session`` runs with ``strict_kernels=True`` but phase 22's injected
@@ -882,13 +896,16 @@ def time_sweep_kernels(torch, np, isk, pk, ju, ref, prng, keys, device):
 
 def wkv6_inputs(torch, np, bh, t, dk, dv, seed, device, state=False):
     """r, k, v, w, u and (with ``state``) an initial state from a numpy seed,
-    as the JAX package's wkv6 tests draw them (w = sigmoid(normal))."""
+    as the JAX package's wkv6 tests draw them (w = sigmoid(normal));
+    ``state="zero"`` passes a zero initial state."""
     rng = np.random.default_rng(seed)
     r, k = (rng.normal(size=(bh, t, dk)).astype(np.float32) for _ in range(2))
     v = rng.normal(size=(bh, t, dv)).astype(np.float32)
     w = (1.0 / (1.0 + np.exp(-rng.normal(size=(bh, t, dk))))).astype(np.float32)
     u = rng.normal(size=(bh, dk)).astype(np.float32)
     s0 = rng.normal(size=(bh, dk, dv)).astype(np.float32) if state else None
+    if state == "zero":
+        s0 = np.zeros((bh, dk, dv), np.float32)
     return [None if x is None else torch.from_numpy(x).to(device)
             for x in (r, k, v, w, u, s0)]
 
@@ -915,9 +932,12 @@ def check_wkv6(torch, np, wk, ref, device) -> float:
     own small shapes, also its rtol = atol = 3e-5.
     """
     max_err = 0.0
-    # "ptlm": every forward of PT-LM over rwkv6-7b (R=8 x 64 heads, 64 tokens, zero state)
+    # "ptlm": every forward of PT-LM over rwkv6-7b (R=8 x 64 heads, 64 tokens, zero state);
+    # "placed": phase 28's rwkv6-7b, a rank's 4 x 32 heads (prefill of 64 tokens from the
+    # zero state it makes, a decode step from a carried one) and the unsharded run's 4 x 64
     cases = [((256, 512, 64, 64), False, "prefill"), ((256, 1, 64, 64), True, "decode"),
-             ((512, 64, 64, 64), False, "ptlm"),
+             ((512, 64, 64, 64), False, "ptlm"), ((128, 64, 64, 64), "zero", "placed"),
+             ((128, 1, 64, 64), True, "placed"), ((256, 64, 64, 64), False, "placed"),
              ((4, 33, 8, 8), False, "small"), ((2, 16, 16, 8), True, "small"),
              ((1, 8, 4, 4), False, "small"), ((3, 64, 64, 64), True, "small"),
              # rows that are no multiple of 16 bytes (4-byte copies), several stages
@@ -1050,7 +1070,9 @@ def rwkv_phases(torch, np, build, ref, device, card: str) -> dict:
     err_w = check_wkv6(torch, np, wk, ref, device)
     wkv_times = time_wkv6(torch, np, wk, ref, device)
     print(f"phase 14 kernel #7 (wkv6): equal to plain at the prefill (BH=256 T=512 dk=dv=64), "
-          f"decode (BH=256 T=1, carried state), PT-LM's forward (BH=512 T=64), 4 small "
+          f"decode (BH=256 T=1, carried state), PT-LM's forward (BH=512 T=64), phase 28's "
+          f"placed rwkv6-7b (a rank's BH=128 T=64 from a zero state and T=1 carried, the "
+          f"unsharded BH=256 T=64), 4 small "
           f"shapes, 3 with dk or dv in 1, 5, 63 (T=33) and 3 of T=1000 within "
           f"2(dk+T)·eps·|terms| (and 3e-5 at the small ones); "
           f"two launches == one at T=32 split 16, T=100 split 45, T=1000 split 333, T=70 "
@@ -2721,6 +2743,39 @@ def time_serial_chains(torch, np, sc, keys, device, seq: str):
 GAUSSIAN_CUT = {"sweeps_per_batch": 100}
 
 
+CONFORMANCE_ENTRIES = ("ea_spin_glass", "gaussian", "hp_protein")
+
+
+def conformance_entry(registry, name: str):
+    entry = registry[name]
+    return dataclasses.replace(entry, **GAUSSIAN_CUT) if name == "gaussian" else entry
+
+
+def conformance_child(index: int, names: tuple, outdir: str) -> None:
+    """Phase 20's conformance entry ``names[index]`` on the card, in a
+    spawned process: its report, wall seconds and launch counts pickled to
+    ``OUTDIR/<name>.pkl``.  A failed kernel preparation or launch raises,
+    as in the main process."""
+    sys.path.insert(0, str(SRC))
+    import pickle
+
+    import torch
+
+    from repro_torch.core.systems import REGISTRY
+    from repro_torch.kernels import build
+    from repro_torch.validate import run_conformance
+
+    warnings.filterwarnings("error", message="kernel preparation or launch failed")
+    torch.cuda.set_device(0)
+    name = names[index]
+    build.reset_launches()
+    t = time.perf_counter()
+    report = run_conformance(conformance_entry(REGISTRY, name), seed=0, device="cuda")
+    wall = time.perf_counter() - t
+    with open(os.path.join(outdir, f"{name}.pkl"), "wb") as f:
+        pickle.dump((report, wall, counts_now(build)), f)
+
+
 def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
     """Phase 20: the rest of the system zoo on the card.
 
@@ -2730,12 +2785,12 @@ def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
     R=1500, Ising ``single_flip`` at L=300 R=1500 (300 flips a step) and the
     Gaussian mixture at R=1500 through ``Session``, each with its launches
     counted from 0 just before its run; the zoo's EA and HP conformance
-    entries at their full schedules and the Gaussian's at `GAUSSIAN_CUT`;
-    small specs of the four paths on the card against the CPU.  Returns the
+    entries at their full schedules and the Gaussian's at `GAUSSIAN_CUT`,
+    side by side in spawned processes (`conformance_child`); small specs of the four paths on the card against the CPU.  Returns the
     kernel rows' numbers.
     """
     from repro_torch.core.systems import REGISTRY
-    from repro_torch.validate import assert_conforms, run_conformance
+    from repro_torch.validate import assert_conforms
 
     AdaptSpec, EngineSpec, LadderSpec = api.AdaptSpec, api.EngineSpec, api.LadderSpec
     PhaseSpec, RunSpec, ScheduleSpec = api.PhaseSpec, api.RunSpec, api.ScheduleSpec
@@ -2844,16 +2899,23 @@ def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
         del v["session"]
     torch.cuda.empty_cache()
 
+    # the three entries are host-bound (tiny systems, a few launches a sweep): each runs in
+    # a spawned process of its own, side by side on the card
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    work = Path(tempfile.mkdtemp(prefix="conf_", dir=ROOT / "build"))
+    t = time.perf_counter()
+    mp.start_processes(conformance_child, args=(CONFORMANCE_ENTRIES, str(work)),
+                       nprocs=len(CONFORMANCE_ENTRIES), start_method="spawn")
+    conf_s = time.perf_counter() - t
     conf = {}
-    for name in ("ea_spin_glass", "gaussian", "hp_protein"):
-        entry = REGISTRY[name]
-        if name == "gaussian":
-            entry = dataclasses.replace(entry, **GAUSSIAN_CUT)
-        build.reset_launches()
-        t = time.perf_counter()
-        report = run_conformance(entry, seed=0, device="cuda")
-        wall_c = time.perf_counter() - t
-        counts = counts_now(build)
+    for name in CONFORMANCE_ENTRIES:
+        entry = conformance_entry(REGISTRY, name)
+        with open(work / f"{name}.pkl", "rb") as f:
+            report, wall_c, counts = pickle.load(f)
         sweeps = entry.n_chains * (entry.burn_sweeps + entry.n_batches * entry.sweeps_per_batch)
         want = {"ea_spin_glass": {"jax_uniform": sweeps}, "gaussian": {},
                 "hp_protein": {"hp_moves": sweeps}}[name]
@@ -2862,8 +2924,10 @@ def zoo_phases(torch, np, build, keys, sc, api, device, card) -> dict:
         if report.n_retunes != entry.adapt_rounds:
             raise AssertionError(f"conformance {name}: {report.n_retunes} retunes")
         conf[name] = (report, wall_c, counts)
+    shutil.rmtree(work, ignore_errors=True)
     print(f"phase 20 conformance [{card}]: the zoo's entries on the card (EA and HP at full "
-          f"schedule, the Gaussian at {GAUSSIAN_CUT}), "
+          f"schedule, the Gaussian at {GAUSSIAN_CUT}), each in a process of its own, side by "
+          f"side ({conf_s:.2f} s for the three with their start), "
           "assert_conforms(z_max=4, geweke_max=4): " + "; ".join(
               f"{name} in {w:.2f} s, {r.n_batches} batch means, {r.n_retunes} retunes, worst "
               f"|z| {r.worst()[1]:.3f} ({r.worst()[0]}), max |geweke| "
@@ -3387,7 +3451,7 @@ def mesh_spec_dicts() -> dict:
                                        "flips_per_step": 300, "accept_rule": "glauber"}, 10,
                              interval=5, observables=("absmag",)), (1, 2)),
         # short rounds (a swap every sweep), in this process on (1, 1)
-        "short": (spec("ising", {**rnd, "length": 32}, 500, interval=1,
+        "short": (spec("ising", {**rnd, "length": 32}, 200, interval=1,
                        observables=("absmag", "energy_per_site"), chunk_intervals=100), (1, 1)),
     }
 
@@ -3922,7 +3986,7 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
           f"two-chain checkpoint restored on (2, 1) in "
           f"{ranks[0]['paper_chains']['restore_s']:.3f} s (again "
           f"{ranks[0]['paper_chains']['restore2_s']:.3f} s), equal")
-    print(f"phase 23 short rounds [{card}]: L=32 R=1500 S=1, 500 intervals, equal to the "
+    print(f"phase 23 short rounds [{card}]: L=32 R=1500 S=1, 200 intervals, equal to the "
           f"unsharded run: unsharded {ref['short']['ms']:.4f} ms/interval, MeshSpec(1, 1) on "
           f"one NCCL rank {short['ms']:.4f} ms/interval (1 launch of A and 1 standalone "
           f"exchange an interval)")
@@ -3934,6 +3998,633 @@ def mesh_phases(torch, np, build, keys, prng, device, card) -> dict:
     print(f"phase 23 done in {time.perf_counter() - t_phase:.1f} s")
     return {"kernels": kern, "one": one, "short": short, "ranks": ranks, "ref": ref,
             "restore_s": restore_s, "spawn_s": spawn_s}
+
+
+# -- phase 28: the LM placement layer (DTensor) on two ranks sharing the card ----------
+# Two spawned ranks join over gloo and share cuda:0; the models' tensors are
+# DTensors on a ("data", "model") DeviceMesh under the rules of
+# repro_torch.launch.sharding.  Every run is held against the unsharded run
+# of the same seeds on the card, made in this process before the spawn: the
+# greedy tokens and the MoE routing equal (the decode is teacher-forced: both
+# runs read the unsharded run's tokens, so one flip would not carry), the
+# logits within PLACE_LOGITS_RTOL of their scale (serving in f32; qwen3-moe
+# in bf16 on (2, 1) splits no sum), the losses within PLACE_LOSS_RTOL, and
+# each rank's blocks of the masters, mu and nu after the last step within
+# PLACE_STATE_RTOL of the unsharded state's (`state_gap`); PT-LM on
+# MeshSpec(1, 2) equal to a one-process run that steps the batch's two
+# halves at replica offsets 0 and R/2; the grad norms within
+# PLACE_GRADNORM_RTOL.  The limits lie between the sound runs' readings
+# (PERF.md §6) and two planted faults', which the phase reads on the card
+# each time and requires past them: every gradient halved (clipping at norm
+# 1 hides it from the state; the grad norm shows it) and one leaf's gradient
+# times -1/2 (the masters, mu and nu show it).  Two ranks on one card
+# measure contention, not scaling.  gloo moves ~0.3 GB/s through the host
+# between two ranks on one NVIDIA H100 80GB HBM3 (700.00 W) and DTensor adds
+# ~0.25 ms a dispatched op there, so the shapes are cut to keep the phase
+# near two minutes; the widths are the configs'
+PLACE_B, PLACE_S, PLACE_DECODE = 4, 128, 16
+PLACE_RWKV_S, PLACE_RWKV_DECODE = 64, 4
+PLACE_TRAIN_LAYERS, PLACE_TRAIN_B, PLACE_TRAIN_S, PLACE_TRAIN_STEPS = 2, 4, 128, 2
+PLACE_MOE_LAYERS, PLACE_MOE_S = 2, 256
+# The sound readings on one NVIDIA H100 80GB HBM3 (700.00 W), and the planted faults':
+# logits of their scale: gemma-2b f32 ~8e-7, rwkv6-7b f32 ~1.9e-3 (random weights
+# amplify rounding), qwen3-moe 0; losses <= 3.3e-5 relative; grad norms <= 1.5e-4
+# (every gradient halved: 0.5); the state after 2 steps (one leaf's gradient times
+# -1/2: masters 2, mu 1.5, nu 0.75): masters <= 0.098 of the update's norm (a
+# near-zero gradient's sign, which bf16 rounding can flip, sets its AdamW update's
+# sign), mu <= 0.016, nu <= 0.023 of their leaf's largest
+PLACE_LOGITS_RTOL = {"gemma": 1e-4, "rwkv": 1e-2, "moe": 1e-4}
+PLACE_LOSS_RTOL = 1e-3
+PLACE_GRADNORM_RTOL = 1e-2
+PLACE_STATE_RTOL = {"masters": 0.4, "mu": 0.15, "nu": 0.15}
+PLACE_PTLM_R, PLACE_PTLM_SEQ, PLACE_PTLM_PROMPT, PLACE_PTLM_STEPS = 4, 32, 8, 10
+PLACE_MESHES = ((2, 1), (1, 2))
+
+
+class HalvesLM:
+    """A bound LM system whose MH step runs the batch's two halves as two
+    ranks of ``MeshSpec(1, 2)`` do: rows [0, R/2) at replica offset 0 and
+    [R/2, R) at offset R/2, each its own forward."""
+
+    def __init__(self, torch, system):
+        self.torch, self.system = torch, system
+
+    def __getattr__(self, name):
+        return getattr(self.system, name)
+
+    def batched_mcmc_step(self, key, t, tokens, betas, replica_offset=0):
+        h = tokens.shape[0] // 2
+        outs = [self.system.batched_mcmc_step(key, t, tokens[s], betas[s], replica_offset=o)
+                for s, o in ((slice(0, h), 0), (slice(h, None), h))]
+        return tuple(self.torch.cat(parts) for parts in zip(*outs))
+
+
+def place_cfgs():
+    """(name, config) of phase 28's models (full width).  Serving is held in
+    f32: with random weights one bf16 ulp moves rwkv6-7b's logits by ~4
+    (PR 14's `rwkv_rounding`), so the TP split's reassociation in bf16 would
+    hide any fault; training and PT-LM keep bf16 compute."""
+    from repro_torch.configs import get_config
+
+    gemma = get_config("gemma_2b")
+    return {"gemma_serve": dataclasses.replace(gemma, dtype="float32"), "gemma": gemma,
+            "gemma_train": dataclasses.replace(gemma, n_layers=PLACE_TRAIN_LAYERS),
+            "rwkv": dataclasses.replace(get_config("rwkv6_7b"), dtype="float32"),
+            "moe": dataclasses.replace(get_config("qwen3_moe_235b"), n_layers=PLACE_MOE_LAYERS,
+                                       moe_token_stationary=True)}
+
+
+def place_tokens(torch, cfg, b, s, seed, device):
+    return torch.randint(0, cfg.vocab, (b, s), device=device,
+                         generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def place_serve(torch, build, model_lib, sharding, lm, cfg, mesh, forced, device,
+                seq: int | None = None, n_decode: int | None = None):
+    """Prefill (B, seq) then ``n_decode`` decode steps teacher-forced on
+    ``forced`` (B, n_decode) (None: greedy, the unsharded run); by default
+    PLACE_S and PLACE_DECODE.  Returns whole f32 host logits, the argmax
+    tokens, ms and the wkv6 launches."""
+    seq, n_decode = seq or PLACE_S, n_decode or PLACE_DECODE
+    tokens = place_tokens(torch, cfg, PLACE_B, seq, 1, device)
+
+    def put(x, specs):
+        return x if mesh is None else sharding.place(x, specs(x), mesh)
+
+    batch = put({"tokens": tokens}, lambda b: sharding.batch_shardings(mesh, b))
+    # no_grad, not inference_mode: in inference mode DTensor (torch 2.11) takes
+    # its uncached sharding propagation for every composite op (einsum, matmul)
+    with torch.no_grad():
+        model_lib.prefill_logits(lm, cfg, batch)  # first use of each op
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t = time.perf_counter()
+        pre = sharding.gather(model_lib.prefill_logits(lm, cfg, batch))
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t)
+        prefill_launches = dict(build.launches)
+        # a cache of exactly the decoded positions: its sequence divides the
+        # model axis, so decode_state_shardings shards it there
+        state = model_lib.init_decode_state(cfg, PLACE_B, n_decode, device=device)
+        state = put(state, lambda st: sharding.decode_state_shardings(mesh, st, cfg))
+        token = tokens[:, :1]
+        logits, greedy = [], []
+        build.reset_launches()
+        t = time.perf_counter()
+        for pos in range(n_decode):
+            step_in = put(token, lambda x: sharding.batch_shardings(mesh, x))
+            lg, state = model_lib.decode_step(lm, cfg, state, step_in, pos)
+            lg = sharding.gather(lg)
+            greedy.append(torch.argmax(lg, dim=-1))
+            logits.append(lg.cpu())
+            token = (greedy[-1] if forced is None else forced[:, pos].to(device))[:, None]
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t) / n_decode
+        decode_launches = dict(build.launches)
+    return {"seq": seq, "n_decode": n_decode, "prefill": pre.cpu(), "decode": torch.stack(logits),
+            "tokens": torch.stack(greedy, dim=1).cpu(), "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches}
+
+
+def place_train(torch, sharding, comm, ts, opt_lib, cfg, mesh, device):
+    """PLACE_TRAIN_STEPS steps on one seeded batch: the losses, grad norms,
+    ms a warm step and, on ``mesh`` (masters and moments in the FSDP
+    layout), this rank's resident bytes and the arithmetic's, one step's
+    collective bytes and the gap (`state_gap`) of this rank's blocks of the
+    masters, mu and nu from the unsharded steps, run in this process first.
+
+    Unsharded, it also runs two planted faults and reads each one's gap
+    from the sound run: every gradient halved (a reduce-scatter that
+    averages where it should sum; clipping at norm 1 hides it from the
+    state, so the grad norm reads it) and one leaf's gradient times -1/2 (a
+    wrong gradient, which the masters, mu and nu read).  The limits lie
+    below."""
+    init = ts.init_state(cfg, 0, device=device).params
+    sound, out = train_steps(torch, sharding, comm, ts, opt_lib, cfg, None, device)
+    if mesh is not None:
+        state, out = train_steps(torch, sharding, comm, ts, opt_lib, cfg, mesh, device)
+        out["gap"] = state_gap(torch, sharding, state, sound, init,
+                               sharding.param_shardings(mesh, state.params, cfg, fsdp=True),
+                               mesh)
+        return out
+    one = next(n for n in sound.params if n.startswith("layers.0."))
+    inner = opt_lib.apply
+    out["planted"] = {}
+    for fault, names, factor in (("every gradient halved", None, 0.5),
+                                 (f"{one}'s gradient times -1/2", [one], -0.5)):
+        def apply(opt_cfg, params, grads, opt_state, names=names, factor=factor):
+            for n in names or list(grads):
+                grads[n] = factor * grads[n]
+            return inner(opt_cfg, params, grads, opt_state)
+
+        opt_lib.apply = apply
+        try:
+            bad, bad_out = train_steps(torch, sharding, comm, ts, opt_lib, cfg, None, device)
+        finally:
+            opt_lib.apply = inner
+        gap = state_gap(torch, sharding, bad, sound, init)
+        gap["grad_norm"] = max(abs(a - b) / abs(b)
+                               for a, b in zip(bad_out["grad_norms"], out["grad_norms"]))
+        out["planted"][fault] = gap
+    return out
+
+
+def train_steps(torch, sharding, comm, ts, opt_lib, cfg, mesh, device):
+    """(the state after PLACE_TRAIN_STEPS steps, `place_train`'s numbers)."""
+    state = ts.init_state(cfg, 0, device=device)
+    kw, resident = {}, {}
+    counter = None
+    if mesh is not None:
+        fsdp = sharding.param_shardings(mesh, state.params, cfg, fsdp=True)
+        state = ts.place_state(state, fsdp, mesh)
+        resident = {"got": sum(t.to_local().numel() * t.element_size()
+                               for tree in (state.params, state.opt.mu, state.opt.nu)
+                               for t in tree.values()),
+                    "specs": 3 * sum(sharding.spec_bytes(t.shape, 4, fsdp[n], mesh)
+                                     for n, t in state.params.items())}
+        counter = comm.CollectiveCounter(mesh)
+        kw = dict(cast_shardings=sharding.param_shardings(mesh, state.params, cfg),
+                  grad_shardings=fsdp, counter=counter)
+    step = ts.make_train_step(cfg, opt_lib.AdamWConfig(warmup_steps=1), **kw)
+    tokens = place_tokens(torch, cfg, PLACE_TRAIN_B, PLACE_TRAIN_S, 2, device)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    losses, norms, times = [], [], []
+    for i in range(PLACE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if counter is not None and i == 1:
+            with counter:
+                state, metrics = step(state, batch)
+        else:
+            state, metrics = step(state, batch)
+        losses.append(float(sharding.gather(metrics["loss"])))
+        norms.append(float(sharding.gather(metrics["grad_norm"])))
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    out = {"losses": losses, "grad_norms": norms, "ms": min(times[1:]), "resident": resident}
+    if counter is not None:
+        out["bytes"] = {f"{phase}.{name}.{axis}": n
+                        for (phase, name, axis), n in counter.by_axis.items()}
+        out["collective_s"] = {f"{phase}.{name}": round(v, 4)
+                               for (phase, name), v in counter.seconds.items()}
+    return state, out
+
+
+def state_gap(torch, sharding, state, ref, init, specs=None, mesh=None) -> dict:
+    """The gap of ``state``'s tensors (a rank's blocks, under ``specs`` on
+    ``mesh``) from ``ref``'s (whole; the same blocks cut from them), the
+    largest over leaves: for mu and nu max |a - b| / max |b|; for the
+    masters ||a - b|| / ||b - init||, against the update the steps made
+    (AdamW moves a weight by ~lr whatever its gradient's size, so a
+    near-zero gradient element that rounding flips moves its weight by
+    ~2 lr: no bound on the largest element, and a share of the update's
+    norm)."""
+    out = {}
+    for tree, got, want in (("masters", state.params, ref.params),
+                            ("mu", state.opt.mu, ref.opt.mu), ("nu", state.opt.nu, ref.opt.nu)):
+        worst = 0.0
+        for n, a in got.items():
+            b, b0 = want[n], init[n]
+            if mesh is not None:
+                a = a.to_local()
+                b, b0 = (sharding.place({n: x}, {n: specs[n]}, mesh)[n].to_local()
+                         for x in (b, b0))
+            if tree == "masters":
+                err, scale = (a - b).norm().item(), (b - b0).norm().item()
+            else:
+                err, scale = (a - b).abs().max().item(), b.abs().max().item()
+            worst = max(worst, err / scale if scale > 0 else err)
+        out[tree] = worst
+    return out
+
+
+def place_step_arithmetic(torch, sharding, ts, cfg, mesh) -> int:
+    """A training step's cast all-gather bytes over 'data' from the specs
+    (each leaf from its FSDP block to its TP block, in the dtype the step
+    casts it to), which is also its gradients' reduce-scatter."""
+    from repro_torch.models import model as model_lib
+
+    meta = dict(model_lib.model_class(cfg)(cfg, None, device="meta").named_parameters())
+    cast = ts.cast_params(cfg, {n: p.to(torch.float32) for n, p in meta.items()})
+    fsdp = sharding.param_shardings(mesh, meta, cfg, fsdp=True)
+    d = mesh.size(mesh.mesh_dim_names.index("data"))
+    return sum((d - 1) * sharding.spec_bytes(p.shape, cast[n].element_size(), fsdp[n], mesh)
+               for n, p in meta.items() if d > 1 and "data" in fsdp[n])
+
+
+def place_moe(torch, model_lib, sharding, lm, cfg, mesh, device):
+    """A prefill (B, PLACE_MOE_S) and the routing of each MoE layer."""
+    from repro_torch.models import moe
+
+    tokens = place_tokens(torch, cfg, PLACE_B, PLACE_MOE_S, 3, device)
+    batch = {"tokens": tokens}
+    if mesh is not None:
+        batch = sharding.place(batch, sharding.batch_shardings(mesh, batch), mesh)
+    log = []
+    inner = moe.dispatch
+
+    def dispatch(cfg_, expert_idx, gate_vals):
+        log.append(expert_idx.cpu())
+        return inner(cfg_, expert_idx, gate_vals)
+
+    moe.dispatch = dispatch
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = sharding.gather(model_lib.prefill_logits(lm, cfg, batch))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        moe.dispatch = inner
+    return {"prefill": logits.cpu(), "routing": torch.stack(log), "ms": ms}
+
+
+def place_ptlm(torch, model_lib, lm, cfg, mesh_spec, device, halves: bool):
+    from repro_torch.core import keys, ladder
+    from repro_torch.core.ptlm import LMSystem
+    from repro_torch.engine import Engine, EngineConfig
+
+    system = LMSystem(cfg=cfg, seq_len=PLACE_PTLM_SEQ, prompt_len=PLACE_PTLM_PROMPT).bind(lm)
+    if halves:
+        system = HalvesLM(torch, system)
+    eng = Engine(system, EngineConfig(n_replicas=PLACE_PTLM_R, swap_interval=5,
+                                      mesh=mesh_spec), device=device)
+    temps = ladder.geometric_ladder(PLACE_PTLM_R, 1.0, 8.0)
+    st = eng.init(keys.key(4), temps)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st, _ = eng.run(st, PLACE_PTLM_STEPS)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / PLACE_PTLM_STEPS
+    if mesh_spec is not None:
+        st = eng.gathered(st)
+    return {"states": st.pt.states.cpu(), "rung": st.pt.rung.cpu(),
+            "energy": st.pt.energy.cpu(), "attempts": st.stats.swap_attempts.cpu(),
+            "accepts": st.stats.swap_accepts.cpu(), "ms_step": ms}
+
+
+def placement_runs(torch, np, build, device, mesh_for, forced: dict | None) -> dict:
+    """Every run of phase 28: unsharded where ``mesh_for`` gives None (this
+    process), else on the mesh it gives (a spawned rank).  ``out["seconds"]``
+    holds each part's wall time."""
+    import gc
+
+    from repro_torch.core.distributed import MeshSpec
+    from repro_torch.launch import comm, sharding
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    cfgs = place_cfgs()
+    out = {"seconds": {}}
+    ranks = mesh_for((1, 2)) is not None
+    t_last = [time.perf_counter()]
+
+    def done(part):
+        gc.collect()
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        out["seconds"][part] = now - t_last[0]
+        t_last[0] = now
+
+    def model(cfg, mesh=None):
+        if mesh is None:
+            return model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                         device=device)
+        import torch.distributed as dist
+
+        lm = None
+        for turn in range(dist.get_world_size()):  # one whole model on the card at a time
+            if turn == dist.get_rank():
+                lm = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                                           device=device)
+                sharding.place_module(lm, sharding.param_shardings(mesh, lm, cfg), mesh)
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return lm
+
+    for shape in PLACE_MESHES if ranks else (None,):
+        mesh = None if shape is None else mesh_for(shape)
+        key = "unsharded" if shape is None else "x".join(map(str, shape))
+        cfg = cfgs["gemma_serve"]
+        lm = model(cfg, mesh)
+        done(f"gemma init {key}")
+        res = place_serve(torch, build, model_lib, sharding, lm, cfg, mesh,
+                          None if forced is None else forced["gemma"], device)
+        if mesh is not None:
+            specs = sharding.param_shardings(mesh, lm, cfg)
+            res["resident"] = {
+                "got": sum(p.to_local().numel() * p.element_size() for p in lm.parameters()),
+                "specs": sum(sharding.spec_bytes(p.shape, p.element_size(), specs[n], mesh)
+                             for n, p in lm.named_parameters())}
+        out[f"gemma_serve_{key}"] = res
+        del lm
+        done(f"gemma serve {key}")
+        res = place_train(torch, sharding, comm, ts, opt_lib, cfgs["gemma_train"], mesh, device)
+        if mesh is not None:
+            res["arithmetic"] = place_step_arithmetic(torch, sharding, ts, cfgs["gemma_train"],
+                                                      mesh)
+        out[f"gemma_train_{key}"] = res
+        done(f"gemma train {key}")
+
+    lm = model(cfgs["rwkv"], mesh_for((1, 2)))
+    done("rwkv6-7b init")
+    out["rwkv"] = place_serve(torch, build, model_lib, sharding, lm, cfgs["rwkv"],
+                              mesh_for((1, 2)), None if forced is None else forced["rwkv"],
+                              device, seq=PLACE_RWKV_S, n_decode=PLACE_RWKV_DECODE)
+    del lm
+    done("rwkv6-7b serve")
+    lm = model(cfgs["moe"], mesh_for((2, 1)))
+    out["moe"] = place_moe(torch, model_lib, sharding, lm, cfgs["moe"], mesh_for((2, 1)), device)
+    del lm
+    done("qwen3-moe prefill")
+    lm = model(cfgs["gemma"])
+    out["ptlm"] = place_ptlm(torch, model_lib, lm, cfgs["gemma"],
+                             MeshSpec(1, 2) if ranks else None, device, halves=not ranks)
+    del lm
+    done("PT-LM")
+    return out
+
+
+def placement_rank(rank: int, world: int, outdir: str, device: str = "cuda:0") -> None:
+    """One of phase 28's two ranks sharing the card over gloo: every run on
+    its mesh; rank 0 saves the arrays, both their numbers."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import faulthandler
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import comm, sharding
+    from repro_torch.launch import mesh as mesh_lib
+
+    faulthandler.enable()
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(outdir, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    if device.startswith("cuda"):
+        comm.eager_collectives()  # gloo's functional collectives crash on CUDA tensors
+    forced = {k: torch.from_numpy(v)
+              for k, v in np.load(os.path.join(outdir, "forced.npz")).items()}
+    try:
+        meshes = functools.lru_cache(None)(
+            lambda shape: mesh_lib.device_mesh(shape, ("data", "model"), device))
+        # a process's first placement imports much of torch (with the ranks placing in
+        # turn, phase 28's first part took 16.7-25.6 s on one NVIDIA H100 80GB HBM3,
+        # 700.00 W): both ranks pay it here at once, not in turn in `placement_runs`
+        sharding.place(torch.zeros(2, device=device), (None,), meshes((2, 1)))
+        out = placement_runs(torch, np, build, torch.device(device), meshes, forced)
+    finally:
+        dist.barrier()
+    arrays, numbers = place_split(out)
+    if rank == 0:
+        np.savez(os.path.join(outdir, "place0.npz"), **arrays)
+    with open(os.path.join(outdir, f"place{rank}.json"), "w") as f:
+        json.dump(numbers, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def place_split(out: dict):
+    """(arrays by "run.key", the other numbers by run) of `placement_runs`."""
+    arrays, numbers = {}, {}
+    for run, res in out.items():
+        numbers[run] = {}
+        for k, v in res.items():
+            if hasattr(v, "numpy"):
+                arrays[f"{run}.{k}"] = v.float().numpy() if v.is_floating_point() else v.numpy()
+            else:
+                numbers[run][k] = v
+    return arrays, numbers
+
+
+def placement_phases(torch, np, build, device, card: str) -> dict:
+    """Phase 28: the LM placement layer on two ranks sharing the card:
+    gemma-2b serving and training on (2, 1) (FSDP) and (1, 2) (TP),
+    rwkv6-7b serving on (1, 2) with kernel #7 on each rank's heads,
+    qwen3-moe-235b token-stationary prefill on (2, 1), PT-LM over gemma-2b
+    on MeshSpec(1, 2); each against its unsharded run on the card."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="place_", dir=ROOT / "build"))
+    ref = placement_runs(torch, np, build, device, lambda shape: None, None)
+    np.savez(work / "forced.npz", gemma=ref["gemma_serve_unsharded"]["tokens"].numpy(),
+             rwkv=ref["rwkv"]["tokens"].numpy())
+    ref_s = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    mp.start_processes(placement_rank, args=(2, str(work), "cuda:0" if device.type == "cuda"
+                                             else "cpu"), nprocs=2, start_method="spawn")
+    spawn_s = time.perf_counter() - t
+    ranks = [json.loads((work / f"place{k}.json").read_text()) for k in range(2)]
+    got = dict(np.load(work / "place0.npz"))
+    cfgs = place_cfgs()
+    failures, lines = [], []
+
+    def close(a, b, what, model):
+        """max |a - b| against PLACE_LOGITS_RTOL[model] times the scale of b
+        (its largest magnitude): rounding, reassociated by the TP split,
+        moves logits in proportion to their size."""
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        err, scale = float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+        rtol = PLACE_LOGITS_RTOL[model]
+        if not err <= rtol * scale:
+            failures.append(f"{what}: max |placed - unsharded| {err} past {rtol} x "
+                            f"the scale {scale}")
+        return f"{err:.3g} of {scale:.3g}"
+
+    def same(a, b, what):
+        if not np.array_equal(a, b):
+            failures.append(f"{what} differ ({int(np.sum(np.asarray(a) != np.asarray(b)))} of "
+                            f"{np.asarray(b).size})")
+
+    def greedy(got_logits, want_logits, got_tokens, want_tokens, what):
+        """Teacher-forced greedy tokens: equal wherever the logits' gap
+        cannot flip them.  A token may differ only where the unsharded top-2
+        margin is at most twice that step and row's max |placed - unsharded|
+        (no larger gap can reorder the two).  Returns the flips' text."""
+        want_sorted = np.sort(want_logits, axis=-1)
+        margin = want_sorted[..., -1] - want_sorted[..., -2]  # (steps, B)
+        err = np.max(np.abs(got_logits.astype(np.float64) - want_logits), axis=-1)
+        flips = np.argwhere(got_tokens.T != want_tokens.T)  # (step, row) pairs
+        for step, row in flips:
+            if margin[step, row] > 2 * err[step, row]:
+                failures.append(f"{what}: step {step} row {row} token differs at a top-2 margin "
+                                f"{margin[step, row]} > 2 x {err[step, row]}")
+        return (f"{len(flips)} of {got_tokens.size} differ, each at a top-2 margin within twice "
+                f"its logits' gap" if len(flips) else "equal")
+
+    want_g = ref["gemma_serve_unsharded"]
+    want_t = ref["gemma_train_unsharded"]
+    for shape in PLACE_MESHES:
+        key = "x".join(map(str, shape))
+        run = f"gemma_serve_{key}"
+        e_pre = close(got[f"{run}.prefill"], want_g["prefill"].numpy(), f"gemma-2b {shape} prefill",
+                      "gemma")
+        e_dec = close(got[f"{run}.decode"], want_g["decode"].numpy(), f"gemma-2b {shape} decode",
+                      "gemma")
+        same(got[f"{run}.tokens"], want_g["tokens"].numpy(), f"gemma-2b {shape} greedy tokens")
+        res = [r[run] for r in ranks]
+        tr = [r[f"gemma_train_{key}"] for r in ranks]
+        for k in range(2):
+            for what, r in (("serving", res[k]), ("training", tr[k])):
+                if r["resident"]["got"] != r["resident"]["specs"]:
+                    failures.append(f"gemma-2b {shape} {what} rank {k}: resident "
+                                    f"{r['resident']} != the specs' arithmetic")
+            for what, rtol in (("losses", PLACE_LOSS_RTOL), ("grad_norms", PLACE_GRADNORM_RTOL)):
+                for a, b in zip(tr[k][what], want_t[what]):
+                    if not abs(a - b) <= rtol * abs(b):
+                        failures.append(f"gemma-2b train {shape} rank {k}: {what} {a} != {b}")
+            for tree, gap in tr[k]["gap"].items():
+                if not gap <= PLACE_STATE_RTOL[tree]:
+                    failures.append(f"gemma-2b train {shape} rank {k}: {tree} {gap} from the "
+                                    f"unsharded state, past {PLACE_STATE_RTOL[tree]}")
+            cast = tr[k]["bytes"].get("cast.all_gather_into_tensor.data", 0)
+            grads = tr[k]["bytes"].get("grads.reduce_scatter_tensor.data", 0)
+            if cast != tr[k]["arithmetic"] or grads != tr[k]["arithmetic"]:
+                failures.append(f"gemma-2b train {shape} rank {k}: cast {cast} B / grads "
+                                f"{grads} B a step != the specs' {tr[k]['arithmetic']} B")
+        other = {k: v for k, v in tr[0]["bytes"].items()
+                 if k not in ("cast.all_gather_into_tensor.data",
+                              "grads.reduce_scatter_tensor.data")}
+        lines.append(
+            f"gemma-2b {shape}: serving resident {res[0]['resident']['got']} B a rank (the "
+            f"specs' {res[0]['resident']['specs']}); f32; prefill (4, {PLACE_S}) "
+            f"{res[0]['prefill_ms']:.1f} ms = {PLACE_B * PLACE_S / res[0]['prefill_ms'] * 1e3:.0f} "
+            f"tokens/s (unsharded {want_g['prefill_ms']:.1f} ms), decode "
+            f"{res[0]['decode_ms']:.2f} ms/token (unsharded {want_g['decode_ms']:.2f}), max "
+            f"|d logits| prefill {e_pre}, decode {e_dec} over {PLACE_DECODE} steps, greedy tokens "
+            f"equal; training {PLACE_TRAIN_LAYERS} of 18 layers ({PLACE_TRAIN_B}, "
+            f"{PLACE_TRAIN_S}), bf16 compute: masters + moments "
+            f"{tr[0]['resident']['got']} B a rank (the specs' {tr[0]['resident']['specs']}), "
+            f"losses {[round(x, 5) for x in tr[0]['losses']]} (unsharded "
+            f"{[round(x, 5) for x in want_t['losses']]}), grad norms "
+            f"{[round(x, 5) for x in tr[0]['grad_norms']]} (unsharded "
+            f"{[round(x, 5) for x in want_t['grad_norms']]}), after step {PLACE_TRAIN_STEPS} each "
+            f"rank's blocks' largest gap from the unsharded state (masters: of the update's "
+            f"norm; mu, nu: of the leaf's largest) "
+            + ", ".join(f"{t} {max(r['gap'][t] for r in tr):.3g}" for t in PLACE_STATE_RTOL)
+            + f" (limits {PLACE_STATE_RTOL}), {tr[0]['ms']:.1f} ms a step "
+            f"(unsharded {want_t['ms']:.1f}), a step's cast all-gather / grads reduce-scatter "
+            f"over 'data' {tr[0]['bytes'].get('cast.all_gather_into_tensor.data', 0)} / "
+            f"{tr[0]['bytes'].get('grads.reduce_scatter_tensor.data', 0)} B (the specs' "
+            f"{tr[0]['arithmetic']}), other collectives a step {other}, host s in the "
+            f"collectives {tr[0]['collective_s']}")
+    (all_halved, all_gap), (one_wrong, one_gap) = want_t["planted"].items()
+    if not all_gap["grad_norm"] > PLACE_GRADNORM_RTOL:
+        failures.append(f"the planted fault ({all_halved}) moved the grad norm by "
+                        f"{all_gap['grad_norm']}, within the limit {PLACE_GRADNORM_RTOL}")
+    for tree in PLACE_STATE_RTOL:
+        if not one_gap[tree] > PLACE_STATE_RTOL[tree]:
+            failures.append(f"the planted fault ({one_wrong}) moved {tree} by {one_gap[tree]}, "
+                            f"within the limit {PLACE_STATE_RTOL[tree]}")
+    lines.append("gemma-2b training, planted faults (unsharded, read against the sound run): "
+                 + "; ".join(f"{fault}: " + ", ".join(f"{t} {v:.3g}" for t, v in gap.items())
+                             for fault, gap in want_t["planted"].items())
+                 + f" (the grad norm past {PLACE_GRADNORM_RTOL} for the first, the masters, mu "
+                 "and nu past their limits for the second)")
+    want_r = ref["rwkv"]
+    e_pre = close(got["rwkv.prefill"], want_r["prefill"].numpy(), "rwkv6-7b prefill", "rwkv")
+    e_dec = close(got["rwkv.decode"], want_r["decode"].numpy(), "rwkv6-7b decode", "rwkv")
+    flips = greedy(got["rwkv.decode"], want_r["decode"].numpy(), got["rwkv.tokens"],
+                   want_r["tokens"].numpy(), "rwkv6-7b (1, 2) greedy tokens")
+    n_layers = cfgs["rwkv"].n_layers
+    for k, r in enumerate(ranks + [ref]):
+        for part, want in (("prefill", n_layers), ("decode", n_layers * PLACE_RWKV_DECODE)):
+            n = r["rwkv"][f"{part}_launches"]
+            if {kk: v for kk, v in n.items() if v} != {"wkv6": want}:
+                failures.append(f"rwkv6-7b {part} {'unsharded' if k == 2 else f'rank {k}'}: "
+                                f"launches {n} != wkv6 {want}")
+    rr = ranks[0]["rwkv"]
+    lines.append(
+        f"rwkv6-7b (1, 2), full width and depth: kernel #7 launched {n_layers} times a forward "
+        f"on each rank over its 32 of 64 heads ({rr['prefill_launches']['wkv6']} in the prefill, "
+        f"{rr['decode_launches']['wkv6']} in {PLACE_RWKV_DECODE} decode steps a rank); f32; "
+        f"prefill (4, {PLACE_RWKV_S}) {rr['prefill_ms']:.1f} ms = "
+        f"{PLACE_B * PLACE_RWKV_S / rr['prefill_ms'] * 1e3:.0f} tokens/s (unsharded "
+        f"{want_r['prefill_ms']:.1f}), decode {rr['decode_ms']:.2f} ms/token (unsharded "
+        f"{want_r['decode_ms']:.2f}), max |d logits| prefill {e_pre}, decode {e_dec}; greedy "
+        f"tokens {flips}")
+    e_moe = close(got["moe.prefill"], ref["moe"]["prefill"].numpy(), "qwen3-moe prefill", "moe")
+    same(got["moe.routing"], ref["moe"]["routing"].numpy(), "qwen3-moe (2, 1) routing")
+    lines.append(
+        f"qwen3-moe-235b (2, 1), full width, {PLACE_MOE_LAYERS} of 94 layers, "
+        f"moe_token_stationary: prefill (4, {PLACE_MOE_S}) {ranks[0]['moe']['ms']:.1f} ms "
+        f"(unsharded {ref['moe']['ms']:.1f}), routing of both layers compared, max |d logits| "
+        f"{e_moe}")
+    for f in ("states", "rung", "attempts", "accepts"):
+        same(got[f"ptlm.{f}"], ref["ptlm"][f].numpy(), f"PT-LM MeshSpec(1, 2) {f}")
+    e_pt = float(np.max(np.abs(got["ptlm.energy"] - ref["ptlm"]["energy"].numpy())))
+    if not np.allclose(got["ptlm.energy"], ref["ptlm"]["energy"].numpy(), rtol=PTLM_ENERGY_RTOL,
+                       atol=0):
+        failures.append(f"PT-LM: energies {e_pt} apart")
+    lines.append(
+        f"PT-LM over gemma-2b on MeshSpec(1, 2): R={PLACE_PTLM_R} x {PLACE_PTLM_SEQ} tokens, "
+        f"{PLACE_PTLM_STEPS} MH steps against one process stepping the halves at offsets 0 and "
+        f"{PLACE_PTLM_R // 2}, energies within {e_pt:.3g}; {ranks[0]['ptlm']['ms_step']:.1f} ms "
+        f"a step a rank (the replay {ref['ptlm']['ms_step']:.1f})")
+    print(f"phase 28 LM placement [{card}] (two ranks over gloo share the one card, so these "
+          f"times measure contention, not scaling): " + "; ".join(lines))
+    print("phase 28 seconds: unsharded " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ref["seconds"].items()) + f" ({ref_s:.1f} s); ranks "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items())
+        + f" ({spawn_s:.1f} s with their start)")
+    if failures:
+        raise AssertionError("phase 28: " + "; ".join(failures))
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 28 done in {seconds:.1f} s")
+    return {"seconds": seconds, "ranks": ranks}
 
 
 def strict_api(api):
@@ -4688,7 +5379,11 @@ def main() -> int:
     # -- phase 27: the vlm and encdec families at full width ----------------------
     ve = vlm_encdec_phases(torch, np, build, device, card)
 
-    # -- phase 28: kernel summary ---------------------------------------------
+    # -- phase 28: the LM placement layer on two ranks sharing the card -----------
+    pl = placement_phases(torch, np, build, device, card)
+    check_tickets(build, "phase 28")
+
+    # -- phase 29: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -4857,6 +5552,11 @@ def main() -> int:
             k["ptlm_shape"] = (f"rwkv6-7b, R={PTLM_R} x {PTLM_SEQ} tokens, {PTLM_STEPS} MH "
                                "steps: BH=512 T=64 a forward")
             k["ptlm_ms_per_step"] = lmpt["rwkv"]["ms_step"]
+            rr = pl["ranks"][0]["rwkv"]
+            k["placed_launches_per_rank"] = {"prefill": rr["prefill_launches"]["wkv6"],
+                                             "decode": rr["decode_launches"]["wkv6"]}
+            k["placed_shape"] = (f"rwkv6-7b f32 on a (1, 2) mesh, a rank's 32 of 64 heads: "
+                                 f"prefill (4, {PLACE_RWKV_S}), {PLACE_RWKV_DECODE} decode steps")
     kernels.append({
         "name": "wkv6_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
         "replaces": "none: XLA's autodiff of src/repro/kernels/ref.py:133 (wkv6's lax.scan), "
@@ -4869,8 +5569,9 @@ def main() -> int:
         "launches_per_step": {f"remat={r}": c for r, c in tr["per_step"].items()},
         "train_step_ms": tr["warm_ms"], "train_tokens_s": tr["tokens_s"],
         "train_peak_gb": tr["peak_gb"]})
-    print(f"phase 28 done in {time.perf_counter() - t_start:.1f} s (phase 26: "
-          f"{hm['seconds']:.1f} s, phase 27: {ve['seconds']:.1f} s)")
+    print(f"phase 29 done in {time.perf_counter() - t_start:.1f} s (phase 26: "
+          f"{hm['seconds']:.1f} s, phase 27: {ve['seconds']:.1f} s, phase 28: "
+          f"{pl['seconds']:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

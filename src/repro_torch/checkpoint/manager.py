@@ -192,31 +192,16 @@ def _is_train_state(tree) -> bool:
     return hasattr(tree, "opt") and hasattr(tree, "params")
 
 
-def _tree_names(prefix: str, names, paths: dict) -> dict:
-    """The port's leaf name -> (JAX name, index in a stack of layers or
-    None).  ``paths`` (`repro_torch.train.train_step.jax_layer_paths`) says
-    where JAX's tree holds each layer: a group of the layer plan at an
-    index, a tail layer, whisper's ``enc`` / ``dec`` stacks."""
-    out = {}
-    for name in names:
-        parts = name.split(".")
-        entry = paths.get(".".join(parts[:2]))
-        if entry is None:
-            out[name] = (f"{prefix}[{name!r}]", None)
-        else:
-            key = "".join(f"[{p!r}]" for p in parts[2:])
-            out[name] = (f"{prefix}{entry[0]}{key}", entry[1])
-    return out
-
-
 def train_to_arrays(state) -> dict[str, np.ndarray]:
     """Host numpy copies of a training state's leaves under JAX's names:
     f32 trees with the layers stacked, the count and the step int32."""
+    from repro_torch.models import jax_tree
+
     out = {}
     for prefix, tree in ((".params", state.params), (".opt.mu", state.opt.mu),
                          (".opt.nu", state.opt.nu)):
         stacks: dict[str, dict[int, np.ndarray]] = {}
-        for name, (key, layer) in _tree_names(prefix, tree, state.jax_paths).items():
+        for name, (key, layer) in jax_tree.tree_names(prefix, tree, state.jax_paths).items():
             a = tree[name].detach().cpu().numpy().astype(np.float32)
             if layer is None:
                 out[key] = a
@@ -232,12 +217,13 @@ def train_to_arrays(state) -> dict[str, np.ndarray]:
 def train_from_arrays(arrays: dict[str, np.ndarray], device, like):
     """A training state on ``device`` from checkpoint arrays, leaf names and
     shapes from the template ``like`` (any device)."""
+    from repro_torch.models import jax_tree
     from repro_torch.train.optimizer import AdamWState
     from repro_torch.train.train_step import TrainState
 
     def tree(prefix, template):
         out = {}
-        for name, (key, layer) in _tree_names(prefix, template, like.jax_paths).items():
+        for name, (key, layer) in jax_tree.tree_names(prefix, template, like.jax_paths).items():
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key}")
             a = np.asarray(arrays[key])

@@ -18,7 +18,11 @@ Every draw is the JAX package's, word for word (`repro_torch.core.keys`):
   `init_state_from_key`, which `repro_torch.core.systems.batched_init`
   prefers to the per-replica keys it hands the zoo systems);
 * a step's key is replica 0's per-sweep key ``fold_in(fold_in(key, 2t),
-  0)``, which JAX's step takes as ``keys[0]``; ``split(key, 3)`` gives
+  0)``, which JAX's step takes as ``keys[0]``; on a mesh a replica shard's
+  first slot's, ``fold_in(fold_in(key, 2t), offset)`` (JAX's sharded
+  interval hands the system the rank's keys, and the step reads the
+  first), so a mesh run is another chain than the unsharded one, as in
+  JAX; ``split(key, 3)`` gives
   ``randint(k_pos, (R,), prompt_len, S)``, ``categorical(k_tok, logits)``
   on the f32 logits and ``uniform(k_acc, (R,), minval=1e-20)``.
 
@@ -33,7 +37,8 @@ of an rwkv model launches kernel #7 once a layer; a dense model runs
 `LMSystem.bind(model)` takes the port's `repro_torch.models.transformer.
 LM` (JAX's ``bind(params)`` takes its parameter tree) and returns the
 batched system that `repro_torch.core.pt` and `repro_torch.engine.Engine`
-drive on their per-sweep path.  On a mesh the system is refused by name.
+drive on their per-sweep path, on one device or on the PT mesh
+(`EngineConfig.mesh`), where each rank steps its block of replicas.
 """
 from __future__ import annotations
 
@@ -46,9 +51,6 @@ from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 
 __all__ = ["LMSystem", "BoundLMSystem", "log_softmax"]
-
-MESH_REFUSAL = "not yet ported: the LM system (core.ptlm) on a mesh"
-
 
 def log_softmax(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.log_softmax`` over the last axis."""
@@ -71,8 +73,6 @@ class LMSystem:
 class BoundLMSystem:
     """The batched System of the port (see `repro_torch.core.systems.System`)
     closed over a model."""
-
-    mesh_refusal = MESH_REFUSAL
 
     def __init__(self, spec: LMSystem, model):
         if not 1 <= spec.prompt_len < spec.seq_len:
@@ -115,12 +115,12 @@ class BoundLMSystem:
     def batched_mcmc_step(self, key: torch.Tensor, t, tokens: torch.Tensor,
                           betas: torch.Tensor, replica_offset: int = 0):
         """One coordinate MH move per replica at sweep ``t``; returns
-        ``(tokens', delta_e (R,) f32, accepted (R,) int32)``."""
-        if replica_offset:
-            raise NotImplementedError(MESH_REFUSAL)
+        ``(tokens', delta_e (R,) f32, accepted (R,) int32)``.  A replica
+        shard passes its first global slot as ``replica_offset``: its words
+        come from that slot's key, as JAX's sharded step takes them."""
         cfg, spec = self.cfg, self.spec
         r, s = tokens.shape
-        step_key = keys.fold_in(keys.fold_in(key, 2 * t), 0)  # JAX's keys[0]
+        step_key = keys.fold_in(keys.fold_in(key, 2 * t), replica_offset)  # JAX's keys[0]
         k_pos, k_tok, k_acc = keys.split(step_key, 3)
         pos = keys.randint(k_pos, (r,), spec.prompt_len, s).long()
         rows = torch.arange(r, device=tokens.device)

@@ -60,9 +60,7 @@ class System(Protocol):
     r)`` (`core.keys.replica_keys`); ``replica_offset`` is the first global
     slot of a replica shard on a mesh, 0 on one device.  A system may have
     only per-replica ``init_state(key)`` / ``energy(state)`` instead of the
-    batched pair: `batched_init` / `batched_energy` stack them.  A system
-    whose ``mesh_refusal`` is set (the LM system, `repro_torch.core.ptlm`)
-    is refused by an engine on a mesh with that message.
+    batched pair: `batched_init` / `batched_energy` stack them.
     """
 
     def init_state_batched(self, keys_: torch.Tensor) -> State:

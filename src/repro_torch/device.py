@@ -18,6 +18,6 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             "CUDA was requested but torch.cuda.is_available() is False; "
             "pass device='cpu' (--device cpu) to run the plain PyTorch path"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):  # meta: shapes only, no data
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -730,9 +730,6 @@ class Engine:
                 "which only exists in swap_mode='temp' (in 'state' mode "
                 "rungs are pinned to slots)"
             )
-        refusal = getattr(system, "mesh_refusal", None)
-        if config.mesh is not None and refusal:
-            raise NotImplementedError(refusal)
         self.system = system
         self.config = config
         self.observables = dict(observables or {})

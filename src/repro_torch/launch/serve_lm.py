@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import keys
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
 from repro_torch.models import model as model_lib
 
 __all__ = ["TEMPERATURE", "context", "generate", "main"]
@@ -55,17 +56,35 @@ def context(model, cfg, batch: int, device):
     return whisper.encode(model, cfg, x)
 
 
-@torch.inference_mode()
-def generate(model, cfg, batch: int, n_tokens: int, device, ctx=None) -> torch.Tensor:
+def generate(model, cfg, batch: int, n_tokens: int, device, ctx=None, mesh=None) -> torch.Tensor:
     """(batch, n_tokens + 1) int64 token ids: the start token 1, then
     ``n_tokens`` sampled ones, every step over ``ctx`` (the encoder output
-    or the image tokens; required for encdec)."""
+    or the image tokens; required for encdec).
+
+    With a ``mesh`` (a `DeviceMesh` the model was placed on by
+    `repro_torch.launch.sharding.place_module`) the decode state is placed
+    under ``decode_state_shardings`` and each token under
+    ``batch_shardings``; each rank draws from the whole logits (gathered,
+    equal on every rank), so every rank holds the same tokens.  It runs
+    under ``no_grad`` there (in inference mode DTensor takes its uncached
+    sharding propagation for every composite op), else ``inference_mode``."""
+    with torch.no_grad() if mesh is not None else torch.inference_mode():
+        return _generate(model, cfg, batch, n_tokens, device, ctx, mesh)
+
+
+def _generate(model, cfg, batch, n_tokens, device, ctx, mesh):
     device = resolve_device(device)
     state = model_lib.init_decode_state(cfg, batch, max_seq=n_tokens + 8, device=device)
+    if mesh is not None:
+        state = sharding.place(state, sharding.decode_state_shardings(mesh, state, cfg), mesh)
     token = torch.ones((batch, 1), dtype=torch.int64, device=device)
     seqs = [token]
     for pos in range(n_tokens):
-        logits, state = model_lib.decode_step(model, cfg, state, token, pos, ctx=ctx)
+        step_in = token
+        if mesh is not None:
+            step_in = sharding.place(token, sharding.batch_shardings(mesh, token), mesh)
+        logits, state = model_lib.decode_step(model, cfg, state, step_in, pos, ctx=ctx)
+        logits = sharding.gather(logits)
         token = keys.categorical(keys.key(100 + pos, device=device),
                                  logits / TEMPERATURE)[:, None]
         seqs.append(token)

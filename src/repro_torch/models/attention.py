@@ -24,9 +24,12 @@ port's agrees with both dense paths).  It runs where a sequence is longer
 than ``attn_chunk`` (2048 in the full configs), with the layer's window.
 
 Decode writes the new key and value into the layer's cache in place and
-returns it.  ``cross_attention`` (the vlm and encdec families) attends
-from x over a context (whisper's encoder output, llama-3.2-vision's image
-tokens) with no mask and no RoPE: K and V are projected from the context
+returns it (a cache placed as DTensors, its sequence sharded by
+`repro_torch.launch.sharding.decode_state_shardings`, is written by the
+rank that holds the slot: `placed.write_slot`).  ``cross_attention``
+(the vlm and encdec families) attends from x over a context (whisper's
+encoder output, llama-3.2-vision's image tokens) with no mask and no
+RoPE: K and V are projected from the context
 (``project_qkv(..., kv_x=)``), the scores are GQA's in f32 and the output
 is, ``gated``, scaled by ``tanh(gate)`` (f32, cast to the output's dtype).
 A cross layer's ``gate`` starts at 0 (JAX's ``init_attention(cross=True)``),
@@ -37,6 +40,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models import placed
 from repro_torch.models.common import ModelConfig, apply_rope, dense_param, rms_norm, scalar
 
 __all__ = ["NEG_INF", "Attention", "project_qkv", "gqa_scores", "gqa_out", "causal_mask",
@@ -178,6 +182,54 @@ def attend_chunked(q, k, v, cfg: ModelConfig, *, chunk: int, window: int = 0):
     return torch.cat(outs, dim=1)
 
 
+def _attend_placed(q, k, v, cfg: ModelConfig, window: int):
+    """`attend_full` on DTensors: each rank runs it on its own batch rows
+    and query heads (``local_map``), with the kv heads those query heads
+    read.  Attention is independent across batch rows and heads, so this is
+    the placed computation itself; DTensor's own rules for the grouped
+    products reshape a head dim sharded over 'model' together with a
+    neighbour, which it refuses for some shapes (torch 2.11, gemma-2b at
+    (4, 128))."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    h, kv = q.shape[2], k.shape[2]
+    q_pl, kv_pl, kv_grad = [], [], []
+    heads_split = None
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p == Shard(0):  # batch rows
+            q_pl.append(p)
+            kv_pl.append(p)
+            kv_grad.append(p)
+        elif p == Shard(2) and heads_split is None:  # query heads
+            heads_split = i
+            q_pl.append(p)
+            kv_pl.append(Shard(2) if kv % n == 0 else Replicate())
+            kv_grad.append(Shard(2) if kv % n == 0 else Partial())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    first = 0  # this rank's first query head
+    if heads_split is not None:
+        first = mesh.get_local_rank(heads_split) * (h // mesh.size(heads_split))
+
+    def run(q, k, v):
+        h_l, kv_l = q.shape[2], k.shape[2]
+        if kv_l == kv and h_l < h:  # the kv heads of this rank's query heads
+            group = h // kv
+            lo, hi = first // group, (first + h_l - 1) // group + 1
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        return attend_full(q, k, v, cfg, causal=True, window=window)
+
+    qs, ks = tuple(q_pl), tuple(kv_pl)
+    return local_map(run, out_placements=(qs,), in_placements=(qs, ks, ks),
+                     in_grad_placements=(qs, tuple(kv_grad), tuple(kv_grad)), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
               layer_window: int | None = None) -> torch.Tensor:
     """Causal self-attention over a full sequence (train / prefill):
@@ -189,6 +241,8 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
     window = _window(cfg, layer_window)
     if cfg.attn_chunk and x.shape[1] > cfg.attn_chunk:
         ctx = attend_chunked(q, k, v, cfg, chunk=cfg.attn_chunk, window=window)
+    elif placed.is_dtensor(q):
+        ctx = _attend_placed(q, k, v, cfg, window)
     else:  # JAX's local-attention branch is these ops with the layer's window
         ctx = attend_full(q, k, v, cfg, causal=True, window=window)
     return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(cfg.compute_dtype))
@@ -247,8 +301,12 @@ def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos, *,
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     slot = pos % cache_k.shape[2] if ring else pos
-    cache_k[:, :, slot] = k_new[:, 0].to(dt)
-    cache_v[:, :, slot] = v_new[:, 0].to(dt)
+    if placed.is_dtensor(cache_k):  # a placed cache: the rank holding the slot writes
+        placed.write_slot(cache_k, k_new[:, 0], slot)
+        placed.write_slot(cache_v, v_new[:, 0], slot)
+    else:
+        cache_k[:, :, slot] = k_new[:, 0].to(dt)
+        cache_v[:, :, slot] = v_new[:, 0].to(dt)
 
     _, kv, s, hd = cache_k.shape
     h = q.shape[2]

@@ -39,8 +39,9 @@ class ModelConfig:
     ``conv1d_width`` and ``local_window`` (the ``attn_local`` layers'
     window, and their ring's length); the moe family ``n_experts``,
     ``top_k``, ``capacity_factor`` and ``renorm_gates``
-    (`repro_torch.models.moe`).  ``moe_token_stationary=True`` is a GSPMD
-    placement hint of the JAX code and is refused by name.  The encdec
+    (`repro_torch.models.moe`); ``moe_token_stationary=True`` pins the
+    (E, C, .) tensors' capacity axis to 'data' on a placed model (a
+    placement, no change of value).  The encdec
     family (whisper) reads ``enc_layers`` (its encoder's depth; ``n_layers``
     is the decoder's) and ``enc_seq`` (the frames' length); the vlm family
     ``cross_attn_every`` (layer ``i`` is a gated cross-attention layer
@@ -70,7 +71,7 @@ class ModelConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
     renorm_gates: bool = True
-    moe_token_stationary: bool = False  # a GSPMD placement hint; True is refused
+    moe_token_stationary: bool = False  # capacity axis on 'data' (a placed model)
     swa_window: int = 0  # sliding-window size; 0 = full causal
     attn_chunk: int = 0  # 0 = dense scores; else chunked online softmax
     ring_cache: bool = False  # windowed decode: ring-buffer KV (W slots) vs full S

@@ -24,20 +24,31 @@ Each step is JAX's, with what torch does not promise made explicit:
 
 The expert products are three batched matrix products (``torch.bmm``,
 cuBLAS on the card), as JAX's three einsums are XLA's.  The router runs in
-f32.  ``moe_token_stationary=True`` (a GSPMD placement of the (E, C, ·)
-tensors) is refused by name.
+f32.
+
+On a model placed as DTensors (`repro_torch.launch.sharding`) the expert
+products run under DTensor's rules on the placed expert weights (expert
+parallel, or the intra-expert fallback), while the router, the dispatch and
+the combine (sorts, searches, scatters and gathers DTensor has no rule for)
+run on every rank over the whole batch: the tokens, the router and the
+expert outputs are replicated first, an explicit all-gather (or all-reduce
+of a partial sum).  ``moe_token_stationary=True`` pins the capacity axis of
+the (E, C, .) tensors to 'data' at JAX's three ``tokstat`` points (expert
+inputs, hidden, outputs), as JAX's ``with_sharding_constraint(z, P(None,
+"data", None))``; it changes no value, and on plain tensors nothing.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.models import placed
 from repro_torch.models.attention import softmax
 from repro_torch.models.common import ModelConfig, dense_param
 from repro_torch.models.ffn import _gate_fn
 
-__all__ = ["MoE", "init_moe", "capacity", "top_k", "dispatch", "route", "experts", "combine",
-           "moe_ffn", "router_load"]
+__all__ = ["MoE", "init_moe", "capacity", "top_k", "dispatch", "route", "tokstat", "experts",
+           "combine", "moe_ffn", "router_load"]
 
 
 class MoE(nn.Module):
@@ -47,7 +58,6 @@ class MoE(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        _refuse_token_stationary(cfg)
         d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.compute_dtype
         self.router = dense_param(generator, (d, e), dtype=torch.float32, device=device)
         self.w_gate = dense_param(generator, (e, d, f), in_axis=1, dtype=dt, device=device)
@@ -57,13 +67,6 @@ class MoE(nn.Module):
 
 def init_moe(cfg: ModelConfig, generator=None, device=None) -> MoE:
     return MoE(cfg, generator, device)
-
-
-def _refuse_token_stationary(cfg: ModelConfig) -> None:
-    if cfg.moe_token_stationary:
-        raise NotImplementedError(
-            "not yet ported: moe_token_stationary=True (a GSPMD placement of the MoE's "
-            "(E, C, .) tensors; launch/sharding.py is not ported)")
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -80,7 +83,11 @@ def top_k(probs: torch.Tensor, k: int):
 
 def _route(p, cfg: ModelConfig, xt: torch.Tensor):
     """Router probabilities (T, E) f32 and the top k (gates, expert ids)."""
-    logits = xt.to(torch.float32) @ p.router.to(torch.float32)
+    return _gates(p.router, cfg, xt)
+
+
+def _gates(router: torch.Tensor, cfg: ModelConfig, xt: torch.Tensor):
+    logits = xt.to(torch.float32) @ router.to(torch.float32)
     probs = softmax(logits)
     gate_vals, expert_idx = top_k(probs, cfg.top_k)
     return probs, gate_vals, expert_idx
@@ -134,9 +141,20 @@ def _combine(y_flat: torch.Tensor, expert_idx: torch.Tensor, slot_of: torch.Tens
 def route(p, cfg: ModelConfig, xt: torch.Tensor):
     """The router and the dispatch of xt (T, D): the gathered (E, C, D)
     expert inputs in the compute dtype (zero in unfilled slots), `dispatch`'s
-    slots and the (T, k) expert ids."""
-    _refuse_token_stationary(cfg)
-    _, gate_vals, expert_idx = _route(p, cfg, xt)
+    slots and the (T, k) expert ids.  On a DTensor every rank routes the
+    whole batch (the dispatch ranks tokens across it): the tokens and the
+    router are replicated first, and the expert inputs come back replicated."""
+    if placed.is_dtensor(xt):
+        mesh = xt.device_mesh
+        router = p.router
+        router = placed.replicate(router).to_local() if placed.is_dtensor(router) else router
+        x_g, slots, expert_idx = _route_whole(router, cfg, placed.replicate(xt).to_local())
+        return placed.as_replicated(x_g, mesh), slots, expert_idx
+    return _route_whole(p.router, cfg, xt)
+
+
+def _route_whole(router: torch.Tensor, cfg: ModelConfig, xt: torch.Tensor):
+    _, gate_vals, expert_idx = _gates(router, cfg, xt)
     if cfg.renorm_gates:
         gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
     slots = dispatch(cfg, expert_idx, gate_vals)
@@ -146,19 +164,35 @@ def route(p, cfg: ModelConfig, xt: torch.Tensor):
     return x_g, slots, expert_idx
 
 
+def tokstat(cfg: ModelConfig, z: torch.Tensor) -> torch.Tensor:
+    """JAX's ``tokstat``: with ``moe_token_stationary`` an (E, C, .) DTensor's
+    capacity axis goes to 'data' (the expert f-dim leaves 'model'), as
+    ``with_sharding_constraint(z, P(None, "data", None))``; else ``z``."""
+    if cfg.moe_token_stationary and placed.is_dtensor(z):
+        return placed.redistribute(z, (None, "data", None))
+    return z
+
+
 def experts(p, cfg: ModelConfig, x_g: torch.Tensor) -> torch.Tensor:
     """Each expert's gated FFN on its (C, D) slots: (E, C, D) in the compute
-    dtype, three batched products."""
+    dtype, three batched products, `tokstat` at JAX's three points."""
     dt = cfg.compute_dtype
+    x_g = tokstat(cfg, x_g)
     g = torch.bmm(x_g, p.w_gate.to(dt))
     h = torch.bmm(x_g, p.w_up.to(dt))
-    h = _gate_fn(cfg.act)(g) * h
-    return torch.bmm(h, p.w_down.to(dt))
+    h = tokstat(cfg, _gate_fn(cfg.act)(g) * h)
+    return tokstat(cfg, torch.bmm(h, p.w_down.to(dt)))
 
 
 def combine(y_g: torch.Tensor, slots: dict, expert_idx: torch.Tensor) -> torch.Tensor:
     """The gate-weighted combine of the experts' outputs (E, C, D): (T, D)
-    f32, each token's kept contributions added in its experts' order."""
+    f32, each token's kept contributions added in its experts' order.  A
+    DTensor is replicated first (the gathers by token have no DTensor rule);
+    the result is replicated."""
+    if placed.is_dtensor(y_g):
+        mesh = y_g.device_mesh
+        return placed.as_replicated(combine(placed.replicate(y_g).to_local(), slots,
+                                              expert_idx), mesh)
     e, c, d = y_g.shape
     y_flat = y_g.reshape(e * c, d).to(torch.float32) * slots["gate_for_slot"][:, None]
     y_flat = torch.where(slots["valid"][:, None], y_flat, 0.0)

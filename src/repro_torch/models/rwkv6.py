@@ -37,6 +37,10 @@ differentiates by JAX's ``logistic`` rule, ``g * (s * (1 - s))``.
 
 Decode state per layer: time-mix shift (B, D), channel-mix shift (B, D) and
 the wkv state (B*H, 64, 64) f32 — O(1) in sequence length.
+
+A model placed as DTensors (`repro_torch.launch.sharding`) runs the
+recurrence through `local_map`: each rank launches kernel #7 on its batch
+and head block, so its launch count is the unsharded model's.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models import placed
 from repro_torch.models.common import ModelConfig, dense_param, rms_norm, sigmoid
 
 __all__ = ["LORA_RANK", "HEAD_DIM", "heads", "TimeMix", "ChannelMix", "RWKVBlock",
@@ -129,24 +134,93 @@ class TimeMix(nn.Module):
         dd = (torch.tanh(xw @ self.lora_a) @ self.lora_b).to(torch.float32)
         w = torch.exp(-torch.exp(self.w0 + dd))  # in (0,1)
 
-        def to_heads(z):  # (B, S, D) -> contiguous (B*H, S, 64) slabs
-            return (z.reshape(b, s, h, HEAD_DIM).transpose(1, 2)
-                    .reshape(b * h, s, HEAD_DIM).contiguous())
-
-        u = (self.u[None].expand(b, h, HEAD_DIM).reshape(b * h, HEAD_DIM)
-             .to(torch.float32).contiguous())
-        o, new_state = kops.wkv6(
-            to_heads(r).to(torch.float32),
-            to_heads(k).to(torch.float32),
-            to_heads(v).to(torch.float32),
-            to_heads(w),
-            u,
-            wkv_state,
-        )
-        o = o.reshape(b, h, s, HEAD_DIM).transpose(1, 2).reshape(b, s, d).to(dt)
+        if placed.is_dtensor(r):
+            o, new_state = _wkv_placed(self.cfg, r, k, v, w, self.u, wkv_state)
+        else:
+            o, new_state = _wkv_heads(r, k, v, w, self.u, wkv_state)
+        o = o.to(dt)
         o = _head_rms(o, self.ln_scale, h)
         o = o * _silu(g)
         return o @ self.w_o, new_last, new_state
+
+
+def _wkv_heads(r, k, v, w, u, state):
+    """The recurrence over (B, S, D) slabs r, k, v (compute dtype) and w
+    (f32) with bonus ``u`` (H, 64) from ``state`` (B*H, 64, 64) or None: one
+    `kops.wkv6` call on contiguous (B*H, S, 64) f32 slabs.  Returns o (B, S,
+    D) f32 and the new state."""
+    b, s, d = r.shape
+    h = d // HEAD_DIM
+
+    def to_heads(z):  # (B, S, D) -> contiguous (B*H, S, 64) slabs
+        return (z.reshape(b, s, h, HEAD_DIM).transpose(1, 2)
+                .reshape(b * h, s, HEAD_DIM).contiguous())
+
+    u = u[None].expand(b, h, HEAD_DIM).reshape(b * h, HEAD_DIM).to(torch.float32).contiguous()
+    o, new_state = kops.wkv6(to_heads(r).to(torch.float32), to_heads(k).to(torch.float32),
+                             to_heads(v).to(torch.float32), to_heads(w), u, state)
+    return o.reshape(b, h, s, HEAD_DIM).transpose(1, 2).reshape(b, s, d), new_state
+
+
+def _wkv_placed(cfg: ModelConfig, r, k, v, w, u, state):
+    """`_wkv_heads` on DTensors: each rank runs the recurrence (kernel #7
+    on CUDA) on its own rows, its batch block over the batch axes and, where
+    the heads divide, its head block over 'model' (DTensor has no rule for
+    the kernel's op).  The state is held as the decode-state spec has it,
+    (B*H, 64, 64) over the batch axes only: a rank takes its heads' rows of
+    it, and the new state's head blocks are all-gathered over 'model'."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = r.device_mesh
+    b, h = r.shape[0], heads(cfg)
+    x_pl, u_pl, st_pl, st_out, u_grad, st_grad, kept = [], [], [], [], [], [], []
+    split_heads = False
+    for i, name in enumerate(mesh.mesh_dim_names):
+        n = mesh.size(i)
+        if name == placed.MODEL_AXIS and h % n == 0:
+            split_heads = True
+            x_pl.append(Shard(2))
+            u_pl.append(Shard(0))
+            st_pl.append(Replicate())
+            st_out.append(Shard(1))
+            u_grad.append(Shard(0))
+            st_grad.append(Partial())  # each rank's gradient covers its heads only
+            kept.append(Replicate())
+        elif name in placed.BATCH_AXES and b % n == 0:
+            x_pl.append(Shard(0))
+            u_pl.append(Replicate())
+            st_pl.append(Shard(0))
+            st_out.append(Shard(0))
+            u_grad.append(Partial())  # each rank's gradient covers its batch rows only
+            st_grad.append(Shard(0))
+            kept.append(Shard(0))
+        else:
+            for lst in (x_pl, u_pl, st_pl, st_out, u_grad, st_grad, kept):
+                lst.append(Replicate())
+    if state is None:
+        state = torch.zeros((b * h, HEAD_DIM, HEAD_DIM), dtype=torch.float32,
+                            device=r.to_local().device)
+    if not placed.is_dtensor(state):
+        state = placed.as_replicated(state, mesh)
+    model_rank = mesh.get_local_rank(placed.MODEL_AXIS) if split_heads else 0
+
+    def run(r, k, v, w, u, st):
+        b_l, _, d_l = r.shape
+        h_l = d_l // HEAD_DIM
+        if h_l != h:  # this rank's heads of the whole-head state
+            st = st.reshape(b_l, h, HEAD_DIM, HEAD_DIM)[:, model_rank * h_l:(model_rank + 1) * h_l]
+            st = st.reshape(b_l * h_l, HEAD_DIM, HEAD_DIM)
+        o, ns = _wkv_heads(r, k, v, w, u, st.contiguous())
+        return o, ns.reshape(b_l, h_l, HEAD_DIM, HEAD_DIM)
+
+    xs, us, sts = tuple(x_pl), tuple(u_pl), tuple(st_pl)
+    o, new_state = local_map(
+        run, out_placements=(xs, tuple(st_out)), in_placements=(xs, xs, xs, xs, us, sts),
+        in_grad_placements=(xs, xs, xs, xs, tuple(u_grad), tuple(st_grad)),
+        device_mesh=mesh, redistribute_inputs=True)(r, k, v, w, u, state)
+    new_state = new_state.redistribute(mesh, kept)  # whole heads again
+    return o, new_state.reshape(b * h, HEAD_DIM, HEAD_DIM)
 
 
 class ChannelMix(nn.Module):

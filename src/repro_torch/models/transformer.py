@@ -55,6 +55,7 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.device import resolve_device
+from repro_torch.models import placed
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
@@ -280,7 +281,8 @@ def run_layer(run, x: torch.Tensor, lp: dict, remat: bool) -> torch.Tensor:
 def embed(table: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """The embedding rows of ``tokens`` in the compute dtype times
     ``embed_scale`` rounded to it (JAX's weak typing)."""
-    x = table[tokens].to(cfg.compute_dtype)
+    x = placed.embed_rows(table, tokens) if placed.is_dtensor(table) else table[tokens]
+    x = x.to(cfg.compute_dtype)
     if cfg.embed_scale != 1.0:
         x = x * scalar(cfg.embed_scale, cfg.compute_dtype)
     return x
@@ -349,8 +351,12 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (`_MmF32`; under ``no_grad`` it records nothing).  Elsewhere the
     operands are upcast, which is exact, and multiplied in f32; autograd
     then gives each operand's cotangent in f32, rounded to its dtype by the
-    upcast's gradient (JAX on the CPU).
+    upcast's gradient (JAX on the CPU).  On DTensors (a placed model) each
+    rank multiplies its blocks (`placed.mm_local`: DTensor has no rule
+    for an ``out_dtype`` product), on either device.
     """
+    if placed.is_dtensor(a) or placed.is_dtensor(b):
+        return placed.mm_local(mm_f32, a, b)
     if a.device.type == "cuda" and a.dtype in (torch.bfloat16, torch.float16):
         return _MmF32.apply(a, b)
     return a.to(torch.float32) @ b.to(torch.float32)
@@ -380,7 +386,10 @@ def lm_loss(model: LM, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Ten
         y = labels[:, i * chunk:(i + 1) * chunk].to(torch.int64)
         logits = mm_f32(h.reshape(-1, d), w).reshape(*h.shape[:2], -1)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y[..., None])[..., 0]
+        if placed.is_dtensor(logits):
+            gold = placed.pick_last(logits, y)
+        else:
+            gold = torch.gather(logits, -1, y[..., None])[..., 0]
         total = total + torch.sum(lse - gold)
         count += y.numel()
     return total / count

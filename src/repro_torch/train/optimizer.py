@@ -48,8 +48,8 @@ class AdamWConfig:
 
 def init(params: dict) -> AdamWState:
     """Zero f32 moments shaped like ``params`` and a count of 0."""
-    def z(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def z(p):  # zeros_like: a DTensor master gets moments of its placement
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = next(iter(params.values())).device
     return AdamWState(mu={n: z(p) for n, p in params.items()},

@@ -376,8 +376,8 @@ def test_unported_families_refused_by_name(arch):
     build, their configs equal JAX's, and a prefill over their context
     (``img``, ``frames``) runs; a ``cross`` layer in a hybrid pattern runs
     with a context and equals JAX's (its gate set to 1.0 in the weights both
-    packages get); ``moe_token_stationary=True`` (a GSPMD placement) is
-    still refused by name."""
+    packages get); ``moe_token_stationary=True`` (a placement of the MoE's
+    tensors on a mesh) builds and, off a mesh, gives the same logits."""
     ref = jax_get_config(arch, reduced=True)
     cfg = get_config(arch, reduced=True)
     assert arch in PORTED
@@ -385,8 +385,10 @@ def test_unported_families_refused_by_name(arch):
     tokens = torch.from_numpy(lm.tokens(1, 2, 8))
     if cfg.family == "moe":
         bad = dataclasses.replace(cfg, moe_token_stationary=True)
-        with pytest.raises(NotImplementedError, match="not yet ported: moe_token_stationary"):
-            tm.init_params(bad, 0, device="cpu")
+        model = tm.init_params(cfg, 0, device="cpu")
+        assert torch.equal(tm.prefill_logits(tm.init_params(bad, 0, device="cpu"), bad,
+                                             {"tokens": tokens}),
+                           tm.prefill_logits(model, cfg, {"tokens": tokens}))
         return
     if cfg.family == "hybrid":
         jcfg = dataclasses.replace(ref, pattern=("rglru", "cross"), dtype="float32")

@@ -238,13 +238,14 @@ def test_router_load_matches_jax(jax_params, arch):
 
 
 def test_moe_token_stationary_is_refused_by_name():
-    cfg = dataclasses.replace(get_config("mixtral_8x22b", reduced=True),
-                              moe_token_stationary=True)
-    with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
-        tmoe.MoE(cfg, None, "cpu")
-    mod = tmoe.MoE(get_config("mixtral_8x22b", reduced=True), None, "cpu")
-    with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
-        tmoe.moe_ffn(mod, cfg, torch.zeros((1, 2, 64), dtype=torch.bfloat16))
+    """``moe_token_stationary=True`` is no longer refused: it places the
+    (E, C, .) tensors of a model on a mesh (tests/test_torch_sharded_lm.py),
+    and off a mesh the MoE gives the same output bit for bit."""
+    base = get_config("mixtral_8x22b", reduced=True)
+    cfg = dataclasses.replace(base, moe_token_stationary=True)
+    mod = tmoe.MoE(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn((1, 2, 64), generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    assert torch.equal(tmoe.moe_ffn(mod, cfg, x), tmoe.moe_ffn(mod, base, x))
 
 
 # -- the models ---------------------------------------------------------------------------

@@ -43,7 +43,6 @@ from repro_torch import carry  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import keys  # noqa: E402
 from repro_torch.core import pt as tpt  # noqa: E402
-from repro_torch.core.distributed import MeshSpec  # noqa: E402
 from repro_torch.core.ptlm import LMSystem  # noqa: E402
 from repro_torch.core.systems import batched_init  # noqa: E402
 from repro_torch.engine import Engine, EngineConfig  # noqa: E402
@@ -185,17 +184,23 @@ def test_engine_with_record_trace_matches_jax(systems):
 
 def test_init_draws_from_the_unsplit_key_and_the_mesh_is_refused(systems):
     """The LM system's initial tokens are ``randint(key, (R, S))`` (JAX's
-    batched init); the zoo's systems keep one key a replica; an engine on a
-    mesh refuses the LM system by name, and so does a replica shard."""
-    _, tsys = systems("rwkv6_7b")
+    batched init); the zoo's systems keep one key a replica.  The mesh is
+    no longer refused: a replica shard's step (``replica_offset`` o) draws
+    from its first slot's key ``fold_in(fold_in(key, 2t), o)``, the
+    ``keys[0]`` of JAX's sharded interval (tests/test_torch_sharded_lm.py
+    runs the engine on the mesh against JAX's)."""
+    jsys, tsys = systems("rwkv6_7b")
     k = keys.key(9)
     want = jax.random.randint(jax.random.key(9), (R, SEQ), 0, tsys.cfg.vocab, jnp.int32)
     assert np.array_equal(batched_init(tsys, k, R).numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="LM system .* on a mesh"):
-        Engine(tsys, EngineConfig(n_replicas=R, swap_interval=5, mesh=MeshSpec(1, 1)),
-               device="cpu")
-    tokens = torch.from_numpy(_tokens(3, tsys.cfg.vocab))
-    with pytest.raises(NotImplementedError, match="on a mesh"):
-        tsys.batched_mcmc_step(k, 0, tokens, torch.ones(R), replica_offset=2)
+    tokens = _tokens(3, tsys.cfg.vocab)[:2]
+    betas = np.array([1.0, 0.5], np.float32)
+    jkeys = jax.vmap(jax.random.fold_in, (None, 0))(
+        jax.random.fold_in(jax.random.key(9), 2 * 4), jnp.arange(2, 4, dtype=jnp.uint32))
+    want = jsys.batched_mcmc_step(jkeys, jnp.asarray(tokens), jnp.asarray(betas))
+    got = tsys.batched_mcmc_step(k, 4, torch.from_numpy(tokens), torch.from_numpy(betas),
+                                 replica_offset=2)
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
     with pytest.raises(ValueError, match="prompt_len"):
         LMSystem(cfg=tsys.cfg, seq_len=4, prompt_len=4).bind(tsys.model)

@@ -95,24 +95,27 @@ def test_config_matches_jax(reduced):
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b", "mixtral-8x22b", "whisper_medium",
                                   "recurrentgemma_9b"])
 def test_other_archs_refused_by_name(arch):
-    """Every arch of the registry runs (dashed names too), and what the port
-    leaves out of them is refused by name (``moe_token_stationary=True``).
-    A context is ignored by a family with no cross layer, as JAX's
-    ``decode_step`` ignores it; whisper's decode step needs its encoder
-    output and says so.  An unknown arch is a KeyError."""
+    """Every arch of the registry runs (dashed names too); a moe config with
+    ``moe_token_stationary=True`` (a placement of the (E, C, .) tensors on a
+    mesh) builds and, off a mesh, decodes as without it.  A context is
+    ignored by a family with no cross layer, as JAX's ``decode_step``
+    ignores it; whisper's decode step needs its encoder output and says so.
+    An unknown arch is a KeyError."""
     name = arch.replace("-", "_")
     assert name in PORTED
     cfg = get_config(arch, reduced=True)
     assert cfg.name.startswith(name.split("_")[0])
-    if cfg.family == "moe":
-        with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
-            tm.init_params(dataclasses.replace(cfg, moe_token_stationary=True), 0, device="cpu")
     model = tm.init_params(cfg, 0, device="cpu")
     token = torch.ones((1, 1), dtype=torch.int64)
 
-    def step(**kw):
+    def step(cfg=cfg, **kw):
         return tm.decode_step(model, cfg, tm.init_decode_state(cfg, 1, 2, device="cpu"), token,
                               0, **kw)[0]
+
+    if cfg.family == "moe":
+        stationary = dataclasses.replace(cfg, moe_token_stationary=True)
+        tm.init_params(stationary, 0, device="cpu")
+        assert torch.equal(step(stationary), step())
 
     if cfg.family == "encdec":
         with pytest.raises(ValueError, match="needs ctx"):
@@ -247,9 +250,10 @@ def test_generate_matches_the_jax_example_loop(jax_params):
 
 def test_refusals_by_name(port_models):
     """rwkv has no cross layer, so an ``img`` changes nothing (JAX's
-    backbone hands it only to cross layers); a family no package knows and
-    ``moe_token_stationary=True`` are refused by name, and the decoder-only
-    assembly sends an encdec config to whisper's module by name."""
+    backbone hands it only to cross layers); a family no package knows is
+    refused by name, ``moe_token_stationary=True`` builds (it places tensors
+    on a mesh), and the decoder-only assembly sends an encdec config to
+    whisper's module by name."""
     _, cfg = _cfgs("float32")
     tokens = torch.ones((1, 2), dtype=torch.int64)
     model = port_models["float32"]
@@ -260,8 +264,7 @@ def test_refusals_by_name(port_models):
         tm.init_params(other, 0, device="cpu")
     moe = dataclasses.replace(cfg, family="moe", name="tiny-moe", n_experts=4, top_k=2,
                               moe_token_stationary=True)
-    with pytest.raises(NotImplementedError, match="moe_token_stationary=True"):
-        tm.init_params(moe, 0, device="cpu")
+    assert len(tm.init_params(moe, 0, device="cpu").layers) == cfg.n_layers
     with pytest.raises(ValueError, match="encoder-decoder.*whisper"):
         ttf.init_decode_state(dataclasses.replace(cfg, family="encdec"), 1, 4, device="cpu")
 

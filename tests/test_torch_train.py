@@ -481,14 +481,17 @@ def test_serving_model_and_training_tensors_give_one_loss():
 
 
 def test_train_refusals_by_name():
+    """``remat_policy="dots"`` is refused by name; ``cast_shardings`` runs
+    on masters placed as DTensors (tests/test_torch_sharded_lm.py) and asks
+    for them by name otherwise."""
     _, cfg = _cfgs("float32")
-    for kw in ("cast_shardings", "grad_shardings"):
-        with pytest.raises(NotImplementedError, match=f"not yet ported: {kw}"):
-            tts.make_train_step(cfg, topt.AdamWConfig(), **{kw: {}})
-    step = tts.make_train_step(dataclasses.replace(cfg, remat=True, remat_policy="dots"),
-                               topt.AdamWConfig())
     state = tts.init_state(cfg, 0, device="cpu")
     b = {k: torch.from_numpy(v) for k, v in _batch(0, seq=8, batch=2).items()}
+    specs = {n: (None,) * p.dim() for n, p in state.params.items()}
+    with pytest.raises(ValueError, match="place_state"):
+        tts.make_train_step(cfg, topt.AdamWConfig(), cast_shardings=specs)(state, b)
+    step = tts.make_train_step(dataclasses.replace(cfg, remat=True, remat_policy="dots"),
+                               topt.AdamWConfig())
     with pytest.raises(NotImplementedError, match="remat_policy='dots'"):
         step(state, b)
     with pytest.raises(ValueError, match="microbatches"):
