@@ -235,7 +235,23 @@ Phases, one line each or more (any failure raises and exits non-zero):
     halves), resident bytes and the training step's cast all-gather and
     grads reduce-scatter equal to the specs' arithmetic; times (contention
     of two ranks on one card, not scaling);
-29. a JSON line per kernel (launches, error, times, bound), the card line,
+29. the hybrid, vlm and encdec families placed and the dry run
+    (``family_phases``): (a) two ranks over gloo sharing the card serve
+    recurrentgemma-9b on (1, 2) and (2, 1), llama-3.2-vision-11b on (1, 2)
+    over a seeded image (gates 1.0) and whisper-medium on (2, 1) and (1, 2)
+    in f32 (prefill (4, 64), 4 teacher-forced decode steps), and train one
+    bf16 step of each on one mesh, full width, depth cut; each against the
+    unsharded run (logits within 1e-4 of their scale, the training limits
+    of phase 28 and its planted faults read again); (b) every placed program
+    of phases 28 and 29(a) run again on meta tensors over a fake process
+    group of its mesh's size (``repro_torch.launch.dryrun``), in a process
+    started with the script: its collective bytes by phase, collective and
+    mesh axis and the resident bytes a rank equal to the ranks' readings
+    exactly; gemma-2b prefill (4, 512)'s roofline terms beside phase 25's
+    time; (c) ``python -m repro_torch.launch.dryrun --arch all --shape all
+    --mesh both`` and ``dryrun_ising --mesh both``, also started with the
+    script (CPU only): every cell ok or skipped with JAX's reason;
+30. a JSON line per kernel (launches, error, times, bound), the card line,
     and the result line ``{"ok": true, "device": {...}}`` last.
 
 Every ``Session`` runs with ``strict_kernels=True`` but phase 22's injected
@@ -250,6 +266,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -259,6 +276,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -4075,34 +4093,72 @@ def place_cfgs():
 
 
 def place_tokens(torch, cfg, b, s, seed, device):
+    """(b, s) seeded token ids on ``device`` (on ``meta``: their shape, for
+    phase 29's dry run of the same programs)."""
+    if torch.device(device).type == "meta":
+        return torch.empty((b, s), dtype=torch.int64, device="meta")
     return torch.randint(0, cfg.vocab, (b, s), device=device,
                          generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def counted_bytes(counter) -> dict:
+    """A `CollectiveCounter`'s bytes by "phase.collective.axis"."""
+    return {f"{phase}.{name}.{axis}": n for (phase, name, axis), n in counter.by_axis.items()}
+
+
+def local_bytes(tensors) -> int:
+    """The bytes of this rank's blocks of DTensors (or of plain tensors)."""
+    return sum((t.to_local() if hasattr(t, "to_local") else t).numel() * t.element_size()
+               for t in tensors)
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def place_serve(torch, build, model_lib, sharding, lm, cfg, mesh, forced, device,
                 seq: int | None = None, n_decode: int | None = None):
     """Prefill (B, seq) then ``n_decode`` decode steps teacher-forced on
     ``forced`` (B, n_decode) (None: greedy, the unsharded run); by default
-    PLACE_S and PLACE_DECODE.  Returns whole f32 host logits, the argmax
-    tokens, ms and the wkv6 launches."""
+    PLACE_S and PLACE_DECODE; over the family's context (`family_context`:
+    the vlm's image, whisper's frames and their encoding).  Returns whole
+    f32 host logits, the argmax tokens, ms and the wkv6 launches; on a
+    ``mesh`` also this rank's resident bytes and the collective bytes of
+    the prefill and of the decode loop.  On ``meta`` (phase 29's dry run)
+    it runs the same calls and returns those counts alone."""
+    from repro_torch.launch import comm
+    from repro_torch.models import placed, whisper
+
     seq, n_decode = seq or PLACE_S, n_decode or PLACE_DECODE
+    meta = torch.device(device).type == "meta"
     tokens = place_tokens(torch, cfg, PLACE_B, seq, 1, device)
 
     def put(x, specs):
         return x if mesh is None else sharding.place(x, specs(x), mesh)
 
-    batch = put({"tokens": tokens}, lambda b: sharding.batch_shardings(mesh, b))
+    def counter():
+        return comm.CollectiveCounter(mesh) if mesh is not None else contextlib.nullcontext()
+
+    batch = put({"tokens": tokens, **family_context(torch, cfg, device)},
+                lambda b: sharding.batch_shardings(mesh, b))
+    counters = {"prefill": counter(), "decode": counter()}
     # no_grad, not inference_mode: in inference mode DTensor (torch 2.11) takes
     # its uncached sharding propagation for every composite op (einsum, matmul)
     with torch.no_grad():
         model_lib.prefill_logits(lm, cfg, batch)  # first use of each op
-        torch.cuda.synchronize()
+        sync(torch, device)
         build.reset_launches()
         t = time.perf_counter()
-        pre = sharding.gather(model_lib.prefill_logits(lm, cfg, batch))
-        torch.cuda.synchronize()
+        with counters["prefill"]:
+            pre = sharding.gather(model_lib.prefill_logits(lm, cfg, batch))
+        sync(torch, device)
         prefill_ms = 1e3 * (time.perf_counter() - t)
         prefill_launches = dict(build.launches)
+        ctx = batch.get("img")
+        if cfg.family == "encdec":
+            with placed.implicit(lm, inputs=batch["frames"]):
+                ctx = whisper.encode(lm, cfg, batch["frames"])
         # a cache of exactly the decoded positions: its sequence divides the
         # model axis, so decode_state_shardings shards it there
         state = model_lib.init_decode_state(cfg, PLACE_B, n_decode, device=device)
@@ -4111,23 +4167,30 @@ def place_serve(torch, build, model_lib, sharding, lm, cfg, mesh, forced, device
         logits, greedy = [], []
         build.reset_launches()
         t = time.perf_counter()
-        for pos in range(n_decode):
-            step_in = put(token, lambda x: sharding.batch_shardings(mesh, x))
-            lg, state = model_lib.decode_step(lm, cfg, state, step_in, pos)
-            lg = sharding.gather(lg)
-            greedy.append(torch.argmax(lg, dim=-1))
-            logits.append(lg.cpu())
-            token = (greedy[-1] if forced is None else forced[:, pos].to(device))[:, None]
-        torch.cuda.synchronize()
+        with counters["decode"]:
+            for pos in range(n_decode):
+                step_in = put(token, lambda x: sharding.batch_shardings(mesh, x))
+                lg, state = model_lib.decode_step(lm, cfg, state, step_in, pos, ctx=ctx)
+                lg = sharding.gather(lg)
+                greedy.append(torch.argmax(lg, dim=-1))
+                logits.append(lg if meta else lg.cpu())
+                token = (greedy[-1] if forced is None else forced[:, pos].to(device))[:, None]
+        sync(torch, device)
         decode_ms = 1e3 * (time.perf_counter() - t) / n_decode
         decode_launches = dict(build.launches)
-    return {"seq": seq, "n_decode": n_decode, "prefill": pre.cpu(), "decode": torch.stack(logits),
-            "tokens": torch.stack(greedy, dim=1).cpu(), "prefill_ms": prefill_ms,
-            "decode_ms": decode_ms, "prefill_launches": prefill_launches,
-            "decode_launches": decode_launches}
+    out = {}
+    if mesh is not None:
+        out["resident"] = local_bytes(list(lm.parameters()))
+        out["counts"] = {k: counted_bytes(c) for k, c in counters.items()}
+    if meta:
+        return out
+    return {**out, "seq": seq, "n_decode": n_decode, "prefill": pre.cpu(),
+            "decode": torch.stack(logits), "tokens": torch.stack(greedy, dim=1).cpu(),
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "prefill_launches": prefill_launches, "decode_launches": decode_launches}
 
 
-def place_train(torch, sharding, comm, ts, opt_lib, cfg, mesh, device):
+def place_train(torch, sharding, comm, ts, opt_lib, cfg, mesh, device, ref=None, keep=None):
     """PLACE_TRAIN_STEPS steps on one seeded batch: the losses, grad norms,
     ms a warm step and, on ``mesh`` (masters and moments in the FSDP
     layout), this rank's resident bytes and the arithmetic's, one step's
@@ -4139,16 +4202,40 @@ def place_train(torch, sharding, comm, ts, opt_lib, cfg, mesh, device):
     averages where it should sum; clipping at norm 1 hides it from the
     state, so the grad norm reads it) and one leaf's gradient times -1/2 (a
     wrong gradient, which the masters, mu and nu read).  The limits lie
-    below."""
+    below.  ``keep`` (unsharded; a predicate on names) adds the sound run's
+    initial masters and its masters, mu and nu of those leaves as
+    ``out["ref"]``; a rank given that ``ref`` reads its gap on them alone
+    and runs no unsharded steps (phase 29: two whole states of a full-width
+    model would not fit the card beside the placed ones)."""
+    if torch.device(device).type == "meta":  # phase 29's dry run: the placed steps' counts
+        return train_steps(torch, sharding, comm, ts, opt_lib, cfg, mesh, device)[1]
+    if mesh is not None and ref is not None:
+        state, out = train_steps(torch, sharding, comm, ts, opt_lib, cfg, mesh, device)
+        want = types.SimpleNamespace(params=ref["masters"], opt=types.SimpleNamespace(
+            mu=ref["mu"], nu=ref["nu"]))
+        out["gap"] = state_gap(torch, sharding, state, want, ref["init"],
+                               sharding.param_shardings(mesh, state.params, cfg, fsdp=True),
+                               mesh)
+        return out
     init = ts.init_state(cfg, 0, device=device).params
+    open_gates(init)
     sound, out = train_steps(torch, sharding, comm, ts, opt_lib, cfg, None, device)
+    if keep is not None:  # the ranks' reference; the planted runs read the same leaves
+        ref = out["ref"] = {tree: {n: t.cpu() for n, t in leaves.items() if keep(n)}
+                            for tree, leaves in (("init", init), ("masters", sound.params),
+                                                 ("mu", sound.opt.mu), ("nu", sound.opt.nu))}
+        # two whole states of a full-width model beside AdamW's temporaries do not fit
+        sound = types.SimpleNamespace(params=ref["masters"], opt=types.SimpleNamespace(
+            mu=ref["mu"], nu=ref["nu"]))
+        init = ref["init"]
+        torch.cuda.empty_cache()
     if mesh is not None:
         state, out = train_steps(torch, sharding, comm, ts, opt_lib, cfg, mesh, device)
         out["gap"] = state_gap(torch, sharding, state, sound, init,
                                sharding.param_shardings(mesh, state.params, cfg, fsdp=True),
                                mesh)
         return out
-    one = next(n for n in sound.params if n.startswith("layers.0."))
+    one = next(n for n in sound.params if n.startswith(("layers.0.", "enc.0.")))
     inner = opt_lib.apply
     out["planted"] = {}
     for fault, names, factor in (("every gradient halved", None, 0.5),
@@ -4171,13 +4258,27 @@ def place_train(torch, sharding, comm, ts, opt_lib, cfg, mesh, device):
 
 
 def train_steps(torch, sharding, comm, ts, opt_lib, cfg, mesh, device):
-    """(the state after PLACE_TRAIN_STEPS steps, `place_train`'s numbers)."""
-    state = ts.init_state(cfg, 0, device=device)
+    """(the state after PLACE_TRAIN_STEPS steps, `place_train`'s numbers;
+    the collective bytes are the last step's).  On ``meta``, the steps'
+    counts alone."""
+    meta = torch.device(device).type == "meta"
     kw, resident = {}, {}
     counter = None
-    if mesh is not None:
-        fsdp = sharding.param_shardings(mesh, state.params, cfg, fsdp=True)
-        state = ts.place_state(state, fsdp, mesh)
+    if mesh is None:
+        state = ts.init_state(cfg, 0, device=device)
+        open_gates(state.params)
+    else:
+        import torch.distributed as dist
+
+        for turn in range(dist.get_world_size()):  # one whole state on the card at a time
+            if turn == dist.get_rank():
+                state = ts.init_state(cfg, 0, device=device)
+                open_gates(state.params)
+                fsdp = sharding.param_shardings(mesh, state.params, cfg, fsdp=True)
+                state = ts.place_state(state, fsdp, mesh)
+                if torch.device(device).type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
         resident = {"got": sum(t.to_local().numel() * t.element_size()
                                for tree in (state.params, state.opt.mu, state.opt.nu)
                                for t in tree.values()),
@@ -4188,24 +4289,27 @@ def train_steps(torch, sharding, comm, ts, opt_lib, cfg, mesh, device):
                   grad_shardings=fsdp, counter=counter)
     step = ts.make_train_step(cfg, opt_lib.AdamWConfig(warmup_steps=1), **kw)
     tokens = place_tokens(torch, cfg, PLACE_TRAIN_B, PLACE_TRAIN_S, 2, device)
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1),
+             **family_context(torch, cfg, device, PLACE_TRAIN_B)}
+    steps = 1 if cfg.family in FAMILY_ONE_STEP else PLACE_TRAIN_STEPS
     losses, norms, times = [], [], []
-    for i in range(PLACE_TRAIN_STEPS):
-        torch.cuda.synchronize()
+    for i in range(steps):
+        sync(torch, device)
         t = time.perf_counter()
-        if counter is not None and i == 1:
+        if counter is not None and i == steps - 1:
             with counter:
                 state, metrics = step(state, batch)
         else:
             state, metrics = step(state, batch)
-        losses.append(float(sharding.gather(metrics["loss"])))
-        norms.append(float(sharding.gather(metrics["grad_norm"])))
-        torch.cuda.synchronize()
+        if not meta:
+            losses.append(float(sharding.gather(metrics["loss"])))
+            norms.append(float(sharding.gather(metrics["grad_norm"])))
+        sync(torch, device)
         times.append(1e3 * (time.perf_counter() - t))
-    out = {"losses": losses, "grad_norms": norms, "ms": min(times[1:]), "resident": resident}
+    out = {"losses": losses, "grad_norms": norms, "ms": min(times[1:] or times),
+           "resident": resident}
     if counter is not None:
-        out["bytes"] = {f"{phase}.{name}.{axis}": n
-                        for (phase, name, axis), n in counter.by_axis.items()}
+        out["bytes"] = counted_bytes(counter)
         out["collective_s"] = {f"{phase}.{name}": round(v, 4)
                                for (phase, name), v in counter.seconds.items()}
     return state, out
@@ -4225,7 +4329,9 @@ def state_gap(torch, sharding, state, ref, init, specs=None, mesh=None) -> dict:
                             ("mu", state.opt.mu, ref.opt.mu), ("nu", state.opt.nu, ref.opt.nu)):
         worst = 0.0
         for n, a in got.items():
-            b, b0 = want[n], init[n]
+            if n not in want:  # a subset of the leaves (`place_train`'s ref)
+                continue
+            b, b0 = want[n].to(a.device), init[n].to(a.device)
             if mesh is not None:
                 a = a.to_local()
                 b, b0 = (sharding.place({n: x}, {n: specs[n]}, mesh)[n].to_local()
@@ -4254,9 +4360,13 @@ def place_step_arithmetic(torch, sharding, ts, cfg, mesh) -> int:
 
 
 def place_moe(torch, model_lib, sharding, lm, cfg, mesh, device):
-    """A prefill (B, PLACE_MOE_S) and the routing of each MoE layer."""
+    """A prefill (B, PLACE_MOE_S) and the routing of each MoE layer; on a
+    ``mesh`` also its collective bytes and this rank's resident bytes (on
+    ``meta``, those alone)."""
+    from repro_torch.launch import comm
     from repro_torch.models import moe
 
+    meta = torch.device(device).type == "meta"
     tokens = place_tokens(torch, cfg, PLACE_B, PLACE_MOE_S, 3, device)
     batch = {"tokens": tokens}
     if mesh is not None:
@@ -4265,20 +4375,28 @@ def place_moe(torch, model_lib, sharding, lm, cfg, mesh, device):
     inner = moe.dispatch
 
     def dispatch(cfg_, expert_idx, gate_vals):
-        log.append(expert_idx.cpu())
+        log.append(expert_idx if meta else expert_idx.cpu())
         return inner(cfg_, expert_idx, gate_vals)
 
+    counter = comm.CollectiveCounter(mesh) if mesh is not None else contextlib.nullcontext()
     moe.dispatch = dispatch
     try:
         with torch.no_grad():
-            torch.cuda.synchronize()
+            sync(torch, device)
             t = time.perf_counter()
-            logits = sharding.gather(model_lib.prefill_logits(lm, cfg, batch))
-            torch.cuda.synchronize()
+            with counter:
+                logits = sharding.gather(model_lib.prefill_logits(lm, cfg, batch))
+            sync(torch, device)
             ms = 1e3 * (time.perf_counter() - t)
     finally:
         moe.dispatch = inner
-    return {"prefill": logits.cpu(), "routing": torch.stack(log), "ms": ms}
+    out = {}
+    if mesh is not None:
+        out = {"resident": local_bytes(list(lm.parameters())),
+               "counts": {"prefill": counted_bytes(counter)}}
+    if meta:
+        return out
+    return {**out, "prefill": logits.cpu(), "routing": torch.stack(log), "ms": ms}
 
 
 def place_ptlm(torch, model_lib, lm, cfg, mesh_spec, device, halves: bool):
@@ -4305,6 +4423,34 @@ def place_ptlm(torch, model_lib, lm, cfg, mesh_spec, device, halves: bool):
             "accepts": st.stats.swap_accepts.cpu(), "ms_step": ms}
 
 
+def placed_lm(torch, cfg, mesh, device):
+    """The config's model from the seed 0 (the vlm's gates opened), on
+    ``mesh`` placed under ``param_shardings``: ranks sharing the card make
+    their whole model in turn, so one whole model is on the card at a time."""
+    import gc
+
+    from repro_torch.launch import sharding
+    from repro_torch.models import model as model_lib
+
+    if mesh is None:
+        lm = model_lib.init_params(cfg, 0, device=device)  # seeded on the device
+        open_gates(dict(lm.named_parameters()))
+        return lm
+    import torch.distributed as dist
+
+    lm = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            lm = model_lib.init_params(cfg, 0, device=device)
+            open_gates(dict(lm.named_parameters()))
+            sharding.place_module(lm, sharding.param_shardings(mesh, lm, cfg), mesh)
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return lm
+
+
 def placement_runs(torch, np, build, device, mesh_for, forced: dict | None) -> dict:
     """Every run of phase 28: unsharded where ``mesh_for`` gives None (this
     process), else on the mesh it gives (a spawned rank).  ``out["seconds"]``
@@ -4324,27 +4470,14 @@ def placement_runs(torch, np, build, device, mesh_for, forced: dict | None) -> d
 
     def done(part):
         gc.collect()
-        torch.cuda.empty_cache()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
         now = time.perf_counter()
         out["seconds"][part] = now - t_last[0]
         t_last[0] = now
 
     def model(cfg, mesh=None):
-        if mesh is None:
-            return model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                                         device=device)
-        import torch.distributed as dist
-
-        lm = None
-        for turn in range(dist.get_world_size()):  # one whole model on the card at a time
-            if turn == dist.get_rank():
-                lm = model_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                                           device=device)
-                sharding.place_module(lm, sharding.param_shardings(mesh, lm, cfg), mesh)
-                gc.collect()
-                torch.cuda.empty_cache()
-            dist.barrier()
-        return lm
+        return placed_lm(torch, cfg, mesh, device)
 
     for shape in PLACE_MESHES if ranks else (None,):
         mesh = None if shape is None else mesh_for(shape)
@@ -4381,6 +4514,8 @@ def placement_runs(torch, np, build, device, mesh_for, forced: dict | None) -> d
     out["moe"] = place_moe(torch, model_lib, sharding, lm, cfgs["moe"], mesh_for((2, 1)), device)
     del lm
     done("qwen3-moe prefill")
+    if device.type == "meta":  # the dry run: PT-LM's gathers are the PT mesh's, not DTensor's
+        return out
     lm = model(cfgs["gemma"])
     out["ptlm"] = place_ptlm(torch, model_lib, lm, cfgs["gemma"],
                              MeshSpec(1, 2) if ranks else None, device, halves=not ranks)
@@ -4389,9 +4524,11 @@ def placement_runs(torch, np, build, device, mesh_for, forced: dict | None) -> d
     return out
 
 
-def placement_rank(rank: int, world: int, outdir: str, device: str = "cuda:0") -> None:
-    """One of phase 28's two ranks sharing the card over gloo: every run on
-    its mesh; rank 0 saves the arrays, both their numbers."""
+def placement_rank(rank: int, world: int, outdir: str, device: str = "cuda:0",
+                   runs: str = "placement") -> None:
+    """One of phase 28's (``runs="placement"``: `placement_runs`) or phase
+    29's (``"family"``: `family_runs`) two ranks sharing the card over gloo:
+    every run on its mesh; rank 0 saves the arrays, both their numbers."""
     sys.path.insert(0, str(SRC))
     import datetime
     import faulthandler
@@ -4421,7 +4558,11 @@ def placement_rank(rank: int, world: int, outdir: str, device: str = "cuda:0") -
         # turn, phase 28's first part took 16.7-25.6 s on one NVIDIA H100 80GB HBM3,
         # 700.00 W): both ranks pay it here at once, not in turn in `placement_runs`
         sharding.place(torch.zeros(2, device=device), (None,), meshes((2, 1)))
-        out = placement_runs(torch, np, build, torch.device(device), meshes, forced)
+        if runs == "family":
+            ref = torch.load(os.path.join(outdir, "ref.pt"))
+            out = family_runs(torch, np, build, torch.device(device), meshes, forced, ref)
+        else:
+            out = placement_runs(torch, np, build, torch.device(device), meshes, forced)
     finally:
         dist.barrier()
     arrays, numbers = place_split(out)
@@ -4627,6 +4768,385 @@ def placement_phases(torch, np, build, device, card: str) -> dict:
     return {"seconds": seconds, "ranks": ranks}
 
 
+# -- phase 29: the dry run, and the hybrid, vlm and encdec families placed ---------
+# (a) Two spawned ranks over gloo share cuda:0, as phase 28's: recurrentgemma-9b
+# serving on (1, 2) and (2, 1), llama-3.2-vision-11b on (1, 2) over a seeded
+# (4, 1601) image with its cross gates set to 1.0 (as phase 27 sets them; a zero
+# gate adds exactly 0), whisper-medium on (2, 1) and (1, 2) over seeded (4, 1500)
+# frames: f32 prefill (4, FAMILY_S) then FAMILY_DECODE teacher-forced decode
+# steps, each against the unsharded run made first in the parent; and one bf16
+# training step of each family on one mesh.  Full width; depth cut to fit two
+# copies on the card and the phase's time: recurrentgemma two pattern periods
+# to serve (6 of 38 layers) and one to train (3), llama-3.2-vision 10 of 40
+# layers to serve (two of them cross layers) and 5 to train (one), whisper 6 +
+# 6 of 24 + 24 to serve and 2 + 2 to train.  A rank runs no unsharded training
+# step (two whole states of a 256k-vocab model beside the placed ones would not
+# fit): it reads its gap from the parent's sound step on layer 0's leaves of at
+# most 2^22 elements and the final norm (`FAMILY_KEEP`), which hold the planted
+# fault's leaf (`family_keep`); the loss and the grad norm cover every leaf.  The limits are
+# phase 28's (PLACE_*), the planted faults read again for each family.
+# (b) Every placed program of phase 28 and of (a) again on meta tensors over a
+# fake process group of the mesh's size (device type cuda, as the ranks'), in a
+# process started with the script: its collective bytes by (phase, collective,
+# mesh axis) and the resident bytes a rank must equal the ranks' readings
+# exactly; and gemma-2b prefill (4, 512) unsharded, its roofline's terms beside
+# phase 25's measured time.  (c) `repro_torch.launch.dryrun --arch all --shape
+# all --mesh both` and `dryrun_ising --mesh both`, also started with the script
+# (CPU only, meta tensors, DRY_JOBS cell processes); a failed cell fails the phase.
+FAMILY_S, FAMILY_DECODE = 64, 4
+FAMILY_ONE_STEP = ("hybrid", "vlm", "encdec")
+FAMILY_CELLS = (("recurrentgemma", "serve", (1, 2)), ("recurrentgemma", "serve", (2, 1)),
+                ("recurrentgemma", "train", (2, 1)), ("vlm", "serve", (1, 2)),
+                ("vlm", "train", (1, 2)), ("whisper", "serve", (2, 1)),
+                ("whisper", "serve", (1, 2)), ("whisper", "train", (1, 2)))
+FAMILY_LOGITS_RTOL = 1e-4  # phase 28's f32 limit (gemma-2b read ~8e-7)
+DRY_JOBS = 3  # dry-run cell processes beside the card's phases (8 host cores)
+DRY_TIMEOUT_S = 900
+
+
+def family_keep(name: str) -> bool:
+    """Whether a rank's training gap reads leaf ``name``: one of layer 0
+    (whisper's first encoder and decoder layers), or the final norm; the
+    caller also caps its elements at FAMILY_KEEP_MAX."""
+    return name == "final_norm" or name.startswith(("layers.0.", "enc.0.", "dec.0."))
+
+
+FAMILY_KEEP_MAX = 1 << 22
+
+
+def family_cfgs():
+    """fam -> {"serve": f32 config, "train": bf16 config}, full width."""
+    from repro_torch.configs import get_config
+
+    rg, vl, wh = (get_config(a) for a in ("recurrentgemma_9b", "llama32_vision_11b",
+                                          "whisper_medium"))
+    return {"recurrentgemma": {"serve": dataclasses.replace(rg, dtype="float32", n_layers=6),
+                               "train": dataclasses.replace(rg, n_layers=3)},
+            "vlm": {"serve": dataclasses.replace(vl, dtype="float32", n_layers=10),
+                    "train": dataclasses.replace(vl, n_layers=5)},
+            "whisper": {"serve": dataclasses.replace(wh, dtype="float32", n_layers=6,
+                                                     enc_layers=6),
+                        "train": dataclasses.replace(wh, n_layers=2, enc_layers=2)}}
+
+
+def open_gates(named: dict) -> None:
+    """The vlm's cross gates set to 1.0 in place (JAX makes them 0)."""
+    for name, p in named.items():
+        if name.endswith(".gate"):
+            p.data.fill_(1.0)
+
+
+def family_context(torch, cfg, device, batch: int = PLACE_B) -> dict:
+    """The family's context in a batch: a seeded N(0, 1) image (batch,
+    img_tokens, D) for the vlm, frames (batch, enc_seq, D) for whisper, in
+    the compute dtype; else nothing (on ``meta``, its shape)."""
+    name, n = {"vlm": ("img", cfg.img_tokens), "encdec": ("frames", cfg.enc_seq)}.get(
+        cfg.family, (None, 0))
+    if name is None:
+        return {}
+    shape, dt = (batch, n, cfg.d_model), cfg.compute_dtype
+    if torch.device(device).type == "meta":
+        return {name: torch.empty(shape, dtype=dt, device="meta")}
+    return {name: torch.randn(shape, device=device, generator=torch.Generator(
+        device=device).manual_seed(2)).to(dt)}
+
+
+def family_runs(torch, np, build, device, mesh_for, forced: dict | None,
+                ref: dict | None = None) -> dict:
+    """Every run of phase 29(a): unsharded where ``mesh_for`` gives None
+    (this process: each config once), else on the mesh it gives (a spawned
+    rank, or the dry run's fake group on ``meta``).  ``ref``: the parent's
+    sound training subsets by family."""
+    import gc
+
+    from repro_torch.launch import comm, sharding
+    from repro_torch.models import model as model_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+
+    cfgs = family_cfgs()
+    out = {"seconds": {}}
+    t_last = time.perf_counter()
+    for fam, kind, shape in FAMILY_CELLS:
+        mesh = mesh_for(shape)
+        key = f"{fam}_{kind}_" + ("unsharded" if mesh is None else "x".join(map(str, shape)))
+        if key in out:
+            continue
+        cfg = cfgs[fam][kind]
+        if kind == "serve":
+            lm = placed_lm(torch, cfg, mesh, device)
+            out[key] = place_serve(torch, build, model_lib, sharding, lm, cfg, mesh,
+                                   None if forced is None else forced[fam], device,
+                                   seq=FAMILY_S, n_decode=FAMILY_DECODE)
+            del lm
+        else:
+            keep = None
+            if mesh is None:
+                shapes = dict(model_lib.model_class(cfg)(cfg, None, device="meta")
+                              .named_parameters())
+
+                def keep(n, shapes=shapes):
+                    return family_keep(n) and shapes[n].numel() <= FAMILY_KEEP_MAX
+            out[key] = place_train(torch, sharding, comm, ts, opt_lib, cfg, mesh, device,
+                                   ref=None if ref is None else ref[fam], keep=keep)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        now = time.perf_counter()
+        out["seconds"][key] = now - t_last
+        t_last = now
+    return out
+
+
+def dry_counts(outdir: str) -> None:
+    """Phase 29(b), a process of its own: every placed program of phases 28
+    and 29(a) on ``meta`` tensors over a fake group of its mesh's size (a
+    ``cuda`` DeviceMesh, as the ranks'), the counts `placement_runs` and
+    `family_runs` report; and gemma-2b prefill (4, 512) on one rank, counted.
+    Writes ``dry.json``."""
+    sys.path.insert(0, str(SRC))
+    warnings.filterwarnings("ignore")
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.hlo.roofline import Roofline, analytic_hbm_bytes, model_flops
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import ShapeCell
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    meta = torch.device("meta")
+
+    def mesh_for(shape):
+        return dryrun.fake_mesh(shape, ("data", "model"), "cuda")
+
+    out = {"placement": placement_runs(torch, np, build, meta, mesh_for, None),
+           "family": family_runs(torch, np, build, meta, mesh_for, None)}
+    cfg = get_config("gemma_2b")
+    cell = ShapeCell("card", "prefill", 512, PLACE_B)
+    rec = dryrun.lower_one(cfg, cell, dryrun.fake_mesh((1, 1), ("data", "model"), "cuda"),
+                           "card")
+    mf = model_flops(cfg, "prefill", PLACE_B, 512)
+    out["gemma_prefill"] = {"record": rec, "model_flops": mf, "roofline": Roofline(
+        flops_per_device=rec["flops"], hbm_bytes_per_device=rec["hbm_traffic_bytes"],
+        coll_wire_bytes_per_device=0.0, model_flops_global=mf, n_devices=1,
+        hbm_analytic_per_device=analytic_hbm_bytes(cfg, "prefill", PLACE_B, 512, 1, 1)).row()}
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, "dry.json"), "w") as f:
+        json.dump(out, f, default=str)
+
+
+
+def family_phases(torch, np, build, device, card: str, dry: dict, lmpt: dict,
+                  pl: dict) -> dict:
+    """Phase 29: (a) the hybrid, vlm and encdec families placed on two ranks
+    sharing the card, each against its unsharded run; (b) the dry run of
+    every placed program of phases 28 and 29(a) equal to the ranks'
+    counted bytes, and gemma-2b prefill's roofline; (c) the dry-run CLI
+    over every cell and `dryrun_ising`, started with the script."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="family_", dir=ROOT / "build"))
+    ref = family_runs(torch, np, build, device, lambda shape: None, None)
+    fams = ("recurrentgemma", "vlm", "whisper")
+    np.savez(work / "forced.npz", **{f: ref[f"{f}_serve_unsharded"]["tokens"].numpy()
+                                     for f in fams})
+    torch.save({f: ref[f"{f}_train_unsharded"].pop("ref") for f in fams}, work / "ref.pt")
+    ref_s = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    mp.start_processes(placement_rank, args=(2, str(work), "cuda:0" if device.type == "cuda"
+                                             else "cpu", "family"), nprocs=2,
+                       start_method="spawn")
+    spawn_s = time.perf_counter() - t
+    ranks = [json.loads((work / f"place{k}.json").read_text()) for k in range(2)]
+    got = dict(np.load(work / "place0.npz"))
+    failures, lines = [], []
+
+    def gap(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b))), float(np.max(np.abs(b)))
+
+    # (a) placed == unsharded
+    for fam, kind, shape in FAMILY_CELLS:
+        key = "x".join(map(str, shape))
+        run, want = f"{fam}_{kind}_{key}", ref[f"{fam}_{kind}_unsharded"]
+        mine = [r[run] for r in ranks]
+        if kind == "serve":
+            errs = {}
+            for part in ("prefill", "decode"):
+                err, scale = gap(got[f"{run}.{part}"], want[part].numpy())
+                errs[part] = f"{err:.3g} of {scale:.3g}"
+                if not err <= FAMILY_LOGITS_RTOL * scale:
+                    failures.append(f"{run} {part}: max |placed - unsharded| {err} past "
+                                    f"{FAMILY_LOGITS_RTOL} x {scale}")
+            margin = np.sort(want["decode"].numpy(), -1)
+            margin = margin[..., -1] - margin[..., -2]
+            err_row = np.max(np.abs(got[f"{run}.decode"] - want["decode"].numpy()), -1)
+            flips = np.argwhere(got[f"{run}.tokens"].T != want["tokens"].numpy().T)
+            for step, row in flips:
+                if margin[step, row] > 2 * err_row[step, row]:
+                    failures.append(f"{run}: step {step} row {row} token differs at a top-2 "
+                                    f"margin {margin[step, row]}")
+            lines.append(
+                f"{run}: resident {mine[0]['resident']} B a rank, prefill (4, {FAMILY_S}) "
+                f"{mine[0]['prefill_ms']:.1f} ms (unsharded {want['prefill_ms']:.1f}), decode "
+                f"{mine[0]['decode_ms']:.2f} ms/token (unsharded {want['decode_ms']:.2f}), max "
+                f"|d logits| prefill {errs['prefill']}, decode {errs['decode']} over "
+                f"{FAMILY_DECODE} steps, greedy tokens {len(flips)} flips")
+        else:
+            for k, r in enumerate(mine):
+                if r["resident"]["got"] != r["resident"]["specs"]:
+                    failures.append(f"{run} rank {k}: resident {r['resident']}")
+                for what, rtol in (("losses", PLACE_LOSS_RTOL),
+                                   ("grad_norms", PLACE_GRADNORM_RTOL)):
+                    for a, b in zip(r[what], want[what]):
+                        if not abs(a - b) <= rtol * abs(b):
+                            failures.append(f"{run} rank {k}: {what} {a} != {b}")
+                for tree, g in r["gap"].items():
+                    if not g <= PLACE_STATE_RTOL[tree]:
+                        failures.append(f"{run} rank {k}: {tree} {g} past "
+                                        f"{PLACE_STATE_RTOL[tree]}")
+            (all_f, all_gap), (one_f, one_gap) = want["planted"].items()
+            if not all_gap["grad_norm"] > PLACE_GRADNORM_RTOL:
+                failures.append(f"{fam}: the planted fault ({all_f}) moved the grad norm by "
+                                f"{all_gap['grad_norm']}, within {PLACE_GRADNORM_RTOL}")
+            for tree in PLACE_STATE_RTOL:
+                if not one_gap[tree] > PLACE_STATE_RTOL[tree]:
+                    failures.append(f"{fam}: the planted fault ({one_f}) moved {tree} by "
+                                    f"{one_gap[tree]}, within {PLACE_STATE_RTOL[tree]}")
+            lines.append(
+                f"{run}: one bf16 step, masters + moments {mine[0]['resident']['got']} B a rank "
+                f"(the specs' {mine[0]['resident']['specs']}), loss {mine[0]['losses']} "
+                f"(unsharded {want['losses']}), grad norm {mine[0]['grad_norms']} (unsharded "
+                f"{want['grad_norms']}), gap on layer 0's small leaves "
+                + ", ".join(f"{t} {max(r['gap'][t] for r in mine):.3g}" for t in PLACE_STATE_RTOL)
+                + f"; planted, unsharded: " + "; ".join(
+                    f"{fault}: " + ", ".join(f"{t} {v:.3g}" for t, v in g.items())
+                    for fault, g in want["planted"].items())
+                + f"; {mine[0]['ms']:.1f} ms a step (unsharded {want['ms']:.1f})")
+    print(f"phase 29 placed families [{card}] (two ranks over gloo share the card): "
+          + "; ".join(lines))
+    print(f"phase 29 seconds: unsharded {ref_s:.1f} s, ranks {spawn_s:.1f} s with their start: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()))
+
+    # (b) the dry run's counts == the ranks' readings
+    deadline = time.perf_counter() + DRY_TIMEOUT_S
+    rc, log, dry_s = wait_dry_run(dry, "counts", deadline)
+    if rc != 0:
+        raise AssertionError(f"phase 29 dry counts: exit {rc}\n{log[-4000:]}")
+    counted = json.loads((dry["work"] / "dry.json").read_text())
+    n_equal = 0
+    for group, rank0 in (("placement", pl["ranks"][0]), ("family", ranks[0])):
+        for run, want in counted[group].items():
+            if run == "seconds":
+                continue
+            for field in ("counts", "bytes", "resident"):
+                if field not in want:
+                    continue
+                if rank0[run][field] != want[field]:
+                    failures.append(f"dry run {group} {run} {field}: {want[field]} != the "
+                                    f"ranks' {rank0[run][field]}")
+                else:
+                    n_equal += 1
+    gp = counted["gemma_prefill"]
+    measured = PLACE_B * 512 / lmpt["gemma"]["prefill_tokens_s"] * 1e3
+    roof_row = gp["roofline"]
+    n_runs = sum(1 for g in ("placement", "family") for r in counted[g] if r != "seconds")
+    print(f"phase 29 dry run == card [{card}]: {n_equal} counts (collective bytes by phase, "
+          f"collective and mesh axis of each prefill, decode loop and training step; resident "
+          f"bytes) of {n_runs} placed runs of phases 28 and 29 equal to the ranks' readings; the "
+          f"dry run took "
+          f"{counted['seconds']:.1f} s ({dry_s:.1f} s from its start to here); gemma-2b prefill "
+          f"(4, 512) unsharded, bf16: counted {gp['record']['flops']:.4g} flops, "
+          f"{gp['record']['hbm_traffic_bytes']:.4g} unfused bytes, model flops "
+          f"{gp['model_flops']:.4g}: t_comp {1e3 * roof_row['t_comp_s']:.3f} ms, t_mem "
+          f"(unfused) {1e3 * roof_row['t_mem_s']:.3f} ms, t_mem (analytic) "
+          f"{1e3 * roof_row['t_mem_analytic_s']:.3f} ms, bound {1e3 * roof_row['bound_time_s']:.3f}"
+          f" ms ({roof_row['dominant']}; analytic {roof_row['dominant_analytic']}) against "
+          f"{measured:.2f} ms measured in phase 25")
+
+    # (c) the CLI over every cell, and the Ising dry run
+    rc, log, cli_s = wait_dry_run(dry, "cli", deadline)
+    cells = [ln for ln in log.splitlines() if ln.startswith("[dryrun] ") and "/" in ln.split()[1]]
+    total = [ln for ln in log.splitlines() if " cells in " in ln]
+    if rc != 0 or not total or any(" FAIL " in ln for ln in cells):
+        failures.append(f"dry-run CLI: exit {rc}; " + "; ".join(
+            ln for ln in cells if " FAIL " in ln)[:2000] + (log[-2000:] if not total else ""))
+    dominant = {}
+    for ln in cells:
+        parts = ln.split()
+        dominant[parts[1]] = parts[4] if parts[3] == "ok" else parts[3]
+    rc_i, log_i, ising_s = wait_dry_run(dry, "ising", deadline)
+    ising = [ln for ln in log_i.splitlines() if ln.startswith("[ising-dryrun]")]
+    if rc_i != 0 or len(ising) != 4:
+        failures.append(f"dryrun_ising: exit {rc_i}\n{log_i[-2000:]}")
+    print(f"phase 29 dry-run CLI (--arch all --shape all --mesh both, {DRY_JOBS} cell "
+          f"processes beside phases 1-28): {total[-1][9:] if total else 'no summary'}; "
+          f"{cli_s:.1f} s from its start; dominant terms "
+          + ", ".join(f"{k} {v}" for k, v in dominant.items()))
+    print(f"phase 29 dryrun_ising --mesh both ({ising_s:.1f} s from its start): "
+          + " | ".join(ln[len('[ising-dryrun] '):] for ln in ising))
+    if failures:
+        raise AssertionError("phase 29: " + "; ".join(failures))
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(dry["work"], ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 29 done in {seconds:.1f} s")
+    return {"seconds": seconds}
+
+def start_dry_runs() -> dict:
+    """Phase 29's CPU work, started with the script (it needs no card and
+    runs beside the other phases): (b) `dry_counts`, (c) the dry-run CLI
+    over every cell and `dryrun_ising`.  Returns name -> (process, log
+    path, start time); `stop_dry_runs` ends any still running."""
+    (ROOT / "build").mkdir(exist_ok=True)  # a fresh checkout has none before the kernels build
+    work = Path(tempfile.mkdtemp(prefix="dry_", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               OMP_NUM_THREADS="1")
+    cmds = {
+        "counts": [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                   "import chip_smoke; chip_smoke.dry_counts(sys.argv[2])", str(ROOT), str(work)],
+        "cli": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all", "--shape",
+                "all", "--mesh", "both", "--out", str(work / "records"), "--jobs",
+                str(DRY_JOBS)],
+        "ising": [sys.executable, "-m", "repro_torch.launch.dryrun_ising", "--mesh", "both",
+                  "--out", str(work / "records")],
+    }
+    runs = {"work": work}
+    for name, cmd in cmds.items():
+        log = work / f"{name}.log"
+        with open(log, "w") as f:
+            runs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                           stderr=subprocess.STDOUT), log, time.perf_counter())
+    import atexit
+
+    atexit.register(stop_dry_runs, runs)
+    return runs
+
+
+def stop_dry_runs(runs: dict) -> None:
+    for name, value in runs.items():
+        if name != "work" and value[0].poll() is None:
+            value[0].kill()
+            value[0].wait()
+
+
+def wait_dry_run(runs: dict, name: str, deadline: float) -> tuple[int, str, float]:
+    """(exit code, log text, seconds from its start to now) of a dry run."""
+    proc, log, t0 = runs[name]
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    return rc, log.read_text(), time.perf_counter() - t0
+
 def strict_api(api):
     """``api`` with its `Session` replaced by one whose ``strict_kernels``
     defaults to True (also in `Session.from_checkpoint`): every phase but
@@ -4689,6 +5209,7 @@ def main() -> int:
     from repro_torch.launch import fused_probe
 
     t_start = time.perf_counter()
+    dry = start_dry_runs()  # phase 29's CPU work (b, c), beside phases 1-28
     device = torch.device("cuda")
     card = card_line(torch)
     print(f"phase 1 device: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -5383,7 +5904,11 @@ def main() -> int:
     pl = placement_phases(torch, np, build, device, card)
     check_tickets(build, "phase 28")
 
-    # -- phase 29: kernel summary ---------------------------------------------
+    # -- phase 29: the hybrid, vlm and encdec families placed; the dry run -------
+    fp = family_phases(torch, np, build, device, card, dry, lmpt, pl)
+    check_tickets(build, "phase 29")
+
+    # -- phase 30: kernel summary ---------------------------------------------
     def row(name, source, replaces, launches, **extra):
         tm = times[name]
         return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -5569,9 +6094,9 @@ def main() -> int:
         "launches_per_step": {f"remat={r}": c for r, c in tr["per_step"].items()},
         "train_step_ms": tr["warm_ms"], "train_tokens_s": tr["tokens_s"],
         "train_peak_gb": tr["peak_gb"]})
-    print(f"phase 29 done in {time.perf_counter() - t_start:.1f} s (phase 26: "
+    print(f"phase 30 done in {time.perf_counter() - t_start:.1f} s (phase 26: "
           f"{hm['seconds']:.1f} s, phase 27: {ve['seconds']:.1f} s, phase 28: "
-          f"{pl['seconds']:.1f} s)")
+          f"{pl['seconds']:.1f} s, phase 29: {fp['seconds']:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

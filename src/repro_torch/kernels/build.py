@@ -42,7 +42,8 @@ import torch
 __all__ = [
     "CSRC", "SOURCES", "build_root", "nvcc_path", "build_all", "library", "load_all",
     "KernelError",
-    "launches", "epilogues", "reset_launches", "MAX_SMEM_BYTES", "check",
+    "launches", "epilogues", "meta_sinks", "count_meta", "reset_launches", "MAX_SMEM_BYTES",
+    "check",
     "check_smem", "check_round", "round_args", "scratch_bytes", "dirty_tickets",
     "ROUND_ARGTYPES", "NO_ROUND", "stream_of", "raise_if", "sweep_lib",
 ]
@@ -81,6 +82,22 @@ launches = dict.fromkeys(
 # round exchanges run at the end of a launch of kernel A, #2p or #5 since the
 # last reset (no launch of their own)
 epilogues = {"exchange": 0}
+
+
+# the dry run's tallies (`repro_torch.hlo.traffic.OpTally`): a kernel's
+# entry point called on ``meta`` tensors launches nothing and returns empty
+# outputs, and reports to each the work its launch would do
+meta_sinks: list = []
+
+
+def count_meta(kernel: str, *, flops: float = 0.0, int_ops: float = 0.0,
+               n_bytes: float = 0.0) -> None:
+    """Report one kernel call on ``meta`` tensors: its f32 (or bf16) flops,
+    its 32-bit integer instructions and the bytes its launch would move
+    (each input read once, each output written once), to every tally in
+    `meta_sinks`.  Not a launch: `launches` does not move."""
+    for sink in meta_sinks:
+        sink(kernel, flops=flops, int_ops=int_ops, n_bytes=n_bytes)
 
 
 def reset_launches() -> None:

@@ -212,14 +212,18 @@ def exchange_rows(rung, energy, betas, phase, key, *, pairing: str, criterion: s
     ``(new_rung, accept, prob, attempt, rung_block, next_phase)``, the first
     four shaped as ``rung``, ``rung_block = new_rung[..., start:stop]`` for
     ``block = (start, stop)`` (the whole row by default) and ``next_phase =
-    phase + 1``: what a mesh rank keeps of the exchange."""
+    phase + 1``: what a mesh rank keeps of the exchange.  On ``meta``
+    tensors (the dry run) the outputs are empty and the launch's work is
+    reported (`build.count_meta`)."""
     if rung.is_cuda:
         return exchange_step_kernel(
             rung, energy, _typed(betas, torch.float32), _typed(phase, torch.int64),
             _typed(key, torch.int64), pairing=pairing, criterion=criterion, block=block)
+    start, stop = (0, rung.shape[-1]) if block is None else block
+    if rung.device.type == "meta":  # the dry run: shapes, and the launch's work
+        return _exchange_meta(rung, energy, betas, phase, start, stop)
     if rung.device.type != "cpu":
         raise ValueError(f"no exchange kernel for tensors on {rung.device}")
-    start, stop = (0, rung.shape[-1]) if block is None else block
     words = key.to(dtype=torch.int64) & prng.MASK
     if rung.dim() == 1:
         rows = exchange_step(rung, energy, betas, phase, words, pairing=pairing,
@@ -229,3 +233,21 @@ def exchange_rows(rung, energy, betas, phase, key, *, pairing: str, criterion: s
             exchange_step(rung[i], energy[i], betas, phase[i], words[i], pairing=pairing,
                           criterion=criterion)[:4] for i in range(rung.shape[0]))))
     return (*rows, rows[0][..., start:stop].contiguous(), phase + 1)
+
+
+def _exchange_meta(rung, energy, betas, phase, start: int, stop: int):
+    """`exchange_rows` on ``meta``: empty outputs and one Threefry block
+    and a few f32 ops a rung, the rows read and the decisions written once."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import THREEFRY_OPS
+
+    def empty(dtype, shape=None):
+        return torch.empty(rung.shape if shape is None else shape, dtype=dtype, device="meta")
+
+    out = (empty(torch.int32), empty(torch.bool), empty(torch.float32), empty(torch.bool),
+           empty(torch.int32, (*rung.shape[:-1], stop - start)),
+           torch.empty_like(phase, device="meta"))
+    n_bytes = sum(x.numel() * x.element_size() for x in (rung, energy, betas, *out))
+    build.count_meta("exchange_step", flops=8.0 * rung.numel(),
+                     int_ops=THREEFRY_OPS * rung.numel(), n_bytes=n_bytes)
+    return out

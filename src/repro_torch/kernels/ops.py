@@ -12,6 +12,12 @@ the serial chains that the JAX package leaves to XLA's ``fori_loop``
 (``csrc/serial_chain.cu`` on the card); each takes the ``replica_offset``
 of a replica shard.  The sharded round path's exchange alone is
 `repro_torch.kernels.exchange.exchange_rows`.
+
+The dry run's ops (`wkv6` and its gradient, the interval-fused sweeps) also
+take ``meta`` tensors: they return empty tensors of the contract's
+shapes and dtypes, run neither the kernel nor the plain version, and
+report the work of the launch (`build.count_meta`: flops, 32-bit integer
+instructions and bytes by the bound formulas of the kernels' chip checks).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import ising_sweep as _isk
 from repro_torch.kernels import jax_uniform as _ju
 from repro_torch.kernels import potts_sweep as _pk
@@ -41,11 +48,23 @@ __all__ = [
 ]
 
 
-def _device_kind(x: torch.Tensor, what: str = "sweep kernel") -> str:
+def _device_kind(x: torch.Tensor, what: str = "sweep kernel", meta: bool = False) -> str:
+    """``cpu`` (the plain version), ``cuda`` (the kernel) or, where the op
+    has a dry-run path (``meta``), ``meta``."""
     kind = x.device.type
-    if kind not in ("cpu", "cuda"):
+    if kind not in ("cpu", "cuda") and not (meta and kind == "meta"):
         raise ValueError(f"no {what} for tensors on {x.device}")
     return kind
+
+
+# the 32-bit integer instructions of one Threefry-2x32-20 block (2 counter
+# adds, 20 rounds of add / rotate / xor, 5 key injections of 2 adds): a
+# uniform, or an Ising site update of kernel A
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 2
+
+
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
 
 
 def _counter(value, device, chains: int | None = None) -> torch.Tensor:
@@ -167,8 +186,10 @@ def _fused(plain, kernel, states, key, t, betas, *, n_sweeps, replica_offset, **
 
     With a chain axis (``key`` (C, 2), ``t`` (C,), ``betas`` (C, R) over (C,
     R, ...) states) CUDA makes one launch for every chain; the CPU runs the
-    plain version chain by chain."""
-    kind = _device_kind(states)
+    plain version chain by chain; ``meta`` runs neither (`_fused_meta`)."""
+    kind = _device_kind(states, meta=True)
+    if kind == "meta":
+        return _fused_meta(kernel, states, n_sweeps)
     dev = states.device
     c = _chains(states, key)
     if c is not None:
@@ -192,6 +213,23 @@ def _fused(plain, kernel, states, key, t, betas, *, n_sweeps, replica_offset, **
         states, words, _counter(t, dev), betas.to(torch.float32), identity,
         n_sweeps=n_sweeps, replica_offset=int(replica_offset), **kw,
     )
+
+
+def _fused_meta(kernel, states, n_sweeps: int):
+    """The dry run of an interval-fused launch: ``(states', delta_e,
+    n_accepted)`` empty, and its work: a Threefry block (twice for Potts)
+    and a compare per site update, the states read and written once."""
+    name = getattr(kernel, "__name__", "")
+    potts = "potts" in name
+    label = "potts_fused" if potts else "ising_packed" if "packed" in name else "ising_fused"
+    lead = states.shape[:-2]
+    updates = states.numel() * n_sweeps
+    out = (torch.empty_like(states), torch.empty(lead, device="meta"),
+           torch.empty(lead, dtype=torch.int32, device="meta"))
+    _build.count_meta(label, flops=updates,
+                      int_ops=(2 if potts else 1) * THREEFRY_OPS * updates,
+                      n_bytes=_nbytes(states, *out))
+    return out
 
 
 def ising_sweep_fused(
@@ -383,6 +421,53 @@ def potts_round_fused(
     )
 
 
+def wkv6_work(bh: int, t: int, dk: int, dv: int, state: bool) -> tuple[float, float]:
+    """(f32 flops, bytes) of kernel #7: ~4·dk·dv + 3·dk + 2·dv flops a slab
+    and step; r, k, w, v read and o written once, u read once, the final
+    state written and an initial one (``state``) read once."""
+    n_state = (2 if state else 1) * bh * dk * dv
+    return (float(bh * t * (4 * dk * dv + 3 * dk + 2 * dv)),
+            4.0 * (bh * t * (3 * dk + 2 * dv) + n_state + bh * dk))
+
+
+def wkv6_bwd_work(bh: int, t: int, dk: int, dv: int, state: bool) -> tuple[float, float]:
+    """(f32 flops, bytes) of kernel #7b: 14·dk·dv + 12·dk + 4·dv flops a slab
+    and step; r, k, w, v, do read and dr, dk, dw, dv written once, u read
+    and du written once, with an initial state it and d(final state) read
+    and d(initial state) written once."""
+    n_state = (3 if state else 0) * bh * dk * dv
+    return (float(bh * t * (14 * dk * dv + 12 * dk + 4 * dv)),
+            4.0 * (bh * t * (3 * dk + 2 * dv) + bh * t * (3 * dk + dv) + n_state + 2 * bh * dk))
+
+
+class _Wkv6Meta(torch.autograd.Function):
+    """The dry run of `_Wkv6`: empty outputs of the contract's shapes and
+    the work of #7 forward and #7b backward (`build.count_meta`)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, initial_state):
+        bh, t, dk = k.shape
+        dv = v.shape[-1]
+        ctx.shape, ctx.state = (bh, t, dk, dv), initial_state is not None
+        flops, n_bytes = wkv6_work(bh, t, dk, dv, ctx.state)
+        _build.count_meta("wkv6", flops=flops, n_bytes=n_bytes)
+        return (torch.empty((bh, t, dv), dtype=torch.float32, device="meta"),
+                torch.empty((bh, dk, dv), dtype=torch.float32, device="meta"))
+
+    @staticmethod
+    def backward(ctx, d_o, d_state):
+        bh, t, dk, dv = ctx.shape
+        flops, n_bytes = wkv6_bwd_work(bh, t, dk, dv, ctx.state)
+        _build.count_meta("wkv6_bwd", flops=flops, n_bytes=n_bytes)
+
+        def grad(i, shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta") \
+                if ctx.needs_input_grad[i] else None
+
+        return (grad(0, (bh, t, dk)), grad(1, (bh, t, dk)), grad(2, (bh, t, dv)),
+                grad(3, (bh, t, dk)), grad(4, (bh, dk)), grad(5, (bh, dk, dv)))
+
+
 class _Wkv6(torch.autograd.Function):
     """The recurrence on the card with its gradient: kernel #7 forward,
     kernel #7b backward (the forward's inputs saved, nothing else)."""
@@ -421,8 +506,12 @@ def wkv6(
     where autograd records, the gradient is one launch of kernel #7b, and
     never the plain version (`_Wkv6`; under ``no_grad`` it records
     nothing).  On the CPU it is the plain recurrence, differentiated by
-    autograd.  Returns ``(o (BH, T, dv) f32, final_state (BH, dk, dv) f32)``.
+    autograd; on ``meta``, shapes and counted work only (`_Wkv6Meta`).
+    Returns ``(o (BH, T, dv) f32, final_state (BH, dk, dv) f32)``.
     """
-    if _device_kind(r, "wkv6 kernel") == "cpu":
+    kind = _device_kind(r, "wkv6 kernel", meta=True)
+    if kind == "cpu":
         return _ref.wkv6(r, k, v, w, u, initial_state)
+    if kind == "meta":
+        return _Wkv6Meta.apply(r, k, v, w, u, initial_state)
     return _Wkv6.apply(r, k, v, w, u, initial_state)

@@ -12,9 +12,13 @@ under the ring algorithms (a rank receives as many):
   all_to_all_single        (g - 1) / g * input bytes
   broadcast                bytes (counted at every rank)
 
-with g the group's size.  `phase` names the collectives of a region (the
-training step's ``cast`` all-gathers and ``grads`` reduce-scatters), so a
-run's counts can be held against the arithmetic from the specs.  A mode
+with g the group's size.  DTensor's Shard -> Shard redistribution on a
+mesh of device type ``cuda`` is its own op, ``_dtensor.shard_dim_alltoall``,
+counted as ``all_to_all_single`` (on a ``cpu`` mesh DTensor runs it as an
+all-gather and a chunk, and it is counted so).  ``payload[name]`` holds the
+input bytes (the operand bytes of `repro_torch.hlo.collectives`).  `phase`
+names the collectives of a region (the training step's ``cast``
+all-gathers and ``grads`` reduce-scatters), so a run's counts can be held against the arithmetic from the specs.  A mode
 sees the collectives of the backward pass too.
 """
 from __future__ import annotations
@@ -32,6 +36,10 @@ __all__ = ["CollectiveCounter", "ring_bytes", "eager_collectives"]
 _COLLECTIVES = ("all_gather_into_tensor", "all_gather_into_tensor_coalesced",
                 "reduce_scatter_tensor", "reduce_scatter_tensor_coalesced", "all_to_all_single",
                 "all_reduce", "all_reduce_coalesced", "broadcast")
+
+
+# ops outside ``_c10d_functional`` that are collectives: name -> counted as
+_OTHER = {("_dtensor", "shard_dim_alltoall"): "all_to_all_single"}
 
 
 def ring_bytes(name: str, nbytes: int, group: int) -> int:
@@ -52,11 +60,19 @@ def _group_name(args, kwargs) -> str:
 
 
 def _group_size(name: str, args, kwargs) -> int:
+    if name == "shard_dim_alltoall":
+        return _resolve(args[3]).size()
     if name.startswith(("all_gather", "reduce_scatter")):
         return int(args[1] if name.startswith("all_gather") else args[2])
     from torch.distributed.distributed_c10d import _resolve_process_group
 
     return _resolve_process_group(_group_name(args, kwargs)).size()
+
+
+def _resolve(group):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(group) if isinstance(group, str) else group
 
 
 def _ranks(group) -> tuple:
@@ -84,6 +100,7 @@ class CollectiveCounter(TorchDispatchMode):
         super().__init__()
         self.calls: collections.Counter = collections.Counter()
         self.bytes: collections.Counter = collections.Counter()
+        self.payload: collections.Counter = collections.Counter()
         self.by_phase: collections.Counter = collections.Counter()
         self.by_axis: collections.Counter = collections.Counter()
         self.seconds: collections.Counter = collections.Counter()
@@ -93,11 +110,9 @@ class CollectiveCounter(TorchDispatchMode):
                 self._axes[_ranks(mesh.get_group(i))] = axis
         self._phase = None
 
-    def _axis(self, group_name: str):
+    def _axis(self, group_name):
         if group_name not in self._names:
-            from torch.distributed.distributed_c10d import _resolve_process_group
-
-            self._names[group_name] = self._axes.get(_ranks(_resolve_process_group(group_name)))
+            self._names[group_name] = self._axes.get(_ranks(_resolve(group_name)))
         return self._names[group_name]
 
     @contextlib.contextmanager
@@ -118,18 +133,27 @@ class CollectiveCounter(TorchDispatchMode):
             return func(*args, **(kwargs or {}))
         if any(t is DTensor for t in types):
             return NotImplemented  # let DTensor desugar to the collectives first
-        name = func.__name__.split(".")[0]
-        if func.namespace != "_c10d_functional" or name not in _COLLECTIVES:
-            return func(*args, **(kwargs or {}))
-        n = ring_bytes(name, _nbytes(args[0]), _group_size(name, args, kwargs or {}))
+        op = func.__name__.split(".")[0]
+        name = _OTHER.get((func.namespace, op), op)
+        if name not in _COLLECTIVES or (func.namespace != "_c10d_functional"
+                                        and (func.namespace, op) not in _OTHER):
+            return self.local_op(func, args, kwargs or {})
+        size = _nbytes(args[0])
+        n = ring_bytes(name, size, _group_size(op, args, kwargs or {}))
+        group = args[3] if op == "shard_dim_alltoall" else _group_name(args, kwargs or {})
         self.calls[name] += 1
         self.bytes[name] += n
+        self.payload[name] += size
         self.by_phase[(self._phase, name)] += n
-        self.by_axis[(self._phase, name, self._axis(_group_name(args, kwargs or {})))] += n
+        self.by_axis[(self._phase, name, self._axis(group))] += n
         t = time.perf_counter()
         out = func(*args, **(kwargs or {}))
         self.seconds[(self._phase, name)] += time.perf_counter() - t
         return out
+
+    def local_op(self, func, args, kwargs):
+        """Any other op on plain tensors: run it (a subclass counts it)."""
+        return func(*args, **kwargs)
 
 
 _STAGED: dict = {}  # device type -> its torch.library registration, kept alive
@@ -194,6 +218,17 @@ def eager_collectives(device_type: str = "CUDA") -> None:
         dist.all_gather(everyone, h, group=group)
         return torch.cat([part.chunk(n)[me] for part in everyone]).to(x.device)
 
+    def shard_dim_alltoall(x, gather_dim, shard_dim, group_name):
+        # DTensor's Shard(gather_dim) -> Shard(shard_dim) on a cuda mesh:
+        # every rank's block gathered, this rank's part of shard_dim kept
+        group = _resolve_process_group(group_name)
+        n, me = group.size(), group.rank()
+        h = host(x)
+        everyone = [torch.empty_like(h) for _ in range(n)]
+        dist.all_gather(everyone, h, group=group)
+        whole = torch.cat(everyone, dim=gather_dim)
+        return whole.chunk(n, dim=shard_dim)[me].contiguous().to(x.device)
+
     def broadcast(x, src, group_name):
         h = host(x).clone() if x.device.type == "cpu" else host(x)
         dist.broadcast(h, src=src, group=_resolve_process_group(group_name))
@@ -205,4 +240,6 @@ def eager_collectives(device_type: str = "CUDA") -> None:
                      ("all_reduce_", all_reduce_), ("all_to_all_single", all_to_all),
                      ("broadcast", broadcast)):
         lib.impl(name, fn, device_type)
-    _STAGED[device_type] = lib
+    dtensor_lib = torch.library.Library("_dtensor", "IMPL")
+    dtensor_lib.impl("shard_dim_alltoall", shard_dim_alltoall, device_type)
+    _STAGED[device_type] = (lib, dtensor_lib)

@@ -44,7 +44,7 @@ from repro_torch.models import placed
 from repro_torch.models.common import ModelConfig, apply_rope, dense_param, rms_norm, scalar
 
 __all__ = ["NEG_INF", "Attention", "project_qkv", "gqa_scores", "gqa_out", "causal_mask",
-           "softmax", "attend_full", "attend_chunked", "attention", "init_kv_cache",
+           "softmax", "attend_full", "attend_chunked", "attend", "attention", "init_kv_cache",
            "decode_attention", "cross_attention"]
 
 NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
@@ -182,14 +182,32 @@ def attend_chunked(q, k, v, cfg: ModelConfig, *, chunk: int, window: int = 0):
     return torch.cat(outs, dim=1)
 
 
-def _attend_placed(q, k, v, cfg: ModelConfig, window: int):
-    """`attend_full` on DTensors: each rank runs it on its own batch rows
-    and query heads (``local_map``), with the kv heads those query heads
-    read.  Attention is independent across batch rows and heads, so this is
-    the placed computation itself; DTensor's own rules for the grouped
-    products reshape a head dim sharded over 'model' together with a
-    neighbour, which it refuses for some shapes (torch 2.11, gemma-2b at
-    (4, 128))."""
+def attend(q, k, v, cfg: ModelConfig, *, causal: bool = True, window: int = 0):
+    """q (B, S, H, hd) over k, v (B, T, KV, hd) -> (B, S, H, hd): a causal
+    sequence longer than ``attn_chunk`` through `attend_chunked`, anything
+    else `attend_full` (``causal=False``: no mask, the window unused).  On
+    DTensors each rank attends with its own batch rows and query heads
+    (`_attend_placed`)."""
+    def local(q, k, v):
+        if causal and cfg.attn_chunk and q.shape[1] > cfg.attn_chunk:
+            return attend_chunked(q, k, v, cfg, chunk=cfg.attn_chunk, window=window)
+        return attend_full(q, k, v, cfg, causal=causal, window=window)
+
+    if placed.is_dtensor(q):
+        return _attend_placed(q, k, v, local)
+    return local(q, k, v)
+
+
+def _attend_placed(q, k, v, local):
+    """``local(q, k, v)`` (an attention) on DTensors: each rank runs it on
+    its own batch rows and query heads (``local_map``), with the kv heads
+    those query heads read, over the whole sequence.  Attention is
+    independent across batch rows and heads, so this is the placed
+    computation itself, and moves nothing where q, k and v come split that
+    way; DTensor's own rules for the grouped products reshape a head dim
+    sharded over 'model' together with a neighbour, which it refuses for
+    some shapes (torch 2.11, gemma-2b at (4, 128)), and take the chunked
+    loop's blocks one redistribution at a time."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -217,12 +235,13 @@ def _attend_placed(q, k, v, cfg: ModelConfig, window: int):
         first = mesh.get_local_rank(heads_split) * (h // mesh.size(heads_split))
 
     def run(q, k, v):
+        q, k, v = (placed.dense_grad(x) for x in (q, k, v))
         h_l, kv_l = q.shape[2], k.shape[2]
         if kv_l == kv and h_l < h:  # the kv heads of this rank's query heads
             group = h // kv
             lo, hi = first // group, (first + h_l - 1) // group + 1
             k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-        return attend_full(q, k, v, cfg, causal=True, window=window)
+        return local(q, k, v)
 
     qs, ks = tuple(q_pl), tuple(kv_pl)
     return local_map(run, out_placements=(qs,), in_placements=(qs, ks, ks),
@@ -238,13 +257,8 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
     q, k, v = project_qkv(p, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    window = _window(cfg, layer_window)
-    if cfg.attn_chunk and x.shape[1] > cfg.attn_chunk:
-        ctx = attend_chunked(q, k, v, cfg, chunk=cfg.attn_chunk, window=window)
-    elif placed.is_dtensor(q):
-        ctx = _attend_placed(q, k, v, cfg, window)
-    else:  # JAX's local-attention branch is these ops with the layer's window
-        ctx = attend_full(q, k, v, cfg, causal=True, window=window)
+    # JAX's local-attention branch is these ops with the layer's window
+    ctx = attend(q, k, v, cfg, causal=True, window=_window(cfg, layer_window))
     return torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(cfg.compute_dtype))
 
 
@@ -255,9 +269,7 @@ def cross_attention(p, cfg: ModelConfig, x: torch.Tensor, context: torch.Tensor,
     mask, no RoPE, the scores f32 and JAX's softmax; -> (B, S, D), times
     ``tanh(gate)`` (f32, cast to the output's dtype) when ``gated``."""
     q, k, v = project_qkv(p, cfg, x, kv_x=context)
-    scores = gqa_scores(q, k, cfg.head_dim ** -0.5).to(torch.float32)
-    probs = softmax(scores).to(q.dtype)
-    ctx = gqa_out(probs, v)
+    ctx = attend(q, k, v, cfg, causal=False)
     out = torch.einsum("bshk,hkd->bsd", ctx, p.wo.to(cfg.compute_dtype))
     if gated:
         out = torch.tanh(p.gate.to(torch.float32)).to(out.dtype) * out
@@ -296,6 +308,10 @@ def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos, *,
     cache_k, cache_v = cache["k"], cache["v"]
     b = x.shape[0]
     q, k_new, v_new = project_qkv(p, cfg, x)
+    # placed: every query head on each rank of a batch block (one token's
+    # worth), so the grouping below never splits a head dim that does not
+    # divide by the kv heads
+    q = placed.rows(q, x)
     positions = (pos.reshape(1, 1).expand(b, 1) if isinstance(pos, torch.Tensor)
                  else torch.full((b, 1), pos, device=x.device))  # no copy to the card
     q = apply_rope(q, positions, cfg.rope_theta)

@@ -50,7 +50,8 @@ class ModelConfig:
     ``dtype``; training keeps f32 masters (``param_dtype``) and casts them
     once a step (`repro_torch.train.train_step`).  ``remat`` recomputes
     each layer in the backward pass (``remat_policy="full"``; ``"dots"``
-    is refused by name), and the loss runs its softmax over
+    keeps the products without batch dims, as JAX's policy of that name),
+    and the loss runs its softmax over
     ``logit_chunk`` positions at a time.
     """
 
@@ -89,7 +90,7 @@ class ModelConfig:
     dtype: str = "bfloat16"  # matmul/activation dtype (a serving LM's weights too)
     param_dtype: str = "float32"  # master weights (training)
     remat: bool = True
-    remat_policy: str = "full"  # full (recompute all); "dots" is not ported
+    remat_policy: str = "full"  # full (recompute all) | dots (save the no-batch products)
     logit_chunk: int = 512  # CE computed in seq chunks of this size
     tie_embeddings: bool = False
     embed_scale: float = 1.0  # sqrt(d_model) for the gemma family

@@ -8,7 +8,11 @@ holds what those rules do not give: the context a placed model runs in
 (``with_sharding_constraint``), and the ops DTensor has no rule for, each
 placed explicitly on every rank's blocks: the vocab-sharded lookup
 (`embed_rows`), the loss's gold logits (`pick_last`), a product with an
-``out_dtype`` (`mm_local`) and a KV-cache write (`write_slot`).  A spec is a
+``out_dtype`` (`mm_local`) and a KV-cache write (`write_slot`); the
+layout of the residual stream (`rows`, `residual`: the batch's, so every
+sublayer starts from the same placements and DTensor's rules do not carry
+a reduce-scatter's sequence split from one sublayer into the next); and
+`dense_grad` for a ``local_map``'s inputs.  A spec is a
 tuple with one entry a tensor dimension, as a JAX ``PartitionSpec`` holds
 them: ``None``, a mesh axis name, or a tuple of names.
 """
@@ -19,7 +23,8 @@ import contextlib
 import torch
 
 __all__ = ["BATCH_AXES", "MODEL_AXIS", "is_dtensor", "implicit", "placements", "redistribute",
-           "replicate", "as_replicated", "write_slot", "embed_rows", "pick_last", "mm_local"]
+           "replicate", "as_replicated", "rows", "residual", "dense_grad",
+           "write_slot", "embed_rows", "pick_last", "mm_local"]
 
 BATCH_AXES = ("pod", "data")  # logical batch/replica axes (present subset used)
 MODEL_AXIS = "model"
@@ -129,6 +134,57 @@ def as_replicated(x: torch.Tensor, mesh):
     from torch.distributed.tensor import DTensor, Replicate
 
     return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def rows(x, like):
+    """``with_sharding_constraint`` of an activation (B, S, ...) to the
+    layout of ``like`` (the caller's placed tokens, frames or image): each
+    mesh dim that splits ``like``'s batch (dim 0) or sequence (dim 1)
+    splits ``x``'s the same way, every other mesh dim holds ``x`` whole (a
+    partial sum is all-reduced).  ``x`` itself where it is no DTensor."""
+    if not is_dtensor(x):
+        return x
+    return _to(x, _row_placements(x, like))
+
+
+def residual(x, o):
+    """``x + o`` for a layer's residual stream ``x`` and a sublayer's output
+    ``o``: a placed ``o`` (a partial sum after a row-split product) is
+    brought to ``x``'s layout first (`rows`), so the stream keeps one layout
+    through the layer (DTensor's rule for the sum of a replicated and a
+    partial tensor would carry the partial sum into the next norm)."""
+    return x + rows(o, x)
+
+
+def _row_placements(x, like) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not is_dtensor(like):
+        return [Replicate()] * x.device_mesh.ndim
+    return [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+            for p in like.placements]
+
+
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient.  An op
+    run through ``local_map`` returns its inputs' gradients as its backward
+    made them, transposed maybe; DTensor takes the layout of a gradient
+    from its global strides, and its ``view`` of a transposed block fails
+    (torch 2.11-2.13: the backward of the K projection feeding a
+    cross-attention)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def dense_grad(x):
+    """``x``, its gradient made contiguous in the backward pass (`_DenseGrad`)."""
+    return _DenseGrad.apply(x) if x.requires_grad else x
 
 
 def _to(x, placements_: list):

@@ -27,12 +27,23 @@ and ``softplus`` is ``jax.nn.softplus`` as JAX writes it,
 has a threshold of 20 and differs).  The weights are stored as the JAX
 code uses them: the matrices and ``conv_w`` / ``conv_b`` (cast at use) in
 the compute dtype, ``b_r``, ``b_i`` and ``lam`` f32.
+
+Placed (DTensors under `repro_torch.launch.sharding`'s rules: ``w_x``,
+``w_gmlp``, ``conv_w``, ``w_r``, ``w_i`` split their channels over 'model',
+``w_out`` its rows), the block's channels stay split from ``w_x`` to
+``w_out``.  The conv and the scan run on each rank's own batch rows and
+channels (``local_map``: both act per channel along the whole, unsplit
+sequence), so neither moves a byte; the gates' products mix the
+channels and read ``u`` whole (one all-gather over 'model' a layer, both
+gates); ``w_out``'s product leaves a partial sum, all-reduced where the
+residual stream is held (`placed.rows`).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.models import placed
 from repro_torch.models.common import ModelConfig, dense_param, sigmoid
 from repro_torch.models.ffn import gelu_tanh
 
@@ -110,6 +121,8 @@ def causal_conv1d(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, s
     ``state``: (B, W-1, C), the previous segment's last inputs (decode).
     Returns (y, new_state), the taps added in order in u's dtype.
     """
+    if placed.is_dtensor(u):
+        return _conv_placed(u, conv_w, conv_b, state)
     w = conv_w.shape[0]
     if state is None:
         state = torch.zeros((u.shape[0], w - 1, u.shape[-1]), dtype=u.dtype, device=u.device)
@@ -121,10 +134,45 @@ def causal_conv1d(u: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, s
     return y + conv_b.to(u.dtype), ext[:, ext.shape[1] - (w - 1):]
 
 
+def _conv_placed(u, conv_w, conv_b, state):
+    """`causal_conv1d` on DTensors: each rank convolves its own batch rows
+    and channels with its channels' taps (``local_map``; the conv is
+    depthwise, so no channel reads another).  A mesh dim that splits
+    neither is gathered first; the decode state has ``u``'s layout."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = u.device_mesh
+    u_pl, w_pl, b_pl, w_grad, b_grad = [], [], [], [], []
+    for p in u.placements:
+        if p == Shard(2):  # channels
+            u_pl.append(p)
+            w_pl.append(Shard(1))
+            b_pl.append(Shard(0))
+        else:  # batch rows, or gathered: every rank holds every tap
+            u_pl.append(p if p == Shard(0) else Replicate())
+            w_pl.append(Replicate())
+            b_pl.append(Replicate())
+        w_grad.append(Partial() if p == Shard(0) else w_pl[-1])
+        b_grad.append(Partial() if p == Shard(0) else b_pl[-1])
+    u_pl, w_pl, b_pl = tuple(u_pl), tuple(w_pl), tuple(b_pl)
+    conv_w, conv_b = (x if placed.is_dtensor(x) else placed.as_replicated(x, mesh)
+                      for x in (conv_w, conv_b))
+    args, in_pl, grad_pl = (u, conv_w, conv_b), (u_pl, w_pl, b_pl), (u_pl, tuple(w_grad),
+                                                                      tuple(b_grad))
+    if state is not None:
+        args, in_pl, grad_pl = args + (state,), in_pl + (u_pl,), grad_pl + (u_pl,)
+    return local_map(causal_conv1d, out_placements=(u_pl, u_pl), in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def _gates(p, u: torch.Tensor, dt: torch.dtype):
-    """(a, gated input) of u (B, S, C), both f32."""
-    r = sigmoid((u @ p.w_r.to(dt)).to(torch.float32) + p.b_r)
-    i = sigmoid((u @ p.w_i.to(dt)).to(torch.float32) + p.b_i)
+    """(a, gated input) of u (B, S, C), both f32 (placed: u whole over the
+    channels for the products, which mix them)."""
+    whole = placed.rows(u, u)
+    r = sigmoid((whole @ p.w_r.to(dt)).to(torch.float32) + p.b_r)
+    i = sigmoid((whole @ p.w_i.to(dt)).to(torch.float32) + p.b_i)
     log_a = -softplus(-p.lam)  # log sigmoid(lam), in lam's dtype
     a = torch.exp(_C * r * log_a)  # (B, S, C) f32
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-12)) * i * u.to(torch.float32)
@@ -172,8 +220,24 @@ def rglru_scan(p, cfg: ModelConfig, u: torch.Tensor, h0: torch.Tensor | None = N
         # fold the initial state in as a virtual step: h_t = (prod a) h0 + ...
         first = bterm[:, :1] + (a[:, 0] * h0.to(torch.float32))[:, None]
         bterm = torch.cat([first, bterm[:, 1:]], dim=1)
-    _, h = associative_scan(a, bterm)
+    if placed.is_dtensor(a):
+        _, h = _scan_placed(a, bterm)
+    else:
+        _, h = associative_scan(a, bterm)
     return h.to(dt), h[:, -1]
+
+
+def _scan_placed(a, b):
+    """`associative_scan` on DTensors (B, S, C): each rank scans its own
+    batch rows and channels along the whole sequence (``local_map``); a
+    mesh dim that splits neither is gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in a.placements)
+    return local_map(associative_scan, out_placements=(pl, pl), in_placements=(pl, pl),
+                     in_grad_placements=(pl, pl), device_mesh=a.device_mesh,
+                     redistribute_inputs=True)(a, b)
 
 
 def rglru_step(p, cfg: ModelConfig, u_t: torch.Tensor, h: torch.Tensor):

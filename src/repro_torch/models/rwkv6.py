@@ -259,10 +259,10 @@ class RWKVBlock(nn.Module):
         """x: (B, S, D), state: this layer's decode state. Returns (x', state')."""
         h = rms_norm(x, self.norm1)
         o, tm_last, wkv = self.tm(h, state["tm_last"], state["wkv"])
-        x = x + o
+        x = placed.residual(x, o)
         h = rms_norm(x, self.norm2)
         o, cm_last = self.cm(h, state["cm_last"])
-        x = x + o
+        x = placed.residual(x, o)
         return x, {"tm_last": tm_last, "cm_last": cm_last, "wkv": wkv}
 
 

@@ -39,11 +39,18 @@ own by default (serving, whose `LM` holds its bf16 tensors), or ``params``
 with a template `LM` on the ``meta`` device that holds no memory).  With
 ``cfg.remat`` and autograd recording, each layer runs under one
 non-reentrant `torch.utils.checkpoint` (JAX's ``jax.checkpoint`` of each
-scanned group; a group is one layer).  The layer's tensors are
+scanned group; a group is one layer); ``remat_policy="dots"`` keeps the
+products without batch dims from the forward pass and recomputes the rest
+(JAX's ``dots_with_no_batch_dims_saveable``, through torch's selective
+checkpoint; whisper's layers recompute whole, as JAX's do).  The layer's
+tensors are
 arguments of the checkpointed function, so its recompute in the backward
 pass runs on the same tensors.  So serving and training share one set of
 modules and one loop (`run_layer`, which `repro_torch.models.whisper`
-uses too), and the masters stay f32.
+uses too), and the masters stay f32.  A placed model's residual stream
+enters each layer, and the final norm, in its tokens' layout
+(`placed.rows`).  On the ``meta`` device `init_params` draws nothing: the
+module holds the shapes and dtypes alone (JAX's ``eval_shape``).
 """
 from __future__ import annotations
 
@@ -65,7 +72,8 @@ from repro_torch.models.ffn import FFN
 
 __all__ = ["layer_pattern", "plan", "layer_kinds", "DenseBlock", "RGLRUBlock", "MoEBlock",
            "CrossBlock", "LM", "init_params", "norm_param", "embed", "layer_params",
-           "model_params", "remat_enabled", "run_layer", "backbone", "unembed_matrix",
+           "model_params", "generator_for", "REMAT_POLICIES", "remat_enabled", "run_layer",
+           "backbone", "unembed_matrix",
            "mm_f32", "last_logits", "lm_loss", "forward_loss", "init_decode_state",
            "decode_step"]
 
@@ -132,8 +140,9 @@ class DenseBlock(nn.Module):
                 cfg: ModelConfig) -> torch.Tensor:
         """x (B, S, D) at ``positions`` (B, S) -> (B, S, D)."""
         h = rms_norm(x, self.norm1)
-        x = x + attn_lib.attention(self.attn, cfg, h, positions, layer_window=self.window(cfg))
-        return x + self.ffn(rms_norm(x, self.norm2))
+        x = placed.residual(x, attn_lib.attention(self.attn, cfg, h, positions,
+                                                  layer_window=self.window(cfg)))
+        return placed.residual(x, self.ffn(rms_norm(x, self.norm2)))
 
     def decode(self, x: torch.Tensor, pos, cache: dict, cfg: ModelConfig):
         """One token x (B, 1, D) at ``pos`` against the layer's KV cache
@@ -141,8 +150,8 @@ class DenseBlock(nn.Module):
         h = rms_norm(x, self.norm1)
         o, cache = attn_lib.decode_attention(self.attn, cfg, h, cache, pos,
                                              layer_window=self.window(cfg))
-        x = x + o
-        return x + self.ffn(rms_norm(x, self.norm2)), cache
+        x = placed.residual(x, o)
+        return placed.residual(x, self.ffn(rms_norm(x, self.norm2))), cache
 
 
 class RGLRUBlock(nn.Module):
@@ -165,8 +174,8 @@ class RGLRUBlock(nn.Module):
         """x (B, S, D) from ``state`` (``{"conv", "h"}``, one token a step;
         None: the scan from zero). Returns (x', new state)."""
         o, state = rglru_lib.rglru_block(self.mix, cfg, rms_norm(x, self.norm1), state)
-        x = x + o
-        return x + self.ffn(rms_norm(x, self.norm2)), state
+        x = placed.residual(x, o)
+        return placed.residual(x, self.ffn(rms_norm(x, self.norm2))), state
 
 
 class MoEBlock(nn.Module):
@@ -183,14 +192,14 @@ class MoEBlock(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
         h = rms_norm(x, self.norm1)
-        x = x + attn_lib.attention(self.attn, cfg, h, positions)
-        return x + moe_lib.moe_ffn(self.moe, cfg, rms_norm(x, self.norm2))
+        x = placed.residual(x, attn_lib.attention(self.attn, cfg, h, positions))
+        return placed.residual(x, moe_lib.moe_ffn(self.moe, cfg, rms_norm(x, self.norm2)))
 
     def decode(self, x: torch.Tensor, pos, cache: dict, cfg: ModelConfig):
         h = rms_norm(x, self.norm1)
         o, cache = attn_lib.decode_attention(self.attn, cfg, h, cache, pos)
-        x = x + o
-        return x + moe_lib.moe_ffn(self.moe, cfg, rms_norm(x, self.norm2)), cache
+        x = placed.residual(x, o)
+        return placed.residual(x, moe_lib.moe_ffn(self.moe, cfg, rms_norm(x, self.norm2))), cache
 
 
 class CrossBlock(nn.Module):
@@ -209,8 +218,8 @@ class CrossBlock(nn.Module):
                 ctx: torch.Tensor | None = None) -> torch.Tensor:
         """x (B, S, D) over ``ctx`` (B, T, D); None: over the normed x."""
         h = rms_norm(x, self.norm1)
-        x = x + attn_lib.cross_attention(self.attn, cfg, h, ctx, gated=True)
-        return x + self.ffn(rms_norm(x, self.norm2))
+        x = placed.residual(x, attn_lib.cross_attention(self.attn, cfg, h, ctx, gated=True))
+        return placed.residual(x, self.ffn(rms_norm(x, self.norm2)))
 
     def decode(self, x: torch.Tensor, pos, state: dict, cfg: ModelConfig,
                ctx: torch.Tensor | None = None):
@@ -242,11 +251,19 @@ class LM(nn.Module):
 
 def init_params(cfg: ModelConfig, generator, device="cuda") -> LM:
     """An `LM` with weights drawn from ``generator`` (a `torch.Generator` on
-    ``device``, or an int seed for one)."""
+    ``device``, or an int seed for one); on ``meta``, shapes only."""
     device = resolve_device(device)
+    return LM(cfg, generator_for(generator, device), device)
+
+
+def generator_for(generator, device: torch.device):
+    """``generator`` as a `torch.Generator` on ``device`` (an int seeds
+    one); None on ``meta``, where a module draws nothing."""
+    if device.type == "meta":
+        return None
     if isinstance(generator, int):
-        generator = torch.Generator(device=device).manual_seed(generator)
-    return LM(cfg, generator, device)
+        return torch.Generator(device=device).manual_seed(generator)
+    return generator
 
 
 def layer_params(params: dict, prefix: str, layer: nn.Module) -> dict:
@@ -259,20 +276,42 @@ def model_params(model: nn.Module, params: dict | None) -> dict:
     return dict(model.named_parameters()) if params is None else params
 
 
-def remat_enabled(cfg: ModelConfig, params: dict) -> bool:
-    """Whether the layers recompute in the backward pass: ``cfg.remat``,
-    autograd recording and a tensor of ``params`` requiring grad."""
+REMAT_POLICIES = ("full", "dots")
+
+
+def remat_enabled(cfg: ModelConfig, params: dict):
+    """How the layers recompute in the backward pass: False (no
+    ``cfg.remat``, or autograd not recording, or no tensor of ``params``
+    requiring grad), else ``cfg.remat_policy`` (``"full"`` or ``"dots"``)."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one of {REMAT_POLICIES}")
     remat = (cfg.remat and torch.is_grad_enabled()
              and any(p.requires_grad for p in params.values()))
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"not yet ported: remat_policy={cfg.remat_policy!r} (the port recomputes "
-            "whole layers, remat_policy='full')")
-    return remat
+    return cfg.remat_policy if remat else False
 
 
-def run_layer(run, x: torch.Tensor, lp: dict, remat: bool) -> torch.Tensor:
-    """``run(x, lp)``: under one non-reentrant checkpoint with ``remat``."""
+def _saves_dots(ctx, func, *args, **kwargs):
+    """Selective checkpoint's policy for ``"dots"``: the outputs of the
+    products with no batch dims (``mm``, ``addmm``, a ``bmm`` of batch 1,
+    which is how `torch.einsum` multiplies with none) are saved, everything
+    else recomputed (JAX's ``dots_with_no_batch_dims_saveable``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    packet = getattr(func, "_overloadpacket", None)
+    dot = packet in (torch.ops.aten.mm, torch.ops.aten.addmm) or (
+        packet is torch.ops.aten.bmm and args[0].shape[0] == 1)
+    return CheckpointPolicy.MUST_SAVE if dot else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_layer(run, x: torch.Tensor, lp: dict, remat) -> torch.Tensor:
+    """``run(x, lp)``: under one non-reentrant checkpoint with ``remat``
+    (``"full"``, or ``"dots"``: selective, `_saves_dots`)."""
+    if remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return torch.utils.checkpoint.checkpoint(
+            run, x, lp, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _saves_dots))
     if remat:
         return torch.utils.checkpoint.checkpoint(run, x, lp, use_reentrant=False)
     return run(x, lp)
@@ -314,8 +353,9 @@ def backbone(model: LM, cfg: ModelConfig, tokens: torch.Tensor, ctx=None,
             def run(x, lp, layer=layer):
                 return functional_call(layer, lp, (x, positions, cfg))
 
-        x = run_layer(run, x, layer_params(params, f"layers.{n}.", layer), remat)
-    return rms_norm(x, params["final_norm"])
+        x = run_layer(run, placed.rows(x, tokens), layer_params(params, f"layers.{n}.", layer),
+                      remat)
+    return rms_norm(placed.rows(x, tokens), params["final_norm"])
 
 
 def unembed_matrix(model: LM, cfg: ModelConfig, params: dict | None = None) -> torch.Tensor:
@@ -440,6 +480,7 @@ def decode_step(model: LM, cfg: ModelConfig, state: list[dict], token: torch.Ten
     x = embed(model.embed, cfg, token)
     new_state = []
     for layer, kind, st in zip(model.layers, layer_kinds(cfg), state, strict=True):
+        x = placed.rows(x, token)
         if kind == "rwkv":
             x, st = layer(x, st)
         elif kind == "cross":
@@ -447,5 +488,5 @@ def decode_step(model: LM, cfg: ModelConfig, state: list[dict], token: torch.Ten
         else:
             x, st = layer.decode(x, pos, st, cfg)
         new_state.append(st)
-    hidden = rms_norm(x, model.final_norm)
+    hidden = rms_norm(placed.rows(x, token), model.final_norm)
     return last_logits(model, cfg, hidden), new_state

@@ -36,6 +36,7 @@ from torch.func import functional_call
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import placed
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, dense_param, rms_norm, sinusoid_positions
 from repro_torch.models.ffn import FFN
@@ -57,9 +58,10 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = rms_norm(x, self.norm1)
         q, k, v = attn_lib.project_qkv(self.attn, cfg, h)
-        ctx = attn_lib.attend_full(q, k, v, cfg, causal=False)
-        x = x + torch.einsum("bshk,hkd->bsd", ctx, self.attn.wo.to(cfg.compute_dtype))
-        return x + self.ffn(rms_norm(x, self.norm2))
+        ctx = attn_lib.attend(q, k, v, cfg, causal=False)
+        x = placed.residual(x, torch.einsum("bshk,hkd->bsd", ctx,
+                                            self.attn.wo.to(cfg.compute_dtype)))
+        return placed.residual(x, self.ffn(rms_norm(x, self.norm2)))
 
 
 class DecoderLayer(nn.Module):
@@ -78,13 +80,13 @@ class DecoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                 enc_out: torch.Tensor) -> torch.Tensor:
         h = rms_norm(x, self.norm1)
-        x = x + attn_lib.attention(self.self, cfg, h, positions)
+        x = placed.residual(x, attn_lib.attention(self.self, cfg, h, positions))
         return self._cross_and_ffn(x, cfg, enc_out)
 
     def _cross_and_ffn(self, x, cfg, enc_out):
         h = rms_norm(x, self.norm2)
-        x = x + attn_lib.cross_attention(self.cross, cfg, h, enc_out)
-        return x + self.ffn(rms_norm(x, self.norm3))
+        x = placed.residual(x, attn_lib.cross_attention(self.cross, cfg, h, enc_out))
+        return placed.residual(x, self.ffn(rms_norm(x, self.norm3)))
 
     def decode(self, x: torch.Tensor, pos, cache: dict, cfg: ModelConfig,
                enc_out: torch.Tensor):
@@ -93,7 +95,7 @@ class DecoderLayer(nn.Module):
         Returns (x', cache)."""
         h = rms_norm(x, self.norm1)
         o, cache = attn_lib.decode_attention(self.self, cfg, h, cache, pos)
-        return self._cross_and_ffn(x + o, cfg, enc_out), cache
+        return self._cross_and_ffn(placed.residual(x, o), cfg, enc_out), cache
 
 
 class WhisperLM(nn.Module):
@@ -115,11 +117,10 @@ class WhisperLM(nn.Module):
 
 def init_params(cfg: ModelConfig, generator, device="cuda") -> WhisperLM:
     """A `WhisperLM` with weights drawn from ``generator`` (a
-    `torch.Generator` on ``device``, or an int seed for one)."""
+    `torch.Generator` on ``device``, or an int seed for one); on ``meta``,
+    shapes only."""
     device = resolve_device(device)
-    if isinstance(generator, int):
-        generator = torch.Generator(device=device).manual_seed(generator)
-    return WhisperLM(cfg, generator, device)
+    return WhisperLM(cfg, tf.generator_for(generator, device), device)
 
 
 def encode(model: WhisperLM, cfg: ModelConfig, frames: torch.Tensor,
@@ -128,7 +129,7 @@ def encode(model: WhisperLM, cfg: ModelConfig, frames: torch.Tensor,
     D) in the compute dtype; see `repro_torch.models.transformer.backbone`
     for ``params``."""
     params = tf.model_params(model, params)
-    remat = tf.remat_enabled(cfg, params)
+    remat = tf.remat_enabled(cfg, params) and "full"  # JAX's whisper: whole layers
     dt = cfg.compute_dtype
     x = frames.to(dt) + sinusoid_positions(frames.shape[1], cfg.d_model,
                                            device=frames.device).to(dt)
@@ -136,8 +137,9 @@ def encode(model: WhisperLM, cfg: ModelConfig, frames: torch.Tensor,
         def run(x, lp, layer=layer):
             return functional_call(layer, lp, (x, cfg))
 
-        x = tf.run_layer(run, x, tf.layer_params(params, f"enc.{n}.", layer), remat)
-    return rms_norm(x, params["enc_norm"])
+        x = tf.run_layer(run, placed.rows(x, frames), tf.layer_params(params, f"enc.{n}.", layer),
+                         remat)
+    return rms_norm(placed.rows(x, frames), params["enc_norm"])
 
 
 def decoder(model: WhisperLM, cfg: ModelConfig, tokens: torch.Tensor, enc_out: torch.Tensor,
@@ -145,7 +147,7 @@ def decoder(model: WhisperLM, cfg: ModelConfig, tokens: torch.Tensor, enc_out: t
     """Token ids (B, S) over ``enc_out`` -> the decoder's final hidden
     states (B, S, D)."""
     params = tf.model_params(model, params)
-    remat = tf.remat_enabled(cfg, params)
+    remat = tf.remat_enabled(cfg, params) and "full"
     x = tf.embed(params["embed"], cfg, tokens)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
@@ -153,8 +155,9 @@ def decoder(model: WhisperLM, cfg: ModelConfig, tokens: torch.Tensor, enc_out: t
         def run(x, lp, layer=layer):
             return functional_call(layer, lp, (x, positions, cfg, enc_out))
 
-        x = tf.run_layer(run, x, tf.layer_params(params, f"dec.{n}.", layer), remat)
-    return rms_norm(x, params["final_norm"])
+        x = tf.run_layer(run, placed.rows(x, tokens), tf.layer_params(params, f"dec.{n}.", layer),
+                         remat)
+    return rms_norm(placed.rows(x, tokens), params["final_norm"])
 
 
 def forward_loss(model: WhisperLM, cfg: ModelConfig, batch, params: dict | None = None):
@@ -187,6 +190,6 @@ def decode_step(model: WhisperLM, cfg: ModelConfig, state: list[dict], token: to
     x = tf.embed(model.embed, cfg, token)
     new_state = []
     for layer, cache in zip(model.dec, state, strict=True):
-        x, cache = layer.decode(x, pos, cache, cfg, enc_out)
+        x, cache = layer.decode(placed.rows(x, token), pos, cache, cfg, enc_out)
         new_state.append(cache)
-    return tf.last_logits(model, cfg, rms_norm(x, model.final_norm)), new_state
+    return tf.last_logits(model, cfg, rms_norm(placed.rows(x, token), model.final_norm)), new_state

@@ -16,7 +16,13 @@ makes them unsharded:
   tokens), the MoE routing of every call (``expert_idx``), whether every
   rank's blocks have its spec's shapes, and one training step with the
   masters and moments in the FSDP layout; on (2, 2) also the sampling
-  loop and the refusals of a plain batch and of misplaced masters;
+  loop and the refusals of a plain batch and of misplaced masters.  The
+  vlm runs over a seeded image with its cross gates set to 1 (a zero
+  gate adds exactly 0), whisper over seeded frames (`context_inputs`).
+  For the cells of ``DRY`` the collectives rank 0 counts in the serving
+  and in the training step, by (phase, collective, mesh axis), and its
+  resident bytes, for `tests/_torch_dryrun_child.py`'s dry run of the
+  same programs to equal;
 * ``TRAIN``: the training step against JAX's GSPMD step (gemma on (2, 2),
   2 steps from the initial state the JAX child wrote) and against the
   unsharded port (gemma on (2, 1), 2 microbatches), with the collective
@@ -60,7 +66,15 @@ SERVE = {
     "moe3_2x2": ("qwen3_moe_235b", (2, 2), {"n_experts": 3, "top_k": 2}),
     "moe3_ts_2x2": ("qwen3_moe_235b", (2, 2), {"n_experts": 3, "top_k": 2,
                                                "moe_token_stationary": True}),
+    "hybrid_2x2": ("recurrentgemma_9b", (2, 2), {}),
+    "hybrid_1x2": ("recurrentgemma_9b", (1, 2), {}),
+    "vlm_2x2": ("llama32_vision_11b", (2, 2), {}),
+    "vlm_1x2": ("llama32_vision_11b", (1, 2), {}),
+    "encdec_2x2": ("whisper_medium", (2, 2), {}),
+    "encdec_1x2": ("whisper_medium", (1, 2), {}),
 }
+# the cells whose counted collectives and resident bytes a dry run repeats
+DRY = ("hybrid_2x2", "hybrid_1x2", "vlm_2x2", "vlm_1x2", "encdec_2x2", "encdec_1x2")
 # name -> (mesh, microbatches, start from JAX's initial state)
 TRAIN = {
     "train_jax_2x2": ((2, 2), 1, True),
@@ -85,43 +99,94 @@ def train_batch(vocab: int = 512) -> dict:
     return {"tokens": t, "labels": np.roll(t, -1, axis=1)}
 
 
+def context_inputs(cfg, device="cpu") -> dict:
+    """The family's context in a batch: a seeded image (B, img_tokens, D)
+    for the vlm, frames (B, enc_seq, D) for whisper, f32 N(0, 1); else
+    nothing.  On ``meta``, its shape."""
+    name, n = {"vlm": ("img", cfg.img_tokens), "encdec": ("frames", cfg.enc_seq)}.get(
+        cfg.family, (None, 0))
+    if name is None:
+        return {}
+    import torch
+
+    shape = (B, n, cfg.d_model)
+    if str(device) == "meta":
+        return {name: torch.empty(shape, device="meta")}
+    return {name: torch.from_numpy(np.random.default_rng(5).normal(size=shape)
+                                   .astype(np.float32))}
+
+
+def open_gates(named: dict) -> None:
+    """The vlm's cross gates set to 1.0 in place (JAX makes them 0)."""
+    for name, p in named.items():
+        if name.endswith(".gate"):
+            p.data.fill_(1.0)
+
+
+def init_model(cfg, device="cpu"):
+    from repro_torch.models import model as model_lib
+
+    model = model_lib.init_params(cfg, 0, device=device)
+    open_gates(dict(model.named_parameters()))
+    return model
+
+
+def init_train_state(cfg, device="cpu"):
+    from repro_torch.train import train_step as ts
+
+    state = ts.init_state(cfg, 0, device=device)
+    open_gates(state.params)
+    return state
+
+
 def opt_config():
     from repro_torch.train.optimizer import AdamWConfig
 
     return AdamWConfig(warmup_steps=WARMUP)
 
 
-def serve(model, cfg, mesh=None, routing=None):
-    """Prefill logits, then DECODE greedy steps: (prefill (B, V), decode
-    logits (DECODE, B, V), tokens (DECODE + 1, B)), every tensor whole."""
+def serve(model, cfg, mesh=None, routing=None, device="cpu"):
+    """Prefill logits, then DECODE greedy steps over the family's context:
+    (prefill (B, V), decode logits (DECODE, B, V), tokens (DECODE + 1, B)),
+    every tensor whole (on ``meta``, the dry run of the same calls: None)."""
     import torch
 
     from repro_torch.launch import sharding
     from repro_torch.models import model as model_lib
+    from repro_torch.models import placed, whisper
 
     def put(x, spec_fn):
         return x if mesh is None else sharding.place(x, spec_fn(x), mesh)
 
-    batch = put({"tokens": torch.from_numpy(prompt(cfg.vocab))},
+    batch = put({"tokens": torch.from_numpy(prompt(cfg.vocab)).to(device),
+                 **context_inputs(cfg, device)},
                 lambda b: sharding.batch_shardings(mesh, b))
     with torch.no_grad():
         pre = sharding.gather(model_lib.prefill_logits(model, cfg, batch))
-        state = model_lib.init_decode_state(cfg, B, DECODE + 2, device="cpu")
+        ctx = batch.get("img")
+        if cfg.family == "encdec":
+            with placed.implicit(model, inputs=batch["frames"]):
+                ctx = whisper.encode(model, cfg, batch["frames"])
+        state = model_lib.init_decode_state(cfg, B, DECODE + 2, device=device)
         state = put(state, lambda st: sharding.decode_state_shardings(mesh, st, cfg))
-        token = torch.from_numpy(prompt(cfg.vocab)[:, :1])
+        token = torch.from_numpy(prompt(cfg.vocab)[:, :1]).to(device)
         logits, tokens = [], [token[:, 0]]
         for pos in range(DECODE):
             step_in = put(token, lambda t: sharding.batch_shardings(mesh, t))
-            lg, state = model_lib.decode_step(model, cfg, state, step_in, pos)
+            lg, state = model_lib.decode_step(model, cfg, state, step_in, pos, ctx=ctx)
             lg = sharding.gather(lg)
             token = torch.argmax(lg, dim=-1)[:, None]
             logits.append(lg)
             tokens.append(token[:, 0])
+    if str(device) == "meta":
+        return None
     return pre.numpy(), torch.stack(logits).numpy(), torch.stack(tokens).numpy()
 
 
-def train(state, cfg, steps: int, microbatches: int = 1, mesh=None, counter=None):
-    """``steps`` training steps of `train_batch`; returns (state, losses)."""
+def train(state, cfg, steps: int, microbatches: int = 1, mesh=None, counter=None,
+          device="cpu"):
+    """``steps`` training steps of `train_batch` and the family's context;
+    returns (state, losses) (on ``meta``, the dry run: losses None)."""
     import torch
 
     from repro_torch.launch import sharding
@@ -134,12 +199,15 @@ def train(state, cfg, steps: int, microbatches: int = 1, mesh=None, counter=None
         kw = dict(cast_shardings=sharding.param_shardings(mesh, state.params, cfg),
                   grad_shardings=fsdp, counter=counter)
     step = ts.make_train_step(cfg, opt_config(), microbatches=microbatches, **kw)
-    batch = {k: torch.from_numpy(v) for k, v in train_batch(cfg.vocab).items()}
+    batch = {**{k: torch.from_numpy(v).to(device) for k, v in train_batch(cfg.vocab).items()},
+             **context_inputs(cfg, device)}
     losses = []
     for _ in range(steps):
         state, metrics = step(state, batch)
-        losses.append(float(sharding.gather(metrics["loss"])))
-    return state, np.asarray(losses)
+        losses.append(sharding.gather(metrics["loss"]))
+    if str(device) == "meta":
+        return state, None
+    return state, np.asarray([float(x) for x in losses])
 
 
 def blocks_match(params: dict, specs: dict, mesh) -> bool:
@@ -184,6 +252,23 @@ def _refusals(model, cfg, mesh) -> dict:
         out["refused_masters_layout"] = np.asarray(False)
     except ValueError as e:
         out["refused_masters_layout"] = np.asarray("place_state" in str(e))
+    return out
+
+
+def counted(name: str, counters: dict, model, state) -> dict:
+    """A cell's counted collectives (bytes by ``{name}_coll.{stage}.{phase}.
+    {collective}.{axis}``) and resident bytes (``{name}_resident.model`` /
+    ``.state``: the rank's blocks of the placed model, and of the training
+    state's masters and moments)."""
+    from repro_torch.launch.dryrun import local_bytes
+
+    out = {}
+    for stage, counter in counters.items():
+        for (phase, coll, axis), n in counter.by_axis.items():
+            out[f"{name}_coll.{stage}.{phase}.{coll}.{axis}"] = np.asarray(n)
+    out[f"{name}_resident.model"] = np.asarray(local_bytes(model))
+    out[f"{name}_resident.state"] = np.asarray(
+        local_bytes([state.params, state.opt.mu, state.opt.nu]))
     return out
 
 
@@ -242,13 +327,15 @@ def _rank(rank: int, outdir: str) -> None:
     for name, (arch, shape, kw) in SERVE.items():
         cfg = config(arch, **kw)
         mesh = _mesh(shape)
-        model = model_lib.init_params(cfg, 0, device="cpu")
+        model = init_model(cfg)
         specs = sharding.param_shardings(mesh, model, cfg)
         sharding.place_module(model, specs, mesh)
         log: list = []
         inner = _record_routing(log)
+        counters = {"serve": comm.CollectiveCounter(mesh), "train": comm.CollectiveCounter(mesh)}
         try:
-            pre, dec, tok = serve(model, cfg, mesh)
+            with counters["serve"]:
+                pre, dec, tok = serve(model, cfg, mesh)
         finally:
             moe.dispatch = inner
         if name == "gemma_2x2":  # the sampling loop, its state and tokens placed
@@ -260,7 +347,8 @@ def _rank(rank: int, outdir: str) -> None:
             refused = _refusals(model, cfg, mesh)
             if rank == 0:
                 out.update(refused)
-        st, _ = train(ts.init_state(cfg, 0, device="cpu"), cfg, 1, mesh=mesh)
+        with counters["train"]:
+            st, _ = train(init_train_state(cfg), cfg, 1, mesh=mesh, counter=counters["train"])
         fsdp = sharding.param_shardings(mesh, st.params, cfg, fsdp=True)
         ok = (blocks_match(dict(model.named_parameters()), specs, mesh)
               and blocks_match(st.params, fsdp, mesh) and blocks_match(st.opt.nu, fsdp, mesh))
@@ -272,6 +360,8 @@ def _rank(rank: int, outdir: str) -> None:
                 out[f"{name}_routing"] = torch.cat([x.reshape(-1) for x in log]).numpy()
             for n, p in masters.items():
                 out[f"{name}_train.{n}"] = p.numpy()
+            if name in DRY:
+                out.update(counted(name, counters, model, st))
 
     init = _jax_init(outdir)
     for name, (shape, mb, from_jax) in TRAIN.items():

@@ -402,7 +402,9 @@ def test_round_wrappers_refuse_mismatched_rows_before_launch(system, bad, match)
 
 
 def test_ops_refuse_other_devices():
-    spins = torch.ones((2, 4, 4), dtype=torch.int8)
+    """An op with no dry-run path refuses ``meta`` tensors by name (the
+    sweeps the dry run reaches return shapes there: tests/test_torch_dryrun.py)."""
+    states = torch.ones((2, 4, 4), dtype=torch.int8)
     with pytest.raises(ValueError, match="no sweep kernel"):
-        tops.ising_sweep_fused(spins.to("meta"), tkeys.key(0), 0, torch.ones(2),
-                               n_sweeps=1)
+        tops.potts_sweep(states.to("meta"), torch.ones((2, 2, 4, 4)).to("meta"), torch.ones(2),
+                         q=3)

@@ -1,8 +1,10 @@
 """The port's LM placement layer (`repro_torch.launch.sharding` over
 DTensor) on 4 gloo ranks, against the unsharded port and the JAX package.
 
-``tests/_torch_sharded_child.py`` (4 ranks, imports no JAX) and
-``tests/_jax_sharded_child.py`` (4 forced host devices) run once a module,
+``tests/_torch_sharded_child.py`` (4 ranks, imports no JAX),
+``tests/_jax_sharded_child.py`` (4 forced host devices) and
+``tests/_torch_dryrun_child.py counts`` (the dry run of the hybrid, vlm
+and encdec cells on ``meta`` tensors over a fake group) run once a module,
 side by side.  Reduced configs in f32.
 
 Tolerances (f32; a placed run sums in another order: the model axis
@@ -17,7 +19,9 @@ splits the contractions, the data axis the batch reductions):
   largest magnitude (its gradients are sums over the batch in another
   order), the loss within 1e-6 relative;
 * PT-LM on ``MeshSpec(1, 2)``: tokens, rungs and swap counters equal to
-  JAX's mesh run, energies within 8 ulps of their magnitude.
+  JAX's mesh run, energies within 8 ulps of their magnitude;
+* the dry run's collective bytes (by stage, phase, collective and mesh
+  axis) and resident bytes equal rank 0's readings exactly.
 """
 import os
 import subprocess
@@ -49,13 +53,16 @@ def runs(tmp_path_factory):
     outputs, JAX outputs, unsharded runs)."""
     outdir = tmp_path_factory.mktemp("sharded")
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, script), str(outdir)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for script in ("_jax_sharded_child.py", "_torch_sharded_child.py")]
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, script), *mode, str(outdir)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for script, *mode in (("_jax_sharded_child.py",), ("_torch_sharded_child.py",),
+                                   ("_torch_dryrun_child.py", "counts"))]
     refs = _unsharded_runs()
     for proc in procs:
         text, _ = proc.communicate(timeout=400)
         assert proc.returncode == 0, f"{proc.args[1]} failed\n{text[-8000:]}"
+    refs["dry"] = dict(np.load(outdir / "dry.npz"))
     return dict(np.load(outdir / "torch.npz")), dict(np.load(outdir / "jax.npz")), refs
 
 
@@ -66,7 +73,7 @@ def _unsharded_runs() -> dict:
     for name, (arch, _, kw) in child.SERVE.items():
         refs[name] = _unsharded_serve(arch, kw)
         cfg = refs[name][0]
-        refs[f"{name}_train"] = child.train(ts.init_state(cfg, 0, device="cpu"), cfg, 1)[0]
+        refs[f"{name}_train"] = child.train(child.init_train_state(cfg), cfg, 1)[0]
     cfg = child.config("gemma_2b")
     refs["train_mb2"] = child.train(ts.init_state(cfg, 0, device="cpu"), cfg,
                                     child.TRAIN_STEPS, microbatches=2)
@@ -80,7 +87,7 @@ def _unsharded_serve(arch, kw):
     log: list = []
     inner = child._record_routing(log)
     try:
-        got = child.serve(model_lib.init_params(cfg, 0, device="cpu"), cfg)
+        got = child.serve(child.init_model(cfg), cfg)
     finally:
         moe.dispatch = inner
     routing = torch.cat([x.reshape(-1) for x in log]).numpy() if log else None
@@ -249,3 +256,19 @@ def test_eager_collectives_equal_the_functional_ones(runs):
     for key in [k for k in out if k.startswith(f"{name}_train.")]:
         assert np.array_equal(out["eager_train." + key.split(".", 1)[1]], out[key]), key
     assert int(out["eager_cast_bytes"]) == _spec_arithmetic((2, 2))
+
+
+@pytest.mark.parametrize("name", child.DRY)
+def test_dry_run_counts_equal_the_ranks_readings(runs, name):
+    """The dry run of a hybrid, vlm or encdec cell (the same serving and
+    training step on ``meta`` tensors over a fake group, a ``cpu`` mesh)
+    counts rank 0's collective bytes by stage, phase, collective and mesh
+    axis, and its resident bytes, exactly as the gloo ranks read them."""
+    out, _, refs = runs
+    dry = refs["dry"]
+    keys = sorted(k for k in out if k.startswith((f"{name}_coll.", f"{name}_resident.")))
+    assert any(k.startswith(f"{name}_coll.serve.") for k in keys)
+    assert any(k.startswith(f"{name}_coll.train.") for k in keys)
+    assert keys == sorted(k for k in dry if k.startswith(f"{name}_"))
+    for k in keys:
+        assert int(dry[k]) == int(out[k]), k

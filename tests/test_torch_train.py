@@ -481,7 +481,8 @@ def test_serving_model_and_training_tensors_give_one_loss():
 
 
 def test_train_refusals_by_name():
-    """``remat_policy="dots"`` is refused by name; ``cast_shardings`` runs
+    """An unknown ``remat_policy`` is refused by name (``"dots"`` runs:
+    tests/test_torch_dryrun.py); ``cast_shardings`` runs
     on masters placed as DTensors (tests/test_torch_sharded_lm.py) and asks
     for them by name otherwise."""
     _, cfg = _cfgs("float32")
@@ -490,9 +491,9 @@ def test_train_refusals_by_name():
     specs = {n: (None,) * p.dim() for n, p in state.params.items()}
     with pytest.raises(ValueError, match="place_state"):
         tts.make_train_step(cfg, topt.AdamWConfig(), cast_shardings=specs)(state, b)
-    step = tts.make_train_step(dataclasses.replace(cfg, remat=True, remat_policy="dots"),
+    step = tts.make_train_step(dataclasses.replace(cfg, remat=True, remat_policy="offload"),
                                topt.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="remat_policy='dots'"):
+    with pytest.raises(ValueError, match="remat_policy 'offload'"):
         step(state, b)
     with pytest.raises(ValueError, match="microbatches"):
         tts.make_train_step(cfg, topt.AdamWConfig(), microbatches=3)(state, b)
